@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+  python3 chip_smoke.py            # from the repository root
+
+Phases, in order; any failure exits non-zero and prints no result line:
+  1. a CUDA card is required; print its name and power limit;
+  2. build every CUDA kernel of the main path with nvcc (ptxas report);
+  3. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes, and time kernel, plain version and one PyTorch
+     library call (CUDA events, L2 flushed between launches);
+  4. full-width qwen2-1.5b with seeded random weights: prefill + 8 decode
+     steps with the kernels off and on (labels equal except near-ties),
+     then serve 8 requests through the port's GenerativeEngine +
+     ApparateController + DecodeRunner with the launch counters zeroed
+     just before and read just after.
+The last two lines are the kernels JSON and the result JSON.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+HBM_BW = 3.35e12  # B/s, H100 SXM
+PEAK_BF16 = 989e12  # dense bf16 FLOP/s, H100 SXM
+CONFIG = "qwen2-1.5b"
+SEED = 0
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing
+
+
+_FLUSH = None
+
+
+def flush_l2():
+    """Overwrite a 256 MB buffer: evicts the 50 MB L2 between launches."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    _FLUSH.zero_()
+
+
+def time_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device time of fn() in ms over `iters` launches: CUDA events
+    around each launch, the L2 flushed before it (a decode step reaches
+    each layer's cache and each head after GBs of other traffic). One sync
+    at the end: the host enqueues the next launch while the device runs the
+    flush, so the events time the device, not Python."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = []
+    for _ in range(iters):
+        flush_l2()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_b, t_f = nbytes / HBM_BW, flops / PEAK_BF16
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+
+
+def check_decode_attention(B, S, label, gen, pos_lo=0):
+    """Per-row pos drawn from [pos_lo, S)."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    H, KH, hd = 12, 2, 128
+    dt = torch.bfloat16
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    # the cache in its (B, S, KH, hd) storage, viewed (B, KH, S, hd) as the
+    # model hands it over
+    kc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    vc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    pos = torch.randint(pos_lo, S, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    out = decode_attention(q, k, v, pos)
+    ref = decode_attention_ref(q, k, v, pos)
+    torch.cuda.synchronize()
+    # bf16 output: the kernel rounds once from f32; the plain version sums
+    # in another order; 1e-2 covers bf16's 8-bit mantissa
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2):
+        fail(f"decode_attention {label}: max abs err {err}")
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None].long())
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask[:, None, None], enable_gqa=True)
+
+    nk = (torch.clamp(pos.long(), max=S - 1) + 1).sum().item()
+    nbytes = q.numel() * 2 + nk * KH * hd * 2 * 2 + B * 4 + B * H * hd * 2
+    flops = nk * H * hd * 4  # q.k and p.v per (key, query head)
+    bm, by = bound_ms(nbytes, flops)
+    n0 = decode_attention.launches
+    row = {
+        "shape": label, "max_abs_err": err,
+        "ms": time_ms(lambda: decode_attention(q, k, v, pos)),
+        "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, pos)),
+        "library_ms": time_ms(library),
+        "bound_ms": bm, "bound_by": by,
+    }
+    decode_attention.launches = n0  # comparison launches do not count
+    print(f"decode_attention {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def _near_tie_labels(lab, lab_ref, logits_ref, tol, what):
+    """Labels must match exactly, except where the reference's logit at the
+    kernel's label is within `tol` of the reference max (a near-tie)."""
+    bad = (lab != lab_ref).nonzero().flatten().tolist()
+    ties = 0
+    for b in bad:
+        gap = (logits_ref[b].max() - logits_ref[b, int(lab[b])]).item()
+        if gap >= tol:
+            fail(f"{what}: row {b} label {lab[b].item()} vs {lab_ref[b].item()}, gap {gap}")
+        ties += 1
+    return ties
+
+
+def _logits_ref(h, w, v_limit):
+    lg = h.float() @ w.float()
+    col = torch.arange(lg.shape[-1], device=lg.device)
+    return torch.where(col < v_limit, lg, -1e30)
+
+
+def check_ramp_head(params, cfg, gen):
+    from repro_torch.kernels.ramp_head import (
+        ramp_head_exit,
+        ramp_head_exit_ref,
+        ramp_head_stats,
+        ramp_head_stats_ref,
+    )
+
+    B, d, V, vl = 8, cfg.d_model, cfg.padded_vocab, cfg.vocab_size
+    h = torch.randn(B, d, generator=gen, device="cuda").to(torch.bfloat16)
+    rows = {}
+
+    def close(x, y):
+        # f32 stats of a 1536-term contraction and a 153600-term softmax
+        # sum, in another order: rtol 1e-4, atol scaled to the magnitude
+        return torch.allclose(x, y, rtol=1e-4, atol=1e-4 * float(y.abs().max()))
+
+    def lib_stats(hh, w):
+        lg = torch.matmul(hh, w).float()
+        lg = torch.where(torch.arange(V, device="cuda") < vl, lg, -1e30)
+        m = lg.max(-1).values
+        e = torch.exp(lg - m[:, None])
+        return m, e.sum(-1), (lg * e).sum(-1), lg.argmax(-1)
+
+    def bounds(extra_out):
+        # what the function needs: columns >= v_limit are fixed at -1e30 and
+        # never move m, s, t, argmax or exit, so only d * v_limit weights count
+        return bound_ms(d * vl * 2 + B * d * 2 + B * (16 + extra_out), 2.0 * B * d * vl)
+
+    # -- stats on the tied head: embed^T, a view contiguous along d
+    w = params["tok"]["embed"].T
+    got = ramp_head_stats(h, w, v_limit=vl)
+    ref = ramp_head_stats_ref(h, w, vl)
+    torch.cuda.synchronize()
+    for name, x, y in zip("mst", got[:3], ref[:3]):
+        if not close(x, y):
+            fail(f"ramp_head_stats {name}: max abs err {(x - y).abs().max().item()}")
+    ties = _near_tie_labels(got[3], ref[3], _logits_ref(h, w, vl), 1e-3, "ramp_head_stats")
+    err = max((x - y).abs().max().item() for x, y in zip(got[:3], ref[:3]))
+    bm, by = bounds(0)
+    n0 = ramp_head_stats.launches
+    rows["ramp_head_stats"] = {
+        "shape": f"B={B} embed^T ({d},{V}) v_limit={vl}", "max_abs_err": err,
+        "near_ties": ties,
+        "ms": time_ms(lambda: ramp_head_stats(h, w, v_limit=vl)),
+        "plain_ms": time_ms(lambda: ramp_head_stats_ref(h, w, vl)),
+        "library_ms": time_ms(lambda: lib_stats(h, w)),
+        "bound_ms": bm, "bound_by": by,
+    }
+    ramp_head_stats.launches = n0
+
+    # -- exit on a ramp head: head[site], (d, V) contiguous along V, with
+    # thresholds just above (exit) and just below (stay) each row's unc
+    w = params["ramps"]["head"][0]
+    _, s_ref, _, _ = ramp_head_stats_ref(h, w, vl)
+    unc = 1.0 - 1.0 / s_ref
+    sign = torch.tensor([1.0, -1.0] * (B // 2), device="cuda")
+    thr = unc + sign * 1e-5
+    got = ramp_head_exit(h, w, thr, v_limit=vl)
+    ref = ramp_head_exit_ref(h, w, thr, vl)
+    torch.cuda.synchronize()
+    for name, x, y in zip("mst", got[:3], ref[:3]):
+        if not close(x, y):
+            fail(f"ramp_head_exit {name}: max abs err {(x - y).abs().max().item()}")
+    ties = _near_tie_labels(got[3], ref[3], _logits_ref(h, w, vl), 1e-3, "ramp_head_exit")
+    # exit bits exact, except where |unc - thr| is under 1e-6 (the f32
+    # unc of the two versions differs by ~1e-10 here)
+    mism = (got[4] != ref[4]).nonzero().flatten().tolist()
+    near = [b for b in mism if abs((unc[b] - thr[b]).item()) < 1e-6]
+    if len(near) != len(mism):
+        fail(f"ramp_head_exit: exit bits differ on rows {mism}")
+    if not (got[4].sum().item() > 0 and (got[4] == 0).sum().item() > 0):
+        fail("ramp_head_exit: thresholds on both sides should give both exit values")
+    err = max((x - y).abs().max().item() for x, y in zip(got[:3], ref[:3]))
+    bm, by = bounds(8)
+    n0 = ramp_head_exit.launches
+    rows["ramp_head_exit"] = {
+        "shape": f"B={B} head[site] ({d},{V}) v_limit={vl}", "max_abs_err": err,
+        "near_ties": ties + len(near),
+        "ms": time_ms(lambda: ramp_head_exit(h, w, thr, v_limit=vl)),
+        "plain_ms": time_ms(lambda: ramp_head_exit_ref(h, w, thr, vl)),
+        "library_ms": time_ms(lambda: lib_stats(h, w)),
+        "bound_ms": bm, "bound_by": by,
+    }
+    ramp_head_exit.launches = n0
+    n_bound = check_exit_boundary(h, params["tok"]["embed"].T, vl, "embed^T")
+    n_bound += check_exit_boundary(h, w, vl, "head[site]")
+    rows["ramp_head_exit"]["boundary_rows"] = n_bound
+    for name, row in rows.items():
+        print(f"{name}: {json.dumps(row)}", flush=True)
+    return rows
+
+
+def check_exit_boundary(h, w, vl, layout):
+    """The exit compare is strict, on the card: with unc = 1 - 1/s formed
+    in f32 from the kernel's own s, thr == unc must not exit and the next
+    float up must. Also: an empty batch launches nothing and counts nothing.
+    Returns the rows checked; the launch counters are left as found."""
+    from repro_torch.kernels.ramp_head import ramp_head_exit, ramp_head_stats
+
+    n0 = (ramp_head_stats.launches, ramp_head_exit.launches)
+    _, s, _, _ = ramp_head_stats(h, w, v_limit=vl)
+    s_host = s.cpu()
+    unc = torch.ones_like(s_host) / s_host  # IEEE f32 divide and subtract on
+    unc = torch.ones_like(s_host) - unc     # the host, as the kernel rounds them
+    up = torch.nextafter(unc, torch.full_like(unc, float("inf")))
+    at = ramp_head_exit(h, w, unc.cuda(), v_limit=vl)
+    above = ramp_head_exit(h, w, up.cuda(), v_limit=vl)
+    if not (torch.equal(at[1], s) and torch.equal(above[1], s)):
+        fail(f"ramp_head {layout}: s differs between the stats and exit calls")
+    if at[4].any().item():
+        fail(f"ramp_head_exit {layout}: thr == unc exited on rows "
+             f"{at[4].nonzero().flatten().tolist()} (the compare must be strict)")
+    if not above[4].all().item():
+        fail(f"ramp_head_exit {layout}: thr = nextafter(unc) did not exit on rows "
+             f"{(above[4] == 0).nonzero().flatten().tolist()}")
+    empty = h[:0]
+    ramp_head_stats(empty, w, v_limit=vl)
+    ramp_head_exit(empty, w, torch.empty(0, device="cuda"), v_limit=vl)
+    if (ramp_head_stats.launches, ramp_head_exit.launches) != (n0[0] + 1, n0[1] + 2):
+        fail(f"ramp_head {layout}: launch counters moved by "
+             f"{ramp_head_stats.launches - n0[0]}, {ramp_head_exit.launches - n0[1]}; "
+             "expected 1, 2 (an empty batch launches nothing)")
+    ramp_head_stats.launches, ramp_head_exit.launches = n0
+    return h.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: kernels off vs on through the full-width model
+
+
+def compare_paths(params, cfg):
+    """Prefill 128 tokens for 8 rows, then 8 greedy decode steps, with the
+    kernels off (dense attention, dense head) and on. Both paths are fed
+    the kernels-off greedy tokens, so a near-tie cannot derail the rest.
+
+    Labels of the final head and the four ramps must be equal, except a
+    near-tie: the two paths round differently in bf16 (the dense path
+    rounds attention probabilities and logits to bf16, the kernels keep
+    f32), so each row's logits differ by some eps, measured here from f32
+    logits of each path's own hidden states; a label may flip only where
+    the kernels-off logit at the kernels-on label is within 2 * eps of the
+    top. eps itself must stay under 0.25: with bf16's 2^-9 rounding at ~10
+    points per layer over 28 layers, h drifts by ~3% and top logits (~3-4)
+    by ~0.1."""
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as LY
+
+    off = build_model(cfg.replace(decode_attn="dense", pallas_head="off"))
+    on = build_model(cfg.replace(decode_attn="kernel", pallas_head="kernel"))
+    B, P, T = 8, 128, 8
+    act = [2, 5, 8, 11]
+    vl = cfg.vocab_size
+    thr = torch.full((len(act),), 0.5, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    toks = torch.randint(1, vl, (B, P), generator=gen, device="cuda")
+
+    def spy(model):
+        seen = {}
+        orig = model._head_stats
+
+        def head_stats(params_, h_last, pooled, active_sites, exit_thresholds=None):
+            seen["h"], seen["pooled"] = h_last, pooled
+            return orig(params_, h_last, pooled, active_sites, exit_thresholds)
+
+        model._head_stats = head_stats
+        return seen
+
+    seen_off, seen_on = spy(off), spy(on)
+
+    def f32_logits(seen):
+        """f32 logits of the final head and each ramp from a path's hidden."""
+        h = LY.apply_norm(cfg, params["final_norm"], seen["h"])[:, 0]
+        out = [_logits_ref(h, params["tok"]["embed"].T, vl)]
+        hs = on._ramp_hidden(params, seen["pooled"], act)[:, :, 0]
+        out += [_logits_ref(hs[j], params["ramps"]["head"][i], vl) for j, i in enumerate(act)]
+        return out
+
+    def labels(o):
+        return [o["final"]["label"]] + [o["ramps"]["label"][j] for j in range(len(act))]
+
+    stats = {"labels": 0, "near_ties": 0, "max_eps": 0.0}
+
+    def check(o_on, o_off, t):
+        lg_on, lg_off = f32_logits(seen_on), f32_logits(seen_off)
+        names = ["final"] + [f"ramp {i}" for i in act]
+        for name, a, b, la, lb in zip(names, lg_on, lg_off, labels(o_on), labels(o_off)):
+            eps = (a - b).abs().max(dim=-1).values
+            stats["max_eps"] = max(stats["max_eps"], eps.max().item())
+            if eps.max().item() > 0.25:
+                fail(f"{name}, step {t}: the paths' logits differ by {eps.max().item()}")
+            # the kernels against their own path's f32 logits: same inputs
+            _near_tie_labels(la, a.argmax(-1), a, 1e-3, f"{name} kernel label, step {t}")
+            for r in (la != lb).nonzero().flatten().tolist():
+                gap = (b[r].max() - b[r, int(la[r])]).item()
+                if gap > 2 * eps[r].item():
+                    fail(f"{name}, step {t}, row {r}: label {la[r].item()} vs "
+                         f"{lb[r].item()}, gap {gap} > 2 * eps {eps[r].item()}")
+                stats["near_ties"] += 1
+            stats["labels"] += B
+
+    times = {}
+    runs = {}
+    for name, model in (("off", off), ("on", on)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = model.prefill(params, toks, cache_len=P + T + 1, active_sites=act)
+        torch.cuda.synchronize()
+        times[f"prefill_{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+    (c_off, o_off), (c_on, o_on) = runs["off"], runs["on"]
+    step_ms = {"off": 0.0, "on": 0.0}
+    pos = torch.full((B,), P, device="cuda", dtype=torch.int64)
+    for t in range(T + 1):
+        if t:
+            nxt = o_off["final"]["label"].reshape(B, 1).long()
+            for name, model, cache in (("off", off, c_off), ("on", on, c_on)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, o = model.decode(params, cache, nxt, pos, active_sites=act,
+                                    exit_thresholds=thr)
+                torch.cuda.synchronize()
+                step_ms[name] += 1e3 * (time.perf_counter() - t0)
+                if name == "off":
+                    o_off = o
+                else:
+                    o_on = o
+            pos = pos + 1
+        check(o_on, o_off, t)
+    times["decode_step_off_ms"] = step_ms["off"] / T
+    times["decode_step_on_ms"] = step_ms["on"] / T
+    nxt = o_off["final"]["label"].reshape(B, 1).long()
+    times["profile_on"] = profile_step(lambda: on.decode(params, c_on, nxt, pos, active_sites=act,
+                                                         exit_thresholds=thr))
+    print(f"model {CONFIG} kernels off vs on: {stats['labels']} labels, "
+          f"{stats['near_ties']} near-ties, max logit eps {stats['max_eps']:.4f}; "
+          f"{json.dumps(times)}", flush=True)
+    return times
+
+
+def profile_step(fn, top=6):
+    """One call of fn under torch.profiler: device busy ms (the sum of
+    kernel times), wall ms, and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in kern[:top]}}
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
+    card = card_line()
+    print(card, flush=True)
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import build
+        from repro_torch.kernels.decode_attention import decode_attention
+        from repro_torch.kernels.ramp_head import ramp_head_exit, ramp_head_stats
+        from repro_torch.launch.serve import serve_generative
+        from repro_torch.models import build_model
+        from repro_torch.models.common import tree_leaves
+    except ImportError as e:
+        fail(f"the port is not importable here ({e}); run from the repository root")
+    t_all = time.perf_counter()
+
+    # -- phase 2: build
+    t0 = time.perf_counter()
+    logs = build.build()
+    print(f"built {sorted(logs) or 'nothing (up to date)'} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  [{name}] {line.strip()}", flush=True)
+
+    # -- phase 3: kernels vs plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 versions stay f32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    # the served path's load: prompt 128 + 34 new tokens = a 162-slot cache,
+    # every row decoding at pos 128..161
+    da_main = check_decode_attention(8, 162, "B=8 H=12 KH=2 hd=128 S=162 pos 128..161 bf16",
+                                     gen, pos_lo=128)
+    check_decode_attention(32, 4096, "B=32 H=12 KH=2 hd=128 S=4096 bf16", gen)
+    cfg = get_config(CONFIG)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"drew {CONFIG} weights ({sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
+          f"params, {cfg.dtype}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    rh = check_ramp_head(params, cfg, gen)
+
+    # -- phase 4: the full-width model, then serving
+    compare_paths(params, cfg)
+    del params, model
+    torch.cuda.empty_cache()
+    for fn in (decode_attention, ramp_head_stats, ramp_head_exit):
+        fn.launches = 0
+    out, resp = serve_generative(CONFIG, 8, decode_tokens=32, prompt_len=128,
+                                 steps_per_sync=4, seed=SEED, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    launches = {"decode_attention": decode_attention.launches,
+                "ramp_head_stats": ramp_head_stats.launches,
+                "ramp_head_exit": ramp_head_exit.launches}
+    if len(resp) != 8:
+        fail(f"served {len(resp)} of 8 requests")
+    for r in resp:
+        if r.dropped or r.shed or len(r.tokens) != 32 or len(r.final_tokens) != 32:
+            fail(f"request {r.rid} did not complete its 32 tokens")
+        if not all(0 <= x < cfg.vocab_size for x in r.final_tokens):
+            fail(f"request {r.rid} has tokens outside the vocabulary")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    m = out["measured"]
+    print(f"served 8 requests x 32 tokens on {card}: prefill {m['prefill_ms_mean']:.3f} ms "
+          f"(prompt 128), {m['window_ms_mean']:.3f} ms per window of up to 4 steps, "
+          f"{m['decode_tokens_per_s']:.1f} decode tokens/s; launches {json.dumps(launches)}",
+          flush=True)
+    print("engine summary (SIMULATED from the analytic H100 profile, not timed): "
+          + json.dumps(out["simulated"]["apparate"], default=float), flush=True)
+    print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
+
+    src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "ramp_head_stats": "src/repro_torch/kernels/csrc/ramp_head.cu",
+           "ramp_head_exit": "src/repro_torch/kernels/csrc/ramp_head.cu"}
+    replaces = {"decode_attention": "src/repro/kernels/decode_attention/kernel.py:90",
+                "ramp_head_stats": "src/repro/kernels/ramp_head/kernel.py:98",
+                "ramp_head_exit": "src/repro/kernels/ramp_head/kernel.py:145"}
+    rows = {"decode_attention": da_main, **rh}
+    kernels = []
+    for name in ("decode_attention", "ramp_head_stats", "ramp_head_exit"):
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src[name], "replaces": replaces[name],
+            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""ctypes wrappers of the CUDA ramp-head kernel (``csrc/ramp_head.cu``).
+
+Replace the JAX package's Pallas ``ramp_head_stats`` and ``ramp_head_exit``.
+``w`` is a (d, V) view in either layout, contiguous along V (a ramp head
+``head[site]``) or along d (the tied head ``embed.T``), read by stride with
+no copy. A ragged last vocab tile is handled in the kernel. Launches on
+PyTorch's current stream, never syncs.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import check_launch, load
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    lib = load("ramp_head")
+    if lib.ramp_head_launch.argtypes is None:
+        lib.ramp_head_launch.argtypes = ([_P, _L, _P, _L, _L, _P, _L] + [_P] * 7
+                                         + [_I] * 5 + [_P])
+        lib.ramp_head_launch.restype = _I
+        lib.ramp_head_tile_v.argtypes = []
+        lib.ramp_head_tile_v.restype = _I
+    return lib
+
+
+def _launch(h, w, thresholds, v_limit, what):
+    B, d = h.shape
+    if w.dim() != 2 or w.shape[0] != d:
+        raise ValueError(f"{what}: bad shapes h {tuple(h.shape)} w {tuple(w.shape)}")
+    V = w.shape[1]
+    for name, t in (("h", h), ("w", w)):
+        if t.device.type != "cuda" or t.device != h.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on {h.device}")
+        if t.dtype != h.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs float32/bfloat16, "
+                             "alike for h and w")
+    if h.stride(1) != 1:
+        raise ValueError(f"{what}: h needs a contiguous last dim")
+    sk, sv = w.stride()
+    if 1 not in (sk, sv):
+        raise ValueError(f"{what}: w must be contiguous along d or V, strides {w.stride()}")
+    if w.data_ptr() % 16 or ((sk if sv == 1 else sv) * w.element_size()) % 16:
+        raise ValueError(f"{what}: w rows must be 16-byte aligned (strides {w.stride()})")
+    dev = h.device
+    v_limit = V if v_limit is None else int(v_limit)
+    m = torch.empty(B, dtype=torch.float32, device=dev)
+    s, t = torch.empty_like(m), torch.empty_like(m)
+    idx = torch.empty(B, dtype=torch.int32, device=dev)
+    ex = None
+    thr_ptr, thr_stride = None, 0
+    if thresholds is not None:
+        thr = thresholds.to(device=dev, dtype=torch.float32)
+        if thr.shape != (B,):
+            raise ValueError(f"{what}: thresholds shape {tuple(thr.shape)}, needs ({B},)")
+        thr_ptr, thr_stride = thr.data_ptr(), thr.stride(0)
+        ex = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return m, s, t, idx, ex
+    lib = _lib()
+    n_tiles = -(-V // lib.ramp_head_tile_v())
+    part_f = torch.empty(3 * B * n_tiles, dtype=torch.float32, device=dev)
+    part_i = torch.empty(B * n_tiles, dtype=torch.int32, device=dev)
+    rc = lib.ramp_head_launch(
+        h.data_ptr(), h.stride(0), w.data_ptr(), sk, sv, thr_ptr, thr_stride,
+        part_f.data_ptr(), part_i.data_ptr(), m.data_ptr(), s.data_ptr(), t.data_ptr(),
+        idx.data_ptr(), None if ex is None else ex.data_ptr(), B, d, V, v_limit,
+        _DTYPES[h.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, what)
+    # counted here, where the kernel launched: B == 0 returned above uncounted
+    (ramp_head_stats if ex is None else ramp_head_exit).launches += 1
+    return m, s, t, idx, ex
+
+
+def ramp_head_stats(h: torch.Tensor, w: torch.Tensor, *, v_limit=None):
+    """h (B, d); w (d, V). Returns (m, s, t, argmax): m = max logit,
+    s = sum e^{l-m}, t = sum l*e^{l-m} (f32), argmax int32 (B,).
+    Columns >= v_limit (padded vocab) are masked to -1e30."""
+    m, s, t, idx, _ = _launch(h, w, None, v_limit, "ramp_head_stats")
+    return m, s, t, idx
+
+
+def ramp_head_exit(h: torch.Tensor, w: torch.Tensor, thresholds: torch.Tensor, *,
+                   v_limit=None):
+    """The stats plus ``exit`` int32 (B,): 1 where ``(1 - 1/s) < threshold``
+    (strict, in f32). ``thresholds`` is (B,) and may be a stride-0 view."""
+    return _launch(h, w, thresholds, v_limit, "ramp_head_exit")
+
+
+ramp_head_stats.launches = 0
+ramp_head_exit.launches = 0

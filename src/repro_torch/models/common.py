@@ -1,0 +1,81 @@
+"""Parameter schemas as plain shapes, dtypes and init kinds.
+
+A model declares a *schema*: a tree (dicts and lists) of ``ParamInfo``
+leaves, under the same leaf paths as the JAX package's schema. Params,
+caches and the bridge from reference pytrees all derive from it, so their
+trees never drift apart.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+Tree = Any
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``ArchConfig.dtype`` names (JAX/numpy spelling) -> torch dtypes."""
+    if isinstance(name, torch.dtype):
+        return name
+    return _DTYPES[str(name)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamInfo:
+    shape: tuple
+    dtype: torch.dtype = torch.float32
+    # 'normal:<scale>' | 'embed:<scale>' | 'zeros' | 'ones'
+    init: str = "normal:0.02"
+
+    def initialize(self, gen: torch.Generator, device) -> torch.Tensor:
+        kind, _, arg = self.init.partition(":")
+        if kind == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if kind == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        if kind in ("normal", "embed"):
+            scale = float(arg) if arg else 0.02
+            out = torch.empty(self.shape, dtype=self.dtype, device=device)
+            # draw in f32, then cast; one leading slice at a time so a
+            # (12, d, V) ramp-head stack never needs an f32 copy of itself
+            rows = out.view(-1, out.shape[-1]) if out.dim() > 1 else out.view(1, -1)
+            step = max(1, (1 << 26) // max(rows.shape[1], 1))
+            for lo in range(0, rows.shape[0], step):
+                blk = rows[lo:lo + step]
+                x = torch.randn(blk.shape, generator=gen, device=device, dtype=torch.float32)
+                blk.copy_(x * scale)
+            return out
+        raise ValueError(f"unknown init {self.init!r}")
+
+
+def tree_map(fn: Callable, tree: Tree) -> Tree:
+    """Map over the leaves of a tree of dicts and lists, visiting dict keys
+    in sorted order (the JAX flatten order)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree: Tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def init_from_schema(schema: Tree, gen: torch.Generator, device) -> Tree:
+    """Initialize every leaf from one explicit generator, in flatten order."""
+    return tree_map(lambda i: i.initialize(gen, device), schema)
+
+
+def zeros_from_schema(schema: Tree, device) -> Tree:
+    return tree_map(lambda i: torch.zeros(i.shape, dtype=i.dtype, device=device), schema)
+
+
+def pad_vocab(v: int, multiple: int = 2048) -> int:
+    return ((v + multiple - 1) // multiple) * multiple

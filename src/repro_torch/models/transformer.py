@@ -1,0 +1,409 @@
+"""Decoder-only LM for the generative main path (attention + dense FFN).
+
+The port's counterpart of the JAX package's ``models/transformer.py``. The
+layer stack follows the same *plan* (a period of slots repeated
+``n_periods`` times); params of the period's slots carry a leading
+``n_periods`` axis, as the reference's scanned params do, and the scan
+becomes a loop over views ``p[l]``. Early-exit ramps attach at block
+boundaries: pooled hidden -> per-ramp RMSNorm -> per-ramp LM head.
+
+Differences from the reference that are PyTorch idiom, not semantics:
+``active_sites`` is a host sequence of site indices (there is no
+recompile to avoid, and a host index keeps ``head[site]`` a view instead
+of a 472 MB gather); the KV cache is updated in place; ``decode_multi``'s
+``lax.while_loop`` is a Python loop whose writes past the window's end are
+switched off on device, so the host reads nothing inside a window.
+Ring, local, paged, MLA, MoE, SSM and cross-attention slots are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.models import layers as LY
+from repro_torch.models.common import (
+    ParamInfo,
+    init_from_schema,
+    torch_dtype,
+    tree_map,
+    zeros_from_schema,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotSpec:
+    mixer: str = "attn"  # 'attn' | 'mla' | 'mamba'
+    ffn: str = "dense"  # 'dense' | 'moe' | 'none'
+    is_local: bool = False
+    cross: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    prefix: Tuple[SlotSpec, ...]
+    period: Tuple[SlotSpec, ...]
+    n_periods: int
+    suffix: Tuple[SlotSpec, ...]
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.prefix) + self.n_periods * len(self.period) + len(self.suffix)
+
+    def layer_specs(self) -> List[SlotSpec]:
+        return (
+            list(self.prefix)
+            + [s for _ in range(self.n_periods) for s in self.period]
+            + list(self.suffix)
+        )
+
+
+def build_plan(cfg) -> Plan:
+    L = cfg.n_layers
+    if cfg.ssm and not cfg.hybrid_period:  # mamba2
+        return Plan((), (SlotSpec("mamba", "none"),), L, ())
+    if cfg.hybrid_period:  # jamba
+        p = cfg.hybrid_period
+        period = tuple(
+            SlotSpec(
+                mixer=("attn" if i == p // 2 else "mamba"),
+                ffn=("moe" if (cfg.moe and i % cfg.moe_every == 1) else "dense"),
+            )
+            for i in range(p)
+        )
+        assert L % p == 0, (L, p)
+        return Plan((), period, L // p, ())
+    if cfg.local_global_pattern:  # gemma3
+        pat = cfg.local_global_pattern
+        period = tuple(SlotSpec("attn", "dense", is_local=(i < pat)) for i in range(pat + 1))
+        n = L // (pat + 1)
+        rem = L - n * (pat + 1)
+        suffix = tuple(SlotSpec("attn", "dense", is_local=True) for _ in range(rem))
+        return Plan((), period, n, suffix)
+    if cfg.cross_attn_every:  # llama-vision
+        k = cfg.cross_attn_every
+        period = tuple(
+            SlotSpec("attn", "dense", cross=(i == k - 1)) for i in range(k)
+        )
+        assert L % k == 0, (L, k)
+        return Plan((), period, L // k, ())
+    mixer = "mla" if cfg.mla else "attn"
+    ffn = "moe" if cfg.moe else "dense"
+    prefix = tuple(SlotSpec(mixer, "dense") for _ in range(cfg.first_k_dense))
+    return Plan(prefix, (SlotSpec(mixer, ffn),), L - cfg.first_k_dense, ())
+
+
+# ---------------------------------------------------------------------------
+# schema assembly
+
+
+def _slot_schema(cfg, slot: SlotSpec, L=None) -> dict:
+    return {
+        "ln1": LY.norm_schema(cfg, L),
+        "mixer": LY.gqa_schema(cfg, L),
+        "ln2": LY.norm_schema(cfg, L),
+        "ffn": LY.ffn_schema(cfg, cfg.d_ff, L),
+    }
+
+
+def ramp_sites(cfg, max_sites: int = 12) -> Tuple[int, ...]:
+    """Feasible ramp sites = block boundaries (cut vertices); thinned to at
+    most `max_sites`, never including the final layer (that's the model)."""
+    L = cfg.n_layers
+    n = min(L - 1, max_sites)
+    if n <= 0:
+        return ()
+    stride = (L - 1) / n
+    sites = sorted({int(math.floor((i + 1) * stride)) - 1 for i in range(n)})
+    return tuple(s for s in sites if 0 <= s < L - 1) or (0,)
+
+
+def ramp_schema(cfg) -> dict:
+    S = len(ramp_sites(cfg))
+    d, Vp = cfg.d_model, cfg.padded_vocab
+    return {
+        "norm_w": ParamInfo((S, d), torch.float32, "zeros"),
+        "head": ParamInfo((S, d, Vp), torch_dtype(cfg.dtype), "normal:0.02"),
+    }
+
+
+def _layer(tree, l: int):
+    """Views of one layer's params or cache out of the stacked tree."""
+    return tree_map(lambda t: t[l], tree)
+
+
+class LM:
+    """Functional decoder LM (attention + dense FFN slots, 'fc' ramps)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.plan = build_plan(cfg)
+        self.sites = ramp_sites(cfg)
+        plan = self.plan
+        if (plan.prefix or plan.suffix or cfg.window or cfg.qk_norm
+                or any(s != SlotSpec("attn", "dense") for s in plan.period)):
+            raise NotImplementedError(
+                f"{cfg.name}: the port runs plain attention + dense-FFN stacks only")
+        if cfg.ramp_style != "fc":
+            raise NotImplementedError(f"ramp_style={cfg.ramp_style!r}: only 'fc' is ported")
+        if cfg.decode_attn not in ("dense", "ref", "kernel"):
+            raise NotImplementedError(f"decode_attn={cfg.decode_attn!r} is not ported")
+        if cfg.pallas_head not in ("off", "kernel"):
+            raise ValueError(f"pallas_head={cfg.pallas_head!r}: the port takes 'off' | 'kernel'")
+
+    # -- schema / init ------------------------------------------------------
+
+    def schema(self) -> dict:
+        cfg, plan = self.cfg, self.plan
+        return {
+            "tok": LY.embed_schema(cfg),
+            "blocks": [_slot_schema(cfg, s, L=plan.n_periods) for s in plan.period],
+            "final_norm": LY.norm_schema(cfg),
+            "ramps": ramp_schema(cfg),
+        }
+
+    def init(self, seed: int = 0, device="cuda") -> dict:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return init_from_schema(self.schema(), gen, device)
+
+    # -- cache --------------------------------------------------------------
+
+    def cache_schema(self, B: int, S: int) -> dict:
+        cfg, plan = self.cfg, self.plan
+        dt = torch_dtype(cfg.dtype)
+        shp = (plan.n_periods, B, S, cfg.n_kv_heads, cfg.hd)
+        return {"blocks": [{"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
+                           for _ in plan.period]}
+
+    def init_cache(self, B: int, S: int, device="cuda") -> dict:
+        return zeros_from_schema(self.cache_schema(B, S), device)
+
+    # -- forward ------------------------------------------------------------
+
+    def _block(self, p, h, *, positions, mask, cache, cache_index, write_gate=None):
+        cfg = self.cfg
+        x = LY.apply_norm(cfg, p["ln1"], h)
+        out, _ = LY.attn_apply(
+            cfg, p["mixer"], x, positions=positions, mask=mask, cache=cache,
+            cache_index=cache_index, decode_impl=cfg.decode_attn, write_gate=write_gate,
+        )
+        h = h + out
+        x = LY.apply_norm(cfg, p["ln2"], h)
+        return h + LY.ffn_apply(cfg, p["ffn"], x)
+
+    def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
+               write_gate=None):
+        """Run the periods layer by layer; caches are updated in place.
+        ``pool_idx`` is a slice of positions (a view, so no index tensor
+        crosses to the device). Returns (h, pooled (L, B, npos, d))."""
+        pooled = []
+        for l in range(self.plan.n_periods):
+            for s in range(len(self.plan.period)):
+                c = _layer(caches["blocks"][s], l) if caches else None
+                h = self._block(_layer(params["blocks"][s], l), h, positions=positions,
+                                mask=mask, cache=c, cache_index=cache_index,
+                                write_gate=write_gate)
+                pooled.append(h[:, pool_idx])
+        return h, torch.stack(pooled)
+
+    # -- ramp heads ----------------------------------------------------------
+
+    def _ramp_hidden(self, params, pooled, active_sites: Sequence[int]):
+        """Normed pooled hidden of each active site: (K, B, npos, d)."""
+        hs = torch.stack([pooled[self.sites[i]] for i in active_sites])
+        nw = torch.stack([params["ramps"]["norm_w"][i] for i in active_sites])
+        return LY.rms_norm(hs, nw[:, None, None, :])
+
+    def ramp_outputs(self, params, pooled, site_idx: Optional[Sequence[int]] = None):
+        """pooled: (L,B,npos,d). site_idx: host site indices or None = all
+        sites. Returns ramp logits (K,B,npos,Vp) in f32."""
+        if site_idx is None:
+            site_idx = range(len(self.sites))
+        site_idx = list(site_idx)
+        hs = self._ramp_hidden(params, pooled, site_idx)
+        head = params["ramps"]["head"]
+        return torch.stack([(hs[j] @ head[i]).float() for j, i in enumerate(site_idx)])
+
+    # -- public entry points --------------------------------------------------
+
+    def prefill(self, params, tokens, *, cache_len=None, active_sites=None,
+                with_cache=True):
+        """tokens: (B,S). Returns (cache|None, outs) where outs carries final
+        + per-active-ramp stats for the LAST position (the generated token)."""
+        B, S = tokens.shape
+        dev = tokens.device
+        cache_len = cache_len or S
+        positions = torch.arange(S, device=dev)[None, :]
+        h = LY.embed_apply(self.cfg, params["tok"], tokens, positions)
+        mask = LY.causal_mask(S, cache_len if with_cache else S, 0, device=dev)
+        caches = self.init_cache(B, cache_len, device=dev) if with_cache else None
+        h, pooled = self._stack(params, h, positions=positions, mask=mask, caches=caches,
+                                cache_index=0, pool_idx=slice(S - 1, S))
+        outs = self._head_stats(params, h[:, -1:], pooled, active_sites)
+        return caches, outs
+
+    def decode(self, params, cache, tokens, pos, *, active_sites=None,
+               exit_thresholds=None, write_gate=None):
+        """One decode step. tokens: (B,1); pos: int tensor (B,) of per-row
+        write indices (continuous batching leaves every row at its own
+        position). The cache is updated in place; ``write_gate`` (bool
+        tensor) switches that write off on device. Returns (cache, outs)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        assert S == 1
+        pos = pos.to(torch.int64).reshape(-1)
+        pc = pos[:, None]
+        h = LY.embed_apply(cfg, params["tok"], tokens, pc)
+        Sc = cache["blocks"][0]["k"].shape[2]
+        mask = (torch.arange(Sc, device=tokens.device)[None, :] <= pc)[:, None, None, :]
+        h, pooled = self._stack(
+            params, h, positions=pc, mask=mask, caches=cache, cache_index=pos,
+            pool_idx=slice(0, 1), write_gate=write_gate,
+        )
+        outs = self._head_stats(params, h, pooled, active_sites,
+                                exit_thresholds=exit_thresholds)
+        return cache, outs
+
+    def decode_multi(self, params, cache, tokens, pos, n_steps: int, *, n_max: int,
+                     active_sites=None, thresholds=None, row_valid=None):
+        """Up to ``n_steps`` greedy decode steps with the exit decision taken
+        ON DEVICE from a resident threshold vector: the host reads nothing
+        until the window returns.
+
+        tokens: (B, 1) int; pos: int tensor (B,) per-row write indices.
+        ``thresholds`` is the (K,) f32 device threshold vector aligned with
+        ``active_sites`` (strict ``<``). ``row_valid`` (B,) bool masks
+        bucket-padding rows out of the all-exited test.
+
+        The reference's ``lax.while_loop`` stops after the first step where
+        every valid row exited. Here the loop runs ``n_steps`` times and a
+        device flag ``running`` switches off each later step's cache write,
+        so the cache ends as the reference leaves it; ``n_done`` counts the
+        steps that ran with ``running`` set. Those later steps still run
+        the model (skipping them without a host read needs a CUDA graph).
+
+        Returns ``(cache, (ramp_label (n_max,K,B), ramp_maxprob (n_max,K,B),
+        final_label (n_max,B), exit_site (n_max,B), n_done))``; entries past
+        ``n_done`` are garbage the caller slices off."""
+        B = tokens.shape[0]
+        dev = tokens.device
+        if not torch.is_tensor(pos) or pos.dim() < 1:
+            raise ValueError("decode_multi requires per-row pos: int[B]")
+        act = list(active_sites) if active_sites is not None else []
+        K = len(act)
+        if K and thresholds is None:
+            raise ValueError("decode_multi with active ramps needs thresholds")
+        if row_valid is None:
+            row_valid = torch.ones(B, dtype=torch.bool, device=dev)
+        thr = thresholds[:K].float() if K else None
+        # act[j] for each ramp row j, built on device (no host->device copy)
+        site_of = (torch.stack([torch.full((), i, dtype=torch.int32, device=dev) for i in act])
+                   if K else None)
+        rl = torch.zeros((n_max, K, B), dtype=torch.int32, device=dev)
+        rm = torch.zeros((n_max, K, B), dtype=torch.float32, device=dev)
+        fl = torch.zeros((n_max, B), dtype=torch.int32, device=dev)
+        ex = torch.full((n_max, B), -1, dtype=torch.int32, device=dev)
+        running = torch.ones((), dtype=torch.bool, device=dev)
+        n_done = torch.zeros((), dtype=torch.int32, device=dev)
+        tok, p = tokens, pos
+        for i in range(int(n_steps)):
+            cache, outs = self.decode(params, cache, tok, p, active_sites=act or None,
+                                      exit_thresholds=thr, write_gate=running)
+            f = outs["final"]["label"].reshape(-1).to(torch.int32)
+            if K:
+                mask = outs["ramps"]["exit"].to(torch.bool)  # (K, B)
+                anyx = mask.any(dim=0)
+                first = torch.argmax(mask.to(torch.int32), dim=0)  # shallowest firing
+                site = torch.where(anyx, site_of[first], -1).to(torch.int32)
+                rl[i] = outs["ramps"]["label"].to(torch.int32)
+                rm[i] = outs["ramps"]["maxprob"].float()
+            else:
+                site = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            fl[i] = f
+            ex[i] = site
+            all_ex = torch.all(torch.logical_or(~row_valid, site >= 0))
+            n_done += running.to(torch.int32)
+            running = running & ~all_ex
+            tok, p = f.reshape(-1, 1).to(tokens.dtype), p + 1
+        return cache, (rl, rm, fl, ex, n_done)
+
+    # -- head statistics ------------------------------------------------------
+
+    def _head_stats(self, params, h_last, pooled, active_sites, exit_thresholds=None):
+        """Final + ramp confidence stats for serving. h_last: (B,1,d).
+
+        With cfg.pallas_head == 'kernel' the stats stream through the ramp
+        head kernel (its plain version on CPU tensors): (B,V) logits are
+        never written. With ``exit_thresholds`` (K,) f32 the ramps output
+        also carries ``exit`` (K,B) int32, the on-device exit decision
+        ``(1 - maxprob) < threshold`` (strict); the dense path applies the
+        identical f32 formula."""
+        cfg = self.cfg
+        h = LY.apply_norm(cfg, params["final_norm"], h_last)
+        if cfg.pallas_head != "off":
+            return self._head_stats_kernel(params, h, pooled, active_sites,
+                                           exit_thresholds=exit_thresholds)
+        logits = LY.unembed(cfg, params["tok"], h)[:, 0].float()
+        logits = _mask_pad_vocab(cfg, logits)
+        outs = {"final": _stats(logits)}
+        if active_sites is not None:
+            rl = self.ramp_outputs(params, pooled, site_idx=active_sites)
+            rl = _mask_pad_vocab(cfg, rl[:, :, 0])  # (K,B,V)
+            outs["ramps"] = _stats(rl)
+            if exit_thresholds is not None:
+                thr = exit_thresholds.float()
+                unc = 1.0 - outs["ramps"]["maxprob"].float()
+                outs["ramps"]["exit"] = (unc < thr[:, None]).to(torch.int32)
+        return outs
+
+    def _head_stats_kernel(self, params, h_normed, pooled, active_sites,
+                           exit_thresholds=None):
+        from repro_torch.kernels.ramp_head import ramp_confidence, ramp_exit_decision
+
+        cfg = self.cfg
+        # the tied head is embed.T: a strided view the kernel reads in place
+        wf = params["tok"]["embed"].T if cfg.tie_embeddings else params["tok"]["lm_head"]
+        v_limit = cfg.vocab_size
+
+        def stats_of(hb, w, thr=None):
+            if thr is None:
+                r = ramp_confidence(hb, w, v_limit=v_limit)
+            else:
+                r = ramp_exit_decision(hb, w, thr, v_limit=v_limit)
+            return {k: r[k] for k in ("label", "maxprob", "entropy", "exit") if k in r}
+
+        outs = {"final": stats_of(h_normed[:, 0], wf)}
+        if active_sites is not None:
+            act = list(active_sites)
+            hs = self._ramp_hidden(params, pooled, act)[:, :, 0]  # (K,B,d)
+            B = hs.shape[1]
+            per = []
+            for kk, i in enumerate(act):  # K is small (ramp budget slots)
+                thr = (exit_thresholds[kk].float().expand(B)
+                       if exit_thresholds is not None else None)
+                per.append(stats_of(hs[kk], params["ramps"]["head"][i], thr))
+            outs["ramps"] = {key: torch.stack([p[key] for p in per]) for key in per[0]}
+        return outs
+
+
+def _stats(logits):
+    """logits: (..., V) f32 -> {label, maxprob, entropy} (paper's ~1KB
+    per-ramp record: top-1 result + error score)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    label = torch.argmax(logits, dim=-1).to(torch.int32)
+    maxprob = torch.exp(torch.max(logits, dim=-1).values - lse)
+    p = torch.softmax(logits, dim=-1)
+    plogp = torch.where(p > 0, p * torch.log(torch.clamp(p, min=1e-30)), 0.0)
+    entropy = -torch.sum(plogp, dim=-1)
+    return {"label": label, "maxprob": maxprob, "entropy": entropy}
+
+
+def _mask_pad_vocab(cfg, logits):
+    V = cfg.vocab_size
+    if logits.shape[-1] == V:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col < V, logits, -1e30)

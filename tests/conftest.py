@@ -19,6 +19,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "flaky: tolerated-rerun annotation (no-op without a rerun plugin)"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one; run with -m gpu on the card)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):

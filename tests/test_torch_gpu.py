@@ -1,0 +1,145 @@
+"""On a CUDA card: each CUDA kernel against its plain PyTorch version, and
+the tiny model with the kernels on against the plain path. Every test is
+marked `gpu` and skips without a card; the file imports no jax, so it runs
+on a machine that has only PyTorch:
+
+  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.configs import get_tiny  # noqa: E402  # repro: allow[tier1-deps] — the port under test; torch-only, skipped above without torch
+from repro_torch.kernels.decode_attention import (  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+    decode_attention,
+    decode_attention_ref,
+)
+from repro_torch.kernels.ramp_head import (  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+    ramp_head_exit,
+    ramp_head_exit_ref,
+    ramp_head_stats,
+)
+from repro_torch.models import build_model  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions stay f32
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,H,KH,S", [(128, 12, 2, 77), (64, 16, 16, 300), (128, 8, 1, 33)])
+def test_decode_kernel_matches_plain(gen, dtype, hd, H, KH, S):
+    dt = getattr(torch, dtype)
+    B = 5
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    kc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    vc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    pos = torch.tensor([0, 1, S // 2, S - 1, S + 5], device="cuda")  # last: past the cache
+    out = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
+    ref = decode_attention_ref(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
+    # f32: sums in another order (1e-5); bf16: one output rounding (1e-2)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _w(gen, layout, d, V, dt):
+    if layout == "embed_T":  # the tied head: embed (V, d) viewed (d, V), contiguous along d
+        return (0.05 * torch.randn(V, d, generator=gen, device="cuda")).to(dt).T
+    return (0.05 * torch.randn(d, V, generator=gen, device="cuda")).to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["d_by_V", "embed_T"])
+@pytest.mark.parametrize("B,d", [(1, 136), (8, 1536), (11, 104)])  # 104: a partial stage
+def test_ramp_kernel_matches_plain(gen, dtype, layout, B, d):
+    dt = getattr(torch, dtype)
+    V, vl = 1000, 990  # V not a multiple of the 256-column tile
+    h = torch.randn(B, d, generator=gen, device="cuda").to(dt)
+    w = _w(gen, layout, d, V, dt)
+    thr = torch.rand(B, generator=gen, device="cuda")
+    got = ramp_head_exit(h, w, thr, v_limit=vl)
+    ref = ramp_head_exit_ref(h, w, thr, vl)
+    st = ramp_head_stats(h, w, v_limit=vl)
+    for x, y, z in zip(got[:3], ref[:3], st[:3]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4 * float(y.abs().max()))
+        torch.testing.assert_close(x, z, rtol=0, atol=0)  # one kernel, two wrappers
+    lg = torch.where(torch.arange(V, device="cuda") < vl, h.float() @ w.float(), -1e30)
+    top2 = lg.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3  # labels exact unless a near-tie
+    assert torch.equal(got[3][clear], ref[3][clear])
+    assert int(got[3].max()) < vl
+    unc = 1.0 - 1.0 / ref[1]
+    far = (unc - thr).abs() > 1e-6  # exit bits exact unless |unc - thr| is tiny
+    assert torch.equal(got[4][far], ref[4][far])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["d_by_V", "embed_T"])
+def test_ramp_exit_boundary_is_strict_on_card(gen, dtype, layout):
+    """unc = 1 - 1/s formed in f32 from the kernel's own s: thr == unc must
+    not exit, the next float up must (the kernel's compare is strict <)."""
+    dt = getattr(torch, dtype)
+    B, d, V, vl = 8, 1536, 1000, 990
+    h = torch.randn(B, d, generator=gen, device="cuda").to(dt)
+    w = _w(gen, layout, d, V, dt)
+    _, s, _, _ = ramp_head_stats(h, w, v_limit=vl)
+    s_host = s.cpu()
+    unc = torch.ones_like(s_host) - torch.ones_like(s_host) / s_host  # IEEE f32 on the host
+    up = torch.nextafter(unc, torch.full_like(unc, float("inf")))
+    at = ramp_head_exit(h, w, unc.cuda(), v_limit=vl)
+    above = ramp_head_exit(h, w, up.cuda(), v_limit=vl)
+    assert torch.equal(at[1], s) and torch.equal(above[1], s)  # one kernel, deterministic
+    assert not at[4].any()
+    assert above[4].all()
+
+
+def test_empty_batch_launches_nothing(gen):
+    """A wrapper counts a launch only where its kernel launched: B == 0
+    returns empty outputs and leaves every counter as it was."""
+    n0 = (decode_attention.launches, ramp_head_stats.launches, ramp_head_exit.launches)
+    w = torch.randn(64, 300, generator=gen, device="cuda")
+    m, s, t, idx = ramp_head_stats(torch.empty(0, 64, device="cuda"), w)
+    out = ramp_head_exit(torch.empty(0, 64, device="cuda"), w, torch.empty(0, device="cuda"))
+    att = decode_attention(torch.empty(0, 4, 64, device="cuda"),
+                           torch.empty(0, 2, 8, 64, device="cuda"),
+                           torch.empty(0, 2, 8, 64, device="cuda"), 3)
+    assert m.shape == idx.shape == out[4].shape == (0,) and att.shape == (0, 4, 64)
+    assert (decode_attention.launches, ramp_head_stats.launches,
+            ramp_head_exit.launches) == n0
+    ramp_head_stats(torch.randn(2, 64, generator=gen, device="cuda"), w)
+    assert ramp_head_stats.launches == n0[1] + 1 and ramp_head_exit.launches == n0[2]
+
+
+def test_tiny_model_kernels_on_matches_plain_path(gen):
+    """Tiny qwen2 with hd=64 (a width the decode kernel takes), f32: prefill
+    and two decode steps with the kernels on vs the dense path."""
+    cfg = get_tiny("qwen2-1.5b").replace(head_dim=64)
+    on = build_model(cfg.replace(decode_attn="kernel", pallas_head="kernel"))
+    off = build_model(cfg)
+    params = on.init(0, device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (4, 9), generator=gen, device="cuda")
+    act = list(range(len(on.sites)))
+    thr = torch.full((len(act),), 0.99, device="cuda")
+    (c_on, o_on), (c_off, o_off) = (m.prefill(params, toks, cache_len=16, active_sites=act)
+                                    for m in (on, off))
+    pos = torch.tensor([9, 11, 10, 9], device="cuda")
+    for _ in range(2):
+        for a, b in ((o_on["final"], o_off["final"]), (o_on["ramps"], o_off["ramps"])):
+            assert torch.equal(a["label"], b["label"])
+            torch.testing.assert_close(a["maxprob"], b["maxprob"], rtol=1e-4, atol=1e-6)
+        tok = o_off["final"]["label"].reshape(-1, 1).long()
+        _, o_on = on.decode(params, c_on, tok, pos, active_sites=act, exit_thresholds=thr)
+        _, o_off = off.decode(params, c_off, tok, pos, active_sites=act, exit_thresholds=thr)
+        assert torch.equal(o_on["ramps"]["exit"], o_off["ramps"]["exit"])
+        pos = pos + 1
+    for a, b in zip(c_on["blocks"][0].values(), c_off["blocks"][0].values()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
