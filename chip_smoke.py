@@ -9,12 +9,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes, and time kernel, plain version and one PyTorch
      library call (CUDA events, L2 flushed between launches);
+     3b. the paged decode kernel against its plain version, and bit for bit
+     against the contiguous kernel on the same keys;
   4. full-width qwen2-1.5b with seeded random weights: prefill + 8 decode
      steps with the kernels off and on (labels equal except near-ties),
      then serve 8 requests through the port's GenerativeEngine +
-     ApparateController + DecodeRunner with the launch counters zeroed
-     just before and read just after.
-The last two lines are the kernels JSON and the result JSON.
+     ApparateController + DecodeRunner on the contiguous cache;
+     4b. the same engine on the contiguous cache and on the paged pool, on
+     one schedule: greedy tokens equal except differences that begin at a
+     near-tie;
+     4c. prefix sharing and swap preemption on a pool that runs dry;
+     4d. chunked prefill on the paged pool, first tokens held against
+     one-shot prefill.
+Every serving phase zeroes the launch counters just before it and reads
+them just after. The last two lines are the kernels JSON and the result
+JSON.
 """
 from __future__ import annotations
 
@@ -134,6 +143,66 @@ def check_decode_attention(B, S, label, gen, pos_lo=0):
     }
     decode_attention.launches = n0  # comparison launches do not count
     print(f"decode_attention {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16):
+    """The paged kernel over a shuffled block table (pool block 0 is the
+    trash block no row owns), per-row pos drawn from [pos_lo, pos_hi):
+    against its plain version, and bit for bit against the contiguous
+    kernel on the same keys gathered into a contiguous cache."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        paged_decode_attention,
+        paged_decode_attention_ref,
+    )
+
+    H, KH, hd = 12, 2, 128
+    dt = torch.bfloat16
+    S, P = nb * bs, B * nb + 1
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    k_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
+    v_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(B, nb).to(torch.int32)
+    pos = torch.randint(pos_lo, pos_hi, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    n0 = (paged_decode_attention.launches, decode_attention.launches)
+    out = paged_decode_attention(q, k_pool, v_pool, table, pos)
+    ref = paged_decode_attention_ref(q, k_pool, v_pool, table, pos)
+    kc = k_pool[table.long()].reshape(B, S, KH, hd)  # the same keys, contiguous
+    vc = v_pool[table.long()].reshape(B, S, KH, hd)
+    cont = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2):
+        fail(f"paged_decode_attention {label}: max abs err {err}")
+    if not torch.equal(out, cont):
+        fail(f"paged_decode_attention {label}: differs from the contiguous kernel on the "
+             f"same keys by {(out.float() - cont.float()).abs().max().item()}")
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None].long())
+
+    def library():  # two calls: the gather of each row's blocks, then SDPA
+        kg = k_pool[table.long()].reshape(B, S, KH, hd).transpose(1, 2)
+        vg = v_pool[table.long()].reshape(B, S, KH, hd).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, attn_mask=mask[:, None, None], enable_gqa=True)
+
+    nk = torch.clamp(pos.long(), max=S - 1) + 1
+    nblk = ((nk + bs - 1) // bs).sum().item()  # table entries the walk reads
+    nk = nk.sum().item()
+    nbytes = q.numel() * 2 + nk * KH * hd * 2 * 2 + nblk * 4 + B * 4 + B * H * hd * 2
+    bm, by = bound_ms(nbytes, nk * H * hd * 4)
+    row = {
+        "shape": label, "max_abs_err": err, "bit_identical_to_contiguous": True,
+        "ms": time_ms(lambda: paged_decode_attention(q, k_pool, v_pool, table, pos)),
+        "contiguous_ms": time_ms(lambda: decode_attention(q, kc.transpose(1, 2),
+                                                          vc.transpose(1, 2), pos)),
+        "plain_ms": time_ms(lambda: paged_decode_attention_ref(q, k_pool, v_pool, table, pos)),
+        "library_ms": time_ms(library), "library": "k_pool[table] gather + SDPA (two calls)",
+        "bound_ms": bm, "bound_by": by,
+    }
+    paged_decode_attention.launches, decode_attention.launches = n0  # comparison launches
+    print(f"paged_decode_attention {label}: {json.dumps(row)}", flush=True)
     return row
 
 
@@ -416,6 +485,186 @@ def profile_step(fn, top=6):
 
 
 # ---------------------------------------------------------------------------
+# phases 4b-4d: the paged pool at full width
+
+
+# two paths' greedy labels may differ only where the reference path's f32
+# logits of the two labels lie within this gap: compare_paths measures the
+# kernels-off and kernels-on bf16 logits of one step apart by up to ~0.17
+NEAR_TIE = 0.25
+PAGED_PROMPT, PAGED_TOKENS = 120, 38  # cache_len 120 + 38 + 2 = 160 = 10 blocks of 16
+KERNELS = ("decode_attention", "paged_decode_attention", "ramp_head_stats", "ramp_head_exit")
+
+
+def _kernel_fns():
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.ramp_head import ramp_head_exit, ramp_head_stats
+
+    return {"decode_attention": decode_attention,
+            "paged_decode_attention": paged_decode_attention,
+            "ramp_head_stats": ramp_head_stats, "ramp_head_exit": ramp_head_exit}
+
+
+def counted(fn):
+    """Run fn() with every kernel's launch count set to 0 just before and
+    read just after. Returns (fn's result, {kernel: launches})."""
+    fns = _kernel_fns()
+    for f in fns.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: f.launches for name, f in fns.items()}
+
+
+def _final_logits(params, cfg, toks):
+    """f32 logits of the final head at the last position of each row of
+    toks, through the dense path (no kernel, no launch counted)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as LY
+
+    model = build_model(cfg.replace(decode_attn="dense", pallas_head="off"))
+    seen = {}
+    orig = model._head_stats
+
+    def head_stats(params_, h_last, *a, **kw):
+        seen["h"] = h_last
+        return orig(params_, h_last, *a, **kw)
+
+    model._head_stats = head_stats
+    model.prefill(params, toks, active_sites=None, with_cache=False)
+    h = LY.apply_norm(cfg, params["final_norm"], seen["h"])[:, 0]
+    return _logits_ref(h, params["tok"]["embed"].T, cfg.vocab_size)
+
+
+def _divergence_gap(params, cfg, prompt, toks_a, toks_b):
+    """Where two greedy sequences of one prompt first differ, the gap of the
+    dense path's f32 logits between the two labels there (0.0 if equal)."""
+    t = next((i for i, (x, y) in enumerate(zip(toks_a, toks_b)) if x != y), None)
+    if t is None:
+        return None, 0.0
+    ctx = torch.tensor([list(prompt) + list(toks_a[:t])], device="cuda")
+    lg = _final_logits(params, cfg, ctx)[0]
+    return t, abs(lg[toks_a[t]] - lg[toks_b[t]]).item()
+
+
+def _complete(resp, n, n_tokens, vocab, what):
+    if len(resp) != n:
+        fail(f"{what}: served {len(resp)} of {n} requests")
+    for r in resp:
+        if r.dropped or r.shed or len(r.tokens) != n_tokens or len(r.final_tokens) != n_tokens:
+            fail(f"{what}: request {r.rid} did not complete its {n_tokens} tokens")
+        if not all(0 <= x < vocab for x in r.final_tokens):
+            fail(f"{what}: request {r.rid} has tokens outside the vocabulary")
+
+
+def serve_paged_vs_contiguous(params, cfg, serve):
+    """Phase 4b: 8 requests, prompt 120, 38 tokens, windows of 4, served on
+    the contiguous runner and on the paged pool (bs 16, paged-kernel) on
+    one schedule. Greedy tokens equal, except a difference that begins at
+    a near-tie. Returns the paged run's launch counts."""
+    import numpy as np
+
+    prompts = np.random.default_rng(SEED + 2).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
+    runs = {}
+    for name, bs in (("contiguous", 0), ("paged", 16)):
+        (out, resp), launches = counted(lambda: serve(
+            CONFIG, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
+            verbose=False, kv_block_size=bs, prompts=prompts, params=params))
+        _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, f"4b {name}")
+        runs[name] = (out, {r.rid: r for r in resp}, launches)
+    c_l, p_l = runs["contiguous"][2], runs["paged"][2]
+    if c_l["decode_attention"] <= 0 or c_l["paged_decode_attention"]:
+        fail(f"4b contiguous run launched {c_l}")
+    if p_l["paged_decode_attention"] <= 0 or p_l["decode_attention"]:
+        fail(f"4b paged run launched {p_l}: every decode layer must take the paged kernel")
+    ties = []
+    for rid, rc in runs["contiguous"][1].items():
+        rp = runs["paged"][1][rid]
+        t, gap = _divergence_gap(params, cfg, prompts[rc.rid], rc.final_tokens, rp.final_tokens)
+        if t is not None:
+            print(f"4b request {rid}: paged and contiguous tokens differ from token {t} "
+                  f"({rc.final_tokens[t]} vs {rp.final_tokens[t]}), logit gap {gap:.4f}",
+                  flush=True)
+            if gap >= NEAR_TIE:
+                fail(f"4b request {rid}: a difference that begins at no near-tie")
+            ties.append(rid)
+    mc, mp = runs["contiguous"][0]["measured"], runs["paged"][0]["measured"]
+    print(f"4b paged vs contiguous serving, 8 x {PAGED_TOKENS} tokens: {8 - len(ties)} of 8 "
+          f"requests token-identical, near-tie divergences {ties}; ms per window "
+          f"{mc['window_ms_mean']:.3f} (contiguous) vs {mp['window_ms_mean']:.3f} (paged), "
+          f"prefill ms {mc['prefill_ms_mean']:.3f} vs {mp['prefill_ms_mean']:.3f}; launches "
+          f"{json.dumps(c_l)} vs {json.dumps(p_l)}; paged kv {json.dumps(runs['paged'][0]['kv_cache'])}",
+          flush=True)
+    return p_l
+
+
+def serve_prefix_swap(params, cfg, serve):
+    """Phase 4c: 8 requests drawing on 4 prompts that share a 64-token
+    prefix, each prompt sent twice, with the prefix cache and swap
+    preemption on a 24-block pool (full capacity is 80): it runs dry with
+    up to four streams decoding together."""
+    import numpy as np
+
+    base = np.random.default_rng(SEED + 3).integers(1, cfg.vocab_size, (4, PAGED_PROMPT))
+    base[:, :64] = base[0, :64]
+    prompts = np.concatenate([base, base])
+    (out, resp), launches = counted(lambda: serve(
+        CONFIG, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
+        verbose=False, kv_block_size=16, kv_blocks=24, prefix_cache=True, preempt="swap",
+        prompts=prompts, params=params))
+    _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, "4c")
+    kv = out["kv_cache"]
+    for key in ("prefix_hits", "cow_copies", "swap_outs"):
+        if kv[key] <= 0:
+            fail(f"4c: {key} is {kv[key]}; the run must share, copy on write and swap")
+    if kv["swap_ins"] != kv["swap_outs"]:
+        fail(f"4c: {kv['swap_outs']} swaps out but {kv['swap_ins']} back in")
+    if launches["paged_decode_attention"] <= 0:
+        fail("4c: the paged kernel was not launched")
+    print(f"4c prefix sharing + swap preemption, 24-block pool: kv {json.dumps(kv)}; engine "
+          f"{json.dumps(out['simulated']['engine'], default=float)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+
+
+def serve_chunked(params, cfg, serve):
+    """Phase 4d: 4 requests with prefill_chunk 64 on the paged runner. Their
+    first tokens equal one-shot prefill's, except a printed near-tie (the
+    resumed prompt tokens go through the decode kernel, the one-shot prompt
+    through dense attention)."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    prompts = np.random.default_rng(SEED + 4).integers(1, cfg.vocab_size, (4, PAGED_PROMPT))
+    (out, resp), launches = counted(lambda: serve(
+        CONFIG, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
+        verbose=False, kv_block_size=16, prefill_chunk=64, prompts=prompts, params=params))
+    _complete(resp, 4, PAGED_TOKENS, cfg.vocab_size, "4d")
+    if launches["paged_decode_attention"] <= 0:
+        fail("4d: the paged kernel was not launched")
+    one_shot = build_model(cfg.replace(pallas_head="kernel"))
+    toks = torch.tensor(prompts, device="cuda")
+    _, outs = one_shot.prefill(params, toks, active_sites=None, with_cache=False)
+    first = outs["final"]["label"].reshape(-1).tolist()
+    logits = _final_logits(params, cfg, toks)
+    ties = []
+    for r in resp:
+        a, b = r.final_tokens[0], first[r.rid]
+        if a != b:
+            gap = abs(logits[r.rid, a] - logits[r.rid, b]).item()
+            print(f"4d request {r.rid}: chunked first token {a} vs one-shot {b}, "
+                  f"logit gap {gap:.4f}", flush=True)
+            if gap >= NEAR_TIE:
+                fail(f"4d request {r.rid}: the first tokens differ at no near-tie")
+            ties.append(r.rid)
+    m = out["measured"]
+    print(f"4d chunked prefill (64-token chunks): 4 of 4 complete, first tokens equal to "
+          f"one-shot prefill on {4 - len(ties)} of 4 (near-ties {ties}); "
+          f"{m['prefill_chunk_calls']} chunk calls, {m['prefill_chunk_ms_mean']:.3f} ms each; "
+          f"launches {json.dumps(launches)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -426,8 +675,6 @@ def main() -> None:
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build
-        from repro_torch.kernels.decode_attention import decode_attention
-        from repro_torch.kernels.ramp_head import ramp_head_exit, ramp_head_stats
         from repro_torch.launch.serve import serve_generative
         from repro_torch.models import build_model
         from repro_torch.models.common import tree_leaves
@@ -454,6 +701,13 @@ def main() -> None:
     da_main = check_decode_attention(8, 162, "B=8 H=12 KH=2 hd=128 S=162 pos 128..161 bf16",
                                      gen, pos_lo=128)
     check_decode_attention(32, 4096, "B=32 H=12 KH=2 hd=128 S=4096 bf16", gen)
+    # -- phase 3b: the paged kernel, at the paged serving load (prompt 120 +
+    # 40 new tokens = 10 blocks of 16, rows decoding at pos 120..159) and on
+    # 4096-token rows
+    pda_main = check_paged_decode_attention(
+        8, 10, "B=8 H=12 KH=2 hd=128 bs=16 nb=10 pos 120..159 shuffled bf16", gen, 120, 160)
+    check_paged_decode_attention(
+        32, 256, "B=32 H=12 KH=2 hd=128 bs=16 nb=256 pos 0..4095 shuffled bf16", gen, 0, 4096)
     cfg = get_config(CONFIG)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -463,27 +717,17 @@ def main() -> None:
           f"params, {cfg.dtype}) in {time.perf_counter() - t0:.1f} s", flush=True)
     rh = check_ramp_head(params, cfg, gen)
 
-    # -- phase 4: the full-width model, then serving
+    # -- phase 4: the full-width model, then serving (the weights drawn above
+    # are the ones serve_generative draws from the same seed)
     compare_paths(params, cfg)
-    del params, model
+    del model
     torch.cuda.empty_cache()
-    for fn in (decode_attention, ramp_head_stats, ramp_head_exit):
-        fn.launches = 0
-    out, resp = serve_generative(CONFIG, 8, decode_tokens=32, prompt_len=128,
-                                 steps_per_sync=4, seed=SEED, device="cuda", verbose=False)
-    torch.cuda.synchronize()
-    launches = {"decode_attention": decode_attention.launches,
-                "ramp_head_stats": ramp_head_stats.launches,
-                "ramp_head_exit": ramp_head_exit.launches}
-    if len(resp) != 8:
-        fail(f"served {len(resp)} of 8 requests")
-    for r in resp:
-        if r.dropped or r.shed or len(r.tokens) != 32 or len(r.final_tokens) != 32:
-            fail(f"request {r.rid} did not complete its 32 tokens")
-        if not all(0 <= x < cfg.vocab_size for x in r.final_tokens):
-            fail(f"request {r.rid} has tokens outside the vocabulary")
-    for name, n in launches.items():
-        if n <= 0:
+    (out, resp), launches = counted(lambda: serve_generative(
+        CONFIG, 8, decode_tokens=32, prompt_len=128, steps_per_sync=4, seed=SEED,
+        device="cuda", verbose=False, params=params))
+    _complete(resp, 8, 32, cfg.vocab_size, "4a")
+    for name in ("decode_attention", "ramp_head_stats", "ramp_head_exit"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     m = out["measured"]
     print(f"served 8 requests x 32 tokens on {card}: prefill {m['prefill_ms_mean']:.3f} ms "
@@ -492,17 +736,23 @@ def main() -> None:
           flush=True)
     print("engine summary (SIMULATED from the analytic H100 profile, not timed): "
           + json.dumps(out["simulated"]["apparate"], default=float), flush=True)
+    paged_launches = serve_paged_vs_contiguous(params, cfg, serve_generative)
+    serve_prefix_swap(params, cfg, serve_generative)
+    serve_chunked(params, cfg, serve_generative)
+    launches["paged_decode_attention"] = paged_launches["paged_decode_attention"]
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "paged_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
            "ramp_head_stats": "src/repro_torch/kernels/csrc/ramp_head.cu",
            "ramp_head_exit": "src/repro_torch/kernels/csrc/ramp_head.cu"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention/kernel.py:90",
+                "paged_decode_attention": "src/repro/kernels/decode_attention/paged.py:107",
                 "ramp_head_stats": "src/repro/kernels/ramp_head/kernel.py:98",
                 "ramp_head_exit": "src/repro/kernels/ramp_head/kernel.py:145"}
-    rows = {"decode_attention": da_main, **rh}
+    rows = {"decode_attention": da_main, "paged_decode_attention": pda_main, **rh}
     kernels = []
-    for name in ("decode_attention", "ramp_head_stats", "ramp_head_exit"):
+    for name in KERNELS:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src[name], "replaces": replaces[name],

@@ -1,7 +1,8 @@
 // Flash-decode attention: one query token per row against a contiguous KV
-// cache, written by hand for Hopper (sm_90a).
+// cache or a paged block pool, written by hand for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py : decode_attention
+// and src/repro/kernels/decode_attention/paged.py : paged_decode_attention
 // (Pallas, TPU). Same semantics: online softmax over key tiles in f32,
 // per-row pos (attend to kpos <= pos), GQA by head folding, -1e30 for masked
 // scores, v zeroed under the mask, final divide by max(l, 1e-30).
@@ -24,6 +25,17 @@
 // for all G heads (K rows padded by 16 bytes in shared memory so the 32
 // lanes' row reads hit distinct banks), the warp keeps its own online
 // softmax state, and the warps' (m, l, acc) are combined at the end.
+// The paged form is a second instantiation of the same kernel: only the
+// address of a key row differs. Contiguous: k + b*sb + kh*sh + key*ss.
+// Paged, over a (P, bs, KH, hd) pool and a per-row block table:
+// pool + table[b, key/bs]*sblk + (key%bs)*ss + kh*sh. The CTA loads the
+// table entries its walk needs into shared memory once; the walk is
+// clamped to min(pos, nb*bs-1), so a stale pos past the table reads
+// nothing out of range, and entries are clamped into [0, P) so a bad id
+// cannot address outside the pool. Same key order, same arithmetic: on
+// the same keys the paged output is bit-identical to the contiguous one.
+// Any block size works, including one that does not divide the 32-key
+// tile (a tile then spans several blocks).
 // Not done yet: splitting the key axis across CTAs when B*KH is too small
 // to fill the 132 SMs, and TMA bulk copies.
 #include <cuda_bf16.h>
@@ -89,11 +101,15 @@ struct Layout {
                                                 ? WARPS * WARP_BYTES : COMB_BYTES);
 };
 
-template <typename T, int HD>
+// PAGED == false: k, v are (B, KH, S, hd) by the strides (sb, sh, ss).
+// PAGED == true: k, v are (P, bs, KH, hd) pools by the strides (sb = block,
+// ss = slot, sh = head), table is int32 (B, nb) and S = nb * bs.
+template <typename T, int HD, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos,
-                        T* __restrict__ out, int H, int KH, int S, int G,
+                        const int* __restrict__ table, T* __restrict__ out, int H,
+                        int KH, int S, int G, int bs, int nb, int P,
                         long long q_sb, long long q_sh,
                         long long k_sb, long long k_sh, long long k_ss,
                         long long v_sb, long long v_sh, long long v_ss, float scale) {
@@ -101,6 +117,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int VEC = Lt::VEC, CPR = Lt::CPR, KPAD = Lt::KPAD, EPL = Lt::EPL;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
+  int* tab = reinterpret_cast<int*>(smem + Lt::SMEM);  // PAGED: this row's block ids
   const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   unsigned char* wsm = smem + Lt::Q_BYTES + warp * Lt::WARP_BYTES;
@@ -113,10 +130,16 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int g = i / HD, e = i % HD;
     qs[i] = to_f(q[b * q_sb + (long long)(kh * G + g) * q_sh + e]);
   }
+  if constexpr (PAGED) {
+    for (int i = tid; i < (nk + bs - 1) / bs; i += blockDim.x) {
+      const int t = table[(long long)b * nb + i];
+      tab[i] = t < 0 ? 0 : (t < P ? t : P - 1);
+    }
+  }
   __syncthreads();
 
-  const T* kb = k + b * k_sb + kh * k_sh;
-  const T* vb = v + b * v_sb + kh * v_sh;
+  const T* kb = PAGED ? k + kh * k_sh : k + b * k_sb + kh * k_sh;
+  const T* vb = PAGED ? v + kh * v_sh : v + b * v_sb + kh * v_sh;
   float m[MAXG], l[MAXG], acc[MAXG][EPL];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
@@ -135,9 +158,19 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int it = 0; it < TILE * CPR / 32; ++it) {
       const int c = lane + it * 32, r = c / CPR, cc = c % CPR, key = t0 + r;
       const bool ok = key < nk;
-      const int kr = ok ? key : 0;  // a valid address; nothing is read when !ok
-      cp_async16(kd + r * KPAD + cc * VEC, kb + kr * k_ss + cc * VEC, ok);
-      cp_async16(vd + r * HD + cc * VEC, vb + kr * v_ss + cc * VEC, ok);
+      long long ko = 0, vo = 0;  // a valid address; nothing is read when !ok
+      if (ok) {
+        if constexpr (PAGED) {
+          const long long blk = tab[key / bs], slot = key % bs;
+          ko = blk * k_sb + slot * k_ss;
+          vo = blk * v_sb + slot * v_ss;
+        } else {
+          ko = key * k_ss;
+          vo = key * v_ss;
+        }
+      }
+      cp_async16(kd + r * KPAD + cc * VEC, kb + ko + cc * VEC, ok);
+      cp_async16(vd + r * HD + cc * VEC, vb + vo + cc * VEC, ok);
     }
     cp_async_commit();
   };
@@ -240,19 +273,22 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
-           int B, int H, int KH, int S, long long q_sb, long long q_sh,
-           long long k_sb, long long k_sh, long long k_ss,
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block can use
+
+template <typename T, int HD, bool PAGED>
+int launch(const void* q, const void* k, const void* v, const int* pos, const int* table,
+           void* out, int B, int H, int KH, int S, int bs, int nb, int P,
+           long long q_sb, long long q_sh, long long k_sb, long long k_sh, long long k_ss,
            long long v_sb, long long v_sh, long long v_ss, float scale,
            cudaStream_t stream) {
-  const size_t smem = Layout<T, HD>::SMEM;
-  cudaFuncSetAttribute(decode_attention_kernel<T, HD>,
+  const size_t smem = Layout<T, HD>::SMEM + (PAGED ? ((size_t)nb * 4 + 15) / 16 * 16 : 0);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(decode_attention_kernel<T, HD, PAGED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  decode_attention_kernel<T, HD><<<B * KH, WARPS * 32, smem, stream>>>(
+  decode_attention_kernel<T, HD, PAGED><<<B * KH, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<T*>(out), H, KH, S, H / KH, q_sb, q_sh, k_sb, k_sh, k_ss,
-      v_sb, v_sh, v_ss, scale);
+      table, static_cast<T*>(out), H, KH, S, H / KH, bs, nb, P, q_sb, q_sh, k_sb, k_sh,
+      k_ss, v_sb, v_sh, v_ss, scale);
   return (int)cudaGetLastError();
 }
 
@@ -271,13 +307,39 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   if (KH <= 0 || H % KH != 0 || H / KH > MAXG) return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(pos);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DA_LAUNCH(T, HD)                                                                \
-  return launch<T, HD>(q, k, v, p, out, B, H, KH, S, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, \
-                       v_sh, v_ss, scale, st)
+#define DA_LAUNCH(T, HD)                                                               \
+  return launch<T, HD, false>(q, k, v, p, nullptr, out, B, H, KH, S, 1, 0, 0, q_sb, q_sh, \
+                              k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, st)
   if (dtype == 1 && hd == 128) DA_LAUNCH(__nv_bfloat16, 128);
   if (dtype == 1 && hd == 64) DA_LAUNCH(__nv_bfloat16, 64);
   if (dtype == 0 && hd == 128) DA_LAUNCH(float, 128);
   if (dtype == 0 && hd == 64) DA_LAUNCH(float, 64);
 #undef DA_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// q (B, H, hd); k_pool, v_pool (P, bs, KH, hd) by the given element strides
+// (block, slot, head; the last dim contiguous); table int32 (B, nb)
+// contiguous; pos int32 (B,); out (B, H, hd) contiguous. dtype as above;
+// hd 64 or 128, H/KH at most 8, nb small enough for the table to fit in
+// shared memory beside the tiles. Returns the CUDA error code of the launch.
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos, void* out, int B, int H, int KH, int P, int bs, int nb, int hd,
+    long long q_sb, long long q_sh, long long k_sp, long long k_ss, long long k_sh,
+    long long v_sp, long long v_ss, long long v_sh, float scale, int dtype, void* stream) {
+  if (KH <= 0 || H % KH != 0 || H / KH > MAXG || bs < 1 || nb < 1 || P < 1)
+    return (int)cudaErrorInvalidValue;
+  const int* p = static_cast<const int*>(pos);
+  const int* t = static_cast<const int*>(table);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PDA_LAUNCH(T, HD)                                                              \
+  return launch<T, HD, true>(q, k_pool, v_pool, p, t, out, B, H, KH, nb * bs, bs, nb, P, \
+                             q_sb, q_sh, k_sp, k_sh, k_ss, v_sp, v_sh, v_ss, scale, st)
+  if (dtype == 1 && hd == 128) PDA_LAUNCH(__nv_bfloat16, 128);
+  if (dtype == 1 && hd == 64) PDA_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 0 && hd == 128) PDA_LAUNCH(float, 128);
+  if (dtype == 0 && hd == 64) PDA_LAUNCH(float, 64);
+#undef PDA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,11 @@
-"""ctypes wrapper of the CUDA flash-decode kernel (``csrc/decode_attention.cu``).
+"""ctypes wrappers of the CUDA flash-decode kernel (``csrc/decode_attention.cu``).
 
-Replaces the JAX package's Pallas ``decode_attention``. The kernel reads
-k and v by stride, so the caller's (B, KH, S, hd) view of a (B, S, KH, hd)
-cache costs no copy. Launches on PyTorch's current stream, never syncs.
+``decode_attention`` replaces the JAX package's Pallas ``decode_attention``:
+it reads k and v by stride, so the caller's (B, KH, S, hd) view of a
+(B, S, KH, hd) cache costs no copy. ``paged_decode_attention`` replaces the
+Pallas ``paged_decode_attention``: the same kernel, instantiated to walk a
+per-row block table over (P, bs, KH, hd) pools. Both launch on PyTorch's
+current stream and never sync.
 """
 from __future__ import annotations
 
@@ -19,19 +22,46 @@ _L = ctypes.c_longlong
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _fn():
-    lib = load("decode_attention")
-    fn = lib.decode_attention_launch
+# each C entry point's leading arguments: pointers, ints, strides
+_ARGS = {"decode_attention_launch": [_P] * 5 + [_I] * 5 + [_L] * 8,
+         "paged_decode_attention_launch": [_P] * 6 + [_I] * 7 + [_L] * 8}
+
+
+def _fn(name="decode_attention_launch"):
+    fn = getattr(load("decode_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P]
+        fn.argtypes = _ARGS[name] + [ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
 
 
-def _check_16b(name, t):
+def _check_16b(name, t, what="decode_attention"):
     if t.data_ptr() % 16 or any((s * t.element_size()) % 16 for s in t.stride()[:-1]):
-        raise ValueError(f"decode_attention: {name} rows must be 16-byte aligned "
+        raise ValueError(f"{what}: {name} rows must be 16-byte aligned "
                          f"(strides {t.stride()})")
+
+
+def _check_operands(what, q, kv, hd, H, KH):
+    """Device, dtype, contiguous last dim and the shapes the kernel takes."""
+    for name, t in (("q", q),) + kv:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
+                             "float32/bfloat16, alike for q, k, v")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last dim")
+    if hd not in (64, 128) or KH == 0 or H % KH or H // KH > 8:
+        raise ValueError(f"{what}: needs hd in (64, 128) and H/KH <= 8, "
+                         f"got hd={hd} H={H} KH={KH}")
+    for name, t in kv:
+        _check_16b(name, t, what)
+
+
+def _pos_vector(pos, B, device):
+    if torch.is_tensor(pos):
+        return pos.to(device=device, dtype=torch.int32).reshape(-1).expand(B).contiguous()
+    return torch.full((B,), int(pos), dtype=torch.int32, device=device)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> torch.Tensor:
@@ -43,23 +73,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> 
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     KH, S = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"decode_attention: {name} must be a CUDA tensor on {q.device}")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
-            raise ValueError(f"decode_attention: {name} dtype {t.dtype}; needs one of "
-                             "float32/bfloat16, alike for q, k, v")
-        if t.stride(-1) != 1:
-            raise ValueError(f"decode_attention: {name} needs a contiguous last dim")
-    if hd not in (64, 128) or KH == 0 or H % KH or H // KH > 8:
-        raise ValueError(f"decode_attention: needs hd in (64, 128) and H/KH <= 8, "
-                         f"got hd={hd} H={H} KH={KH}")
-    _check_16b("k", k)
-    _check_16b("v", v)
-    if torch.is_tensor(pos):
-        pos = pos.to(device=q.device, dtype=torch.int32).reshape(-1).expand(B).contiguous()
-    else:
-        pos = torch.full((B,), int(pos), dtype=torch.int32, device=q.device)
+    _check_operands("decode_attention", q, (("k", k), ("v", v)), hd, H, KH)
+    pos = _pos_vector(pos, B, q.device)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
@@ -74,3 +89,48 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> 
 
 
 decode_attention.launches = 0
+
+
+# the block table lives in shared memory beside the tiles (at most 227 KB)
+MAX_TABLE_BLOCKS = 16384
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           block_table: torch.Tensor, pos) -> torch.Tensor:
+    """q (B, H, hd); k_pool, v_pool (P, bs, KH, hd) with a contiguous last
+    dim; block_table int (B, nb), row b's virtual block j at pool block
+    ``block_table[b, j]``; pos an int or an int (B,) tensor (attend to
+    virtual slots <= pos, walked up to nb*bs - 1). Returns (B, H, hd) in
+    q's dtype."""
+    B, H, hd = q.shape
+    if (k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != hd
+            or block_table.dim() != 2 or block_table.shape[0] != B):
+        raise ValueError(f"paged_decode_attention: bad shapes q {tuple(q.shape)} "
+                         f"pools {tuple(k_pool.shape)} {tuple(v_pool.shape)} "
+                         f"table {tuple(block_table.shape)}")
+    P, bs, KH, _ = k_pool.shape
+    nb = block_table.shape[1]
+    _check_operands("paged_decode_attention", q, (("k_pool", k_pool), ("v_pool", v_pool)),
+                    hd, H, KH)
+    if block_table.device != q.device:
+        raise ValueError(f"paged_decode_attention: block_table must be on {q.device}")
+    if not 1 <= nb <= MAX_TABLE_BLOCKS or P < 1:
+        raise ValueError(f"paged_decode_attention: needs 1 <= nb <= {MAX_TABLE_BLOCKS} "
+                         f"and a non-empty pool, got nb={nb} P={P}")
+    table = block_table.to(torch.int32).contiguous()
+    pos = _pos_vector(pos, B, q.device)
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    fn = _fn("paged_decode_attention_launch")
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), B, H, KH, P, bs, nb, hd, q.stride(0), q.stride(1),
+            k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
+            v_pool.stride(0), v_pool.stride(1), v_pool.stride(2), 1.0 / math.sqrt(hd),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(rc, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

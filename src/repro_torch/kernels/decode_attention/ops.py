@@ -1,9 +1,13 @@
-"""Dispatcher for flash-decode: the plain version for CPU tensors, the CUDA
-kernel for CUDA tensors (it raises rather than fall back)."""
+"""Dispatchers for flash-decode, contiguous and paged: the plain version for
+CPU tensors, the CUDA kernel for CUDA tensors (it raises rather than fall
+back)."""
 from __future__ import annotations
 
-from repro_torch.kernels.decode_attention.kernel import decode_attention
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.kernel import decode_attention, paged_decode_attention
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref,
+    paged_decode_attention_ref,
+)
 
 
 def attend_decode(q, k, v, pos, *, use_kernel=True):
@@ -12,3 +16,11 @@ def attend_decode(q, k, v, pos, *, use_kernel=True):
     if q.device.type != "cuda":
         raise ValueError(f"attend_decode: no kernel for device {q.device}")
     return decode_attention(q, k, v, pos)
+
+
+def attend_decode_paged(q, k_pool, v_pool, block_table, pos, *, use_kernel=True):
+    if not use_kernel or q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, block_table, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"attend_decode_paged: no kernel for device {q.device}")
+    return paged_decode_attention(q, k_pool, v_pool, block_table, pos)

@@ -3,10 +3,11 @@
 The port's counterpart of the JAX package's ``models/layers.py``, for the
 generative main path: norms, activations, RoPE, the dense FFN, GQA
 attention on a contiguous KV cache (prefill write, then single-token decode
-with per-row positions) and the embedding. Params are nested dicts of
+with per-row positions) or on a paged block pool (single-token decode that
+walks a per-row block table) and the embedding. Params are nested dicts of
 tensors under the reference's leaf paths; compute happens in the config's
-dtype with f32 softmax and norms. Ring, local-window, paged, MLA,
-cross-attention and tensor-parallel branches are not ported yet.
+dtype with f32 softmax and norms. Ring, local-window, MLA, cross-attention
+and tensor-parallel branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -180,16 +181,48 @@ def _update_cache_rows(cache_leaf, new, idx, gate=None):
     return cache_leaf
 
 
+def _paged_slots(block_table, idx, bs):
+    """Pool (block, offset) of each row's write at position ``idx``. A row
+    whose ``idx // bs`` lies past its table (a FREE padding row keeps the
+    stale pos of a slot freed earlier) writes to the trash block 0, never
+    out of range; the reference drops such a write."""
+    j = idx // bs
+    inside = j < block_table.shape[1]
+    j = torch.clamp(j, max=block_table.shape[1] - 1)[:, None]
+    blk = torch.where(inside, torch.gather(block_table.long(), 1, j)[:, 0], 0)
+    return blk, idx % bs
+
+
+def _update_pool(pool, new, blk, off, gate=None):
+    """Scatter one token per row into a (P, bs, K, hd) pool IN PLACE at
+    (blk, off). Duplicate rows (bucket padding) write identical values and
+    padding rows all land in the trash block 0. `gate` keeps the old values
+    where False, as in ``_update_cache_rows``."""
+    new = new.to(pool.dtype)
+    if gate is not None:
+        keep = gate.reshape((-1,) + (1,) * (new.dim() - 1))
+        new = torch.where(keep, new, pool[blk, off])
+    pool[blk, off] = new
+    return pool
+
+
 def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
-               rope_theta=None, decode_impl: str = "dense", write_gate=None):
+               rope_theta=None, decode_impl: str = "dense", write_gate=None,
+               block_table=None):
     """GQA attention. If `cache` (dict k,v: (B, S, K, hd)) is given, the new
     k/v are written into it in place at `cache_index` (an int, or a per-row
     int tensor (B,)) and attention runs against the cache. `decode_impl`
     selects the single-token cache-attention path: 'dense' (masked sdpa),
     'ref' (the flash-decode plain version) or 'kernel' (the CUDA
     flash-decode kernel; its plain version on CPU tensors). `write_gate`
-    gates the cache write (see ``_update_cache_rows``). Returns
-    (out, cache)."""
+    gates the cache write (see ``_update_cache_rows``).
+
+    With `block_table` (int (B, nb)), `cache` is a PAGED block pool (k/v:
+    (P, bs, K, hd)): the single decode token is written to pool slot
+    ``(block_table[b, pos // bs], pos % bs)`` and attention walks the
+    table; `decode_impl` must be 'paged' (the plain version) or
+    'paged-kernel' (the CUDA paged kernel; its plain version on CPU
+    tensors). Returns (out, cache)."""
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
@@ -208,6 +241,21 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
         sin, cos = rope_sincos(positions, hd, theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
+    if block_table is not None:
+        if cache is None or S != 1:
+            raise ValueError("paged attention is a single-token decode path "
+                             "over a block pool")
+        if not decode_impl.startswith("paged"):
+            raise ValueError(f"block_table given but decode_impl={decode_impl!r}")
+        from repro_torch.kernels.decode_attention import attend_decode_paged
+
+        idx = cache_index.reshape(-1).long()
+        blk, off = _paged_slots(block_table, idx, cache["k"].shape[1])
+        _update_pool(cache["k"], k[:, 0], blk, off, write_gate)
+        _update_pool(cache["v"], v[:, 0], blk, off, write_gate)
+        out = attend_decode_paged(q[:, 0], cache["k"], cache["v"], block_table, idx,
+                                  use_kernel=decode_impl == "paged-kernel")[:, None]
+        return out.reshape(B, S, H * hd) @ p["wo"], cache
     if cache is not None:
         k = _update_cache_rows(cache["k"], k, cache_index, write_gate)
         v = _update_cache_rows(cache["v"], v, cache_index, write_gate)

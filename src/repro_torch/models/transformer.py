@@ -12,8 +12,9 @@ Differences from the reference that are PyTorch idiom, not semantics:
 recompile to avoid, and a host index keeps ``head[site]`` a view instead
 of a 472 MB gather); the KV cache is updated in place; ``decode_multi``'s
 ``lax.while_loop`` is a Python loop whose writes past the window's end are
-switched off on device, so the host reads nothing inside a window.
-Ring, local, paged, MLA, MoE, SSM and cross-attention slots are not ported.
+switched off on device, so the host reads nothing inside a window. Decode
+runs on a contiguous cache or on a paged block pool (full attention only).
+Ring, local, MLA, MoE, SSM and cross-attention slots are not ported.
 """
 from __future__ import annotations
 
@@ -129,6 +130,29 @@ def ramp_schema(cfg) -> dict:
     }
 
 
+def paged_leaf_kinds(schema) -> List[str]:
+    """Per-leaf kind labels for a paged cache schema, in flatten order
+    (dicts iterate sorted keys): ``"tokens"`` for per-token pages
+    ``(P, bs, ...)``, ``"state"`` for per-slot recurrent pages (mamba
+    ``conv``/``ssm``), ``"xkv"`` for pinned cross-attention pages. The
+    serving runner branches on them; the ported family has tokens only."""
+    out: List[str] = []
+
+    def walk(node, kind):
+        if isinstance(node, dict):
+            for kk in sorted(node):
+                nk = "xkv" if kk == "xkv" else ("state" if kk in ("conv", "ssm") else kind)
+                walk(node[kk], nk)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, kind)
+        else:
+            out.append(kind)
+
+    walk(schema, "tokens")
+    return out
+
+
 def _layer(tree, l: int):
     """Views of one layer's params or cache out of the stacked tree."""
     return tree_map(lambda t: t[l], tree)
@@ -148,7 +172,7 @@ class LM:
                 f"{cfg.name}: the port runs plain attention + dense-FFN stacks only")
         if cfg.ramp_style != "fc":
             raise NotImplementedError(f"ramp_style={cfg.ramp_style!r}: only 'fc' is ported")
-        if cfg.decode_attn not in ("dense", "ref", "kernel"):
+        if cfg.decode_attn not in ("dense", "ref", "kernel", "paged", "paged-kernel"):
             raise NotImplementedError(f"decode_attn={cfg.decode_attn!r} is not ported")
         if cfg.pallas_head not in ("off", "kernel"):
             raise ValueError(f"pallas_head={cfg.pallas_head!r}: the port takes 'off' | 'kernel'")
@@ -181,21 +205,47 @@ class LM:
     def init_cache(self, B: int, S: int, device="cuda") -> dict:
         return zeros_from_schema(self.cache_schema(B, S), device)
 
+    def paged_cache_schema(self, n_blocks: int, block_size: int) -> dict:
+        """The paged layout: the same tree as ``cache_schema``, but every
+        attention leaf is a block pool ``(L, P, bs, KH, hd)`` shared by all
+        slots, the pool axis at 1; virtual token ``t`` of a row lives at
+        ``(table[b, t // bs], t % bs)``."""
+        cfg, plan = self.cfg, self.plan
+        dt = torch_dtype(cfg.dtype)
+        shp = (plan.n_periods, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+        return {"blocks": [{"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
+                           for _ in plan.period]}
+
+    def init_paged_cache(self, n_blocks: int, block_size: int, device="cuda") -> dict:
+        return zeros_from_schema(self.paged_cache_schema(n_blocks, block_size), device)
+
+    def paged_cache_kinds(self, n_blocks: int, block_size: int) -> list:
+        return paged_leaf_kinds(self.paged_cache_schema(n_blocks, block_size))
+
+    @property
+    def paged_sharing_ok(self) -> bool:
+        """Prefix sharing / copy-on-write move token pages between tables:
+        sound for plain full attention, the only mixer the port runs."""
+        return all(s.mixer == "attn" and not s.cross and not s.is_local
+                   for s in self.plan.layer_specs())
+
     # -- forward ------------------------------------------------------------
 
-    def _block(self, p, h, *, positions, mask, cache, cache_index, write_gate=None):
+    def _block(self, p, h, *, positions, mask, cache, cache_index, write_gate=None,
+               block_tables=None):
         cfg = self.cfg
         x = LY.apply_norm(cfg, p["ln1"], h)
         out, _ = LY.attn_apply(
             cfg, p["mixer"], x, positions=positions, mask=mask, cache=cache,
             cache_index=cache_index, decode_impl=cfg.decode_attn, write_gate=write_gate,
+            block_table=block_tables,
         )
         h = h + out
         x = LY.apply_norm(cfg, p["ln2"], h)
         return h + LY.ffn_apply(cfg, p["ffn"], x)
 
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
-               write_gate=None):
+               write_gate=None, block_tables=None):
         """Run the periods layer by layer; caches are updated in place.
         ``pool_idx`` is a slice of positions (a view, so no index tensor
         crosses to the device). Returns (h, pooled (L, B, npos, d))."""
@@ -205,7 +255,7 @@ class LM:
                 c = _layer(caches["blocks"][s], l) if caches else None
                 h = self._block(_layer(params["blocks"][s], l), h, positions=positions,
                                 mask=mask, cache=c, cache_index=cache_index,
-                                write_gate=write_gate)
+                                write_gate=write_gate, block_tables=block_tables)
                 pooled.append(h[:, pool_idx])
         return h, torch.stack(pooled)
 
@@ -246,29 +296,41 @@ class LM:
         return caches, outs
 
     def decode(self, params, cache, tokens, pos, *, active_sites=None,
-               exit_thresholds=None, write_gate=None):
+               exit_thresholds=None, write_gate=None, block_tables=None):
         """One decode step. tokens: (B,1); pos: int tensor (B,) of per-row
         write indices (continuous batching leaves every row at its own
         position). The cache is updated in place; ``write_gate`` (bool
-        tensor) switches that write off on device. Returns (cache, outs)."""
+        tensor) switches that write off on device.
+
+        With ``block_tables`` (int (B, max_blocks)) the cache is the paged
+        pool of ``init_paged_cache``: each row's token is written to
+        ``(block_tables[b, pos[b] // bs], pos[b] % bs)`` and attention walks
+        the table (``cfg.decode_attn`` must be 'paged' or 'paged-kernel');
+        the paged attention masks by position itself, so no mask is built.
+        Returns (cache, outs)."""
         cfg = self.cfg
         B, S = tokens.shape
         assert S == 1
+        if block_tables is not None and (not torch.is_tensor(pos) or pos.dim() < 1):
+            raise ValueError("paged decode requires per-row pos: int[B]")
         pos = pos.to(torch.int64).reshape(-1)
         pc = pos[:, None]
         h = LY.embed_apply(cfg, params["tok"], tokens, pc)
-        Sc = cache["blocks"][0]["k"].shape[2]
-        mask = (torch.arange(Sc, device=tokens.device)[None, :] <= pc)[:, None, None, :]
+        mask = None
+        if block_tables is None:
+            Sc = cache["blocks"][0]["k"].shape[2]
+            mask = (torch.arange(Sc, device=tokens.device)[None, :] <= pc)[:, None, None, :]
         h, pooled = self._stack(
             params, h, positions=pc, mask=mask, caches=cache, cache_index=pos,
-            pool_idx=slice(0, 1), write_gate=write_gate,
+            pool_idx=slice(0, 1), write_gate=write_gate, block_tables=block_tables,
         )
         outs = self._head_stats(params, h, pooled, active_sites,
                                 exit_thresholds=exit_thresholds)
         return cache, outs
 
     def decode_multi(self, params, cache, tokens, pos, n_steps: int, *, n_max: int,
-                     active_sites=None, thresholds=None, row_valid=None):
+                     active_sites=None, thresholds=None, row_valid=None,
+                     block_tables=None):
         """Up to ``n_steps`` greedy decode steps with the exit decision taken
         ON DEVICE from a resident threshold vector: the host reads nothing
         until the window returns.
@@ -276,7 +338,9 @@ class LM:
         tokens: (B, 1) int; pos: int tensor (B,) per-row write indices.
         ``thresholds`` is the (K,) f32 device threshold vector aligned with
         ``active_sites`` (strict ``<``). ``row_valid`` (B,) bool masks
-        bucket-padding rows out of the all-exited test.
+        bucket-padding rows out of the all-exited test. ``block_tables``
+        runs every step on the paged pool (see ``decode``); the window's
+        blocks are claimed before it starts, so one table serves all steps.
 
         The reference's ``lax.while_loop`` stops after the first step where
         every valid row exited. Here the loop runs ``n_steps`` times and a
@@ -311,7 +375,8 @@ class LM:
         tok, p = tokens, pos
         for i in range(int(n_steps)):
             cache, outs = self.decode(params, cache, tok, p, active_sites=act or None,
-                                      exit_thresholds=thr, write_gate=running)
+                                      exit_thresholds=thr, write_gate=running,
+                                      block_tables=block_tables)
             f = outs["final"]["label"].reshape(-1).to(torch.int32)
             if K:
                 mask = outs["ramps"]["exit"].to(torch.bool)  # (K, B)

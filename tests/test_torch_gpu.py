@@ -1,5 +1,6 @@
-"""On a CUDA card: each CUDA kernel against its plain PyTorch version, and
-the tiny model with the kernels on against the plain path. Every test is
+"""On a CUDA card: each CUDA kernel against its plain PyTorch version (the
+paged decode kernel also bit for bit against the contiguous one), and the
+tiny model with the kernels on against the plain path. Every test is
 marked `gpu` and skips without a card; the file imports no jax, so it runs
 on a machine that has only PyTorch:
 
@@ -14,6 +15,8 @@ from repro_torch.configs import get_tiny  # noqa: E402  # repro: allow[tier1-dep
 from repro_torch.kernels.decode_attention import (  # noqa: E402  # repro: allow[tier1-deps] — the port under test
     decode_attention,
     decode_attention_ref,
+    paged_decode_attention,
+    paged_decode_attention_ref,
 )
 from repro_torch.kernels.ramp_head import (  # noqa: E402  # repro: allow[tier1-deps] — the port under test
     ramp_head_exit,
@@ -49,6 +52,34 @@ def test_decode_kernel_matches_plain(gen, dtype, hd, H, KH, S):
     # f32: sums in another order (1e-5); bf16: one output rounding (1e-2)
     tol = 1e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 48])  # 48 does not divide the 32-key tile
+def test_paged_kernel_matches_plain_and_contiguous(gen, dtype, hd, bs):
+    """A shuffled table over a pool whose block 0 is the trash block. Row 1
+    owns three blocks and points the rest at block 0; pos covers the first
+    slot, both sides of a block boundary, the walk's clamp at nb*bs - 1 and
+    a stale pos past the table."""
+    dt = getattr(torch, dtype)
+    B, H, KH, nb = 6, 8, 2, 5
+    S, P = nb * bs, B * nb + 1
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    k_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
+    v_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
+    table = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).reshape(B, nb)
+    table = table.to(torch.int32)
+    table[1, 3:] = 0
+    pos = torch.tensor([0, 3 * bs - 1, bs - 1, bs, S - 1, S + 7], device="cuda")
+    out = paged_decode_attention(q, k_pool, v_pool, table, pos)
+    ref = paged_decode_attention_ref(q, k_pool, v_pool, table, pos)
+    tol = 1e-5 if dtype == "float32" else 1e-2  # as for the contiguous kernel
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    kc = k_pool[table.long()].reshape(B, S, KH, hd)  # the same keys, contiguous
+    vc = v_pool[table.long()].reshape(B, S, KH, hd)
+    cont = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
+    assert torch.equal(out, cont)  # same key order, same arithmetic
 
 
 def _w(gen, layout, d, V, dt):
@@ -105,18 +136,26 @@ def test_ramp_exit_boundary_is_strict_on_card(gen, dtype, layout):
 def test_empty_batch_launches_nothing(gen):
     """A wrapper counts a launch only where its kernel launched: B == 0
     returns empty outputs and leaves every counter as it was."""
-    n0 = (decode_attention.launches, ramp_head_stats.launches, ramp_head_exit.launches)
+    def counts():
+        return (decode_attention.launches, paged_decode_attention.launches,
+                ramp_head_stats.launches, ramp_head_exit.launches)
+
+    n0 = counts()
     w = torch.randn(64, 300, generator=gen, device="cuda")
     m, s, t, idx = ramp_head_stats(torch.empty(0, 64, device="cuda"), w)
     out = ramp_head_exit(torch.empty(0, 64, device="cuda"), w, torch.empty(0, device="cuda"))
     att = decode_attention(torch.empty(0, 4, 64, device="cuda"),
                            torch.empty(0, 2, 8, 64, device="cuda"),
                            torch.empty(0, 2, 8, 64, device="cuda"), 3)
-    assert m.shape == idx.shape == out[4].shape == (0,) and att.shape == (0, 4, 64)
-    assert (decode_attention.launches, ramp_head_stats.launches,
-            ramp_head_exit.launches) == n0
+    pool = torch.zeros(3, 16, 2, 64, device="cuda")
+    patt = paged_decode_attention(torch.empty(0, 4, 64, device="cuda"), pool, pool,
+                                  torch.zeros(0, 2, dtype=torch.int32, device="cuda"), 3)
+    assert m.shape == idx.shape == out[4].shape == (0,) and att.shape == patt.shape == (0, 4, 64)
+    assert counts() == n0
     ramp_head_stats(torch.randn(2, 64, generator=gen, device="cuda"), w)
-    assert ramp_head_stats.launches == n0[1] + 1 and ramp_head_exit.launches == n0[2]
+    paged_decode_attention(torch.randn(1, 4, 64, generator=gen, device="cuda"), pool, pool,
+                           torch.ones(1, 2, dtype=torch.int32, device="cuda"), 3)
+    assert counts() == (n0[0], n0[1] + 1, n0[2] + 1, n0[3])
 
 
 def test_tiny_model_kernels_on_matches_plain_path(gen):
