@@ -17,18 +17,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ApparateController + DecodeRunner on the contiguous cache;
      4b. the same engine on the contiguous cache and on the paged pool, on
      one schedule: greedy tokens equal except differences that begin at a
-     near-tie;
+     near-tie (by the dense path's logits);
      4c. prefix sharing and swap preemption on a pool that runs dry;
      4d. chunked prefill on the paged pool, first tokens held against
-     one-shot prefill.
+     one-shot prefill;
+  3c. (run beside 3 and 3b) the paged MLA kernel against its plain version
+     at DeepSeek-V2-Lite's served shape and on 4096-token rows;
+  5. full-width DeepSeek-V2-Lite (MLA + MoE, absorbed MLA) with seeded
+     random weights, once qwen2-1.5b's are freed: the ramp-head kernels at
+     its d 2048 and V 102400; 5a. prefill + 8 decode steps on the paged
+     pool with the kernels off and on; 5b. contiguous rows vs the paged pool
+     on one schedule (the paged MLA kernel in all 27 layers of every decode
+     step), the paged run on the contiguous run's MoE routing, then both
+     layouts' aten ops a window counted and their times taken without
+     hooks; 5c. swap preemption on a pool that runs
+     dry.
 Every serving phase zeroes the launch counters just before it and reads
-them just after. The last two lines are the kernels JSON and the result
-JSON.
+them just after, and counts the model's decode steps. The last two lines
+are the kernels JSON and the result JSON.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -40,6 +53,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 HBM_BW = 3.35e12  # B/s, H100 SXM
 PEAK_BF16 = 989e12  # dense bf16 FLOP/s, H100 SXM
 CONFIG = "qwen2-1.5b"
+DS_CONFIG = "deepseek-v2-lite-16b"
 SEED = 0
 
 
@@ -206,6 +220,71 @@ def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16):
     return row
 
 
+def check_paged_mla(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=16, r=512, dr=64):
+    """Phase 3c: the paged MLA kernel over a shuffled block table (pool
+    block 0 is the trash block no row owns), per-row pos drawn from
+    [pos_lo, pos_hi), against its plain version; timed beside one library
+    route."""
+    from repro_torch.kernels.decode_attention import (
+        paged_mla_decode_attention,
+        paged_mla_decode_attention_ref,
+    )
+
+    dt = torch.bfloat16
+    S, P = nb * bs, B * nb + 1
+    q_lat = torch.randn(B, H, r, generator=gen, device="cuda").to(dt)
+    q_pe = torch.randn(B, H, dr, generator=gen, device="cuda").to(dt)
+    c_pool = torch.randn(P, bs, r, generator=gen, device="cuda").to(dt)
+    kpe_pool = torch.randn(P, bs, dr, generator=gen, device="cuda").to(dt)
+    table = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).reshape(B, nb)
+    table = table.to(torch.int32)
+    pos = torch.randint(pos_lo, pos_hi, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    scale = 1.0 / (128 + dr) ** 0.5  # 1/sqrt(dn + dr) of DeepSeek-V2-Lite
+    args = (q_lat, q_pe, c_pool, kpe_pool, table, pos)
+    n0 = paged_mla_decode_attention.launches
+    out = paged_mla_decode_attention(*args, scale=scale)
+    ref = paged_mla_decode_attention_ref(*args, scale=scale)
+    torch.cuda.synchronize()
+    # bf16 output: the kernel rounds once from f32; the plain version sums
+    # in another order; 1e-2 covers bf16's 8-bit mantissa
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2):
+        fail(f"paged_mla_decode_attention {label}: max abs err {err}")
+    tab = table.long()
+    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None].long())
+
+    def library():
+        c = c_pool[tab].reshape(B, S, r)
+        kp = kpe_pool[tab].reshape(B, S, dr)
+        s = (torch.matmul(q_lat, c.transpose(1, 2))
+             + torch.matmul(q_pe, kp.transpose(1, 2))).float() * scale
+        p = torch.softmax(s.masked_fill(~mask[:, None], -1e30), dim=-1)
+        return torch.matmul(p.to(dt), c)
+
+    nk = torch.clamp(pos.long(), max=S - 1) + 1
+    nblk = ((nk + bs - 1) // bs).sum().item()  # table entries the walk reads
+    nk = nk.sum().item()
+    nbytes = (q_lat.numel() + q_pe.numel()) * 2 + nk * (r + dr) * 2 + nblk * 4 + B * 4 \
+        + B * H * r * 2
+    flops = nk * H * (2 * (r + dr) + 2 * r)  # scores against c and k_pe, then p.c
+    bm, by = bound_ms(nbytes, flops)
+    row = {
+        "shape": label, "max_abs_err": err,
+        "ms": time_ms(lambda: paged_mla_decode_attention(*args, scale=scale)),
+        "plain_ms": time_ms(lambda: paged_mla_decode_attention_ref(*args, scale=scale)),
+        "library_ms": time_ms(library),
+        "library": "c_pool[table] and kpe_pool[table] gathers, torch.matmul scores, "
+                   "torch.softmax, torch.matmul context",
+        "bound_ms": bm, "bound_by": by, "bytes": nbytes, "flops": flops,
+        # on the CUDA cores (67 TFLOP/s f32, the operations a CTA runs in
+        # f32) the same work takes at least this long
+        "cuda_core_ms": 1e3 * flops / 67e12,
+    }
+    paged_mla_decode_attention.launches = n0  # comparison launches do not count
+    print(f"paged_mla_decode_attention {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
 def _near_tie_labels(lab, lab_ref, logits_ref, tol, what):
     """Labels must match exactly, except where the reference's logit at the
     kernel's label is within `tol` of the reference max (a near-tie)."""
@@ -225,7 +304,14 @@ def _logits_ref(h, w, v_limit):
     return torch.where(col < v_limit, lg, -1e30)
 
 
+def head_weight(params, cfg):
+    """The final head (d, V): the tied embed^T view, or the untied lm_head."""
+    return params["tok"]["embed"].T if cfg.tie_embeddings else params["tok"]["lm_head"]
+
+
 def check_ramp_head(params, cfg, gen):
+    """Both ramp-head kernels against their plain versions on the model's
+    final head and on ramp head 0, at B 8 and the model's d and V."""
     from repro_torch.kernels.ramp_head import (
         ramp_head_exit,
         ramp_head_exit_ref,
@@ -234,12 +320,12 @@ def check_ramp_head(params, cfg, gen):
     )
 
     B, d, V, vl = 8, cfg.d_model, cfg.padded_vocab, cfg.vocab_size
-    h = torch.randn(B, d, generator=gen, device="cuda").to(torch.bfloat16)
+    h = torch.randn(B, d, generator=gen, device="cuda").to(head_weight(params, cfg).dtype)
     rows = {}
 
     def close(x, y):
-        # f32 stats of a 1536-term contraction and a 153600-term softmax
-        # sum, in another order: rtol 1e-4, atol scaled to the magnitude
+        # f32 stats of a d-term contraction and a V-term softmax sum, in
+        # another order: rtol 1e-4, atol scaled to the magnitude
         return torch.allclose(x, y, rtol=1e-4, atol=1e-4 * float(y.abs().max()))
 
     def lib_stats(hh, w):
@@ -254,8 +340,10 @@ def check_ramp_head(params, cfg, gen):
         # never move m, s, t, argmax or exit, so only d * v_limit weights count
         return bound_ms(d * vl * 2 + B * d * 2 + B * (16 + extra_out), 2.0 * B * d * vl)
 
-    # -- stats on the tied head: embed^T, a view contiguous along d
-    w = params["tok"]["embed"].T
+    # -- stats on the final head: the tied embed^T (a view contiguous along
+    # d) or the untied lm_head (contiguous along V)
+    w = head_weight(params, cfg)
+    wname = "embed^T" if cfg.tie_embeddings else "lm_head"
     got = ramp_head_stats(h, w, v_limit=vl)
     ref = ramp_head_stats_ref(h, w, vl)
     torch.cuda.synchronize()
@@ -267,7 +355,7 @@ def check_ramp_head(params, cfg, gen):
     bm, by = bounds(0)
     n0 = ramp_head_stats.launches
     rows["ramp_head_stats"] = {
-        "shape": f"B={B} embed^T ({d},{V}) v_limit={vl}", "max_abs_err": err,
+        "shape": f"B={B} {wname} ({d},{V}) v_limit={vl}", "max_abs_err": err,
         "near_ties": ties,
         "ms": time_ms(lambda: ramp_head_stats(h, w, v_limit=vl)),
         "plain_ms": time_ms(lambda: ramp_head_stats_ref(h, w, vl)),
@@ -310,11 +398,11 @@ def check_ramp_head(params, cfg, gen):
         "bound_ms": bm, "bound_by": by,
     }
     ramp_head_exit.launches = n0
-    n_bound = check_exit_boundary(h, params["tok"]["embed"].T, vl, "embed^T")
+    n_bound = check_exit_boundary(h, head_weight(params, cfg), vl, wname)
     n_bound += check_exit_boundary(h, w, vl, "head[site]")
     rows["ramp_head_exit"]["boundary_rows"] = n_bound
     for name, row in rows.items():
-        print(f"{name}: {json.dumps(row)}", flush=True)
+        print(f"{name} ({cfg.name}): {json.dumps(row)}", flush=True)
     return rows
 
 
@@ -356,10 +444,84 @@ def check_exit_boundary(h, w, vl, layout):
 # phase 4a: kernels off vs on through the full-width model
 
 
-def compare_paths(params, cfg):
-    """Prefill 128 tokens for 8 rows, then 8 greedy decode steps, with the
-    kernels off (dense attention, dense head) and on. Both paths are fed
-    the kernels-off greedy tokens, so a near-tie cannot derail the rest.
+class RouteReplay:
+    """MoE routing held fixed between two runs of one model: ``record``
+    keeps the expert ids of every router call of one run, ``replay`` hands
+    them, call for call, to the other run (its gates are its own router
+    probabilities at those experts, normalised as the router does).
+
+    Why: with seeded random weights DeepSeek's router is nearly uniform
+    over 64 experts, its 6th and 7th probabilities a median ~1e-4 apart,
+    while two correct paths that round attention differently move them by
+    ~1e-4 to 1e-3 (a CPU probe at full width, 4 layers). Left free, the
+    router flips experts in most rows somewhere in 26 MoE layers and the
+    paths' outputs part for reasons that have nothing to do with the
+    kernels. ``flips`` counts, on the device, the routes the replaying run
+    would have taken otherwise: the router near-ties (``flip_count()``
+    reads it once, after the runs, so the replay adds no host sync)."""
+
+    def __init__(self):
+        self.ids, self.mode, self.i, self.flips, self.routes = [], None, 0, None, 0
+
+    def flip_count(self) -> int:
+        return 0 if self.flips is None else int(self.flips)
+
+    def __call__(self, mode, fn):
+        from repro_torch.models import moe as MOE
+
+        router = MOE._router
+
+        def hook(cfg_, p, x2d):
+            gates, idx, probs = router(cfg_, p, x2d)
+            if self.mode == "record":
+                self.ids.append(idx)
+                return gates, idx, probs
+            if self.i >= len(self.ids) or self.ids[self.i].shape != idx.shape:
+                fail(f"routing replay out of step at router call {self.i}")
+            want = self.ids[self.i]
+            self.i += 1
+            self.routes += idx.shape[0]
+            d = (want.sort(-1).values != idx.sort(-1).values).any(-1).sum()
+            self.flips = d if self.flips is None else self.flips + d
+            g = probs.gather(1, want)
+            return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), want, probs
+
+        self.mode = mode
+        if mode == "record":
+            self.ids, self.i = [], 0
+        MOE._router = hook
+        try:
+            return fn()
+        finally:
+            MOE._router = router
+            if mode == "replay" and self.i != len(self.ids):
+                fail(f"routing replay used {self.i} of {len(self.ids)} recorded router calls")
+
+
+def _to_pool(model, cache, bs, gen):
+    """Lay a contiguous cache of B rows x nb*bs tokens out as a paged pool
+    of 1 + B*nb blocks of bs under a shuffled block table (block 0 is the
+    trash block no row owns). Returns (pool, table)."""
+    from repro_torch.models.common import tree_leaves
+
+    leaves = tree_leaves(cache)
+    B, S = leaves[0].shape[-3], leaves[0].shape[-2]  # any leaf: (.., B, S, w)
+    nb = S // bs
+    table = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).reshape(B, nb)
+    pool = model.init_paged_cache(1 + B * nb, bs, device="cuda")
+    for pl, cl in zip(tree_leaves(pool), leaves):
+        ax = pl.dim() - 3  # the pool axis: 0 for prefix leaves, 1 for stacked ones
+        blocks = cl.reshape(cl.shape[:ax] + (B * nb, bs) + cl.shape[-1:])
+        pl.index_copy_(ax, table.reshape(-1), blocks)
+    return pool, table.to(torch.int32)
+
+
+def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0):
+    """Prefill 128 tokens for 8 rows, then 8 greedy decode steps, through
+    the model with the kernels off (``off_cfg``) and on (``on_cfg``); with
+    ``paged_bs`` the decode steps run on a paged pool of that block size
+    (both paths on the same pool contents). Both paths are fed the
+    kernels-off greedy tokens, so a near-tie cannot derail the rest.
 
     Labels of the final head and the four ramps must be equal, except a
     near-tie: the two paths round differently in bf16 (the dense path
@@ -373,15 +535,14 @@ def compare_paths(params, cfg):
     from repro_torch.models import build_model
     from repro_torch.models import layers as LY
 
-    off = build_model(cfg.replace(decode_attn="dense", pallas_head="off"))
-    on = build_model(cfg.replace(decode_attn="kernel", pallas_head="kernel"))
+    off, on = build_model(off_cfg), build_model(on_cfg)
     B, P, T = 8, 128, 8
     act = [2, 5, 8, 11]
     vl = cfg.vocab_size
     thr = torch.full((len(act),), 0.5, device="cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 1)
-    toks = torch.randint(1, vl, (B, P), generator=gen, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 1)
+    toks = torch.randint(1, vl, (B, P), generator=g, device="cuda")
 
     def spy(model):
         seen = {}
@@ -399,7 +560,7 @@ def compare_paths(params, cfg):
     def f32_logits(seen):
         """f32 logits of the final head and each ramp from a path's hidden."""
         h = LY.apply_norm(cfg, params["final_norm"], seen["h"])[:, 0]
-        out = [_logits_ref(h, params["tok"]["embed"].T, vl)]
+        out = [_logits_ref(h, head_weight(params, cfg), vl)]
         hs = on._ramp_hidden(params, seen["pooled"], act)[:, :, 0]
         out += [_logits_ref(hs[j], params["ramps"]["head"][i], vl) for j, i in enumerate(act)]
         return out
@@ -408,6 +569,7 @@ def compare_paths(params, cfg):
         return [o["final"]["label"]] + [o["ramps"]["label"][j] for j in range(len(act))]
 
     stats = {"labels": 0, "near_ties": 0, "max_eps": 0.0}
+    routes = RouteReplay()  # MoE: the on path takes the off path's experts
 
     def check(o_on, o_off, t):
         lg_on, lg_off = f32_logits(seen_on), f32_logits(seen_off)
@@ -427,15 +589,24 @@ def compare_paths(params, cfg):
                 stats["near_ties"] += 1
             stats["labels"] += B
 
+    cache_len = P + T + 1
+    if paged_bs:
+        cache_len = -(-cache_len // paged_bs) * paged_bs
     times = {}
     runs = {}
     for name, model in (("off", off), ("on", on)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runs[name] = model.prefill(params, toks, cache_len=P + T + 1, active_sites=act)
+        runs[name] = model.prefill(params, toks, cache_len=cache_len, active_sites=act)
         torch.cuda.synchronize()
         times[f"prefill_{name}_ms"] = 1e3 * (time.perf_counter() - t0)
     (c_off, o_off), (c_on, o_on) = runs["off"], runs["on"]
+    tables = None
+    if paged_bs:  # one pool for both paths, each path its own copy
+        from repro_torch.models.common import tree_map
+
+        c_off, tables = _to_pool(off, c_off, paged_bs, gen)
+        c_on = tree_map(torch.clone, c_off)
     step_ms = {"off": 0.0, "on": 0.0}
     pos = torch.full((B,), P, device="cuda", dtype=torch.int64)
     for t in range(T + 1):
@@ -444,8 +615,9 @@ def compare_paths(params, cfg):
             for name, model, cache in (("off", off, c_off), ("on", on, c_on)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                _, o = model.decode(params, cache, nxt, pos, active_sites=act,
-                                    exit_thresholds=thr)
+                _, o = routes("record" if name == "off" else "replay", lambda: model.decode(
+                    params, cache, nxt, pos, active_sites=act, exit_thresholds=thr,
+                    block_tables=tables))
                 torch.cuda.synchronize()
                 step_ms[name] += 1e3 * (time.perf_counter() - t0)
                 if name == "off":
@@ -457,11 +629,15 @@ def compare_paths(params, cfg):
     times["decode_step_off_ms"] = step_ms["off"] / T
     times["decode_step_on_ms"] = step_ms["on"] / T
     nxt = o_off["final"]["label"].reshape(B, 1).long()
-    times["profile_on"] = profile_step(lambda: on.decode(params, c_on, nxt, pos, active_sites=act,
-                                                         exit_thresholds=thr))
-    print(f"model {CONFIG} kernels off vs on: {stats['labels']} labels, "
+    times["profile_on"] = profile_step(lambda: on.decode(
+        params, c_on, nxt, pos, active_sites=act, exit_thresholds=thr, block_tables=tables))
+    print(f"model {cfg.name} kernels off ({off_cfg.decode_attn}, {off_cfg.pallas_head}) vs on "
+          f"({on_cfg.decode_attn}, {on_cfg.pallas_head}): {stats['labels']} labels, "
           f"{stats['near_ties']} near-ties, max logit eps {stats['max_eps']:.4f}; "
-          f"{json.dumps(times)}", flush=True)
+          + (f"MoE routing replayed from the off path: {routes.flip_count()} of "
+             f"{routes.routes} token routes of the on path would have taken other experts "
+             "(router near-ties); "
+             if cfg.moe else "") + json.dumps(times), flush=True)
     return times
 
 
@@ -493,27 +669,47 @@ def profile_step(fn, top=6):
 # kernels-off and kernels-on bf16 logits of one step apart by up to ~0.17
 NEAR_TIE = 0.25
 PAGED_PROMPT, PAGED_TOKENS = 120, 38  # cache_len 120 + 38 + 2 = 160 = 10 blocks of 16
-KERNELS = ("decode_attention", "paged_decode_attention", "ramp_head_stats", "ramp_head_exit")
+ATTENTION = ("decode_attention", "paged_decode_attention", "paged_mla_decode_attention")
 
 
 def _kernel_fns():
-    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        paged_decode_attention,
+        paged_mla_decode_attention,
+    )
     from repro_torch.kernels.ramp_head import ramp_head_exit, ramp_head_stats
 
     return {"decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
-            "ramp_head_stats": ramp_head_stats, "ramp_head_exit": ramp_head_exit}
+            "ramp_head_stats": ramp_head_stats, "ramp_head_exit": ramp_head_exit,
+            "paged_mla_decode_attention": paged_mla_decode_attention}
 
 
 def counted(fn):
     """Run fn() with every kernel's launch count set to 0 just before and
-    read just after. Returns (fn's result, {kernel: launches})."""
+    read just after, and count the model's decode steps (``LM.decode``
+    calls) in between. Returns (fn's result, {kernel: launches,
+    "decode_steps": n})."""
+    from repro_torch.models.transformer import LM
+
     fns = _kernel_fns()
     for f in fns.values():
         f.launches = 0
-    out = fn()
+    steps = [0]
+    decode = LM.decode
+
+    def counting_decode(self, *a, **kw):
+        steps[0] += 1
+        return decode(self, *a, **kw)
+
+    LM.decode = counting_decode
+    try:
+        out = fn()
+    finally:
+        LM.decode = decode
     torch.cuda.synchronize()
-    return out, {name: f.launches for name, f in fns.items()}
+    return out, {**{name: f.launches for name, f in fns.items()}, "decode_steps": steps[0]}
 
 
 def _final_logits(params, cfg, toks):
@@ -533,7 +729,115 @@ def _final_logits(params, cfg, toks):
     model._head_stats = head_stats
     model.prefill(params, toks, active_sites=None, with_cache=False)
     h = LY.apply_norm(cfg, params["final_norm"], seen["h"])[:, 0]
-    return _logits_ref(h, params["tok"]["embed"].T, cfg.vocab_size)
+    return _logits_ref(h, head_weight(params, cfg), cfg.vocab_size)
+
+
+class TokenHidden:
+    """Records, for one serving run, the hidden state the final head read
+    for every generated token of every request, in that run's own
+    numerics: the prefill's last position for token 0 (``start``), then
+    window step k of a slot at pos p for token p - prompt_len + 1 + k
+    (``step_multi``). ``logits(rid, t)`` gives that token's f32 logits."""
+
+    def __init__(self, params, cfg):
+        self.params, self.cfg, self.h = params, cfg, {}
+
+    def __call__(self, fn):
+        from repro_torch.models.transformer import LM
+        from repro_torch.serving.runner import DecodeRunner
+
+        start, step_multi, head_stats = DecodeRunner.start, DecodeRunner.step_multi, LM._head_stats
+        item_of, rows = {}, []  # slot -> request; the current call's (request, token) rows
+
+        def rec_start(runner, slot, item):
+            item_of[slot] = item
+            rows[:] = [(item, 0)]
+            return start(runner, slot, item)
+
+        def rec_step_multi(runner, slots, active, n_steps, thresholds):
+            S = runner.prompts.shape[1]
+            rows[:] = [(item_of[sl], int(runner._pos[sl]) - S + 1) for sl in slots]
+            return step_multi(runner, slots, active, n_steps, thresholds)
+
+        def rec_head_stats(model, params_, h_last, *a, **kw):
+            for i, (item, t) in enumerate(rows):
+                self.h[(item, t)] = h_last[i, -1].clone()
+            rows[:] = [(item, t + 1) for item, t in rows]  # the window's next step
+            return head_stats(model, params_, h_last, *a, **kw)
+
+        DecodeRunner.start, DecodeRunner.step_multi = rec_start, rec_step_multi
+        LM._head_stats = rec_head_stats
+        try:
+            return fn()
+        finally:
+            DecodeRunner.start, DecodeRunner.step_multi = start, step_multi
+            LM._head_stats = head_stats
+
+    def logits(self, rid, t):
+        from repro_torch.models import layers as LY
+
+        h = LY.apply_norm(self.cfg, self.params["final_norm"], self.h[(rid, t)][None])
+        return _logits_ref(h, head_weight(self.params, self.cfg), self.cfg.vocab_size)[0]
+
+
+def _complete(resp, n, n_tokens, vocab, what):
+    if len(resp) != n:
+        fail(f"{what}: served {len(resp)} of {n} requests")
+    for r in resp:
+        if r.dropped or r.shed or len(r.tokens) != n_tokens or len(r.final_tokens) != n_tokens:
+            fail(f"{what}: request {r.rid} did not complete its {n_tokens} tokens")
+        if not all(0 <= x < vocab for x in r.final_tokens):
+            fail(f"{what}: request {r.rid} has tokens outside the vocabulary")
+
+
+def window_ops(fn):
+    """fn() with the aten ops that ``DecodeRunner.step_multi`` dispatches
+    counted, those inside its ``LM.decode`` calls apart: the host work a
+    window costs, whatever the host's speed. The count slows the run, so
+    its times are not used. Returns (fn's result, {"ops_per_window",
+    "decode_ops_per_step"})."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.runner import DecodeRunner
+
+    c = {"windows": 0, "steps": 0, "ops": 0, "decode_ops": 0, "in_window": False,
+         "in_decode": False}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            c["ops"] += 1
+            c["decode_ops"] += c["in_decode"]
+            return func(*args, **(kwargs or {}))
+
+    step_multi, decode = DecodeRunner.step_multi, LM.decode
+
+    def counting_step_multi(runner, *a, **kw):
+        c["windows"] += 1
+        c["in_window"] = True
+        try:
+            with Count():
+                return step_multi(runner, *a, **kw)
+        finally:
+            c["in_window"] = False
+
+    def counting_decode(model, *a, **kw):
+        c["steps"] += c["in_window"]
+        c["in_decode"] = c["in_window"]
+        try:
+            return decode(model, *a, **kw)
+        finally:
+            c["in_decode"] = False
+
+    DecodeRunner.step_multi, LM.decode = counting_step_multi, counting_decode
+    try:
+        out = fn()
+    finally:
+        DecodeRunner.step_multi, LM.decode = step_multi, decode
+    if not c["windows"] or not c["steps"]:
+        fail(f"window_ops: {c['windows']} windows, {c['steps']} decode steps")
+    return out, {"ops_per_window": c["ops"] / c["windows"],
+                 "decode_ops_per_step": c["decode_ops"] / c["steps"]}
 
 
 def _divergence_gap(params, cfg, prompt, toks_a, toks_b):
@@ -547,53 +851,129 @@ def _divergence_gap(params, cfg, prompt, toks_a, toks_b):
     return t, abs(lg[toks_a[t]] - lg[toks_b[t]]).item()
 
 
-def _complete(resp, n, n_tokens, vocab, what):
-    if len(resp) != n:
-        fail(f"{what}: served {len(resp)} of {n} requests")
-    for r in resp:
-        if r.dropped or r.shed or len(r.tokens) != n_tokens or len(r.final_tokens) != n_tokens:
-            fail(f"{what}: request {r.rid} did not complete its {n_tokens} tokens")
-        if not all(0 <= x < vocab for x in r.final_tokens):
-            fail(f"{what}: request {r.rid} has tokens outside the vocabulary")
-
-
-def serve_paged_vs_contiguous(params, cfg, serve):
-    """Phase 4b: 8 requests, prompt 120, 38 tokens, windows of 4, served on
-    the contiguous runner and on the paged pool (bs 16, paged-kernel) on
-    one schedule. Greedy tokens equal, except a difference that begins at
-    a near-tie. Returns the paged run's launch counts."""
-    import numpy as np
-
-    prompts = np.random.default_rng(SEED + 2).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
-    runs = {}
-    for name, bs in (("contiguous", 0), ("paged", 16)):
-        (out, resp), launches = counted(lambda: serve(
-            CONFIG, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
-            verbose=False, kv_block_size=bs, prompts=prompts, params=params))
-        _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, f"4b {name}")
-        runs[name] = (out, {r.rid: r for r in resp}, launches)
-    c_l, p_l = runs["contiguous"][2], runs["paged"][2]
-    if c_l["decode_attention"] <= 0 or c_l["paged_decode_attention"]:
-        fail(f"4b contiguous run launched {c_l}")
-    if p_l["paged_decode_attention"] <= 0 or p_l["decode_attention"]:
-        fail(f"4b paged run launched {p_l}: every decode layer must take the paged kernel")
+def _moe_divergences(phase, runs, hidden):
+    """The MoE model's layouts, the paged run on the contiguous run's
+    experts: where a request's tokens first differ, both runs' own f32
+    logits (``TokenHidden``) must give their served labels, lie within
+    eps <= 0.25 of each other (phase 5a's cap), and each put the two labels
+    within NEAR_TIE of each other. The dense path of ``_divergence_gap``
+    would route the experts afresh, so no third path can judge the tie.
+    Returns the requests that differ."""
     ties = []
     for rid, rc in runs["contiguous"][1].items():
         rp = runs["paged"][1][rid]
-        t, gap = _divergence_gap(params, cfg, prompts[rc.rid], rc.final_tokens, rp.final_tokens)
-        if t is not None:
-            print(f"4b request {rid}: paged and contiguous tokens differ from token {t} "
-                  f"({rc.final_tokens[t]} vs {rp.final_tokens[t]}), logit gap {gap:.4f}",
-                  flush=True)
-            if gap >= NEAR_TIE:
-                fail(f"4b request {rid}: a difference that begins at no near-tie")
-            ties.append(rid)
-    mc, mp = runs["contiguous"][0]["measured"], runs["paged"][0]["measured"]
-    print(f"4b paged vs contiguous serving, 8 x {PAGED_TOKENS} tokens: {8 - len(ties)} of 8 "
-          f"requests token-identical, near-tie divergences {ties}; ms per window "
-          f"{mc['window_ms_mean']:.3f} (contiguous) vs {mp['window_ms_mean']:.3f} (paged), "
-          f"prefill ms {mc['prefill_ms_mean']:.3f} vs {mp['prefill_ms_mean']:.3f}; launches "
-          f"{json.dumps(c_l)} vs {json.dumps(p_l)}; paged kv {json.dumps(runs['paged'][0]['kv_cache'])}",
+        t = next((i for i, (x, y) in enumerate(zip(rc.final_tokens, rp.final_tokens))
+                  if x != y), None)
+        if t is None:
+            continue
+        x, y = rc.final_tokens[t], rp.final_tokens[t]
+        lc, lp = hidden["contiguous"].logits(rid, t), hidden["paged"].logits(rid, t)
+        if lc[x] < lc.max() - 1e-3 or lp[y] < lp.max() - 1e-3:  # as check_ramp_head's ties
+            fail(f"{phase} request {rid}: the recorded logits of token {t} do not give the "
+                 f"served labels {x}, {y}")
+        eps = (lc - lp).abs().max().item()
+        gap_c, gap_p = (lc[x] - lc[y]).item(), (lp[y] - lp[x]).item()
+        print(f"{phase} request {rid}: paged and contiguous tokens differ from token {t} "
+              f"({x} vs {y}), contiguous logit gap {gap_c:.4f}, paged {gap_p:.4f}, "
+              f"paths apart by eps {eps:.4f}", flush=True)
+        if eps > 0.25 or gap_c >= NEAR_TIE or gap_p >= NEAR_TIE:
+            fail(f"{phase} request {rid}: a difference that begins at no near-tie")
+        ties.append(rid)
+    return ties
+
+
+def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kernel):
+    """Phases 4b and 5b: 8 requests, prompt 120, 38 tokens, windows of 4,
+    served on the contiguous runner and on the paged pool (bs 16,
+    paged-kernel) on one schedule. Greedy tokens equal, except a difference
+    that begins at a near-tie. Each run launches its attention kernel
+    (``cont_kernel``, ``paged_kernel``; None: none) once per layer per
+    decode step and no other attention kernel, and both ramp-head kernels.
+
+    For the MoE model the compared runs carry hooks (the paged run replays
+    the contiguous run's routing, both record their final-head inputs), so
+    the times come from four more runs of each layout without any hook, in
+    the order contiguous, paged, paged, contiguous, twice, and one more run
+    of each counts the aten ops of a window (``window_ops``). Returns the
+    compared paged run's launch counts."""
+    import numpy as np
+
+    prompts = np.random.default_rng(SEED + 2).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
+    layouts = (("contiguous", 0), ("paged", 16))
+
+    def serve_once(name, bs, wrap=lambda call: call()):
+        (out, resp), launches = counted(lambda: wrap(lambda: serve(
+            cfg.name, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
+            verbose=False, kv_block_size=bs, prompts=prompts, params=params)))
+        _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, f"{phase} {name}")
+        want = cont_kernel if bs == 0 else paged_kernel
+        steps = launches["decode_steps"]
+        for k in ATTENTION:
+            expect = cfg.n_layers * steps if k == want else 0
+            if launches[k] != expect or steps <= 0:
+                fail(f"{phase} {name} run launched {k} {launches[k]} times in {steps} decode "
+                     f"steps; expected {expect}")
+        for k in ("ramp_head_stats", "ramp_head_exit"):
+            if launches[k] <= 0:
+                fail(f"{phase} {name} run launched {k} {launches[k]} times")
+        return out, {r.rid: r for r in resp}, launches
+
+    runs = {}
+    if cfg.moe:
+        routes, hidden = RouteReplay(), {}
+        for name, bs in layouts:
+            hidden[name] = TokenHidden(params, cfg)
+            mode = "record" if bs == 0 else "replay"
+            runs[name] = serve_once(name, bs, lambda call, h=hidden[name], m=mode: h(
+                lambda: routes(m, call)))
+        ties = _moe_divergences(phase, runs, hidden)
+        timed = []
+        for name, bs in (layouts + layouts[::-1]) * 2:
+            gc.collect()  # earlier runs' engine objects sit in reference cycles
+            timed.append((name, serve_once(name, bs)))
+        hooked = " vs ".join(f"{runs[name][0]['measured']['window_ms_mean']:.3f}"
+                             for name, _ in layouts)
+        ops = [window_ops(lambda: serve_once(name, bs))[1] for name, bs in layouts]
+        extra = (f"MoE routing replayed from the contiguous run: {routes.flip_count()} of "
+                 f"{routes.routes} token routes of the paged run would have taken other "
+                 f"experts; ms per window with the hooks {hooked}; aten ops per window "
+                 f"{ops[0]['ops_per_window']:.1f} vs {ops[1]['ops_per_window']:.1f}, in "
+                 f"LM.decode per step {ops[0]['decode_ops_per_step']:.1f} vs "
+                 f"{ops[1]['decode_ops_per_step']:.1f}; times below from runs without hooks "
+                 "in the order c, p, p, c, c, p, p, c (median last); ")
+    else:
+        for name, bs in layouts:
+            runs[name] = serve_once(name, bs)
+        ties = []
+        for rid, rc in runs["contiguous"][1].items():
+            rp = runs["paged"][1][rid]
+            t, gap = _divergence_gap(params, cfg, prompts[rid], rc.final_tokens,
+                                     rp.final_tokens)
+            if t is not None:
+                print(f"{phase} request {rid}: paged and contiguous tokens differ from token "
+                      f"{t} ({rc.final_tokens[t]} vs {rp.final_tokens[t]}), logit gap "
+                      f"{gap:.4f}", flush=True)
+                if gap >= NEAR_TIE:
+                    fail(f"{phase} request {rid}: a difference that begins at no near-tie")
+                ties.append(rid)
+        timed = [(name, runs[name]) for name, _ in layouts]
+        extra = ""
+    m = {name: [run[0]["measured"] for n, run in timed if n == name] for name, _ in layouts}
+
+    def each(key, fmt):
+        def one(xs):
+            vals = [x[key] for x in xs]
+            med = f" (median {statistics.median(vals):{fmt}})" if len(vals) > 1 else ""
+            return "/".join(format(v, fmt) for v in vals) + med
+        return " vs ".join(one(m[name]) for name, _ in layouts)
+
+    c_l, p_l = runs["contiguous"][2], runs["paged"][2]
+    print(f"{phase} {cfg.name} paged vs contiguous serving on {card_line()}, 8 x "
+          f"{PAGED_TOKENS} tokens: {8 - len(ties)} of 8 requests token-identical, near-tie "
+          f"divergences {ties}; {extra}ms per window {each('window_ms_mean', '.3f')} "
+          f"(contiguous vs paged), prefill ms {each('prefill_ms_mean', '.3f')}, decode "
+          f"tokens/s {each('decode_tokens_per_s', '.2f')}; launches {json.dumps(c_l)} vs "
+          f"{json.dumps(p_l)}; paged kv {json.dumps(runs['paged'][0]['kv_cache'])}",
           flush=True)
     return p_l
 
@@ -665,6 +1045,65 @@ def serve_chunked(params, cfg, serve):
 
 
 # ---------------------------------------------------------------------------
+# phases 5a-5c: DeepSeek-V2-Lite (MLA + MoE) at full width
+
+
+def serve_mla_swap(params, cfg, serve):
+    """Phase 5c: 8 requests (prompt 120, 38 tokens) with swap preemption on
+    a 24-block pool (full capacity is 80, a stream needs up to 10): the
+    pool runs dry and streams are swapped out and back in. No prefix
+    cache: latent pages are not shared."""
+    import numpy as np
+
+    prompts = np.random.default_rng(SEED + 5).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
+    (out, resp), launches = counted(lambda: serve(
+        cfg.name, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
+        verbose=False, kv_block_size=16, kv_blocks=24, preempt="swap", prompts=prompts,
+        params=params))
+    _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, "5c")
+    kv = out["kv_cache"]
+    if not kv["swap_outs"] > 0 or kv["swap_ins"] != kv["swap_outs"]:
+        fail(f"5c: {kv['swap_outs']} swaps out and {kv['swap_ins']} back in; the run must "
+             "swap, and every stream swapped out must come back")
+    if launches["paged_mla_decode_attention"] != cfg.n_layers * launches["decode_steps"]:
+        fail(f"5c: the paged MLA kernel launched {launches['paged_mla_decode_attention']} "
+             f"times in {launches['decode_steps']} decode steps")
+    for k in ("ramp_head_stats", "ramp_head_exit"):
+        if launches[k] <= 0:
+            fail(f"5c: {k} launched {launches[k]} times")
+    print(f"5c {cfg.name} swap preemption, 24-block pool: kv {json.dumps(kv)}; engine "
+          f"{json.dumps(out['simulated']['engine'], default=float)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+
+
+def deepseek_phases(gen, serve):
+    """Phases 5a-5c on full-width DeepSeek-V2-Lite with seeded random
+    weights. Returns (phase 5b's paged serving run's launches, the
+    ramp-head rows at this model's shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    # absorbed MLA on both layouts, as the launcher serves it
+    cfg = get_config(DS_CONFIG).replace(mla_absorbed=True)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"drew {DS_CONFIG} weights ({n / 1e9:.3f} B params with the ramp heads, {cfg.dtype}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rh = check_ramp_head(params, cfg, gen)
+    # 5a: prefill + 8 decode steps on the paged pool, kernels off vs on
+    compare_paths(params, cfg, cfg.replace(decode_attn="paged", pallas_head="off"),
+                  cfg.replace(decode_attn="paged-kernel", pallas_head="kernel"), gen,
+                  paged_bs=16)
+    # 5b: contiguous rows (absorbed plain math, no attention kernel) vs the
+    # pool (the paged MLA kernel in every layer)
+    launches = serve_paged_vs_contiguous(params, cfg, serve, "5b", None,
+                                         "paged_mla_decode_attention")
+    serve_mla_swap(params, cfg, serve)
+    return launches, rh
 
 
 def main() -> None:
@@ -708,6 +1147,12 @@ def main() -> None:
         8, 10, "B=8 H=12 KH=2 hd=128 bs=16 nb=10 pos 120..159 shuffled bf16", gen, 120, 160)
     check_paged_decode_attention(
         32, 256, "B=32 H=12 KH=2 hd=128 bs=16 nb=256 pos 0..4095 shuffled bf16", gen, 0, 4096)
+    # -- phase 3c: the paged MLA kernel at DeepSeek-V2-Lite's served load
+    # (the same 10 blocks of 16, rows at pos 120..159) and on 4096-token rows
+    mla_main = check_paged_mla(
+        8, 10, "B=8 H=16 r=512 dr=64 bs=16 nb=10 pos 120..159 shuffled bf16", gen, 120, 160)
+    check_paged_mla(
+        32, 256, "B=32 H=16 r=512 dr=64 bs=16 nb=256 pos 0..4095 shuffled bf16", gen, 0, 4096)
     cfg = get_config(CONFIG)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -719,7 +1164,8 @@ def main() -> None:
 
     # -- phase 4: the full-width model, then serving (the weights drawn above
     # are the ones serve_generative draws from the same seed)
-    compare_paths(params, cfg)
+    compare_paths(params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
+                  cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen)
     del model
     torch.cuda.empty_cache()
     (out, resp), launches = counted(lambda: serve_generative(
@@ -736,29 +1182,48 @@ def main() -> None:
           flush=True)
     print("engine summary (SIMULATED from the analytic H100 profile, not timed): "
           + json.dumps(out["simulated"]["apparate"], default=float), flush=True)
-    paged_launches = serve_paged_vs_contiguous(params, cfg, serve_generative)
+    paged_launches = serve_paged_vs_contiguous(params, cfg, serve_generative, "4b",
+                                               "decode_attention", "paged_decode_attention")
     serve_prefix_swap(params, cfg, serve_generative)
     serve_chunked(params, cfg, serve_generative)
-    launches["paged_decode_attention"] = paged_launches["paged_decode_attention"]
+    print(f"qwen2-1.5b phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
+
+    # -- phase 5: DeepSeek-V2-Lite, once qwen2-1.5b's weights are freed (the
+    # serving engine's objects hold them in reference cycles until a collection)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_launches, ds_rh = deepseek_phases(gen, serve_generative)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
            "paged_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
            "ramp_head_stats": "src/repro_torch/kernels/csrc/ramp_head.cu",
-           "ramp_head_exit": "src/repro_torch/kernels/csrc/ramp_head.cu"}
+           "ramp_head_exit": "src/repro_torch/kernels/csrc/ramp_head.cu",
+           "paged_mla_decode_attention": "src/repro_torch/kernels/csrc/paged_mla_decode.cu"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention/kernel.py:90",
                 "paged_decode_attention": "src/repro/kernels/decode_attention/paged.py:107",
                 "ramp_head_stats": "src/repro/kernels/ramp_head/kernel.py:98",
-                "ramp_head_exit": "src/repro/kernels/ramp_head/kernel.py:145"}
-    rows = {"decode_attention": da_main, "paged_decode_attention": pda_main, **rh}
+                "ramp_head_exit": "src/repro/kernels/ramp_head/kernel.py:145",
+                "paged_mla_decode_attention":
+                    "src/repro/kernels/decode_attention/paged_mla.py:117"}
+    # (kernel, its phase-3 row, the counted run its launches come from); the
+    # ramp heads have a row for each model's path, at that model's shapes
+    ds_path = f"{DS_CONFIG} 5b paged"
+    entries = [("decode_attention", da_main, launches, f"{CONFIG} 4a"),
+               ("paged_decode_attention", pda_main, paged_launches, f"{CONFIG} 4b paged"),
+               ("ramp_head_stats", rh["ramp_head_stats"], launches, f"{CONFIG} 4a"),
+               ("ramp_head_exit", rh["ramp_head_exit"], launches, f"{CONFIG} 4a"),
+               ("ramp_head_stats", ds_rh["ramp_head_stats"], ds_launches, ds_path),
+               ("ramp_head_exit", ds_rh["ramp_head_exit"], ds_launches, ds_path),
+               ("paged_mla_decode_attention", mla_main, ds_launches, ds_path)]
     kernels = []
-    for name in KERNELS:
-        r = rows[name]
+    for name, r, counts, path in entries:
         kernels.append({
             "name": name, "route": "cuda", "source": src[name], "replaces": replaces[name],
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "path": path, "shape": r["shape"],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 """Architecture config registry (the port's copy).
 
 A field-for-field copy of the JAX package's ``ArchConfig``, so every port
-config pairs with its reference config. This slice registers the two dense
-decoder LMs of the generative main path: ``CONFIG`` is the published shape,
-``TINY`` a reduced same-family config for CPU tests.
+config pairs with its reference config. The port registers the two dense
+decoder LMs of the generative main path and the MLA + MoE decoder
+DeepSeek-V2-Lite: ``CONFIG`` is the published shape, ``TINY`` a reduced
+same-family config for CPU tests.
 """
 from __future__ import annotations
 
@@ -90,7 +91,7 @@ class ArchConfig:
     # single-token decode attention against the KV cache: 'dense' (masked
     # sdpa) | 'ref' (kernels/decode_attention plain version) | 'kernel'
     # (the CUDA flash-decode kernel on CUDA tensors, its plain version on
-    # CPU tensors). The paged layouts are not ported yet.
+    # CPU tensors); on the paged pool 'paged' (plain) | 'paged-kernel'.
     decode_attn: str = "dense"
     train_remat: bool = True  # activation checkpointing in train_step
     remat_policy: str = "full"  # 'full' (save nothing) | 'dots' (save matmul outputs)
@@ -112,6 +113,7 @@ class ArchConfig:
 
 
 _MODULES = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "qwen2-1.5b": "qwen2_1_5b",
     "gpt2-medium": "gpt2_medium",
 }

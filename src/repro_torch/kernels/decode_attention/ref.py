@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of flash-decode, contiguous and paged (mirror the
-JAX package's refs)."""
+"""Plain PyTorch versions of flash-decode, contiguous and paged, and of the
+paged MLA latent decode (mirror the JAX package's refs)."""
 from __future__ import annotations
 
 import math
@@ -37,3 +37,27 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_table, pos):
     k = k_pool[tab].reshape(B, nb * bs, KH, hd).transpose(1, 2)
     v = v_pool[tab].reshape(B, nb * bs, KH, hd).transpose(1, 2)
     return decode_attention_ref(q, k, v, pos)
+
+
+def paged_mla_decode_attention_ref(q_lat, q_pe, c_pool, kpe_pool, block_table, pos, *,
+                                   scale):
+    """Paged MLA (absorbed latent) plain version. q_lat: (B,H,r); q_pe:
+    (B,H,dr); c_pool: (P, bs, r) latent pool (keys AND values); kpe_pool:
+    (P, bs, dr) shared rope-key pool; block_table: int (B, nb). Gathers
+    each row's latent blocks back into the virtually-contiguous
+    (B, nb*bs, .) layout and applies the absorbed decode math."""
+    B, H, r = q_lat.shape
+    P, bs, _ = c_pool.shape
+    nb = block_table.shape[1]
+    tab = block_table.long()
+    c = c_pool[tab].reshape(B, nb * bs, r).float()
+    kp = kpe_pool[tab].reshape(B, nb * bs, -1).float()
+    s = (
+        torch.einsum("bhr,bsr->bhs", q_lat.float(), c)
+        + torch.einsum("bhn,bsn->bhs", q_pe.float(), kp)
+    ) * scale
+    mask = (torch.arange(nb * bs, device=q_lat.device)[None, None]
+            <= torch.as_tensor(pos, device=q_lat.device).reshape(-1, 1, 1))
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bsr->bhr", p, c).to(q_lat.dtype)

@@ -7,6 +7,10 @@ batching engine, on the CUDA card.
   # the paged KV pool, with prefix sharing, swap preemption, chunked prefill
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-block-size 16 \\
       --kv-blocks 40 --prefix-cache --preempt swap --prefill-chunk 64
+  # DeepSeek-V2-Lite (MLA + MoE) on paged latent pools (no prefix cache:
+  # latent pages are not shared)
+  PYTHONPATH=src python -m repro_torch.launch.serve --config deepseek-v2-lite-16b \\
+      --kv-block-size 16
 
 The engine's latencies (TTFT, TPT, the vanilla-vs-Apparate wins) are
 SIMULATED from the analytic H100 latency profile, as in the JAX package;
@@ -115,6 +119,10 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     torch.backends.cudnn.allow_tf32 = False
     cfg = (get_tiny if tiny else get_config)(config).replace(
         decode_attn="paged-kernel" if kv_block_size else "kernel", pallas_head="kernel")
+    if cfg.mla:
+        # the paged MLA kernel takes the absorbed (latent-space) decode; both
+        # layouts run it, so they compute the same math
+        cfg = cfg.replace(mla_absorbed=True)
     model = build_model(cfg)
     if params is None:
         params = model.init(seed, device=device)
@@ -183,7 +191,8 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="qwen2-1.5b", choices=["qwen2-1.5b", "gpt2-medium"])
+    ap.add_argument("--config", default="qwen2-1.5b",
+                    choices=["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b"])
     ap.add_argument("--tiny", action="store_true", help="the config's TINY variant")
     ap.add_argument("--n", type=int, default=8, help="requests")
     ap.add_argument("--decode-tokens", type=int, default=32)

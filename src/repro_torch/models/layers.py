@@ -4,10 +4,11 @@ The port's counterpart of the JAX package's ``models/layers.py``, for the
 generative main path: norms, activations, RoPE, the dense FFN, GQA
 attention on a contiguous KV cache (prefill write, then single-token decode
 with per-row positions) or on a paged block pool (single-token decode that
-walks a per-row block table) and the embedding. Params are nested dicts of
-tensors under the reference's leaf paths; compute happens in the config's
-dtype with f32 softmax and norms. Ring, local-window, MLA, cross-attention
-and tensor-parallel branches are not ported yet.
+walks a per-row block table), MLA (DeepSeek-V2's latent attention) on
+both layouts, and the embedding. Params are nested dicts of tensors under
+the reference's leaf paths; compute happens in the config's dtype with f32
+softmax and norms. Ring, local-window, cross-attention and tensor-parallel
+branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -272,6 +273,114 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
     else:
         out = sdpa(q, k, v, mask)
     out = out.reshape(B, S, H * hd)
+    return out @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+
+
+def mla_schema(cfg, L=None) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = torch_dtype(cfg.dtype)
+    pre = () if L is None else (L,)
+    sc = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    return {
+        "wq": ParamInfo(pre + (d, H * (dn + dr)), dt, "normal:0.02"),
+        "w_dkv": ParamInfo(pre + (d, r + dr), dt, "normal:0.02"),
+        "kv_norm": ParamInfo(pre + (r,), torch.float32, "zeros"),
+        "w_uk": ParamInfo(pre + (r, H * dn), dt, "normal:0.02"),
+        "w_uv": ParamInfo(pre + (r, H * dv), dt, "normal:0.02"),
+        "wo": ParamInfo(pre + (H * dv, d), dt, f"normal:{sc}"),
+    }
+
+
+def mla_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
+              absorbed: bool = False, decode_impl: str = "dense", write_gate=None,
+              block_table=None):
+    """MLA attention. The cache holds the compressed kv latent ``c`` (B, S, r)
+    and the shared rope key ``k_pe`` (B, S, dr), written IN PLACE at
+    `cache_index` (gated by `write_gate`, see ``_update_cache_rows``).
+    `absorbed=True` scores the query against the latent directly (the
+    latent-space decode; math-equivalent to the unabsorbed path).
+
+    With `block_table` (int (B, nb)) the cache is a PAGED pool over the
+    latent streams (``c`` (P, bs, r), ``k_pe`` (P, bs, dr)) and
+    `cache_index` is each row's true position: the decode token's latents
+    go to ``(table[b, pos // bs], pos % bs)`` (a stale pos past the table
+    to the trash block 0, see ``_paged_slots``). With `absorbed` and
+    `decode_impl='paged-kernel'` the walk runs in
+    ``attend_decode_paged_mla`` (the CUDA kernel on CUDA tensors, its plain
+    version on CPU tensors); otherwise the table is gathered back into a
+    contiguous stream and the contiguous math below runs on it. Returns
+    (out, cache)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    ckv = x @ p["w_dkv"]  # (B,S,r+dr)
+    c, k_pe = ckv[..., :r], ckv[..., r:]
+    c = rms_norm(c, p["kv_norm"])
+    sin, cos = rope_sincos(positions, dr, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, sin, cos)
+    k_pe = apply_rope(k_pe[:, :, None, :], sin, cos)[:, :, 0]  # single shared head
+    scale = 1.0 / math.sqrt(dn + dr)
+    if block_table is not None:
+        if cache is None or S != 1:
+            raise ValueError("paged MLA is a single-token decode path over "
+                             "a latent block pool")
+        if not decode_impl.startswith("paged"):
+            raise ValueError(f"block_table given but decode_impl={decode_impl!r}")
+        bsz = cache["c"].shape[1]
+        idx = cache_index.reshape(-1).long()
+        blk, off = _paged_slots(block_table, idx, bsz)
+        _update_pool(cache["c"], c[:, 0], blk, off, write_gate)
+        _update_pool(cache["k_pe"], k_pe[:, 0], blk, off, write_gate)
+        if absorbed and decode_impl == "paged-kernel":
+            from repro_torch.kernels.decode_attention import attend_decode_paged_mla
+
+            wuk = p["w_uk"].reshape(r, H, dn)
+            q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wuk)[:, 0]  # (B,H,r)
+            ctx = attend_decode_paged_mla(q_lat, q_pe[:, 0], cache["c"], cache["k_pe"],
+                                          block_table, idx, scale=scale)  # (B,H,r)
+            wuv = p["w_uv"].reshape(r, H, dv)
+            out = torch.einsum("bhr,rhv->bhv", ctx, wuv)[:, None]
+            return out.reshape(B, S, H * dv) @ p["wo"], cache
+        # the plain oracle (and the unabsorbed paged path): gather the table
+        # back into a contiguous latent stream, mask kpos <= pos, and fall
+        # through to the contiguous math
+        nb = block_table.shape[1]
+        tab = block_table.long()
+        c = cache["c"][tab].reshape(B, nb * bsz, r)
+        k_pe = cache["k_pe"][tab].reshape(B, nb * bsz, dr)
+        kpos = torch.arange(nb * bsz, device=x.device)[None, :]
+        mask = (kpos <= idx[:, None])[:, None, None, :]
+    elif cache is not None:
+        c = _update_cache_rows(cache["c"], c, cache_index, write_gate)
+        k_pe = _update_cache_rows(cache["k_pe"], k_pe, cache_index, write_gate)
+    Sk = c.shape[1]
+    if absorbed:
+        # q_nope' = q_nope @ w_uk^T: score against the latent directly
+        wuk = p["w_uk"].reshape(r, H, dn)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wuk)
+        s_nope = torch.einsum("bqhr,bsr->bhqs", q_lat, c)
+        s_pe = torch.einsum("bqhn,bsn->bhqs", q_pe, k_pe)
+        logits = (s_nope + s_pe).float() * scale
+        if mask is not None:
+            logits = torch.where(mask, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(c.dtype)
+        ctx = torch.einsum("bhqs,bsr->bqhr", probs, c)
+        wuv = p["w_uv"].reshape(r, H, dv)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx, wuv)
+    else:
+        k_nope = (c @ p["w_uk"]).reshape(B, Sk, H, dn)
+        v = (c @ p["w_uv"]).reshape(B, Sk, H, dv)
+        k = torch.cat([k_nope, k_pe[:, :, None].expand(B, Sk, H, dr)], dim=-1)
+        qq = torch.cat([q_nope, q_pe], dim=-1)
+        out = sdpa(qq, k, v, mask, scale=scale)
+    out = out.reshape(B, S, H * dv)
     return out @ p["wo"], cache
 
 

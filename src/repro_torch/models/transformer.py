@@ -1,4 +1,5 @@
-"""Decoder-only LM for the generative main path (attention + dense FFN).
+"""Decoder-only LM for the generative main path: attention + dense-FFN
+stacks, and MLA + MoE stacks with leading dense layers (DeepSeek-V2).
 
 The port's counterpart of the JAX package's ``models/transformer.py``. The
 layer stack follows the same *plan* (a period of slots repeated
@@ -13,8 +14,10 @@ recompile to avoid, and a host index keeps ``head[site]`` a view instead
 of a 472 MB gather); the KV cache is updated in place; ``decode_multi``'s
 ``lax.while_loop`` is a Python loop whose writes past the window's end are
 switched off on device, so the host reads nothing inside a window. Decode
-runs on a contiguous cache or on a paged block pool (full attention only).
-Ring, local, MLA, MoE, SSM and cross-attention slots are not ported.
+runs on a contiguous cache or on a paged block pool (full attention or MLA
+latents). MoE runs the dense dispatch only (the reference's
+``moe_impl='dense'``, what its serving runner passes). Ring, local, SSM
+and cross-attention slots are not ported.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.models import layers as LY
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import (
     ParamInfo,
     init_from_schema,
@@ -101,12 +105,27 @@ def build_plan(cfg) -> Plan:
 
 
 def _slot_schema(cfg, slot: SlotSpec, L=None) -> dict:
-    return {
-        "ln1": LY.norm_schema(cfg, L),
-        "mixer": LY.gqa_schema(cfg, L),
-        "ln2": LY.norm_schema(cfg, L),
-        "ffn": LY.ffn_schema(cfg, cfg.d_ff, L),
-    }
+    mixer = LY.mla_schema(cfg, L) if slot.mixer == "mla" else LY.gqa_schema(cfg, L)
+    ffn = MOE.moe_schema(cfg, L) if slot.ffn == "moe" else LY.ffn_schema(cfg, cfg.d_ff, L)
+    return {"ln1": LY.norm_schema(cfg, L), "mixer": mixer,
+            "ln2": LY.norm_schema(cfg, L), "ffn": ffn}
+
+
+def _slot_cache_schema(cfg, slot: SlotSpec, rows: tuple, L=None) -> dict:
+    """One slot's cache leaves over ``rows``: (B, S) for the contiguous
+    cache, (P, bs) for the paged pool. Attention keeps per-head k/v
+    ``rows + (KH, hd)``; MLA one shared latent stream ``c`` ``rows + (r,)``
+    and rope key ``k_pe`` ``rows + (dr,)``."""
+    dt = torch_dtype(cfg.dtype)
+    pre = () if L is None else (L,)
+    if slot.mixer == "mla":
+        return {"c": ParamInfo(pre + rows + (cfg.kv_lora_rank,), dt, "zeros"),
+                "k_pe": ParamInfo(pre + rows + (cfg.qk_rope_dim,), dt, "zeros")}
+    shp = pre + rows + (cfg.n_kv_heads, cfg.hd)
+    return {"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
+
+
+_PORTED_SLOTS = (SlotSpec("attn", "dense"), SlotSpec("mla", "dense"), SlotSpec("mla", "moe"))
 
 
 def ramp_sites(cfg, max_sites: int = 12) -> Tuple[int, ...]:
@@ -159,17 +178,19 @@ def _layer(tree, l: int):
 
 
 class LM:
-    """Functional decoder LM (attention + dense FFN slots, 'fc' ramps)."""
+    """Functional decoder LM (attention + dense-FFN or MLA + MoE slots, a
+    prefix of leading slots, 'fc' ramps)."""
 
     def __init__(self, cfg):
         self.cfg = cfg
         self.plan = build_plan(cfg)
         self.sites = ramp_sites(cfg)
         plan = self.plan
-        if (plan.prefix or plan.suffix or cfg.window or cfg.qk_norm
-                or any(s != SlotSpec("attn", "dense") for s in plan.period)):
+        if (plan.suffix or cfg.window or cfg.qk_norm
+                or any(s not in _PORTED_SLOTS for s in plan.layer_specs())):
             raise NotImplementedError(
-                f"{cfg.name}: the port runs plain attention + dense-FFN stacks only")
+                f"{cfg.name}: the port runs attention + dense-FFN and MLA + MoE "
+                "stacks only")
         if cfg.ramp_style != "fc":
             raise NotImplementedError(f"ramp_style={cfg.ramp_style!r}: only 'fc' is ported")
         if cfg.decode_attn not in ("dense", "ref", "kernel", "paged", "paged-kernel"):
@@ -181,12 +202,13 @@ class LM:
 
     def schema(self) -> dict:
         cfg, plan = self.cfg, self.plan
-        return {
-            "tok": LY.embed_schema(cfg),
-            "blocks": [_slot_schema(cfg, s, L=plan.n_periods) for s in plan.period],
-            "final_norm": LY.norm_schema(cfg),
-            "ramps": ramp_schema(cfg),
-        }
+        sch = {"tok": LY.embed_schema(cfg)}
+        if plan.prefix:
+            sch["prefix"] = [_slot_schema(cfg, s) for s in plan.prefix]
+        sch["blocks"] = [_slot_schema(cfg, s, L=plan.n_periods) for s in plan.period]
+        sch["final_norm"] = LY.norm_schema(cfg)
+        sch["ramps"] = ramp_schema(cfg)
+        return sch
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         gen = torch.Generator(device=device)
@@ -195,26 +217,28 @@ class LM:
 
     # -- cache --------------------------------------------------------------
 
-    def cache_schema(self, B: int, S: int) -> dict:
+    def _cache_tree(self, rows: tuple) -> dict:
         cfg, plan = self.cfg, self.plan
-        dt = torch_dtype(cfg.dtype)
-        shp = (plan.n_periods, B, S, cfg.n_kv_heads, cfg.hd)
-        return {"blocks": [{"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
-                           for _ in plan.period]}
+        sch = {}
+        if plan.prefix:
+            sch["prefix"] = [_slot_cache_schema(cfg, s, rows) for s in plan.prefix]
+        sch["blocks"] = [_slot_cache_schema(cfg, s, rows, L=plan.n_periods)
+                         for s in plan.period]
+        return sch
+
+    def cache_schema(self, B: int, S: int) -> dict:
+        return self._cache_tree((B, S))
 
     def init_cache(self, B: int, S: int, device="cuda") -> dict:
         return zeros_from_schema(self.cache_schema(B, S), device)
 
     def paged_cache_schema(self, n_blocks: int, block_size: int) -> dict:
         """The paged layout: the same tree as ``cache_schema``, but every
-        attention leaf is a block pool ``(L, P, bs, KH, hd)`` shared by all
-        slots, the pool axis at 1; virtual token ``t`` of a row lives at
-        ``(table[b, t // bs], t % bs)``."""
-        cfg, plan = self.cfg, self.plan
-        dt = torch_dtype(cfg.dtype)
-        shp = (plan.n_periods, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
-        return {"blocks": [{"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
-                           for _ in plan.period]}
+        leaf is a block pool shared by all slots: ``(L, P, bs, KH, hd)`` for
+        attention, ``(L, P, bs, r)``/``(L, P, bs, dr)`` for MLA latents (the
+        pool axis at 1; prefix leaves have no L axis, the pool axis at 0);
+        virtual token ``t`` of a row lives at ``(table[b, t // bs], t % bs)``."""
+        return self._cache_tree((n_blocks, block_size))
 
     def init_paged_cache(self, n_blocks: int, block_size: int, device="cuda") -> dict:
         return zeros_from_schema(self.paged_cache_schema(n_blocks, block_size), device)
@@ -225,37 +249,49 @@ class LM:
     @property
     def paged_sharing_ok(self) -> bool:
         """Prefix sharing / copy-on-write move token pages between tables:
-        sound for plain full attention, the only mixer the port runs."""
+        sound for plain full attention only, so false for MLA, as in the
+        reference."""
         return all(s.mixer == "attn" and not s.cross and not s.is_local
                    for s in self.plan.layer_specs())
 
     # -- forward ------------------------------------------------------------
 
-    def _block(self, p, h, *, positions, mask, cache, cache_index, write_gate=None,
-               block_tables=None):
+    def _block(self, slot: SlotSpec, p, h, *, positions, mask, cache, cache_index,
+               write_gate=None, block_tables=None):
         cfg = self.cfg
         x = LY.apply_norm(cfg, p["ln1"], h)
-        out, _ = LY.attn_apply(
-            cfg, p["mixer"], x, positions=positions, mask=mask, cache=cache,
-            cache_index=cache_index, decode_impl=cfg.decode_attn, write_gate=write_gate,
-            block_table=block_tables,
-        )
+        kw = dict(positions=positions, mask=mask, cache=cache, cache_index=cache_index,
+                  decode_impl=cfg.decode_attn, write_gate=write_gate,
+                  block_table=block_tables)
+        if slot.mixer == "mla":
+            out, _ = LY.mla_apply(cfg, p["mixer"], x, absorbed=cfg.mla_absorbed, **kw)
+        else:
+            out, _ = LY.attn_apply(cfg, p["mixer"], x, **kw)
         h = h + out
         x = LY.apply_norm(cfg, p["ln2"], h)
+        if slot.ffn == "moe":
+            out, _ = MOE.moe_apply_dense(cfg, p["ffn"], x)  # aux: training only
+            return h + out
         return h + LY.ffn_apply(cfg, p["ffn"], x)
 
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
                write_gate=None, block_tables=None):
-        """Run the periods layer by layer; caches are updated in place.
-        ``pool_idx`` is a slice of positions (a view, so no index tensor
-        crosses to the device). Returns (h, pooled (L, B, npos, d))."""
+        """Run the prefix slots, then the periods layer by layer; caches are
+        updated in place. ``pool_idx`` is a slice of positions (a view, so
+        no index tensor crosses to the device). Returns (h, pooled (L, B,
+        npos, d)), prefix layers first, as the reference assembles them."""
+        plan = self.plan
+        kw = dict(positions=positions, mask=mask, cache_index=cache_index,
+                  write_gate=write_gate, block_tables=block_tables)
         pooled = []
-        for l in range(self.plan.n_periods):
-            for s in range(len(self.plan.period)):
+        for i, slot in enumerate(plan.prefix):
+            c = caches["prefix"][i] if caches else None
+            h = self._block(slot, params["prefix"][i], h, cache=c, **kw)
+            pooled.append(h[:, pool_idx])
+        for l in range(plan.n_periods):
+            for s, slot in enumerate(plan.period):
                 c = _layer(caches["blocks"][s], l) if caches else None
-                h = self._block(_layer(params["blocks"][s], l), h, positions=positions,
-                                mask=mask, cache=c, cache_index=cache_index,
-                                write_gate=write_gate, block_tables=block_tables)
+                h = self._block(slot, _layer(params["blocks"][s], l), h, cache=c, **kw)
                 pooled.append(h[:, pool_idx])
         return h, torch.stack(pooled)
 
@@ -318,11 +354,12 @@ class LM:
         h = LY.embed_apply(cfg, params["tok"], tokens, pc)
         mask = None
         if block_tables is None:
-            Sc = cache["blocks"][0]["k"].shape[2]
+            Sc = _cache_len(cache)
             mask = (torch.arange(Sc, device=tokens.device)[None, :] <= pc)[:, None, None, :]
         h, pooled = self._stack(
             params, h, positions=pc, mask=mask, caches=cache, cache_index=pos,
-            pool_idx=slice(0, 1), write_gate=write_gate, block_tables=block_tables,
+            pool_idx=slice(0, 1), write_gate=write_gate,
+            block_tables=block_tables,
         )
         outs = self._head_stats(params, h, pooled, active_sites,
                                 exit_thresholds=exit_thresholds)
@@ -452,6 +489,12 @@ class LM:
                 per.append(stats_of(hs[kk], params["ramps"]["head"][i], thr))
             outs["ramps"] = {key: torch.stack([p[key] for p in per]) for key in per[0]}
         return outs
+
+
+def _cache_len(cache) -> int:
+    """Sequence length of a contiguous cache: (L, B, S, ...) block leaves."""
+    blk = cache["blocks"][0]
+    return (blk["c"] if "c" in blk else blk["k"]).shape[2]
 
 
 def _stats(logits):

@@ -1,5 +1,6 @@
 """The port's configs pair field for field with the JAX package's."""
 import dataclasses
+import math
 
 import pytest
 
@@ -9,7 +10,7 @@ from repro.configs import get_config as ref_config  # noqa: E402
 from repro.configs import get_tiny as ref_tiny  # noqa: E402
 from repro_torch.configs import get_config, get_tiny  # noqa: E402  # repro: allow[tier1-deps] — the port under test; torch-only, skipped above without torch
 
-ARCHS = ["qwen2-1.5b", "gpt2-medium"]
+ARCHS = ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -29,6 +30,26 @@ def test_qwen2_full_width_shape():
     cfg = get_config("qwen2-1.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (28, 1536, 12, 2, 128)
     assert (cfg.vocab_size, cfg.padded_vocab, cfg.dtype) == (151936, 153600, "bfloat16")
+
+
+def test_deepseek_full_width_schema_equals_reference():
+    """Full-width DeepSeek-V2-Lite from the schemas alone (nothing is
+    allocated): the port's leaf shapes are the reference's, 15.71 B model
+    parameters plus 12 untied ramp heads of 2048 x 102400."""
+    import jax
+
+    from repro.models import build_model as ref_build
+    from repro.models.common import is_info
+    from repro_torch.models import build_model  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.common import tree_leaves  # repro: allow[tier1-deps] — the port under test
+
+    ref = jax.tree.leaves(ref_build(ref_config("deepseek-v2-lite-16b")).schema(), is_leaf=is_info)
+    port = tree_leaves(build_model(get_config("deepseek-v2-lite-16b")).schema())
+    assert [tuple(i.shape) for i in port] == [tuple(i.shape) for i in ref]
+    n = sum(math.prod(i.shape) for i in port)
+    ramps = 12 * 2048 * 102400 + 12 * 2048
+    assert len(build_model(get_config("deepseek-v2-lite-16b")).sites) == 12
+    assert round((n - ramps) / 1e9, 2) == 15.71
 
 
 def test_unknown_arch_raises():

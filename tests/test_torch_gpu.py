@@ -1,6 +1,6 @@
 """On a CUDA card: each CUDA kernel against its plain PyTorch version (the
 paged decode kernel also bit for bit against the contiguous one), and the
-tiny model with the kernels on against the plain path. Every test is
+tiny models with the kernels on against the plain path. Every test is
 marked `gpu` and skips without a card; the file imports no jax, so it runs
 on a machine that has only PyTorch:
 
@@ -17,6 +17,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402  # repro: allow
     decode_attention_ref,
     paged_decode_attention,
     paged_decode_attention_ref,
+    paged_mla_decode_attention,
+    paged_mla_decode_attention_ref,
 )
 from repro_torch.kernels.ramp_head import (  # noqa: E402  # repro: allow[tier1-deps] — the port under test
     ramp_head_exit,
@@ -80,6 +82,47 @@ def test_paged_kernel_matches_plain_and_contiguous(gen, dtype, hd, bs):
     vc = v_pool[table.long()].reshape(B, S, KH, hd)
     cont = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
     assert torch.equal(out, cont)  # same key order, same arithmetic
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,r,dr", [(4, 32, 8), (16, 512, 64)])
+@pytest.mark.parametrize("bs", [8, 16, 48])  # 48 does not divide the 32-key tile
+def test_paged_mla_kernel_matches_plain(gen, dtype, H, r, dr, bs):
+    """A shuffled table over a latent pool whose block 0 is the trash block.
+    Row 1 owns three blocks and points the rest at block 0; pos covers the
+    first slot, both sides of a block boundary, the walk's clamp at
+    nb*bs - 1 and a stale pos past the table. q_pe is a strided view, as
+    the model hands it over."""
+    dt = getattr(torch, dtype)
+    B, nb = 6, 5
+    S, P = nb * bs, B * nb + 1
+    q_lat = torch.randn(B, H, r, generator=gen, device="cuda").to(dt)
+    q_pe = torch.randn(B, H, 16 + dr, generator=gen, device="cuda").to(dt)[..., 16:]
+    c_pool = torch.randn(P, bs, r, generator=gen, device="cuda").to(dt)
+    kpe_pool = torch.randn(P, bs, dr, generator=gen, device="cuda").to(dt)
+    table = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).reshape(B, nb)
+    table = table.to(torch.int32)
+    table[1, 3:] = 0
+    pos = torch.tensor([0, 3 * bs - 1, bs - 1, bs, S - 1, S + 7], device="cuda")
+    scale = 1.0 / (128 + dr) ** 0.5
+    out = paged_mla_decode_attention(q_lat, q_pe, c_pool, kpe_pool, table, pos, scale=scale)
+    ref = paged_mla_decode_attention_ref(q_lat, q_pe, c_pool, kpe_pool, table, pos,
+                                         scale=scale)
+    # f32: sums in another order (1e-5); bf16: one output rounding (1e-2)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_paged_mla_kernel_refuses_what_it_cannot_take(gen):
+    q = torch.randn(2, 17, 64, generator=gen, device="cuda")  # 17 heads > 16
+    pool = torch.randn(3, 4, 64, generator=gen, device="cuda")
+    table = torch.ones(2, 2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        paged_mla_decode_attention(q, q[..., :8], pool, pool[..., :8], table, 3, scale=0.1)
+    n0 = paged_mla_decode_attention.launches
+    out = paged_mla_decode_attention(q[:0, :4], q[:0, :4, :8], pool, pool[..., :8].contiguous(),
+                                     table[:0], 3, scale=0.1)
+    assert out.shape == (0, 4, 64) and paged_mla_decode_attention.launches == n0
 
 
 def _w(gen, layout, d, V, dt):
@@ -182,3 +225,29 @@ def test_tiny_model_kernels_on_matches_plain_path(gen):
         pos = pos + 1
     for a, b in zip(c_on["blocks"][0].values(), c_off["blocks"][0].values()):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_tiny_deepseek_paged_kernel_matches_plain_path(gen):
+    """Tiny deepseek (MLA + MoE), f32, absorbed MLA on a latent pool: two
+    decode steps through the paged MLA kernel vs its plain version."""
+    cfg = get_tiny("deepseek-v2-lite-16b").replace(mla_absorbed=True, pallas_head="kernel")
+    on = build_model(cfg.replace(decode_attn="paged-kernel"))
+    off = build_model(cfg.replace(decode_attn="paged"))
+    params = on.init(0, device="cuda")
+    B, nb, bs = 4, 3, 8
+    c_on = on.init_paged_cache(B * nb + 1, bs, device="cuda")
+    for leaf in (c_on["prefix"][0]["c"], c_on["blocks"][0]["c"]):
+        leaf.normal_(generator=gen)
+    c_off = {k: ([{kk: t.clone() for kk, t in d.items()} for d in v]) for k, v in c_on.items()}
+    table = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).reshape(B, nb)
+    tok = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
+    pos = torch.tensor([3, 9, 16, 20], device="cuda")
+    n0 = paged_mla_decode_attention.launches
+    for _ in range(2):
+        _, o_on = on.decode(params, c_on, tok, pos, block_tables=table)
+        _, o_off = off.decode(params, c_off, tok, pos, block_tables=table)
+        assert torch.equal(o_on["final"]["label"], o_off["final"]["label"])
+        torch.testing.assert_close(o_on["final"]["maxprob"], o_off["final"]["maxprob"],
+                                   rtol=1e-4, atol=1e-6)
+        tok, pos = o_off["final"]["label"].reshape(-1, 1).long(), pos + 1
+    assert paged_mla_decode_attention.launches - n0 == 2 * cfg.n_layers
