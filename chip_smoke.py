@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      3b. the paged decode kernel against its plain version, and bit for bit
      against the contiguous kernel on the same keys;
   4. full-width qwen2-1.5b with seeded random weights: prefill + 8 decode
-     steps with the kernels off and on (labels equal except near-ties),
+     steps with the kernels off and on, the prefill through sdpa and through
+     the flash-attention kernel (labels equal except near-ties),
      then serve 8 requests through the port's GenerativeEngine +
      ApparateController + DecodeRunner on the contiguous cache;
      4b. the same engine on the contiguous cache and on the paged pool, on
@@ -23,6 +24,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      one-shot prefill;
   3c. (run beside 3 and 3b) the paged MLA kernel against its plain version
      at DeepSeek-V2-Lite's served shape and on 4096-token rows;
+  3d. the flash-attention (prefill) kernel against its plain version at
+     qwen2-1.5b's served prefill and on a 4096-token causal prompt;
+  3e. the SSD chunk-scan kernel against its plain version at Mamba2-2.7B's
+     served prefill (two chunks), a ragged 120-step prompt and 4096 steps;
   5. full-width DeepSeek-V2-Lite (MLA + MoE, absorbed MLA) with seeded
      random weights, once qwen2-1.5b's are freed: the ramp-head kernels at
      its d 2048 and V 102400; 5a. prefill + 8 decode steps on the paged
@@ -31,10 +36,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      step), the paged run on the contiguous run's MoE routing, then both
      layouts' aten ops a window counted and their times taken without
      hooks; 5c. swap preemption on a pool that runs
-     dry.
+     dry;
+  6. full-width Mamba2-2.7B with seeded random weights, once DeepSeek's are
+     freed: the ramp-head kernels at its d 2560 and V 51200, one layer's
+     plain recurrent state update timed; 6a. prefill (the SSD kernel) + 8
+     decode steps with the kernels off and on; 6b.
+     contiguous state rows vs state pages on one schedule; 6c. swap of state
+     pages on a pool that runs dry.
 Every serving phase zeroes the launch counters just before it and reads
-them just after, and counts the model's decode steps. The last two lines
-are the kernels JSON and the result JSON.
+them just after, and counts the model's prefills and decode steps. The
+last two lines are the kernels JSON and the result JSON.
 """
 from __future__ import annotations
 
@@ -51,9 +62,12 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 HBM_BW = 3.35e12  # B/s, H100 SXM
+EPS_CAP = 0.25  # compare_paths: the two paths' logits, a model of <= 28 layers
 PEAK_BF16 = 989e12  # dense bf16 FLOP/s, H100 SXM
+PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores, H100 SXM
 CONFIG = "qwen2-1.5b"
 DS_CONFIG = "deepseek-v2-lite-16b"
+MB_CONFIG = "mamba2-2.7b"
 SEED = 0
 
 
@@ -282,6 +296,101 @@ def check_paged_mla(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=16, r=512, dr=64
     }
     paged_mla_decode_attention.launches = n0  # comparison launches do not count
     print(f"paged_mla_decode_attention {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def check_flash_attention(B, H, KH, Sq, Sk, hd, label, gen):
+    """Phase 3d: the flash-attention kernel, causal from query 0, against its
+    plain version, q/k/v handed over as the model does (views of (B, S,
+    heads, hd) storage); timed beside SDPA (top-left causal)."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    dt = torch.bfloat16
+    q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
+    k = torch.randn(B, Sk, KH, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
+    v = torch.randn(B, Sk, KH, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    ref = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    # bf16 output: the kernel rounds once from f32; the plain version sums
+    # in another order; 1e-2 covers bf16's 8-bit mantissa
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2):
+        fail(f"flash_attention {label}: max abs err {err}")
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                enable_gqa=True)
+
+    # what causal-from-0 needs: keys 0..Sq-1 of each head, (q_i, k_j) pairs j <= i
+    nk = min(Sk, Sq)
+    pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    nbytes = 2 * (2 * q.numel() + 2 * B * KH * nk * hd)
+    flops = 4 * B * H * pairs * hd  # q.k and p.v
+    bm, by = bound_ms(nbytes, flops)
+    row = {
+        "shape": label, "max_abs_err": err,
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True)),
+        "library_ms": time_ms(library), "library": "SDPA (is_causal, top-left)",
+        "bound_ms": bm, "bound_by": by, "bytes": nbytes, "flops": flops,
+        "cuda_core_ms": 1e3 * flops / PEAK_F32,
+    }
+    flash_attention.launches = n0  # comparison launches do not count
+    print(f"flash_attention {label}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def check_ssd(B, H, S, hp, N, label, gen):
+    """Phase 3e: the SSD chunk-scan kernel against its plain version at the
+    reference's chunking (64 where it divides S, else one chunk of S), the
+    inputs as the model hands them over (x and dt views of (B, S, H, .)
+    storage, bf16 x/B/C, f32 dt). No single PyTorch call computes SSD."""
+    from repro_torch.kernels.ssd import ssd, ssd_chunked
+
+    dt = torch.bfloat16
+    x = torch.randn(B, S, H, hp, generator=gen, device="cuda").to(dt).transpose(1, 2)
+    dts = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device="cuda") - 2).transpose(1, 2)
+    A = -torch.exp(torch.rand(H, generator=gen, device="cuda") * 2.7726)  # -[1, 16)
+    Bm = torch.randn(B, S, N, generator=gen, device="cuda").to(dt)
+    Cm = torch.randn(B, S, N, generator=gen, device="cuda").to(dt)
+    n0 = ssd_chunked.launches
+    y, st = ssd_chunked(x, dts, A, Bm, Cm)
+    y_ref, st_ref = ssd(x, dts, A, Bm, Cm, use_kernel=False)
+    torch.cuda.synchronize()
+    # f32 internals in both; the sums in another order and grouping: 1e-4
+    # relative to the largest magnitude
+    err = 0.0
+    for name, a, r in (("y", y, y_ref), ("state", st, st_ref)):
+        scale = float(r.abs().max())
+        e = (a - r).abs().max().item()
+        err = max(err, e)
+        if not torch.allclose(a, r, rtol=1e-4, atol=1e-4 * scale):
+            fail(f"ssd_chunked {label} {name}: max abs err {e} (max |ref| {scale})")
+    # what the scan needs: each input read once, y and the state written once;
+    # per (batch, head) and chunk of L real steps the masked scores
+    # L(L+1)/2 x 2N, y's diagonal L(L+1)/2 x 2hp and off-diagonal 2 L N hp,
+    # the state update 2 L N hp
+    nbytes = 2 * (x.numel() + Bm.numel() + Cm.numel()) + 4 * (dts.numel() + H) \
+        + 4 * (y.numel() + st.numel())
+    flops = 0
+    for c0 in range(0, S, 64):
+        L = min(64, S - c0)
+        flops += L * (L + 1) // 2 * 2 * (N + hp) + 4 * L * N * hp
+    flops *= B * H
+    bm, by = bound_ms(nbytes, flops)
+    row = {
+        "shape": label, "max_abs_err": err,
+        "ms": time_ms(lambda: ssd_chunked(x, dts, A, Bm, Cm)),
+        "plain_ms": time_ms(lambda: ssd(x, dts, A, Bm, Cm, use_kernel=False)),
+        "library_ms": None, "library": "none: no single PyTorch call computes SSD",
+        "bound_ms": bm, "bound_by": by, "bytes": nbytes, "flops": flops,
+        "cuda_core_ms": 1e3 * flops / PEAK_F32,
+    }
+    ssd_chunked.launches = n0  # comparison launches do not count
+    print(f"ssd_chunked {label}: {json.dumps(row)}", flush=True)
     return row
 
 
@@ -516,12 +625,16 @@ def _to_pool(model, cache, bs, gen):
     return pool, table.to(torch.int32)
 
 
-def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0):
-    """Prefill 128 tokens for 8 rows, then 8 greedy decode steps, through
-    the model with the kernels off (``off_cfg``) and on (``on_cfg``); with
-    ``paged_bs`` the decode steps run on a paged pool of that block size
-    (both paths on the same pool contents). Both paths are fed the
-    kernels-off greedy tokens, so a near-tie cannot derail the rest.
+def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on_kw=None,
+                  prefill_kernel=None):
+    """Prefill 128 tokens for 8 rows (each path twice, timed in the order
+    off, on, on, off), then 8 greedy decode steps, through the model with
+    the kernels off (``off_cfg``, built with ``off_kw``) and on
+    (``on_cfg``, ``on_kw``); with ``paged_bs`` the decode steps run on a
+    paged pool of that block size (both paths on the same pool contents).
+    Both paths are fed the kernels-off greedy tokens, so a near-tie cannot
+    derail the rest. ``prefill_kernel`` must launch once a layer in the on
+    path's prefill and never in the off path's.
 
     Labels of the final head and the four ramps must be equal, except a
     near-tie: the two paths round differently in bf16 (the dense path
@@ -529,13 +642,15 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0):
     f32), so each row's logits differ by some eps, measured here from f32
     logits of each path's own hidden states; a label may flip only where
     the kernels-off logit at the kernels-on label is within 2 * eps of the
-    top. eps itself must stay under 0.25: with bf16's 2^-9 rounding at ~10
-    points per layer over 28 layers, h drifts by ~3% and top logits (~3-4)
-    by ~0.1."""
+    top. eps itself must stay under 0.25 for a model of up to 28 layers:
+    with bf16's 2^-9 rounding at ~10 points per layer over 28 layers, h
+    drifts by ~3% and top logits (~3-4) by ~0.1. The drift adds up layer by
+    layer, so a deeper model's cap grows with its depth: 0.25 * L / 28
+    (Mamba2-2.7B's 64 layers: 0.571)."""
     from repro_torch.models import build_model
     from repro_torch.models import layers as LY
 
-    off, on = build_model(off_cfg), build_model(on_cfg)
+    off, on = build_model(off_cfg, **(off_kw or {})), build_model(on_cfg, **(on_kw or {}))
     B, P, T = 8, 128, 8
     act = [2, 5, 8, 11]
     vl = cfg.vocab_size
@@ -568,16 +683,19 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0):
     def labels(o):
         return [o["final"]["label"]] + [o["ramps"]["label"][j] for j in range(len(act))]
 
-    stats = {"labels": 0, "near_ties": 0, "max_eps": 0.0}
+    stats = {"labels": 0, "near_ties": 0, "max_eps": 0.0, "eps_by_step": []}
+    cap = EPS_CAP * max(1.0, cfg.n_layers / 28)
     routes = RouteReplay()  # MoE: the on path takes the off path's experts
 
     def check(o_on, o_off, t):
         lg_on, lg_off = f32_logits(seen_on), f32_logits(seen_off)
         names = ["final"] + [f"ramp {i}" for i in act]
+        step_eps = 0.0
         for name, a, b, la, lb in zip(names, lg_on, lg_off, labels(o_on), labels(o_off)):
             eps = (a - b).abs().max(dim=-1).values
+            step_eps = max(step_eps, eps.max().item())
             stats["max_eps"] = max(stats["max_eps"], eps.max().item())
-            if eps.max().item() > 0.25:
+            if eps.max().item() > cap:
                 fail(f"{name}, step {t}: the paths' logits differ by {eps.max().item()}")
             # the kernels against their own path's f32 logits: same inputs
             _near_tie_labels(la, a.argmax(-1), a, 1e-3, f"{name} kernel label, step {t}")
@@ -588,18 +706,26 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0):
                          f"{lb[r].item()}, gap {gap} > 2 * eps {eps[r].item()}")
                 stats["near_ties"] += 1
             stats["labels"] += B
+        stats["eps_by_step"].append(round(step_eps, 4))
 
     cache_len = P + T + 1
     if paged_bs:
         cache_len = -(-cache_len // paged_bs) * paged_bs
-    times = {}
+    times = {"prefill_off_ms": [], "prefill_on_ms": []}
     runs = {}
-    for name, model in (("off", off), ("on", on)):
+    # in the order off, on, on, off: the first prefill of fresh weights pays
+    # one-time costs that are neither path's
+    for name in ("off", "on", "on", "off"):
+        model = off if name == "off" else on
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runs[name] = model.prefill(params, toks, cache_len=cache_len, active_sites=act)
-        torch.cuda.synchronize()
-        times[f"prefill_{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+        runs[name], pl = counted(lambda m=model: m.prefill(params, toks, cache_len=cache_len,
+                                                            active_sites=act))
+        times[f"prefill_{name}_ms"].append(1e3 * (time.perf_counter() - t0))
+        for k in PREFILL:
+            expect = cfg.n_layers if (k == prefill_kernel and name == "on") else 0
+            if pl[k] != expect:
+                fail(f"{cfg.name} {name} prefill launched {k} {pl[k]} times; expected {expect}")
     (c_off, o_off), (c_on, o_on) = runs["off"], runs["on"]
     tables = None
     if paged_bs:  # one pool for both paths, each path its own copy
@@ -631,9 +757,10 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0):
     nxt = o_off["final"]["label"].reshape(B, 1).long()
     times["profile_on"] = profile_step(lambda: on.decode(
         params, c_on, nxt, pos, active_sites=act, exit_thresholds=thr, block_tables=tables))
-    print(f"model {cfg.name} kernels off ({off_cfg.decode_attn}, {off_cfg.pallas_head}) vs on "
-          f"({on_cfg.decode_attn}, {on_cfg.pallas_head}): {stats['labels']} labels, "
-          f"{stats['near_ties']} near-ties, max logit eps {stats['max_eps']:.4f}; "
+    print(f"model {cfg.name} kernels off ({off_cfg.decode_attn}, {off_cfg.pallas_head}, "
+          f"{off_kw or {}}) vs on ({on_cfg.decode_attn}, {on_cfg.pallas_head}, {on_kw or {}}): "
+          f"{stats['labels']} labels, {stats['near_ties']} near-ties, max logit eps "
+          f"{stats['max_eps']:.4f} (cap {cap:.3f}; by step {stats['eps_by_step']}); "
           + (f"MoE routing replayed from the off path: {routes.flip_count()} of "
              f"{routes.routes} token routes of the on path would have taken other experts "
              "(router near-ties); "
@@ -670,6 +797,7 @@ def profile_step(fn, top=6):
 NEAR_TIE = 0.25
 PAGED_PROMPT, PAGED_TOKENS = 120, 38  # cache_len 120 + 38 + 2 = 160 = 10 blocks of 16
 ATTENTION = ("decode_attention", "paged_decode_attention", "paged_mla_decode_attention")
+PREFILL = ("flash_attention", "ssd_chunked")
 
 
 def _kernel_fns():
@@ -678,38 +806,53 @@ def _kernel_fns():
         paged_decode_attention,
         paged_mla_decode_attention,
     )
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ramp_head import ramp_head_exit, ramp_head_stats
+    from repro_torch.kernels.ssd import ssd_chunked
 
     return {"decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "ramp_head_stats": ramp_head_stats, "ramp_head_exit": ramp_head_exit,
-            "paged_mla_decode_attention": paged_mla_decode_attention}
+            "paged_mla_decode_attention": paged_mla_decode_attention,
+            "flash_attention": flash_attention, "ssd_chunked": ssd_chunked}
 
 
 def counted(fn):
     """Run fn() with every kernel's launch count set to 0 just before and
-    read just after, and count the model's decode steps (``LM.decode``
-    calls) in between. Returns (fn's result, {kernel: launches,
-    "decode_steps": n})."""
+    read just after, and count the model's prefills and decode steps
+    (``LM.prefill`` and ``LM.decode`` calls) in between. Returns (fn's
+    result, {kernel: launches, "prefills": n, "decode_steps": n})."""
     from repro_torch.models.transformer import LM
 
     fns = _kernel_fns()
     for f in fns.values():
         f.launches = 0
-    steps = [0]
-    decode = LM.decode
+    calls = {"prefills": 0, "decode_steps": 0}
+    prefill, decode = LM.prefill, LM.decode
 
-    def counting_decode(self, *a, **kw):
-        steps[0] += 1
-        return decode(self, *a, **kw)
+    def counting(key, method):
+        def call(self, *a, **kw):
+            calls[key] += 1
+            return method(self, *a, **kw)
+        return call
 
-    LM.decode = counting_decode
+    LM.prefill, LM.decode = counting("prefills", prefill), counting("decode_steps", decode)
     try:
         out = fn()
     finally:
-        LM.decode = decode
+        LM.prefill, LM.decode = prefill, decode
     torch.cuda.synchronize()
-    return out, {**{name: f.launches for name, f in fns.items()}, "decode_steps": steps[0]}
+    return out, {**{name: f.launches for name, f in fns.items()}, **calls}
+
+
+def check_prefill_launches(phase, cfg, launches, kernel):
+    """``kernel`` (None: none) ran once a layer a prefill, no other
+    prefill kernel ran, and the run prefilled."""
+    n = launches["prefills"]
+    for k in PREFILL:
+        expect = cfg.n_layers * n if k == kernel else 0
+        if launches[k] != expect or n <= 0:
+            fail(f"{phase} launched {k} {launches[k]} times in {n} prefills; expected {expect}")
 
 
 def _final_logits(params, cfg, toks):
@@ -718,7 +861,7 @@ def _final_logits(params, cfg, toks):
     from repro_torch.models import build_model
     from repro_torch.models import layers as LY
 
-    model = build_model(cfg.replace(decode_attn="dense", pallas_head="off"))
+    model = build_model(cfg.replace(decode_attn="dense", pallas_head="off"), ssd_impl="ref")
     seen = {}
     orig = model._head_stats
 
@@ -882,13 +1025,16 @@ def _moe_divergences(phase, runs, hidden):
     return ties
 
 
-def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kernel):
-    """Phases 4b and 5b: 8 requests, prompt 120, 38 tokens, windows of 4,
-    served on the contiguous runner and on the paged pool (bs 16,
+def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kernel,
+                              prefill_kernel):
+    """Phases 4b, 5b and 6b: 8 requests, prompt 120, 38 tokens, windows of
+    4, served on the contiguous runner and on the paged pool (bs 16,
     paged-kernel) on one schedule. Greedy tokens equal, except a difference
     that begins at a near-tie. Each run launches its attention kernel
     (``cont_kernel``, ``paged_kernel``; None: none) once per layer per
-    decode step and no other attention kernel, and both ramp-head kernels.
+    decode step and no other attention kernel, its prefill kernel
+    (``prefill_kernel``; None: none) once per layer per prefill, and both
+    ramp-head kernels.
 
     For the MoE model the compared runs carry hooks (the paged run replays
     the contiguous run's routing, both record their final-head inputs), so
@@ -916,6 +1062,7 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
         for k in ("ramp_head_stats", "ramp_head_exit"):
             if launches[k] <= 0:
                 fail(f"{phase} {name} run launched {k} {launches[k]} times")
+        check_prefill_launches(f"{phase} {name} run", cfg, launches, prefill_kernel)
         return out, {r.rid: r for r in resp}, launches
 
     runs = {}
@@ -1001,6 +1148,7 @@ def serve_prefix_swap(params, cfg, serve):
         fail(f"4c: {kv['swap_outs']} swaps out but {kv['swap_ins']} back in")
     if launches["paged_decode_attention"] <= 0:
         fail("4c: the paged kernel was not launched")
+    check_prefill_launches("4c", cfg, launches, "flash_attention")
     print(f"4c prefix sharing + swap preemption, 24-block pool: kv {json.dumps(kv)}; engine "
           f"{json.dumps(out['simulated']['engine'], default=float)}; launches "
           f"{json.dumps(launches)}", flush=True)
@@ -1022,6 +1170,7 @@ def serve_chunked(params, cfg, serve):
     _complete(resp, 4, PAGED_TOKENS, cfg.vocab_size, "4d")
     if launches["paged_decode_attention"] <= 0:
         fail("4d: the paged kernel was not launched")
+    check_prefill_launches("4d", cfg, launches, "flash_attention")
     one_shot = build_model(cfg.replace(pallas_head="kernel"))
     toks = torch.tensor(prompts, device="cuda")
     _, outs = one_shot.prefill(params, toks, active_sites=None, with_cache=False)
@@ -1048,30 +1197,35 @@ def serve_chunked(params, cfg, serve):
 # phases 5a-5c: DeepSeek-V2-Lite (MLA + MoE) at full width
 
 
-def serve_mla_swap(params, cfg, serve):
-    """Phase 5c: 8 requests (prompt 120, 38 tokens) with swap preemption on
-    a 24-block pool (full capacity is 80, a stream needs up to 10): the
-    pool runs dry and streams are swapped out and back in. No prefix
-    cache: latent pages are not shared."""
+def serve_swap(params, cfg, serve, phase, seed, decode_kernel, prefill_kernel):
+    """Phases 5c and 6c: 8 requests (prompt 120, 38 tokens) with swap
+    preemption on a 24-block pool (full capacity is 80, a stream needs up
+    to 10): the pool runs dry and streams are swapped out and back in. No
+    prefix cache: latent and state pages are not shared. ``decode_kernel``
+    (None: none) runs once a layer a decode step, ``prefill_kernel`` once a
+    layer a prefill."""
     import numpy as np
 
-    prompts = np.random.default_rng(SEED + 5).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
+    prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
     (out, resp), launches = counted(lambda: serve(
         cfg.name, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
         verbose=False, kv_block_size=16, kv_blocks=24, preempt="swap", prompts=prompts,
         params=params))
-    _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, "5c")
+    _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, phase)
     kv = out["kv_cache"]
     if not kv["swap_outs"] > 0 or kv["swap_ins"] != kv["swap_outs"]:
-        fail(f"5c: {kv['swap_outs']} swaps out and {kv['swap_ins']} back in; the run must "
-             "swap, and every stream swapped out must come back")
-    if launches["paged_mla_decode_attention"] != cfg.n_layers * launches["decode_steps"]:
-        fail(f"5c: the paged MLA kernel launched {launches['paged_mla_decode_attention']} "
-             f"times in {launches['decode_steps']} decode steps")
+        fail(f"{phase}: {kv['swap_outs']} swaps out and {kv['swap_ins']} back in; the run "
+             "must swap, and every stream swapped out must come back")
+    steps = launches["decode_steps"]
+    for k in ATTENTION:
+        expect = cfg.n_layers * steps if k == decode_kernel else 0
+        if launches[k] != expect or steps <= 0:
+            fail(f"{phase}: {k} launched {launches[k]} times in {steps} decode steps")
     for k in ("ramp_head_stats", "ramp_head_exit"):
         if launches[k] <= 0:
-            fail(f"5c: {k} launched {launches[k]} times")
-    print(f"5c {cfg.name} swap preemption, 24-block pool: kv {json.dumps(kv)}; engine "
+            fail(f"{phase}: {k} launched {launches[k]} times")
+    check_prefill_launches(phase, cfg, launches, prefill_kernel)
+    print(f"{phase} {cfg.name} swap preemption, 24-block pool: kv {json.dumps(kv)}; engine "
           f"{json.dumps(out['simulated']['engine'], default=float)}; launches "
           f"{json.dumps(launches)}", flush=True)
 
@@ -1101,8 +1255,71 @@ def deepseek_phases(gen, serve):
     # 5b: contiguous rows (absorbed plain math, no attention kernel) vs the
     # pool (the paged MLA kernel in every layer)
     launches = serve_paged_vs_contiguous(params, cfg, serve, "5b", None,
-                                         "paged_mla_decode_attention")
-    serve_mla_swap(params, cfg, serve)
+                                         "paged_mla_decode_attention", None)
+    serve_swap(params, cfg, serve, "5c", SEED + 5, "paged_mla_decode_attention", None)
+    return launches, rh
+
+
+# ---------------------------------------------------------------------------
+# phases 6a-6c: Mamba2-2.7B (SSD) at full width
+
+
+def time_state_update(cfg, gen, B=8):
+    """One mamba layer's recurrent state update at the served batch, as a
+    decode step runs it: the plain ``ssd_decode_step`` and the gated
+    in-place write of the new state (``LM._mamba``). Device ms (CUDA events,
+    L2 flushed) beside the bound of reading and writing the f32 state once."""
+    from repro_torch.models import mamba as MB
+
+    H, hp, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    state = torch.randn(B, H, hp, N, generator=gen, device="cuda")
+    x = torch.randn(B, H, hp, generator=gen, device="cuda").to(torch.bfloat16)
+    dts = torch.nn.functional.softplus(torch.randn(B, H, generator=gen, device="cuda") - 2)
+    A = -torch.exp(torch.rand(H, generator=gen, device="cuda") * 2.7726)
+    Bm = torch.randn(B, 1, N, generator=gen, device="cuda").to(torch.bfloat16)
+    Cm = torch.randn(B, 1, N, generator=gen, device="cuda").to(torch.bfloat16)
+    gate = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def step():
+        _, new = MB.ssd_decode_step(state, x, dts, A, Bm, Cm)
+        state.copy_(torch.where(gate, new, state))
+
+    nbytes = 2 * 4 * state.numel()
+    row = {"shape": f"B={B} H={H} hp={hp} N={N} f32 state", "ms": time_ms(step),
+           "bound_ms": bound_ms(nbytes, 0)[0], "state_bytes_per_layer": nbytes // 2,
+           "layers": cfg.n_layers}
+    print(f"mamba state update, one layer (plain ssd_decode_step + gated write): "
+          f"{json.dumps(row)}; x {cfg.n_layers} layers = {row['ms'] * cfg.n_layers:.3f} ms "
+          "a decode step", flush=True)
+
+
+def mamba_phases(gen, serve):
+    """Phases 6a-6c on full-width Mamba2-2.7B with seeded random weights.
+    Returns (phase 6b's paged serving run's launches, the ramp-head rows at
+    this model's shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(MB_CONFIG)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"drew {MB_CONFIG} weights ({n / 1e9:.3f} B params with the ramp heads, {cfg.dtype}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rh = check_ramp_head(params, cfg, gen)
+    time_state_update(cfg, gen)
+    # 6a: prefill (the SSD kernel vs the plain scan) + 8 decode steps, kernels
+    # off vs on, on contiguous state rows
+    compare_paths(params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
+                  cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
+                  off_kw={"ssd_impl": "ref"}, on_kw={"ssd_impl": "kernel"},
+                  prefill_kernel="ssd_chunked")
+    # 6b: contiguous state rows vs state pages (no decode attention kernel)
+    launches = serve_paged_vs_contiguous(params, cfg, serve, "6b", None, None, "ssd_chunked")
+    serve_swap(params, cfg, serve, "6c", SEED + 6, None, "ssd_chunked")
     return launches, rh
 
 
@@ -1153,6 +1370,18 @@ def main() -> None:
         8, 10, "B=8 H=16 r=512 dr=64 bs=16 nb=10 pos 120..159 shuffled bf16", gen, 120, 160)
     check_paged_mla(
         32, 256, "B=32 H=16 r=512 dr=64 bs=16 nb=256 pos 0..4095 shuffled bf16", gen, 0, 4096)
+    # -- phase 3d: flash attention at qwen2-1.5b's served prefill (prompt 128
+    # into a 160-slot cache, the causal mask from query 0) and on a 4096-token
+    # prompt
+    fa_main = check_flash_attention(1, 12, 2, 128, 160, 128,
+                                    "B=1 H=12 KH=2 hd=128 Sq=128 Sk=160 causal bf16", gen)
+    check_flash_attention(1, 12, 2, 4096, 4096, 128,
+                          "B=1 H=12 KH=2 hd=128 Sq=Sk=4096 causal bf16", gen)
+    # -- phase 3e: the SSD scan at Mamba2-2.7B's served prefill (128 steps, two
+    # chunks), a ragged 120 and 4096 steps
+    ssd_main = check_ssd(1, 80, 128, 64, 128, "B=1 H=80 S=128 hp=64 N=128 chunk 64 bf16", gen)
+    check_ssd(1, 80, 120, 64, 128, "B=1 H=80 S=120 (ragged) hp=64 N=128 bf16", gen)
+    check_ssd(1, 80, 4096, 64, 128, "B=1 H=80 S=4096 hp=64 N=128 bf16", gen)
     cfg = get_config(CONFIG)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -1165,7 +1394,8 @@ def main() -> None:
     # -- phase 4: the full-width model, then serving (the weights drawn above
     # are the ones serve_generative draws from the same seed)
     compare_paths(params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
-                  cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen)
+                  cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
+                  on_kw={"prefill_attn": "kernel"}, prefill_kernel="flash_attention")
     del model
     torch.cuda.empty_cache()
     (out, resp), launches = counted(lambda: serve_generative(
@@ -1175,6 +1405,7 @@ def main() -> None:
     for name in ("decode_attention", "ramp_head_stats", "ramp_head_exit"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    check_prefill_launches("4a", cfg, launches, "flash_attention")
     m = out["measured"]
     print(f"served 8 requests x 32 tokens on {card}: prefill {m['prefill_ms_mean']:.3f} ms "
           f"(prompt 128), {m['window_ms_mean']:.3f} ms per window of up to 4 steps, "
@@ -1183,7 +1414,8 @@ def main() -> None:
     print("engine summary (SIMULATED from the analytic H100 profile, not timed): "
           + json.dumps(out["simulated"]["apparate"], default=float), flush=True)
     paged_launches = serve_paged_vs_contiguous(params, cfg, serve_generative, "4b",
-                                               "decode_attention", "paged_decode_attention")
+                                               "decode_attention", "paged_decode_attention",
+                                               "flash_attention")
     serve_prefix_swap(params, cfg, serve_generative)
     serve_chunked(params, cfg, serve_generative)
     print(f"qwen2-1.5b phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
@@ -1194,29 +1426,44 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     ds_launches, ds_rh = deepseek_phases(gen, serve_generative)
+    print(f"DeepSeek-V2-Lite phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
+
+    # -- phase 6: Mamba2-2.7B, once DeepSeek-V2-Lite's weights are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb_launches, mb_rh = mamba_phases(gen, serve_generative)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
            "paged_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
            "ramp_head_stats": "src/repro_torch/kernels/csrc/ramp_head.cu",
            "ramp_head_exit": "src/repro_torch/kernels/csrc/ramp_head.cu",
-           "paged_mla_decode_attention": "src/repro_torch/kernels/csrc/paged_mla_decode.cu"}
+           "paged_mla_decode_attention": "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
+           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "ssd_chunked": "src/repro_torch/kernels/csrc/ssd_chunked.cu"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention/kernel.py:90",
                 "paged_decode_attention": "src/repro/kernels/decode_attention/paged.py:107",
                 "ramp_head_stats": "src/repro/kernels/ramp_head/kernel.py:98",
                 "ramp_head_exit": "src/repro/kernels/ramp_head/kernel.py:145",
                 "paged_mla_decode_attention":
-                    "src/repro/kernels/decode_attention/paged_mla.py:117"}
+                    "src/repro/kernels/decode_attention/paged_mla.py:117",
+                "flash_attention": "src/repro/kernels/flash_attention/kernel.py:91",
+                "ssd_chunked": "src/repro/kernels/ssd/kernel.py:73"}
     # (kernel, its phase-3 row, the counted run its launches come from); the
     # ramp heads have a row for each model's path, at that model's shapes
     ds_path = f"{DS_CONFIG} 5b paged"
+    mb_path = f"{MB_CONFIG} 6b paged"
     entries = [("decode_attention", da_main, launches, f"{CONFIG} 4a"),
                ("paged_decode_attention", pda_main, paged_launches, f"{CONFIG} 4b paged"),
                ("ramp_head_stats", rh["ramp_head_stats"], launches, f"{CONFIG} 4a"),
                ("ramp_head_exit", rh["ramp_head_exit"], launches, f"{CONFIG} 4a"),
                ("ramp_head_stats", ds_rh["ramp_head_stats"], ds_launches, ds_path),
                ("ramp_head_exit", ds_rh["ramp_head_exit"], ds_launches, ds_path),
-               ("paged_mla_decode_attention", mla_main, ds_launches, ds_path)]
+               ("paged_mla_decode_attention", mla_main, ds_launches, ds_path),
+               ("flash_attention", fa_main, launches, f"{CONFIG} 4a"),
+               ("ramp_head_stats", mb_rh["ramp_head_stats"], mb_launches, mb_path),
+               ("ramp_head_exit", mb_rh["ramp_head_exit"], mb_launches, mb_path),
+               ("ssd_chunked", ssd_main, mb_launches, mb_path)]
     kernels = []
     for name, r, counts, path in entries:
         kernels.append({

@@ -2,9 +2,10 @@
 
 A field-for-field copy of the JAX package's ``ArchConfig``, so every port
 config pairs with its reference config. The port registers the two dense
-decoder LMs of the generative main path and the MLA + MoE decoder
-DeepSeek-V2-Lite: ``CONFIG`` is the published shape, ``TINY`` a reduced
-same-family config for CPU tests.
+decoder LMs of the generative main path, the MLA + MoE decoder
+DeepSeek-V2-Lite and the attention-free SSD stack Mamba2-2.7B: ``CONFIG``
+is the published shape, ``TINY`` a reduced same-family config for CPU
+tests.
 """
 from __future__ import annotations
 
@@ -114,6 +115,7 @@ class ArchConfig:
 
 _MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "mamba2-2.7b": "mamba2_2_7b",
     "qwen2-1.5b": "qwen2_1_5b",
     "gpt2-medium": "gpt2_medium",
 }

@@ -1,0 +1,73 @@
+"""ctypes wrapper of the CUDA prefill attention kernel (``csrc/flash_attention.cu``).
+
+``flash_attention`` replaces the JAX package's Pallas ``flash_attention``:
+causal and/or sliding-window attention of Sq queries against Sk keys with
+GQA, an online softmax over 64-key tiles in f32. It reads q, k and v by
+stride, so the model's (B, H, S, hd) views of (B, S, H, hd) projections and
+of its (B, S, KH, hd) cache cost no copy, and it writes the output into
+(B, Sq, H, hd) storage, returned as a (B, H, Sq, hd) view, so the caller's
+``transpose(1, 2).reshape(B, Sq, H * hd)`` is free. Sq and Sk need not be
+multiples of the tiles. Launches on PyTorch's current stream, never syncs.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.build import check_launch, load
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [_P] * 4 + [_I] * 6 + [_L] * 12 + [ctypes.c_float, _I, _I, _I, _P]
+MAX_HD = 128  # four output columns a lane
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window=None) -> torch.Tensor:
+    """q (B, H, Sq, hd); k, v (B, KH, Sk, hd), views with a contiguous last
+    dim, one dtype (float32 or bfloat16), on one CUDA device; H a multiple
+    of KH, hd <= 128. Query i and key j are positions from 0. Returns
+    (B, H, Sq, hd) in q's dtype."""
+    what = "flash_attention"
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
+                             "float32/bfloat16, alike for q, k, v")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last dim")
+    if not (1 <= hd <= MAX_HD and KH >= 1 and H % KH == 0):
+        raise ValueError(f"{what}: needs hd <= {MAX_HD} and H a multiple of KH, "
+                         f"got hd={hd} H={H} KH={KH}")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"{what}: window must be >= 1, got {window}")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if B == 0 or Sq == 0 or H == 0:
+        return out
+    if Sk == 0:
+        raise ValueError(f"{what}: no keys to attend to")
+    fn = getattr(load("flash_attention"), "flash_attention_launch")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGS
+        fn.restype = _I
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KH, Sq, Sk, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            1.0 / math.sqrt(hd), int(bool(causal)), 0 if window is None else int(window),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(rc, what)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

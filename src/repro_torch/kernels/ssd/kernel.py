@@ -1,0 +1,81 @@
+"""ctypes wrapper of the CUDA SSD chunk-scan kernel (``csrc/ssd_chunked.cu``).
+
+``ssd_chunked`` replaces the JAX package's Pallas ``ssd_chunked``: Mamba2's
+chunked state-space-duality scan, one CTA per (batch, head) carrying the
+(hp, N) state through the chunks in shared memory. It reads x, dt, B and C
+by stride, so the model's (B, H, S, hp) and (B, H, S) views of its
+(B, S, H, hp) and (B, S, H) activations and its (B, S, N) slices of the
+conv output cost no copy, and it writes y into (B, S, H, hp) storage,
+returned as a (B, H, S, hp) view. Any S >= 1: the kernel masks a ragged
+last chunk. Launches on PyTorch's current stream, never syncs.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import check_launch, load
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [_P] * 7 + [_I] * 5 + [_L] * 13 + [_I, _P]
+CHUNK = 64  # the kernel's chunk length
+MAX_HP, MAX_N = 64, 128  # the kernel's thread layout
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, *, chunk: int = CHUNK):
+    """x (B, H, S, hp); dt (B, H, S); A (H,) (negative); Bm, Cm (B, S, N),
+    one group shared by every head. x, Bm and Cm share a dtype (float32 or
+    bfloat16) and have a contiguous last dim; dt and A are taken as float32.
+    hp <= 64, N <= 128; ``chunk`` must be the kernel's 64. Returns
+    (y (B, H, S, hp) f32, final_state (B, H, hp, N) f32)."""
+    what = "ssd_chunked"
+    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3 or Bm.shape != Cm.shape:
+        raise ValueError(f"{what}: bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+                         f"Bm {tuple(Bm.shape)} Cm {tuple(Cm.shape)}")
+    B, H, S, hp = x.shape
+    N = Bm.shape[2]
+    if dt.shape != (B, H, S) or Bm.shape[:2] != (B, S) or A.shape != (H,):
+        raise ValueError(f"{what}: bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+                         f"A {tuple(A.shape)} Bm {tuple(Bm.shape)}")
+    if chunk != CHUNK:
+        raise ValueError(f"{what}: the kernel chunks by {CHUNK}, got chunk={chunk}")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on {x.device}")
+    for name, t in (("Bm", Bm), ("Cm", Cm)):
+        if t.dtype != x.dtype:
+            raise ValueError(f"{what}: {name} dtype {t.dtype} differs from x's {x.dtype}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{what}: x dtype {x.dtype}; needs float32 or bfloat16")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last dim")
+    if not (1 <= hp <= MAX_HP and 1 <= N <= MAX_N):
+        raise ValueError(f"{what}: needs hp <= {MAX_HP} and N <= {MAX_N}, got hp={hp} N={N}")
+    dt = dt.float()
+    A = A.float().contiguous()
+    y = torch.empty((B, S, H, hp), dtype=torch.float32, device=x.device).transpose(1, 2)
+    state = torch.empty((B, H, hp, N), dtype=torch.float32, device=x.device)
+    if S < 1:
+        raise ValueError(f"{what}: needs S >= 1 steps")
+    if B == 0 or H == 0:
+        return y, state
+    fn = getattr(load("ssd_chunked"), "ssd_chunked_launch")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGS
+        fn.restype = _I
+    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), state.data_ptr(), B, H, S, hp, N, *x.stride()[:3], *dt.stride(),
+            *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3], _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(rc, what)
+    ssd_chunked.launches += 1
+    return y, state
+
+
+ssd_chunked.launches = 0

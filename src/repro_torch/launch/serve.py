@@ -11,6 +11,13 @@ batching engine, on the CUDA card.
   # latent pages are not shared)
   PYTHONPATH=src python -m repro_torch.launch.serve --config deepseek-v2-lite-16b \\
       --kv-block-size 16
+  # Mamba2-2.7B (SSD): contiguous state rows, or one state page a slot on the
+  # pool (no prefix cache: state pages are not shared)
+  PYTHONPATH=src python -m repro_torch.launch.serve --config mamba2-2.7b \\
+      --kv-block-size 16
+
+Prefills run the port's prefill kernels: flash attention for the attention
+models' whole prompts, the SSD chunk scan for Mamba2's.
 
 The engine's latencies (TTFT, TPT, the vanilla-vs-Apparate wins) are
 SIMULATED from the analytic H100 latency profile, as in the JAX package;
@@ -123,7 +130,7 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
         # the paged MLA kernel takes the absorbed (latent-space) decode; both
         # layouts run it, so they compute the same math
         cfg = cfg.replace(mla_absorbed=True)
-    model = build_model(cfg)
+    model = build_model(cfg, prefill_attn="kernel", ssd_impl="kernel")
     if params is None:
         params = model.init(seed, device=device)
     if prompts is None:
@@ -192,7 +199,8 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="qwen2-1.5b",
-                    choices=["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b"])
+                    choices=["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b",
+                             "mamba2-2.7b"])
     ap.add_argument("--tiny", action="store_true", help="the config's TINY variant")
     ap.add_argument("--n", type=int, default=8, help="requests")
     ap.add_argument("--decode-tokens", type=int, default=32)

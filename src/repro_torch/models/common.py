@@ -8,6 +8,7 @@ trees never drift apart.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -28,7 +29,7 @@ def torch_dtype(name) -> torch.dtype:
 class ParamInfo:
     shape: tuple
     dtype: torch.dtype = torch.float32
-    # 'normal:<scale>' | 'embed:<scale>' | 'zeros' | 'ones'
+    # 'normal:<scale>' | 'embed:<scale>' | 'zeros' | 'ones' | 'ssm_a' | 'dt_bias'
     init: str = "normal:0.02"
 
     def initialize(self, gen: torch.Generator, device) -> torch.Tensor:
@@ -49,6 +50,14 @@ class ParamInfo:
                 x = torch.randn(blk.shape, generator=gen, device=device, dtype=torch.float32)
                 blk.copy_(x * scale)
             return out
+        if kind in ("ssm_a", "dt_bias"):
+            u = torch.rand(self.shape, generator=gen, device=device, dtype=torch.float32)
+            if kind == "ssm_a":  # A_log in [log(1), log(16)) per Mamba2
+                x = torch.log(1.0 + u * 15.0)
+            else:  # softplus^-1 of dt in [1e-3, 1e-1]
+                dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+                x = dt + torch.log(-torch.expm1(-dt))
+            return x.to(self.dtype)
         raise ValueError(f"unknown init {self.init!r}")
 
 

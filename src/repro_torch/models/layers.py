@@ -209,7 +209,7 @@ def _update_pool(pool, new, blk, off, gate=None):
 
 def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
                rope_theta=None, decode_impl: str = "dense", write_gate=None,
-               block_table=None):
+               block_table=None, prefill_attn: str = "sdpa"):
     """GQA attention. If `cache` (dict k,v: (B, S, K, hd)) is given, the new
     k/v are written into it in place at `cache_index` (an int, or a per-row
     int tensor (B,)) and attention runs against the cache. `decode_impl`
@@ -223,7 +223,13 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
     ``(block_table[b, pos // bs], pos % bs)`` and attention walks the
     table; `decode_impl` must be 'paged' (the plain version) or
     'paged-kernel' (the CUDA paged kernel; its plain version on CPU
-    tensors). Returns (out, cache)."""
+    tensors).
+
+    `prefill_attn` selects a whole-prompt prefill's attention (S > 1 written
+    at cache index 0, or no cache): 'sdpa', or 'kernel', the flash-attention
+    kernel (its plain version on CPU tensors) under the causal mask from
+    query 0, which is the mask ``LM.prefill`` builds; `mask` is then not
+    read. Returns (out, cache)."""
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
@@ -270,6 +276,13 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
             q[:, 0], k.transpose(1, 2), v.transpose(1, 2), cache_index,
             use_kernel=decode_impl == "kernel",
         )[:, None]
+    elif prefill_attn == "kernel" and S > 1 and not torch.is_tensor(cache_index) \
+            and not cache_index:
+        from repro_torch.kernels.flash_attention import attention
+
+        # (B, H, S, hd) views of the projections and the cache: no copies
+        out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True).transpose(1, 2)
     else:
         out = sdpa(q, k, v, mask)
     out = out.reshape(B, S, H * hd)

@@ -1,5 +1,6 @@
 """Decoder-only LM for the generative main path: attention + dense-FFN
-stacks, and MLA + MoE stacks with leading dense layers (DeepSeek-V2).
+stacks, MLA + MoE stacks with leading dense layers (DeepSeek-V2), and
+attention-free Mamba2 (SSD) stacks.
 
 The port's counterpart of the JAX package's ``models/transformer.py``. The
 layer stack follows the same *plan* (a period of slots repeated
@@ -14,10 +15,16 @@ recompile to avoid, and a host index keeps ``head[site]`` a view instead
 of a 472 MB gather); the KV cache is updated in place; ``decode_multi``'s
 ``lax.while_loop`` is a Python loop whose writes past the window's end are
 switched off on device, so the host reads nothing inside a window. Decode
-runs on a contiguous cache or on a paged block pool (full attention or MLA
-latents). MoE runs the dense dispatch only (the reference's
-``moe_impl='dense'``, what its serving runner passes). Ring, local, SSM
-and cross-attention slots are not ported.
+runs on a contiguous cache or on a paged block pool (full attention, MLA
+latents, or one mamba state page a slot). MoE runs the dense dispatch only
+(the reference's ``moe_impl='dense'``, what its serving runner passes).
+Ring, local, hybrid (jamba) and cross-attention slots are not ported.
+
+Two choices of the port that the configs do not carry (so that they stay
+field-for-field the reference's): ``prefill_attn`` ('sdpa' | 'kernel')
+runs a whole-prompt prefill's attention through the flash-attention
+kernel, and ``ssd_impl`` ('ref' | 'kernel') a mamba prefill's chunk scan
+through the SSD kernel; each takes its plain version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.models import layers as LY
+from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
 from repro_torch.models.common import (
     ParamInfo,
@@ -105,19 +113,26 @@ def build_plan(cfg) -> Plan:
 
 
 def _slot_schema(cfg, slot: SlotSpec, L=None) -> dict:
-    mixer = LY.mla_schema(cfg, L) if slot.mixer == "mla" else LY.gqa_schema(cfg, L)
-    ffn = MOE.moe_schema(cfg, L) if slot.ffn == "moe" else LY.ffn_schema(cfg, cfg.d_ff, L)
-    return {"ln1": LY.norm_schema(cfg, L), "mixer": mixer,
-            "ln2": LY.norm_schema(cfg, L), "ffn": ffn}
+    mixers = {"attn": LY.gqa_schema, "mla": LY.mla_schema, "mamba": MB.mamba_schema}
+    sch = {"ln1": LY.norm_schema(cfg, L), "mixer": mixers[slot.mixer](cfg, L)}
+    if slot.ffn != "none":
+        sch["ln2"] = LY.norm_schema(cfg, L)
+        sch["ffn"] = (MOE.moe_schema(cfg, L) if slot.ffn == "moe"
+                      else LY.ffn_schema(cfg, cfg.d_ff, L))
+    return sch
 
 
 def _slot_cache_schema(cfg, slot: SlotSpec, rows: tuple, L=None) -> dict:
     """One slot's cache leaves over ``rows``: (B, S) for the contiguous
     cache, (P, bs) for the paged pool. Attention keeps per-head k/v
     ``rows + (KH, hd)``; MLA one shared latent stream ``c`` ``rows + (r,)``
-    and rope key ``k_pe`` ``rows + (dr,)``."""
+    and rope key ``k_pe`` ``rows + (dr,)``; mamba one recurrent state per
+    row (contiguous) or per pool block (paged: a slot's state page is its
+    first table entry), ``conv`` and ``ssm``, whatever the tokens."""
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
+    if slot.mixer == "mamba":
+        return MB.mamba_cache_schema(cfg, rows[0], L)
     if slot.mixer == "mla":
         return {"c": ParamInfo(pre + rows + (cfg.kv_lora_rank,), dt, "zeros"),
                 "k_pe": ParamInfo(pre + rows + (cfg.qk_rope_dim,), dt, "zeros")}
@@ -125,7 +140,8 @@ def _slot_cache_schema(cfg, slot: SlotSpec, rows: tuple, L=None) -> dict:
     return {"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
 
 
-_PORTED_SLOTS = (SlotSpec("attn", "dense"), SlotSpec("mla", "dense"), SlotSpec("mla", "moe"))
+_PORTED_SLOTS = (SlotSpec("attn", "dense"), SlotSpec("mla", "dense"), SlotSpec("mla", "moe"),
+                 SlotSpec("mamba", "none"))
 
 
 def ramp_sites(cfg, max_sites: int = 12) -> Tuple[int, ...]:
@@ -154,7 +170,7 @@ def paged_leaf_kinds(schema) -> List[str]:
     (dicts iterate sorted keys): ``"tokens"`` for per-token pages
     ``(P, bs, ...)``, ``"state"`` for per-slot recurrent pages (mamba
     ``conv``/``ssm``), ``"xkv"`` for pinned cross-attention pages. The
-    serving runner branches on them; the ported family has tokens only."""
+    serving runner branches on them."""
     out: List[str] = []
 
     def walk(node, kind):
@@ -178,10 +194,11 @@ def _layer(tree, l: int):
 
 
 class LM:
-    """Functional decoder LM (attention + dense-FFN or MLA + MoE slots, a
-    prefix of leading slots, 'fc' ramps)."""
+    """Functional decoder LM (attention + dense-FFN, MLA + MoE or mamba
+    slots, a prefix of leading slots, 'fc' ramps). ``prefill_attn`` and
+    ``ssd_impl`` pick the prefill's kernels (module docstring)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, *, prefill_attn: str = "sdpa", ssd_impl: str = "kernel"):
         self.cfg = cfg
         self.plan = build_plan(cfg)
         self.sites = ramp_sites(cfg)
@@ -189,8 +206,16 @@ class LM:
         if (plan.suffix or cfg.window or cfg.qk_norm
                 or any(s not in _PORTED_SLOTS for s in plan.layer_specs())):
             raise NotImplementedError(
-                f"{cfg.name}: the port runs attention + dense-FFN and MLA + MoE "
-                "stacks only")
+                f"{cfg.name}: the port runs attention + dense-FFN, MLA + MoE and "
+                "mamba stacks only")
+        if prefill_attn not in ("sdpa", "kernel"):
+            raise ValueError(f"prefill_attn={prefill_attn!r}: the port takes 'sdpa' | 'kernel'")
+        if ssd_impl not in ("ref", "kernel"):
+            raise ValueError(f"ssd_impl={ssd_impl!r}: the port takes 'ref' | 'kernel'")
+        if cfg.ssm and cfg.ssm_ngroups != 1:
+            raise NotImplementedError(f"ssm_ngroups={cfg.ssm_ngroups}: the SSD scan takes "
+                                      "one group")
+        self.prefill_attn, self.ssd_impl = prefill_attn, ssd_impl
         if cfg.ramp_style != "fc":
             raise NotImplementedError(f"ramp_style={cfg.ramp_style!r}: only 'fc' is ported")
         if cfg.decode_attn not in ("dense", "ref", "kernel", "paged", "paged-kernel"):
@@ -237,7 +262,9 @@ class LM:
         leaf is a block pool shared by all slots: ``(L, P, bs, KH, hd)`` for
         attention, ``(L, P, bs, r)``/``(L, P, bs, dr)`` for MLA latents (the
         pool axis at 1; prefix leaves have no L axis, the pool axis at 0);
-        virtual token ``t`` of a row lives at ``(table[b, t // bs], t % bs)``."""
+        virtual token ``t`` of a row lives at ``(table[b, t // bs], t % bs)``.
+        Mamba state pages ``(L, P, d_conv-1, conv_dim)`` and ``(L, P, H, hp,
+        N)`` hold a slot's state at its first table entry."""
         return self._cache_tree((n_blocks, block_size))
 
     def init_paged_cache(self, n_blocks: int, block_size: int, device="cuda") -> dict:
@@ -249,8 +276,8 @@ class LM:
     @property
     def paged_sharing_ok(self) -> bool:
         """Prefix sharing / copy-on-write move token pages between tables:
-        sound for plain full attention only, so false for MLA, as in the
-        reference."""
+        sound for plain full attention only, so false for MLA and mamba, as
+        in the reference."""
         return all(s.mixer == "attn" and not s.cross and not s.is_local
                    for s in self.plan.layer_specs())
 
@@ -263,16 +290,49 @@ class LM:
         kw = dict(positions=positions, mask=mask, cache=cache, cache_index=cache_index,
                   decode_impl=cfg.decode_attn, write_gate=write_gate,
                   block_table=block_tables)
-        if slot.mixer == "mla":
+        if slot.mixer == "mamba":
+            out = self._mamba(p["mixer"], x, cache, write_gate, block_tables)
+        elif slot.mixer == "mla":
             out, _ = LY.mla_apply(cfg, p["mixer"], x, absorbed=cfg.mla_absorbed, **kw)
         else:
-            out, _ = LY.attn_apply(cfg, p["mixer"], x, **kw)
+            # prefill_attn applies to a whole-prompt prefill only (S > 1 at
+            # cache index 0); a decode step keeps decode_impl's path
+            out, _ = LY.attn_apply(cfg, p["mixer"], x, prefill_attn=self.prefill_attn, **kw)
         h = h + out
+        if slot.ffn == "none":
+            return h
         x = LY.apply_norm(cfg, p["ln2"], h)
         if slot.ffn == "moe":
             out, _ = MOE.moe_apply_dense(cfg, p["ffn"], x)  # aux: training only
             return h + out
         return h + LY.ffn_apply(cfg, p["ffn"], x)
+
+    def _mamba(self, p, x, cache, write_gate, block_tables):
+        """The mamba mixer. With a cache, the new state is stored in place:
+        in the row's own cache (contiguous) or in the state page at the
+        row's FIRST table entry (paged; duplicate bucket-padding rows write
+        identical values and FREE rows, whose tables are zeroed, the trash
+        block 0), kept as it was where ``write_gate`` is False, so a step
+        past a window's end leaves conv and ssm unchanged."""
+        cfg = self.cfg
+        if cache is None:
+            return MB.mamba_apply(cfg, p, x, ssd_impl=self.ssd_impl)[0]
+        if block_tables is not None:
+            blk0 = block_tables[:, 0].long()
+            view = {k: cache[k][blk0] for k in ("conv", "ssm")}
+        else:
+            view = {k: cache[k] for k in ("conv", "ssm")}
+        out, st = MB.mamba_apply(cfg, p, x, cache=view, ssd_impl=self.ssd_impl)
+        for k in ("conv", "ssm"):
+            new = st[k].to(cache[k].dtype)
+            if write_gate is not None:
+                keep = write_gate.reshape((-1,) + (1,) * (new.dim() - 1))
+                new = torch.where(keep, new, view[k])
+            if block_tables is not None:
+                cache[k][blk0] = new
+            else:
+                cache[k].copy_(new)
+        return out
 
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
                write_gate=None, block_tables=None):
@@ -318,7 +378,10 @@ class LM:
     def prefill(self, params, tokens, *, cache_len=None, active_sites=None,
                 with_cache=True):
         """tokens: (B,S). Returns (cache|None, outs) where outs carries final
-        + per-active-ramp stats for the LAST position (the generated token)."""
+        + per-active-ramp stats for the LAST position (the generated token).
+        Attention attends the S prompt queries to the ``cache_len`` keys
+        under the causal mask from query 0: through ``sdpa``, or with
+        ``prefill_attn='kernel'`` through the flash-attention kernel."""
         B, S = tokens.shape
         dev = tokens.device
         cache_len = cache_len or S
@@ -353,8 +416,8 @@ class LM:
         pc = pos[:, None]
         h = LY.embed_apply(cfg, params["tok"], tokens, pc)
         mask = None
-        if block_tables is None:
-            Sc = _cache_len(cache)
+        Sc = _cache_len(cache) if block_tables is None else None
+        if Sc is not None:  # a mamba-only cache has no sequence to mask
             mask = (torch.arange(Sc, device=tokens.device)[None, :] <= pc)[:, None, None, :]
         h, pooled = self._stack(
             params, h, positions=pc, mask=mask, caches=cache, cache_index=pos,
@@ -491,10 +554,17 @@ class LM:
         return outs
 
 
-def _cache_len(cache) -> int:
-    """Sequence length of a contiguous cache: (L, B, S, ...) block leaves."""
-    blk = cache["blocks"][0]
-    return (blk["c"] if "c" in blk else blk["k"]).shape[2]
+def _cache_len(cache) -> Optional[int]:
+    """Sequence length of a contiguous cache, from any attention leaf: k
+    ``(.., B, S, KH, hd)`` or MLA's c ``(.., B, S, r)``, stacked or prefix.
+    None when the plan has no attention: a mamba-only cache holds one
+    recurrent state a row and no sequence (the reference skips the mask)."""
+    for blk in list(cache.get("prefix", [])) + list(cache["blocks"]):
+        if "k" in blk:
+            return blk["k"].shape[-3]
+        if "c" in blk:
+            return blk["c"].shape[-2]
+    return None
 
 
 def _stats(logits):

@@ -413,8 +413,9 @@ class DecodeRunner:
         self._max_blocks = -(-self._cache_len // self._bs_blk) if self.paged else 0
         self._alloc: Optional[BlockAllocator] = None
         self._pool_axes: Optional[Tuple[int, ...]] = None  # per-leaf pool axis
-        # per-leaf page kinds steering the prefill scatter ('tokens' only in
-        # the ported family)
+        # per-leaf page kinds steering the prefill scatter: 'tokens', or
+        # 'state' (a mamba slot's recurrent state, one page at its first
+        # table entry)
         self._kinds: Optional[Tuple[str, ...]] = (
             tuple(model.paged_cache_kinds(2, self._bs_blk)) if self.paged else None
         )
@@ -552,14 +553,20 @@ class DecodeRunner:
         """Prefill ``toks`` (1, n) contiguously, then scatter the first
         ``len(blk_ids) * bs`` tokens' KV into pool blocks ``blk_ids`` (zero
         padded past the cache). Ids of shared blocks arrive as the trash
-        block 0, so only the slot's own blocks are written. Returns the
-        prefill's final-label tensor."""
+        block 0, so only the slot's own blocks are written. A "state" leaf
+        (mamba) writes batch row 0's whole recurrent state into the slot's
+        FIRST block, the id token leaves use for tokens 0..bs-1: distinct
+        leaves, so the double use never collides. Returns the prefill's
+        final-label tensor."""
         cache, outs = self.model.prefill(self.params, toks, cache_len=self._cache_len,
                                          active_sites=None, with_cache=True)
         bs, nb = self._bs_blk, len(blk_ids)
         ids = self._to_dev(np.asarray(blk_ids, np.int64))
         for pool, cont, ax, kind in zip(tree_leaves(self._cache), tree_leaves(cache),
                                         self._pool_axes, self._kinds):
+            if kind == "state":
+                pool.select(ax, int(blk_ids[0])).copy_(cont.select(ax, 0))
+                continue
             if kind != "tokens":
                 raise NotImplementedError(f"paged prefill of {kind!r} pages is not ported")
             # cont: batch (size 1) at ax, tokens at ax + 1; pool: P at ax,
@@ -680,6 +687,9 @@ class DecodeRunner:
             raise KeyError(f"slot {slot} is mid-prefill (cannot swap)")
         ids = self._alloc.owned_ids(slot)
         idx = self._to_dev(np.asarray(ids, np.int64))
+        # owned ids cover the "state" leaves too: a mamba slot's state page IS
+        # its first table entry's block, and swap_in scatters in table order,
+        # so the state rides along at position 0 of the ids.
         # the copy to the host IS swap-out's job, so its sync is sanctioned
         bufs = [l.index_select(ax, idx).cpu()
                 for l, ax in zip(tree_leaves(self._cache), self._pool_axes)]

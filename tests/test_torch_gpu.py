@@ -1,6 +1,7 @@
 """On a CUDA card: each CUDA kernel against its plain PyTorch version (the
 paged decode kernel also bit for bit against the contiguous one), and the
-tiny models with the kernels on against the plain path. Every test is
+tiny models with the kernels on against the plain path (tiny mamba2 and
+qwen2 prefills through the SSD and flash-attention kernels too). Every test is
 marked `gpu` and skips without a card; the file imports no jax, so it runs
 on a machine that has only PyTorch:
 
@@ -20,11 +21,16 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402  # repro: allow
     paged_mla_decode_attention,
     paged_mla_decode_attention_ref,
 )
+from repro_torch.kernels.flash_attention import (  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+    attention_ref,
+    flash_attention,
+)
 from repro_torch.kernels.ramp_head import (  # noqa: E402  # repro: allow[tier1-deps] — the port under test
     ramp_head_exit,
     ramp_head_exit_ref,
     ramp_head_stats,
 )
+from repro_torch.kernels.ssd import ssd, ssd_chunked  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.models import build_model  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 
 pytestmark = pytest.mark.gpu
@@ -251,3 +257,115 @@ def test_tiny_deepseek_paged_kernel_matches_plain_path(gen):
                                    rtol=1e-4, atol=1e-6)
         tok, pos = o_off["final"]["label"].reshape(-1, 1).long(), pos + 1
     assert paged_mla_decode_attention.launches - n0 == 2 * cfg.n_layers
+
+
+def _strided(gen, shape, dt):
+    """A (B, S, H, w) tensor viewed (B, H, S, w), as the models hand over
+    their projections."""
+    B, H, S, w = shape
+    return torch.randn(B, S, H, w, generator=gen, device="cuda").to(dt).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,hd,causal,window", [
+    (1, 12, 2, 128, 160, 128, True, None),  # qwen2's served prefill
+    (2, 4, 4, 120, 120, 64, True, None),    # ragged tails on both axes
+    (1, 8, 2, 77, 200, 128, False, None),   # no mask, Sq != Sk
+    (2, 4, 1, 100, 100, 32, True, 16),      # causal sliding window
+    (1, 2, 2, 65, 65, 16, False, 8),        # window alone
+])
+def test_flash_kernel_matches_plain(gen, dtype, B, H, KH, Sq, Sk, hd, causal, window):
+    dt = getattr(torch, dtype)
+    q = _strided(gen, (B, H, Sq, hd), dt)
+    k = _strided(gen, (B, KH, Sk, hd), dt)
+    v = _strided(gen, (B, KH, Sk, hd), dt)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == n0 + 1 and out.shape == ref.shape
+    # f32: sums in another order (1e-5); bf16: one output rounding (1e-2)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _ssd_inputs(gen, B, H, S, hp, N, dt):
+    x = _strided(gen, (B, H, S, hp), dt)
+    dts = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device="cuda") - 2)
+    A = -torch.exp(torch.rand(H, generator=gen, device="cuda") * 2.7726)  # -[1, 16)
+    Bm = torch.randn(B, S, N, generator=gen, device="cuda").to(dt)
+    Cm = torch.randn(B, S, N, generator=gen, device="cuda").to(dt)
+    return x, dts.transpose(1, 2), A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S,hp,N", [
+    (1, 80, 128, 64, 128),  # Mamba2-2.7B's served prefill: two chunks
+    (1, 80, 120, 64, 128),  # a ragged last chunk
+    (2, 4, 200, 32, 16),    # tiny widths, four chunks, the last ragged
+    (2, 3, 1, 48, 100),     # one step
+])
+def test_ssd_kernel_matches_plain(gen, dtype, B, H, S, hp, N):
+    """Against the plain version at the reference's chunking (64 where it
+    divides S, else one chunk of S): y and the final state, f32."""
+    x, dts, A, Bm, Cm = _ssd_inputs(gen, B, H, S, hp, N, getattr(torch, dtype))
+    n0 = ssd_chunked.launches
+    y, st = ssd(x, dts, A, Bm, Cm)
+    y_ref, st_ref = ssd(x, dts, A, Bm, Cm, use_kernel=False)
+    assert ssd_chunked.launches == n0 + 1
+    assert y.shape == y_ref.shape == (B, H, S, hp) and st.shape == st_ref.shape == (B, H, hp, N)
+    # f32 internals in both, the sums in another order and grouping: 1e-4
+    # relative to the largest magnitude
+    for a, r in ((y, y_ref), (st, st_ref)):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+
+
+def test_ssd_kernel_refuses_what_it_cannot_take(gen):
+    x, dts, A, Bm, Cm = _ssd_inputs(gen, 1, 2, 8, 64, 128, torch.float32)
+    with pytest.raises(ValueError):
+        ssd_chunked(x, dts, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError):
+        ssd_chunked(x, dts, A, Bm.bfloat16(), Cm)
+    with pytest.raises(ValueError):
+        ssd_chunked(x[..., :16].repeat(1, 1, 1, 5), dts, A, Bm, Cm)  # hp 80 > 64
+
+
+def test_tiny_mamba_ssd_kernel_matches_plain_path(gen):
+    """Tiny mamba2, f32: prefill (two chunks and a ragged tail) and two
+    decode steps with the SSD kernel vs the plain scan; the kernel runs once
+    a layer a prefill."""
+    cfg = get_tiny("mamba2-2.7b").replace(pallas_head="kernel")
+    on, off = build_model(cfg, ssd_impl="kernel"), build_model(cfg, ssd_impl="ref")
+    params = on.init(0, device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (3, 150), generator=gen, device="cuda")
+    act = list(range(len(on.sites)))
+    n0 = ssd_chunked.launches
+    (c_on, o_on), (c_off, o_off) = (m.prefill(params, toks, active_sites=act) for m in (on, off))
+    assert ssd_chunked.launches == n0 + cfg.n_layers
+    pos = torch.full((3,), 150, device="cuda")
+    for _ in range(2):
+        for a, b in ((o_on["final"], o_off["final"]), (o_on["ramps"], o_off["ramps"])):
+            assert torch.equal(a["label"], b["label"])
+            torch.testing.assert_close(a["maxprob"], b["maxprob"], rtol=1e-4, atol=1e-6)
+        tok = o_off["final"]["label"].reshape(-1, 1).long()
+        _, o_on = on.decode(params, c_on, tok, pos, active_sites=act)
+        _, o_off = off.decode(params, c_off, tok, pos, active_sites=act)
+        pos = pos + 1
+    for a, b in zip(c_on["blocks"][0].values(), c_off["blocks"][0].values()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_tiny_qwen_flash_prefill_matches_sdpa(gen):
+    """Tiny qwen2 (hd 16), f32: a prefill into a longer cache with
+    prefill_attn='kernel' vs 'sdpa'; the kernel runs once a layer."""
+    cfg = get_tiny("qwen2-1.5b").replace(pallas_head="kernel")
+    on, off = build_model(cfg, prefill_attn="kernel"), build_model(cfg)
+    params = on.init(0, device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (4, 70), generator=gen, device="cuda")
+    act = list(range(len(on.sites)))
+    n0 = flash_attention.launches
+    (c_on, o_on), (c_off, o_off) = (m.prefill(params, toks, cache_len=90, active_sites=act)
+                                    for m in (on, off))
+    assert flash_attention.launches == n0 + cfg.n_layers
+    for a, b in ((o_on["final"], o_off["final"]), (o_on["ramps"], o_off["ramps"])):
+        assert torch.equal(a["label"], b["label"])
+        torch.testing.assert_close(a["maxprob"], b["maxprob"], rtol=1e-4, atol=1e-6)
