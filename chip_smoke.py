@@ -52,6 +52,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -85,6 +86,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def demangle(names: list) -> list:
+    """Kernel names through c++filt where it is installed, else as given."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    got = out.stdout.splitlines()
+    return got if out.returncode == 0 and len(got) == len(names) else names
+
+
 # ---------------------------------------------------------------------------
 # timing
 
@@ -100,15 +111,7 @@ def flush_l2():
     _FLUSH.zero_()
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of fn() in ms over `iters` launches: CUDA events
-    around each launch, the L2 flushed before it (a decode step reaches
-    each layer's cache and each head after GBs of other traffic). One sync
-    at the end: the host enqueues the next launch while the device runs the
-    flush, so the events time the device, not Python."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def _events_ms(fn, iters) -> float:
     ev = []
     for _ in range(iters):
         flush_l2()
@@ -119,6 +122,64 @@ def time_ms(fn, iters=20, warmup=3) -> float:
         ev.append((a, b))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+
+def time_ms(fn, iters=20, warmup=3) -> float:
+    """Mean time of fn() in ms over `iters` launches: CUDA events around each
+    launch, the L2 flushed before it (a decode step reaches each layer's
+    cache and each head after GBs of other traffic). One sync at the end:
+    the host enqueues the next launch while the device runs the flush. Where
+    fn's host time before its launch outlasts the flush, the events also
+    read that host time, as a host-bound caller meets it (device_ms reads
+    the device alone)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _events_ms(fn, iters)
+
+
+_CYCLES_PER_MS = None
+
+
+def _head_start(ms: float) -> None:
+    """Enqueue a spin of about `ms` on the device (torch.cuda._sleep)."""
+    global _CYCLES_PER_MS
+    if _CYCLES_PER_MS is None:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(1_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS = 1_000_000 / max(a.elapsed_time(b), 1e-3)
+    torch.cuda._sleep(int(_CYCLES_PER_MS * ms))
+
+
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """time_ms with the host's time taken out: a device spin of 1.5x the
+    loop's host time goes first, so every launch is enqueued before the
+    device reaches it and the events read the device alone."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(warmup):
+        flush_l2()
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t) / warmup  # enqueue, or more if fn syncs
+    torch.cuda.synchronize()
+    _head_start(1.5 * host_ms * iters + 1.0)
+    return _events_ms(fn, iters)
+
+
+def host_us(fn, iters=20) -> float:
+    """Mean host time of one call of fn in us, enqueue only (fn must not
+    sync; the device queue is far from full at 20 calls)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * t / iters
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -337,6 +398,10 @@ def check_flash_attention(B, H, KH, Sq, Sk, hd, label, gen):
         "bound_ms": bm, "bound_by": by, "bytes": nbytes, "flops": flops,
         "cuda_core_ms": 1e3 * flops / PEAK_F32,
     }
+    row["tflop_per_s"] = flops / row["ms"] / 1e9  # of the counted flop
+    row["device_ms"] = device_ms(lambda: flash_attention(q, k, v, causal=True))
+    row["library_device_ms"] = device_ms(library)
+    row["host_us"] = host_us(lambda: flash_attention(q, k, v, causal=True))
     flash_attention.launches = n0  # comparison launches do not count
     print(f"flash_attention {label}: {json.dumps(row)}", flush=True)
     return row
@@ -444,10 +509,13 @@ def check_ramp_head(params, cfg, gen):
         e = torch.exp(lg - m[:, None])
         return m, e.sum(-1), (lg * e).sum(-1), lg.argmax(-1)
 
-    def bounds(extra_out):
+    def counted_bytes(extra_out):
         # what the function needs: columns >= v_limit are fixed at -1e30 and
         # never move m, s, t, argmax or exit, so only d * v_limit weights count
-        return bound_ms(d * vl * 2 + B * d * 2 + B * (16 + extra_out), 2.0 * B * d * vl)
+        return d * vl * 2 + B * d * 2 + B * (16 + extra_out)
+
+    def bounds(extra_out):
+        return bound_ms(counted_bytes(extra_out), 2.0 * B * d * vl)
 
     # -- stats on the final head: the tied embed^T (a view contiguous along
     # d) or the untied lm_head (contiguous along V)
@@ -471,6 +539,10 @@ def check_ramp_head(params, cfg, gen):
         "library_ms": time_ms(lambda: lib_stats(h, w)),
         "bound_ms": bm, "bound_by": by,
     }
+    rows["ramp_head_stats"]["tb_per_s"] = counted_bytes(0) / rows["ramp_head_stats"]["ms"] / 1e9
+    rows["ramp_head_stats"]["device_ms"] = device_ms(lambda: ramp_head_stats(h, w, v_limit=vl))
+    rows["ramp_head_stats"]["library_device_ms"] = device_ms(lambda: lib_stats(h, w))
+    rows["ramp_head_stats"]["host_us"] = host_us(lambda: ramp_head_stats(h, w, v_limit=vl))
     ramp_head_stats.launches = n0
 
     # -- exit on a ramp head: head[site], (d, V) contiguous along V, with
@@ -506,6 +578,10 @@ def check_ramp_head(params, cfg, gen):
         "library_ms": time_ms(lambda: lib_stats(h, w)),
         "bound_ms": bm, "bound_by": by,
     }
+    rows["ramp_head_exit"]["tb_per_s"] = counted_bytes(8) / rows["ramp_head_exit"]["ms"] / 1e9
+    rows["ramp_head_exit"]["device_ms"] = device_ms(lambda: ramp_head_exit(h, w, thr, v_limit=vl))
+    rows["ramp_head_exit"]["library_device_ms"] = device_ms(lambda: lib_stats(h, w))
+    rows["ramp_head_exit"]["host_us"] = host_us(lambda: ramp_head_exit(h, w, thr, v_limit=vl))
     ramp_head_exit.launches = n0
     n_bound = check_exit_boundary(h, head_weight(params, cfg), vl, wname)
     n_bound += check_exit_boundary(h, w, vl, "head[site]")
@@ -1344,9 +1420,14 @@ def main() -> None:
     print(f"built {sorted(logs) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  [{name}] {line.strip()}", flush=True)
+        lines = [ln for ln in log.splitlines()
+                 if "entry function" in ln or "registers" in ln or "spill" in ln]
+        entries = demangle([ln.split("'")[1] for ln in lines if "entry function" in ln])
+        for line in lines:  # smem is on the registers line
+            if "entry function" in line:
+                print(f"  [{name}] {entries.pop(0)}:", flush=True)
+            else:
+                print(f"  [{name}]   {line.strip()}", flush=True)
 
     # -- phase 3: kernels vs plain versions
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 versions stay f32

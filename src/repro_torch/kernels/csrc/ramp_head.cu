@@ -9,26 +9,61 @@
 //
 // What bounds it on an H100: bytes. One call streams the head's live
 // columns, d*v_limit weights (1536 x 151936 bf16 = 467 MB for qwen2-1.5b),
-// and does 2*B flop per weight: ~8 flop per byte at B = 8, far below the ~295 flop/byte
-// where the tensor cores would become the limit. The design reads each
-// weight byte once for all B rows:
-//   * pass 1: one CTA per 256-column vocab tile holds a chunk of up to 8
-//     rows of h in shared memory (f32) and streams its tile of w in 16-byte
-//     loads, one f32 multiply-add per weight and row on the CUDA cores; it
-//     writes the tile's (m, s, t, argmax) partials per row;
-//   * pass 2: one warp per row merges the partials IN TILE ORDER (each lane
-//     a contiguous run of tiles, then an ordered shuffle tree), with a
-//     strict > so the argmax keeps the first index, and applies the exit
-//     compare. The TPU carried (m, s, t, idx) across a sequential vocab
-//     grid axis; Hopper runs blocks in no order, hence the second pass.
+// and does 2*B flop per weight: ~8 flop per byte at B = 8, far below the ~295
+// flop/byte where the tensor cores would become the limit. So the kernel
+// must read each weight byte once, for all B rows, and keep enough bytes in
+// flight on every SM for the whole call.
 // w arrives in either layout by stride, without a copy: a ramp head
 // head[site] is (d, V) contiguous along V; the tied head embed^T is a
-// (d, V) view contiguous along d. Each layout has its own pass-1 mapping
-// so that global loads stay 16 bytes a lane on contiguous runs. A ragged last
-// vocab tile is masked in the kernel, and a tile wholly at or past v_limit
-// (the padded vocab) writes its known partials without reading w, so a call
-// reads d * v_limit weights, not d * V. Not done yet: TMA pipelining, and
-// B > 8 reads w once per chunk of 8 rows.
+// (d, V) view contiguous along d. Columns at or past v_limit (the padded
+// vocab) are never read: their logits are -1e30, so their share of the
+// record is known. Two passes: pass 1 writes partial records, pass 2
+// (merge_tiles, one warp a row) merges them in column order, every merge
+// keeping the lower column on a tie of the max, so the argmax is the first
+// index, and applies the exit compare. The
+// TPU carried (m, s, t, idx) across a sequential vocab grid axis; Hopper
+// runs blocks in no order, hence the second pass.
+//
+// bf16 (every served model), pass 1 is one balanced wave that streams w:
+//   * a persistent grid of min(SMs x CTAs an SM, live blocks) CTAs of 8
+//     warps. The live columns are cut into 16-column blocks; CTA c takes an
+//     equal contiguous run of them. Its warps take the run in rounds of one
+//     warp tile each, side by side, so the eight warps read neighbouring
+//     columns; the last, partial round is dealt out evenly. So every warp
+//     streams the same bytes to within one block, and all of them stream
+//     until the end;
+//   * h is staged once per CTA (16-byte loads), all rows of a pass (up to
+//     32, as shared memory allows) against every w stage, so w is read from
+//     device memory once per call; a larger B loops over passes of rows;
+//   * each warp streams its tiles through its own ring of three 4 KB
+//     stages (16-byte cp.async copies, zeros past d and past its columns),
+//     two stages in flight while it multiplies the third; the first stages
+//     are started before h is staged. A stage is 32 rows of one 128-byte
+//     line: 32 k rows of 64 columns of a V-major head[site], or 32 column
+//     rows of 64 k of the d-major embed^T, whose copies also ask the L2 for
+//     the next 128 bytes of the row (the next stage's);
+//   * the products run on the tensor cores (mma.sync.m16n8k16, bf16 in, f32
+//     accumulate): w^T is the (columns x d) A operand, from ldmatrix.trans
+//     on a V-major stage and ldmatrix on a d-major one; h^T is the n8 B
+//     operand, one n8 per 8 rows (rows past B are zeros and write no
+//     partials). Stage rows are padded by 16 bytes, so the eight row reads
+//     of an ldmatrix hit distinct banks;
+//   * logits stay in the accumulators: after a tile's last stage the warp
+//     folds its columns into one running (m, s, t, argmax) a row (ties of
+//     the max keep the lower column, so the order of the fold does not
+//     matter), the CTA folds its warps' records through 4 KB of shared
+//     memory, and writes ONE partial per row. The last CTA also folds the
+//     known record of the columns past the live blocks;
+//   * pass 2 merges the G partials of a row in CTA order: merge_tiles, as
+//     for f32, one launch more rather than a ticket on the last CTA.
+// float32 (the card tests' exact reference path) stays on the CUDA cores,
+// unchanged: bf16 or TF32 tensor-core products would not hold its stats to
+// the 1e-4 relative agreement it is tested to. Pass 1 is one CTA per
+// 256-column vocab tile and chunk of up to 8 rows of h (f32 in shared
+// memory), one f32 multiply-add per weight and row, each layout with its
+// own mapping so that global loads stay 16 bytes a lane on contiguous runs;
+// it writes each tile's partials.
+// The next step (ROADMAP): TMA bulk copies with mbarriers in place of cp.async.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
@@ -43,9 +78,9 @@ constexpr int NW = 8;        // warps per CTA
 constexpr int NT = NW * 32;  // == TV: one thread per column in the tile pass
 constexpr int CPL = TV / 32; // columns per lane in the V-major pass
 constexpr float NEG = -1e30f;
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block can use
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -311,11 +346,16 @@ struct Stat {
   int i;
 };
 
-// Merge b (later tiles) into a (earlier tiles): the TPU kernel's merge.
+// Merge two partial records: the TPU kernel's merge, with ties of the max
+// keeping the lower column, so that the argmax is the first index whatever
+// the order of the merges. i == INT_MAX marks an empty record.
 __device__ __forceinline__ Stat merge(Stat a, Stat b) {
+  if (b.i == INT_MAX) return a;
+  if (a.i == INT_MAX) return b;
   const float nm = fmaxf(a.m, b.m);
   const float ea = expf(a.m - nm), eb = expf(b.m - nm);
-  return {nm, a.s * ea + b.s * eb, a.t * ea + b.t * eb, b.m > a.m ? b.i : a.i};
+  const int i = a.m > b.m ? a.i : b.m > a.m ? b.i : min(a.i, b.i);
+  return {nm, a.s * ea + b.s * eb, a.t * ea + b.t * eb, i};
 }
 
 // Pass 2: one warp per row merges the row's partials in tile order.
@@ -327,13 +367,9 @@ merge_tiles(const float* __restrict__ pm, const float* __restrict__ ps,
   const int b = blockIdx.x, lane = threadIdx.x;
   const int per = (n_tiles + 31) / 32, lo = lane * per, hi = min(lo + per, n_tiles);
   const long long base = (long long)b * n_tiles;
-  Stat acc = {NEG, 0.f, 0.f, 0};
-  int has = 0;
-  for (int j = lo; j < hi; ++j) {
-    const Stat x = {pm[base + j], ps[base + j], pt[base + j], pi[base + j]};
-    acc = has ? merge(acc, x) : x;
-    has = 1;
-  }
+  Stat acc = {0.f, 0.f, 0.f, INT_MAX};
+  for (int j = lo; j < hi; ++j)
+    acc = merge(acc, Stat{pm[base + j], ps[base + j], pt[base + j], pi[base + j]});
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {  // lane i absorbs lanes [i+o, i+2o)
     Stat r;
@@ -341,11 +377,7 @@ merge_tiles(const float* __restrict__ pm, const float* __restrict__ ps,
     r.s = __shfl_down_sync(0xffffffffu, acc.s, o);
     r.t = __shfl_down_sync(0xffffffffu, acc.t, o);
     r.i = __shfl_down_sync(0xffffffffu, acc.i, o);
-    const int rh = __shfl_down_sync(0xffffffffu, has, o);
-    if (lane + o < 32 && rh) {
-      acc = has ? merge(acc, r) : r;
-      has = 1;
-    }
+    if (lane + o < 32) acc = merge(acc, r);
   }
   if (lane == 0) {
     m[b] = acc.m;
@@ -395,16 +427,427 @@ int launch(const void* h, long long h_sb, const void* w, long long w_sk, long lo
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16: one balanced wave of CTAs streams w through the tensor cores
+
+using bf16 = __nv_bfloat16;
+constexpr int MBW = 16;            // columns of an m16 block: the unit of work
+constexpr int NS = 3;              // stages in a warp's ring: two in flight
+constexpr int RNW = 8;             // warps per CTA
+constexpr int RNT = RNW * 32;
+constexpr int MAXG = 4;            // n8 row groups a pass: up to 32 rows of h
+
+// A warp tile streams in 4 KB stages of whole 16-byte chunks. V-major
+// (w[k, v] at k * ws + v): KC k rows of VC columns (VC / 16 m16 blocks);
+// d-major (w[k, v] at v * ws + k): 32 column rows of 64 k (a 128-byte line
+// each, 2 m16 blocks). Stage rows are padded by 16 bytes.
+template <bool VMAJ>
+struct Tile {
+  static constexpr int VC = VMAJ ? 64 : 32;          // columns of a warp tile
+  static constexpr int MB = VC / 16;                 // m16 blocks of a warp tile
+  static constexpr int KC = 2048 / VC;               // contraction elements of a stage
+  static constexpr int ROWS = VMAJ ? KC : VC;        // stage rows
+  static constexpr int RL = VMAJ ? VC : KC;          // elements of a stage row
+  static constexpr int PITCH = RL + 8;
+  static constexpr int STAGE = ROWS * PITCH;         // elements
+  static_assert(KC % 16 == 0 && ROWS * RL / 8 == 256, "a 4 KB stage of 16-byte chunks");
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16-byte global -> shared copy; the source's first `src_bytes` (0..16) are
+// read and the rest of the 16 bytes written as zeros.
+// L2PF: the L2 prefetch size hint (the lines a copy's sector brings along).
+template <int L2PF>
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  if (L2PF == 256)
+    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate. Fragments
+// (PTX ISA, m16n8k16): with g = lane / 4 and c = 2 * (lane % 4),
+// a = {A[g][c..c+1], A[g+8][c..c+1], A[g][c+8..c+9], A[g+8][c+8..c+9]},
+// b = {B[c..c+1][g], B[c+8..c+9][g]}, d = {D[g][c], D[g][c+1], D[g+8][c], D[g+8][c+1]}.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One stage of a warp tile, global -> shared by cp.async, zeros past d and
+// at or past column ce (the end of the warp's columns, or V).
+template <bool VMAJ>
+__device__ __forceinline__ void fetch_stage(bf16* dst, const bf16* __restrict__ w, long long ws,
+                                            int col0, int ce, int kc, int d, int lane) {
+  using TL = Tile<VMAJ>;
+  constexpr int CPR = TL::RL / 8;  // 16-byte chunks a stage row
+#pragma unroll
+  for (int j = 0; j < 256 / 32; ++j) {
+    const int i = lane + 32 * j, r = i / CPR, c = (i % CPR) * 8;  // row r, chunk c
+    if (VMAJ) {
+      const int k = kc + r, col = col0 + c;
+      const int n = k < d ? min(16, max(0, 2 * (ce - col))) : 0;
+      cp_async16<128>(dst + r * TL::PITCH + c, n ? w + k * ws + col : w, n);
+    } else {
+      const int col = col0 + r, k = kc + c;
+      const int n = col < ce ? min(16, max(0, 2 * (d - k))) : 0;
+      // a column row runs on along d: the next stage's line comes along
+      cp_async16<256>(dst + r * TL::PITCH + c, n ? w + (long long)col * ws + k : w, n);
+    }
+  }
+}
+
+// Rows rb0 .. rb0 + nb of h into shared rows of hsd + 8 elements, zeros past
+// nb rows and past d; 16-byte loads where h's rows allow them.
+__device__ void stage_h_bf16(const bf16* __restrict__ h, long long h_sb, int rb0, int nb, int d,
+                             int hsd, int rows, bf16* hs) {
+  const int cpr = hsd / 8;
+  const bool vec = reinterpret_cast<uintptr_t>(h) % 16 == 0 && h_sb % 8 == 0;
+  for (int i = threadIdx.x; i < rows * cpr; i += RNT) {
+    const int r = i / cpr, c = (i % cpr) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nb) {
+      const bf16* p = h + (long long)(rb0 + r) * h_sb + c;
+      if (vec && c + 8 <= d) {
+        v = *reinterpret_cast<const uint4*>(p);
+      } else {
+        bf16* el = reinterpret_cast<bf16*>(&v);
+        for (int e = 0; e < 8; ++e)
+          if (c + e < d) el[e] = p[e];
+      }
+    }
+    *reinterpret_cast<uint4*>(hs + r * (hsd + 8) + c) = v;
+  }
+}
+
+// Pass 1, bf16. The live columns are cut into m16 blocks (16 columns); CTA
+// c of G takes the blocks [M c / G, M (c + 1) / G), and its warps share
+// them out as below, every warp the same number to within one block. A warp
+// streams its tiles (up to Tile::MB blocks each) through its own ring of NS
+// stages and keeps, per row of h, the running (m, s, t, argmax) of its
+// columns. Writes one partial a row a CTA: partial[row * G + c].
+template <int NG, bool VMAJ>
+__global__ void __launch_bounds__(RNT, 1)
+ramp_tiles_bf16(const bf16* __restrict__ h, long long h_sb, const bf16* __restrict__ w,
+                long long ws, int B, int d, int hsd, int V, int v_limit, int n_blk,
+                float* __restrict__ pm, float* __restrict__ ps, float* __restrict__ pt,
+                int* __restrict__ pi) {
+  using TL = Tile<VMAJ>;
+  constexpr int RP = NG * 8, MB = TL::MB, KC = TL::KC, PITCH = TL::PITCH, STAGE = TL::STAGE;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  __shared__ Stat red[RNW][RP];
+  bf16* hs = reinterpret_cast<bf16*>(smraw);                // [RP][hsd + 8]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* ring = hs + RP * (hsd + 8) + warp * NS * STAGE;      // this warp's [NS][STAGE]
+  const int G = gridDim.x, cta = blockIdx.x;
+  const int r0 = (int)((long long)n_blk * cta / G), r1 = (int)((long long)n_blk * (cta + 1) / G);
+  // rounds of RNW x MB blocks, warp w taking the w-th tile of each (the warps
+  // of a CTA read neighbouring columns); the last, partial round dealt out
+  // evenly, each warp a contiguous share
+  constexpr int R = RNW * MB;
+  const int n = r1 - r0, F = n / R, rem = n % R;
+  const int l0 = r0 + F * R + rem * warp / RNW, l1 = r0 + F * R + rem * (warp + 1) / RNW;
+  const int n_tiles = F + (l1 > l0 ? 1 : 0);
+  // the columns [col0, ce) of this warp's tile j
+  auto tile_cols = [&](int j, int& col0, int& ce) {
+    if (j < F) {
+      col0 = (r0 + j * R + warp * MB) * MBW;
+      ce = min(col0 + MB * MBW, V);
+    } else {
+      col0 = l0 * MBW;
+      ce = min(l1 * MBW, V);
+    }
+  };
+  const int nk = hsd / KC, total = n_tiles * nk;
+  const int g = lane >> 2, c2 = 2 * (lane & 3), mi = lane >> 3;
+
+  auto fetch = [&](int s) {
+    if (s < total) {
+      int col0, ce;
+      tile_cols(s / nk, col0, ce);
+      fetch_stage<VMAJ>(ring + (s % NS) * STAGE, w, ws, col0, ce, (s % nk) * KC, d, lane);
+    }
+    cp_async_commit();  // empty past the end: the group count stays uniform
+  };
+
+  for (int rb0 = 0; rb0 < B; rb0 += RP) {
+    const int nb = min(RP, B - rb0);
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) fetch(s);  // w streams while h is staged
+    stage_h_bf16(h, h_sb, rb0, nb, d, hsd, RP, hs);
+    __syncthreads();
+
+    float acc[MB][NG][4];
+    Stat run[NG][2];
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mb][gi][e] = 0.f;
+      run[gi][0] = run[gi][1] = Stat{0.f, 0.f, 0.f, INT_MAX};
+    }
+
+    for (int s = 0; s < total; ++s) {
+      cp_async_wait<NS - 2>();  // stage s landed (this lane's copies) ...
+      __syncwarp();             // ... and every lane's; stage s - 1 is read
+      fetch(s + NS - 1);
+      const bf16* st = ring + (s % NS) * STAGE;
+      const int kc = (s % nk) * KC;
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        // h^T as the B operand: matrices (rows, k 0-7), (rows, k 8-15)
+        unsigned bfr[NG][2];
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi)
+          ldsm_x2(bfr[gi], hs + (gi * 8 + (lane & 7)) * (hsd + 8) + kc + ks * 16 + (mi & 1) * 8);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          // w^T as the A operand (columns x k): matrices (cols 0-7, k 0-7),
+          // (cols 8-15, k 0-7), (cols 0-7, k 8-15), (cols 8-15, k 8-15)
+          unsigned a[4];
+          if (VMAJ)
+            ldsm_x4_t(a, st + (ks * 16 + (mi >> 1) * 8 + (lane & 7)) * PITCH + mb * 16 +
+                             (mi & 1) * 8);
+          else
+            ldsm_x4(a, st + (mb * 16 + (mi & 1) * 8 + (lane & 7)) * PITCH + ks * 16 +
+                           (mi >> 1) * 8);
+#pragma unroll
+          for (int gi = 0; gi < NG; ++gi) mma_bf16(acc[mb][gi], a, bfr[gi][0], bfr[gi][1]);
+        }
+      }
+      if (s % nk == nk - 1) {
+        // the tile's logits are complete: element e of acc[mb][gi] is column
+        // col0 + 16 mb + g + 8 (e >> 1) of row 8 gi + c2 + (e & 1); the
+        // eight lanes with one lane % 4 share a row. Columns at or past ce
+        // are not this warp's.
+        int col0, ce;
+        tile_cols(s / nk, col0, ce);
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            float x[2 * MB];
+            float mx = -INFINITY;
+#pragma unroll
+            for (int q = 0; q < 2 * MB; ++q) {
+              const int col = col0 + 8 * q + g;  // q = 2 mb + hi
+              x[q] = col < v_limit ? acc[q >> 1][gi][2 * (q & 1) + p] : NEG;
+              if (col < ce) mx = fmaxf(mx, x[q]);
+            }
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+            int cand = INT_MAX;  // the first column at the max
+            float se = 0.f, sl = 0.f;
+#pragma unroll
+            for (int q = 2 * MB - 1; q >= 0; --q) {
+              const int col = col0 + 8 * q + g;
+              if (col < ce) {
+                if (x[q] == mx) cand = col;
+                const float e = expf(x[q] - mx);
+                se += e;
+                sl += x[q] * e;
+              }
+            }
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) {
+              cand = min(cand, __shfl_xor_sync(0xffffffffu, cand, o));
+              se += __shfl_xor_sync(0xffffffffu, se, o);
+              sl += __shfl_xor_sync(0xffffffffu, sl, o);
+            }
+            run[gi][p] = merge(run[gi][p], Stat{mx, se, sl, cand});
+          }
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mb][gi][e] = 0.f;
+        }
+      }
+    }
+    cp_async_wait<0>();
+
+    // fold the warps' records, then write this CTA's partial of each row
+    if (lane < 4) {
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) {
+        red[warp][gi * 8 + c2] = run[gi][0];
+        red[warp][gi * 8 + c2 + 1] = run[gi][1];
+      }
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < nb) {
+      const int r = threadIdx.x;
+      Stat a = {0.f, 0.f, 0.f, INT_MAX};
+      for (int wv = 0; wv < RNW; ++wv) a = merge(a, red[wv][r]);
+      const int dead0 = n_blk * MBW;  // columns past the live blocks: all -1e30
+      if (cta == G - 1 && dead0 < V) {
+        const float n = (float)(V - dead0);
+        a = merge(a, Stat{NEG, n, NEG * n, dead0});
+      }
+      const long long o = (long long)(rb0 + r) * G + cta;
+      pm[o] = a.m;
+      ps[o] = a.s;
+      pt[o] = a.t;
+      pi[o] = a.i;
+    }
+    __syncthreads();  // red and hs are reused by the next pass
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+      n = 1;
+  }
+  return n;
+}
+
+// The bf16 launch's shape: row groups a pass, dynamic shared memory, CTAs.
+struct Plan {
+  int ng, hsd, n_blk, grid;
+  size_t smem;
+  const void* fn;
+};
+
+template <int NG, bool VMAJ>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(&ramp_tiles_bf16<NG, VMAJ>);
+}
+
+int plan_bf16(int B, int d, int V, int v_limit, bool vmaj, Plan* p) {
+  const int kc = vmaj ? Tile<true>::KC : Tile<false>::KC;
+  p->hsd = (d + kc - 1) / kc * kc;
+  const int vl = v_limit < V ? v_limit : V;
+  p->n_blk = vl > 0 ? (vl + MBW - 1) / MBW : 0;
+  const size_t ring =
+      (size_t)RNW * NS * (vmaj ? Tile<true>::STAGE : Tile<false>::STAGE) * sizeof(bf16);
+  const size_t stat = (size_t)RNW * MAXG * 8 * sizeof(Stat);  // the static red[][]
+  int ng = (B + 7) / 8 < MAXG ? (B + 7) / 8 : MAXG;
+  if (ng < 1) ng = 1;
+  auto smem = [&](int n) { return (size_t)n * 8 * (p->hsd + 8) * sizeof(bf16) + ring; };
+  while (ng > 1 && smem(ng) + stat > MAX_SMEM) --ng;
+  if (smem(ng) + stat > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  p->ng = ng;
+  p->smem = smem(ng);
+  static const void* fns[2][MAXG] = {
+      {kernel_of<1, false>(), kernel_of<2, false>(), kernel_of<3, false>(), kernel_of<4, false>()},
+      {kernel_of<1, true>(), kernel_of<2, true>(), kernel_of<3, true>(), kernel_of<4, true>()}};
+  p->fn = fns[vmaj][ng - 1];
+  // occupancy, once per (kernel, shared memory size)
+  static size_t seen_smem[2][MAXG] = {};
+  static int seen_occ[2][MAXG] = {};
+  if (seen_smem[vmaj][ng - 1] != p->smem) {
+    cudaError_t e = cudaFuncSetAttribute(p->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p->smem);
+    if (e != cudaSuccess) return (int)e;
+    int occ = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, p->fn, RNT, p->smem);
+    if (e != cudaSuccess) return (int)e;
+    if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+    seen_smem[vmaj][ng - 1] = p->smem;
+    seen_occ[vmaj][ng - 1] = occ;
+  }
+  // one wave: a CTA per SM slot, but no CTA without a block
+  const int slots = sm_count() * seen_occ[vmaj][ng - 1];
+  p->grid = p->n_blk < slots ? (p->n_blk > 0 ? p->n_blk : 1) : slots;
+  return 0;
+}
+
+int launch_bf16(const void* h, long long h_sb, const void* w, long long w_sk, long long w_sv,
+                const float* thr, long long thr_stride, float* part_f, int* part_i, float* m,
+                float* s, float* t, int* idx, int* ex, int B, int d, int V, int v_limit,
+                cudaStream_t stream) {
+  const bool vmaj = w_sv == 1;
+  if (!vmaj && w_sk != 1) return (int)cudaErrorInvalidValue;
+  Plan p;
+  int rc = plan_bf16(B, d, V, v_limit, vmaj, &p);
+  if (rc != 0) return rc;
+  const long long np = (long long)B * p.grid;
+  float *pm = part_f, *ps = part_f + np, *pt = part_f + 2 * np;
+  const bf16* hp = static_cast<const bf16*>(h);
+  const bf16* wp = static_cast<const bf16*>(w);
+  const long long ws = vmaj ? w_sk : w_sv;
+#define RAMP_ARGS hp, h_sb, wp, ws, B, d, p.hsd, V, v_limit, p.n_blk, pm, ps, pt, part_i
+#define RAMP_CASE(NG)                                                               \
+  case NG:                                                                          \
+    if (vmaj)                                                                       \
+      ramp_tiles_bf16<NG, true><<<p.grid, RNT, p.smem, stream>>>(RAMP_ARGS);        \
+    else                                                                            \
+      ramp_tiles_bf16<NG, false><<<p.grid, RNT, p.smem, stream>>>(RAMP_ARGS);       \
+    break;
+  switch (p.ng) {
+    RAMP_CASE(1)
+    RAMP_CASE(2)
+    RAMP_CASE(3)
+    RAMP_CASE(4)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RAMP_CASE
+#undef RAMP_ARGS
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  merge_tiles<<<B, 32, 0, stream>>>(pm, ps, pt, part_i, p.grid, thr, thr_stride, m, s, t, idx,
+                                    ex);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
-extern "C" int ramp_head_tile_v() { return TV; }
+// Partial records per row of h that pass 1 writes (the scratch's size):
+// one per 256-column tile for float32, one per CTA for bfloat16. 0 when no
+// launch shape fits (d too wide for shared memory).
+extern "C" int ramp_head_parts(int B, int d, int V, int v_limit, long long w_sk, long long w_sv,
+                               int dtype) {
+  if (dtype == 0) return (V + TV - 1) / TV;
+  Plan p;
+  return plan_bf16(B, d, V, v_limit, w_sv == 1, &p) == 0 ? p.grid : 0;
+}
 
 // h (B, d) with row stride h_sb; w viewed as (d, V) with element strides
 // (w_sk, w_sv), one of them 1; thr (B,) f32 with stride thr_stride, or null
-// for stats only (then ex must be null too); part_f float[3*B*n_tiles] and
-// part_i int[B*n_tiles] scratch, n_tiles = ceil(V / ramp_head_tile_v());
-// outputs m, s, t f32 (B,), idx, ex int32 (B,). dtype: 0 = float32,
-// 1 = bfloat16 (h and w alike). Returns the CUDA error code (0 on success).
+// for stats only (then ex must be null too); part_f float[3*B*n_parts] and
+// part_i int[B*n_parts] scratch, n_parts = ramp_head_parts(...) of the same
+// arguments; outputs m, s, t f32 (B,), idx, ex int32 (B,). dtype: 0 =
+// float32, 1 = bfloat16 (h and w alike). Returns the CUDA error code (0 on
+// success).
 extern "C" int ramp_head_launch(const void* h, long long h_sb, const void* w, long long w_sk,
                                 long long w_sv, const void* thr, long long thr_stride,
                                 void* part_f, void* part_i, void* m, void* s, void* t,
@@ -415,8 +858,8 @@ extern "C" int ramp_head_launch(const void* h, long long h_sb, const void* w, lo
   auto i = [](void* p) { return static_cast<int*>(p); };
   const float* th = static_cast<const float*>(thr);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(h, h_sb, w, w_sk, w_sv, th, thr_stride, f(part_f), i(part_i),
-                                 f(m), f(s), f(t), i(idx), i(ex), B, d, V, v_limit, st);
+    return launch_bf16(h, h_sb, w, w_sk, w_sv, th, thr_stride, f(part_f), i(part_i), f(m),
+                       f(s), f(t), i(idx), i(ex), B, d, V, v_limit, st);
   if (dtype == 0)
     return launch<float>(h, h_sb, w, w_sk, w_sv, th, thr_stride, f(part_f), i(part_i), f(m),
                          f(s), f(t), i(idx), i(ex), B, d, V, v_limit, st);

@@ -2,7 +2,8 @@
 
 ``flash_attention`` replaces the JAX package's Pallas ``flash_attention``:
 causal and/or sliding-window attention of Sq queries against Sk keys with
-GQA, an online softmax over 64-key tiles in f32. It reads q, k and v by
+GQA, an online softmax over 64-key tiles in f32 (bf16 on the tensor cores,
+float32 on the CUDA cores). It reads q, k and v by
 stride, so the model's (B, H, S, hd) views of (B, S, H, hd) projections and
 of its (B, S, KH, hd) cache cost no copy, and it writes the output into
 (B, Sq, H, hd) storage, returned as a (B, H, Sq, hd) view, so the caller's
@@ -24,6 +25,18 @@ _L = ctypes.c_longlong
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [_P] * 4 + [_I] * 6 + [_L] * 12 + [ctypes.c_float, _I, _I, _I, _P]
 MAX_HD = 128  # four output columns a lane
+_MISALIGNED = 716  # cudaErrorMisalignedAddress, returned before any launch
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = load("flash_attention").flash_attention_launch
+        fn.argtypes = _ARGS
+        fn.restype = _I
+        _fn = fn
+    return _fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -31,7 +44,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """q (B, H, Sq, hd); k, v (B, KH, Sk, hd), views with a contiguous last
     dim, one dtype (float32 or bfloat16), on one CUDA device; H a multiple
     of KH, hd <= 128. Query i and key j are positions from 0. Returns
-    (B, H, Sq, hd) in q's dtype."""
+    (B, H, Sq, hd) in q's dtype.
+
+    bfloat16 takes q, k and v through 16-byte copies: each base pointer and
+    each batch, head and position stride (of a dim longer than 1) must be a
+    multiple of 16 bytes (8 elements), else it raises. The models' (B, H, S,
+    hd) views of (B, S, H, hd) storage qualify whenever hd % 8 == 0."""
     what = "flash_attention"
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[3] != q.shape[3]:
@@ -39,8 +57,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                          f"v {tuple(v.shape)}")
     B, H, Sq, hd = q.shape
     KH, Sk = k.shape[1], k.shape[2]
+    dev = q.get_device()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
         if t.dtype != q.dtype or t.dtype not in _DTYPES:
             raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
@@ -57,14 +76,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         return out
     if Sk == 0:
         raise ValueError(f"{what}: no keys to attend to")
-    fn = getattr(load("flash_attention"), "flash_attention_launch")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGS
-        fn.restype = _I
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KH, Sq, Sk, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            1.0 / math.sqrt(hd), int(bool(causal)), 0 if window is None else int(window),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    # the raw current stream: torch.cuda.current_stream() builds a Stream
+    # object, a few us of host time in a call that launches one ~10 us kernel
+    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KH, Sq,
+                     Sk, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *out.stride()[:3], 1.0 / math.sqrt(hd), int(bool(causal)),
+                     0 if window is None else int(window), _DTYPES[q.dtype],
+                     torch._C._cuda_getCurrentRawStream(dev))
+    if rc == _MISALIGNED:
+        raise ValueError(f"{what}: bfloat16 q, k and v need 16-byte aligned bases and "
+                         f"strides of multiples of 8 elements, got {q.stride()}, "
+                         f"{k.stride()}, {v.stride()}")
     check_launch(rc, what)
     flash_attention.launches += 1
     return out

@@ -3,8 +3,10 @@
 Replace the JAX package's Pallas ``ramp_head_stats`` and ``ramp_head_exit``.
 ``w`` is a (d, V) view in either layout, contiguous along V (a ramp head
 ``head[site]``) or along d (the tied head ``embed.T``), read by stride with
-no copy. A ragged last vocab tile is handled in the kernel. Launches on
-PyTorch's current stream, never syncs.
+no copy. A ragged last vocab tile is handled in the kernel. The scratch for
+the partial records is sized by the library (``ramp_head_parts``: one per
+256-column tile for float32, one per CTA of the bfloat16 kernel's single
+wave). Launches on PyTorch's current stream, never syncs.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ def _lib():
         lib.ramp_head_launch.argtypes = ([_P, _L, _P, _L, _L, _P, _L] + [_P] * 7
                                          + [_I] * 5 + [_P])
         lib.ramp_head_launch.restype = _I
-        lib.ramp_head_tile_v.argtypes = []
-        lib.ramp_head_tile_v.restype = _I
+        lib.ramp_head_parts.argtypes = [_I, _I, _I, _I, _L, _L, _I]
+        lib.ramp_head_parts.restype = _I
     return lib
 
 
@@ -65,9 +67,11 @@ def _launch(h, w, thresholds, v_limit, what):
     if B == 0:
         return m, s, t, idx, ex
     lib = _lib()
-    n_tiles = -(-V // lib.ramp_head_tile_v())
-    part_f = torch.empty(3 * B * n_tiles, dtype=torch.float32, device=dev)
-    part_i = torch.empty(B * n_tiles, dtype=torch.int32, device=dev)
+    n_parts = lib.ramp_head_parts(B, d, V, v_limit, sk, sv, _DTYPES[h.dtype])
+    if n_parts < 1:
+        raise ValueError(f"{what}: no launch shape fits d={d} in shared memory")
+    part_f = torch.empty(3 * B * n_parts, dtype=torch.float32, device=dev)
+    part_i = torch.empty(B * n_parts, dtype=torch.int32, device=dev)
     rc = lib.ramp_head_launch(
         h.data_ptr(), h.stride(0), w.data_ptr(), sk, sv, thr_ptr, thr_stride,
         part_f.data_ptr(), part_i.data_ptr(), m.data_ptr(), s.data_ptr(), t.data_ptr(),

@@ -182,6 +182,73 @@ def test_ramp_exit_boundary_is_strict_on_card(gen, dtype, layout):
     assert above[4].all()
 
 
+def _ramp_grid(B, d, V, vl, w):
+    """CTAs (= partial records a row) of the bf16 ramp-head launch, from the
+    library that sizes its scratch."""
+    from repro_torch.kernels.ramp_head.kernel import _lib  # repro: allow[tier1-deps] — the port under test
+
+    return _lib().ramp_head_parts(B, d, V, vl, *w.stride(), 1)
+
+
+def _check_ramp_exit(got, h, w, thr, vl):
+    ref = ramp_head_exit_ref(h, w, thr, vl)
+    for x, y in zip(got[:3], ref[:3]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4 * float(y.abs().max()))
+    V = w.shape[1]
+    lg = torch.where(torch.arange(V, device="cuda") < vl, h.float() @ w.float(), -1e30)
+    top2 = lg.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3  # labels exact unless a near-tie
+    assert torch.equal(got[3][clear], ref[3][clear])
+    unc = 1.0 - 1.0 / ref[1]
+    far = (unc - thr).abs() > 1e-6  # exit bits exact unless |unc - thr| is tiny
+    assert torch.equal(got[4][far], ref[4][far])
+
+
+@pytest.mark.parametrize("layout", ["d_by_V", "embed_T"])
+@pytest.mark.parametrize("B", [1, 8, 9, 16, 17, 33])  # row groups of 8, passes of <= 32 rows
+@pytest.mark.parametrize("limit", ["none", "edge", "inside", "few"])
+def test_ramp_bf16_rows_and_v_limit(gen, layout, B, limit):
+    """The bf16 wave against its plain version. V spans several 16-column
+    blocks per warp; v_limit: none, on a block edge, inside a block, or so
+    small that each CTA has one block (fewer live blocks than SMs). d 136
+    is a multiple of neither stage depth (32 and 64)."""
+    d, V = 136, 132 * 16 * 8 * 3 + 72  # the last block holds 8 columns
+    vl = {"none": V, "edge": V - 72 - 16 * 5, "inside": V - 72 - 13, "few": 1000}[limit]
+    h = torch.randn(B, d, generator=gen, device="cuda").bfloat16()
+    w = _w(gen, layout, d, V, torch.bfloat16)
+    thr = torch.rand(B, generator=gen, device="cuda")
+    if limit == "few":
+        assert _ramp_grid(B, d, V, vl, w) == -(-vl // 16)  # one live block a CTA
+    got = ramp_head_exit(h, w, thr, v_limit=vl)
+    _check_ramp_exit(got, h, w, thr, vl)
+    assert int(got[3].max()) < vl
+    st = ramp_head_stats(h, w, v_limit=vl)
+    for x, z in zip(got[:4], st):
+        assert torch.equal(x, z)  # one kernel, two wrappers
+
+
+@pytest.mark.parametrize("layout", ["d_by_V", "embed_T"])
+def test_ramp_bf16_argmax_tie_across_ctas_takes_first(gen, layout):
+    """A column duplicated far apart, first in the runs of the second and
+    the second-to-last CTA (so at the same place in their warps' tiles), is
+    every row's max: the merge must return the lower index."""
+    B, d, V = 9, 104, 132 * 16 * 8 * 2
+    h = torch.rand(B, d, generator=gen, device="cuda").bfloat16()  # positive rows
+    w = _w(gen, layout, d, V, torch.bfloat16)
+    G = _ramp_grid(B, d, V, V, w)
+    assert G >= 4
+    n_blk = V // 16  # 16-column blocks, split evenly over the CTAs
+    a = (n_blk * 1 // G) * 16 + 5
+    b = (n_blk * (G - 2) // G) * 16 + 5
+    w[:, a] = 1.0  # (a view of embed for embed_T: the same columns)
+    w[:, b] = 1.0
+    m, s, t, idx = ramp_head_stats(h, w)
+    assert (idx == a).all(), idx.tolist()
+    ref = ramp_head_exit_ref(h, w, torch.zeros(B, device="cuda"))
+    torch.testing.assert_close(m, ref[0], rtol=1e-4, atol=1e-4 * float(ref[0].abs().max()))
+    torch.testing.assert_close(s, ref[1], rtol=1e-4, atol=1e-4)
+
+
 def test_empty_batch_launches_nothing(gen):
     """A wrapper counts a launch only where its kernel launched: B == 0
     returns empty outputs and leaves every counter as it was."""
@@ -268,11 +335,23 @@ def _strided(gen, shape, dt):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,hd,causal,window", [
-    (1, 12, 2, 128, 160, 128, True, None),  # qwen2's served prefill
+    (1, 12, 2, 128, 160, 128, True, None),  # qwen2's served prefill (bf16: 32-query CTAs)
     (2, 4, 4, 120, 120, 64, True, None),    # ragged tails on both axes
     (1, 8, 2, 77, 200, 128, False, None),   # no mask, Sq != Sk
     (2, 4, 1, 100, 100, 32, True, 16),      # causal sliding window
     (1, 2, 2, 65, 65, 16, False, 8),        # window alone
+    (1, 4, 2, 50, 30, 64, False, None),     # Sk under one key tile, Sq != Sk
+    (2, 4, 2, 65, 65, 128, True, None),     # Sk = 64 + 1
+    (1, 6, 3, 200, 129, 32, True, None),    # Sk = 128 + 1; queries past Sk
+    (3, 4, 1, 1, 129, 16, False, None),     # one query
+    (1, 2, 1, 1, 70, 128, True, None),      # one query, causal: key 0 alone
+    (1, 4, 2, 300, 300, 64, True, 100),     # windows across the two-stage K/V ring
+    (1, 2, 2, 256, 256, 128, False, 70),    # window alone across the ring
+    (1, 4, 4, 90, 90, 40, True, None),      # hd 40 (bf16: zero-padded to 64)
+    (2, 3, 1, 33, 47, 24, False, None),     # hd 24 (bf16: zero-padded to 32)
+    (2, 16, 4, 300, 300, 64, True, None),   # 160 CTAs of 64 queries (bf16: 4 warps)
+    (1, 16, 2, 1100, 1100, 128, True, None),  # 18 key tiles, ragged
+    (2, 16, 16, 600, 600, 16, True, 200),   # hd 16, windowed, many CTAs
 ])
 def test_flash_kernel_matches_plain(gen, dtype, B, H, KH, Sq, Sk, hd, causal, window):
     dt = getattr(torch, dtype)
@@ -286,6 +365,22 @@ def test_flash_kernel_matches_plain(gen, dtype, B, H, KH, Sq, Sk, hd, causal, wi
     # f32: sums in another order (1e-5); bf16: one output rounding (1e-2)
     tol = 1e-5 if dtype == "float32" else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_flash_bf16_refuses_misaligned_rows(gen):
+    """bf16 q/k/v arrive by 16-byte copies: a base or a row stride that is
+    not a multiple of 16 bytes raises, and launches nothing."""
+    x = torch.randn(1, 2, 64, 72, generator=gen, device="cuda").bfloat16()
+    good = x[..., :64]
+    n0 = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(x[..., 4:68], good, good)  # base 8 bytes off
+    y = torch.randn(1, 2, 64, 68, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError):
+        flash_attention(good, y[..., :64], good)  # rows 136 bytes apart
+    assert flash_attention.launches == n0
+    flash_attention(good, good, good)
+    assert flash_attention.launches == n0 + 1
 
 
 def _ssd_inputs(gen, B, H, S, hp, N, dt):
