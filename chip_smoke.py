@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build every CUDA kernel of the main path with nvcc (ptxas report);
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes, and time kernel, plain version and one PyTorch
-     library call (CUDA events, L2 flushed between launches);
+     library call (CUDA events, L2 flushed between launches); the decode
+     rows also read the device alone, the wrapper's host time, the key-axis
+     split and an occupancy probe (CTAs, CTAs an SM, DRAM rate) that stands
+     in for Nsight Compute;
      3b. the paged decode kernel against its plain version, and bit for bit
      against the contiguous kernel on the same keys;
   4. full-width qwen2-1.5b with seeded random weights: prefill + 8 decode
@@ -191,9 +194,25 @@ def bound_ms(nbytes: float, flops: float):
 # phase 3: kernels against their plain versions
 
 
+def _decode_probe(name, label, info, nbytes, dev_ms):
+    """Stands in for Nsight Compute, which does not run on the card's
+    machine: the launch's CTAs, the CTAs an SM the occupancy API allows, the
+    warps an SM that gives (of 64), and the DRAM rate of the bytes the call
+    needs over its device time."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = min(info["ctas"], n_sm * info["ctas_per_sm"])
+    probe = {**info, "sms": n_sm, "warps_per_sm_allowed": 4 * info["ctas_per_sm"],
+             "theoretical_occupancy": 4 * info["ctas_per_sm"] / 64,
+             "resident_warps_per_sm_at_launch": 4 * resident / n_sm,
+             "dram_tb_per_s": nbytes / dev_ms / 1e9}
+    print(f"{name} occupancy probe {label}: {json.dumps(probe)}", flush=True)
+    return probe
+
+
 def check_decode_attention(B, S, label, gen, pos_lo=0):
-    """Per-row pos drawn from [pos_lo, S)."""
+    """Per-row pos drawn from [pos_lo, S), int64 as the model holds it."""
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention.kernel import decode_launch_info
 
     H, KH, hd = 12, 2, 128
     dt = torch.bfloat16
@@ -203,7 +222,7 @@ def check_decode_attention(B, S, label, gen, pos_lo=0):
     kc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
     vc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
     k, v = kc.transpose(1, 2), vc.transpose(1, 2)
-    pos = torch.randint(pos_lo, S, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.randint(pos_lo, S, (B,), generator=gen, device="cuda")
     out = decode_attention(q, k, v, pos)
     ref = decode_attention_ref(q, k, v, pos)
     torch.cuda.synchronize()
@@ -219,7 +238,7 @@ def check_decode_attention(B, S, label, gen, pos_lo=0):
             q[:, :, None], k, v, attn_mask=mask[:, None, None], enable_gqa=True)
 
     nk = (torch.clamp(pos.long(), max=S - 1) + 1).sum().item()
-    nbytes = q.numel() * 2 + nk * KH * hd * 2 * 2 + B * 4 + B * H * hd * 2
+    nbytes = q.numel() * 2 + nk * KH * hd * 2 * 2 + B * 8 + B * H * hd * 2  # int64 pos
     flops = nk * H * hd * 4  # q.k and p.v per (key, query head)
     bm, by = bound_ms(nbytes, flops)
     n0 = decode_attention.launches
@@ -227,9 +246,16 @@ def check_decode_attention(B, S, label, gen, pos_lo=0):
         "shape": label, "max_abs_err": err,
         "ms": time_ms(lambda: decode_attention(q, k, v, pos)),
         "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, pos)),
-        "library_ms": time_ms(library),
-        "bound_ms": bm, "bound_by": by,
+        "library_ms": time_ms(library), "library": "SDPA (boolean mask, enable_gqa)",
+        "bound_ms": bm, "bound_by": by, "bytes": nbytes,
     }
+    row["device_ms"] = device_ms(lambda: decode_attention(q, k, v, pos))
+    row["library_device_ms"] = device_ms(library)
+    row["host_us"] = host_us(lambda: decode_attention(q, k, v, pos))
+    info = decode_launch_info(q.dtype, B, H, KH, S, hd)
+    probe = _decode_probe("decode_attention", label, info, nbytes, row["device_ms"])
+    row.update(splits=info["splits"], ctas_per_sm=info["ctas_per_sm"],
+               tb_per_s=probe["dram_tb_per_s"])
     decode_attention.launches = n0  # comparison launches do not count
     print(f"decode_attention {label}: {json.dumps(row)}", flush=True)
     return row
@@ -245,6 +271,7 @@ def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16):
         paged_decode_attention,
         paged_decode_attention_ref,
     )
+    from repro_torch.kernels.decode_attention.kernel import decode_launch_info
 
     H, KH, hd = 12, 2, 128
     dt = torch.bfloat16
@@ -254,7 +281,7 @@ def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16):
     v_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     table = perm.reshape(B, nb).to(torch.int32)
-    pos = torch.randint(pos_lo, pos_hi, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.randint(pos_lo, pos_hi, (B,), generator=gen, device="cuda")
     n0 = (paged_decode_attention.launches, decode_attention.launches)
     out = paged_decode_attention(q, k_pool, v_pool, table, pos)
     ref = paged_decode_attention_ref(q, k_pool, v_pool, table, pos)
@@ -279,7 +306,7 @@ def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16):
     nk = torch.clamp(pos.long(), max=S - 1) + 1
     nblk = ((nk + bs - 1) // bs).sum().item()  # table entries the walk reads
     nk = nk.sum().item()
-    nbytes = q.numel() * 2 + nk * KH * hd * 2 * 2 + nblk * 4 + B * 4 + B * H * hd * 2
+    nbytes = q.numel() * 2 + nk * KH * hd * 2 * 2 + nblk * 4 + B * 8 + B * H * hd * 2
     bm, by = bound_ms(nbytes, nk * H * hd * 4)
     row = {
         "shape": label, "max_abs_err": err, "bit_identical_to_contiguous": True,
@@ -288,8 +315,15 @@ def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16):
                                                           vc.transpose(1, 2), pos)),
         "plain_ms": time_ms(lambda: paged_decode_attention_ref(q, k_pool, v_pool, table, pos)),
         "library_ms": time_ms(library), "library": "k_pool[table] gather + SDPA (two calls)",
-        "bound_ms": bm, "bound_by": by,
+        "bound_ms": bm, "bound_by": by, "bytes": nbytes,
     }
+    row["device_ms"] = device_ms(lambda: paged_decode_attention(q, k_pool, v_pool, table, pos))
+    row["library_device_ms"] = device_ms(library)
+    row["host_us"] = host_us(lambda: paged_decode_attention(q, k_pool, v_pool, table, pos))
+    info = decode_launch_info(q.dtype, B, H, KH, S, hd, paged=True, bs=bs)
+    probe = _decode_probe("paged_decode_attention", label, info, nbytes, row["device_ms"])
+    row.update(splits=info["splits"], ctas_per_sm=info["ctas_per_sm"],
+               tb_per_s=probe["dram_tb_per_s"])
     paged_decode_attention.launches, decode_attention.launches = n0  # comparison launches
     print(f"paged_decode_attention {label}: {json.dumps(row)}", flush=True)
     return row
@@ -846,7 +880,8 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
 
 def profile_step(fn, top=6):
     """One call of fn under torch.profiler: device busy ms (the sum of
-    kernel times), wall ms, and the kernels that took the most device time."""
+    kernel times), wall ms, the kernels that took the most device time, and
+    the device ms of each of the port's own kernels (by kernel name)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -859,8 +894,14 @@ def profile_step(fn, top=6):
     kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     kern.sort(key=lambda e: -e.self_device_time_total)
+    ours = {}
+    for e in kern:  # csrc/*.cu kernels live in anonymous namespaces outside at::
+        if "(anonymous namespace)::" in e.key and "at::" not in e.key:
+            name = e.key.split("(anonymous namespace)::")[1].split("<")[0].split("(")[0]
+            ours[name] = ours.get(name, 0.0) + e.self_device_time_total / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy,
-            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in kern[:top]}}
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in kern[:top]},
+            "port_kernels_ms": ours}
 
 
 # ---------------------------------------------------------------------------
@@ -1552,6 +1593,7 @@ def main() -> None:
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "path": path, "shape": r["shape"],
+            **{k: r[k] for k in ("device_ms", "host_us") if k in r},
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,9 +3,11 @@
 
 ``decode_attention`` replaces the JAX package's Pallas ``decode_attention``:
 it reads k and v by stride, so the caller's (B, KH, S, hd) view of a
-(B, S, KH, hd) cache costs no copy. ``paged_decode_attention`` replaces the
-Pallas ``paged_decode_attention``: the same kernel, instantiated to walk a
-per-row block table over (P, bs, KH, hd) pools. ``paged_mla_decode_attention``
+(B, S, KH, hd) cache costs no copy, and pos as the caller holds it.
+``paged_decode_attention`` replaces the Pallas ``paged_decode_attention``:
+the same kernel, instantiated to walk a per-row block table over (P, bs,
+KH, hd) pools. In bfloat16 both cut each row's key axis into
+``decode_splits`` ranges, one CTA each, merged inside the launch. ``paged_mla_decode_attention``
 replaces the Pallas ``paged_mla_decode_attention``: absorbed MLA decode over
 paged latent pools, one CTA per row and key range serving all heads. All
 launch on PyTorch's current stream and never sync.
@@ -25,68 +27,162 @@ _L = ctypes.c_longlong
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# each C entry point's leading arguments: pointers, ints, strides
-_ARGS = {"decode_attention_launch": [_P] * 5 + [_I] * 5 + [_L] * 8,
-         "paged_decode_attention_launch": [_P] * 6 + [_I] * 7 + [_L] * 8}
+# each C entry point's arguments
+_ARGS = {"decode_attention_launch": [_P] * 7 + [_I] * 6 + [_L] * 10 + [_I, ctypes.c_float, _I, _P],
+         "paged_decode_attention_launch":
+             [_P] * 8 + [_I] * 8 + [_L] * 11 + [_I, ctypes.c_float, _I, _P],
+         "decode_attention_ctas_per_sm": [_I] * 6}
+_MISALIGNED = 716  # cudaErrorMisalignedAddress, returned before any launch
+_fns = {}
 
 
 def _fn(name="decode_attention_launch"):
-    fn = getattr(load("decode_attention"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGS[name] + [ctypes.c_float, _I, _P]
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(load("decode_attention"), name)
+        fn.argtypes = _ARGS[name]
         fn.restype = _I
+        _fns[name] = fn
     return fn
 
 
-def _check_16b(name, t, what="decode_attention"):
+def _check_16b(name, t, what):
     if t.data_ptr() % 16 or any((s * t.element_size()) % 16 for s in t.stride()[:-1]):
         raise ValueError(f"{what}: {name} rows must be 16-byte aligned "
                          f"(strides {t.stride()})")
 
 
-def _check_operands(what, q, kv, hd, H, KH):
-    """Device, dtype, contiguous last dim and the shapes the kernel takes."""
-    for name, t in (("q", q),) + kv:
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
-            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
-                             "float32/bfloat16, alike for q, k, v")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{what}: {name} needs a contiguous last dim")
-    if hd not in (64, 128) or KH == 0 or H % KH or H // KH > 8:
+DECODE_TILE = 16  # keys of a warp tile of the bf16 kernel; a key range is whole tiles
+DECODE_CTAS_PER_SM = 3  # what the bf16 kernel's 70 KB of shared memory lets an SM hold
+# CTAs for a wave and a half: ranges that start past their row's keys exit
+# at once, so rows shorter than the cache leave slots that more ranges fill
+DECODE_WAVES = 1.5
+# the fewest tiles a range (four a warp of the CTA's four): a shorter row
+# takes one range, since the merge's round trips through L2 cost more than a
+# shorter walk saves
+DECODE_RANGE_TILES = 16
+DECODE_MAX_SPLITS = 256  # the kernel's merge keeps a weight a range and head in shared memory
+
+
+def decode_splits(n_sm, B, KH, keys):
+    """Key ranges per (row, KV head) of the bf16 flash-decode kernel over
+    ``keys`` cache slots (S, or nb * bs paged), from static shapes only, so
+    that a captured launch stays valid: enough CTAs for DECODE_WAVES waves
+    of ``n_sm`` SMs at DECODE_CTAS_PER_SM each, ranges of whole tiles, at
+    least DECODE_RANGE_TILES of them, none past the last tile."""
+    tiles = -(-keys // DECODE_TILE)
+    want = math.ceil(DECODE_WAVES * n_sm * DECODE_CTAS_PER_SM / max(1, B * KH))
+    want = max(1, min(want, tiles // DECODE_RANGE_TILES, DECODE_MAX_SPLITS))
+    return -(-tiles // -(-tiles // want))  # ranges of ceil(tiles / want) tiles
+
+
+_n_sm = {}
+_splits_of = {}  # (device, dtype, B * KH, keys) -> decode_splits
+_scratch = {}  # (device, stream) -> [counters, partials]
+_SCALE = {64: 1.0 / 8.0, 128: 1.0 / math.sqrt(128)}  # the head widths the kernel takes
+_POS_KINDS = {torch.int32: 0, torch.int64: 1}  # and 2: a Python int
+
+
+def _splits(dev, dtype, B, KH, keys):
+    key = (dev, dtype, B * KH, keys)
+    s = _splits_of.get(key)
+    if s is None:
+        if dtype != torch.bfloat16:
+            s = 1  # the f32 kernel takes the whole key axis in one CTA
+        else:
+            n = _n_sm.get(dev)
+            if n is None:
+                n = _n_sm[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+            s = decode_splits(n, B, KH, keys)
+        _splits_of[key] = s
+    return s
+
+
+def _workspace(dev, stream, groups, floats):
+    """Pointers to the merge's counters (int32, zero between calls: the
+    kernel resets them) and its f32 partials, cached per device and stream
+    and grown as needed, so a call allocates nothing."""
+    w = _scratch.get((dev, stream))
+    if w is None:
+        w = _scratch[(dev, stream)] = [None, None]
+    if w[0] is None or w[0].numel() < groups:
+        w[0] = torch.zeros(max(groups, 1024), dtype=torch.int32, device=dev)
+    if w[1] is None or w[1].numel() < floats:
+        w[1] = torch.empty(max(floats, 1 << 18), dtype=torch.float32, device=dev)
+    return w[0].data_ptr(), w[1].data_ptr()
+
+
+def _operands(what, q, k, v, hd, H, KH):
+    """q's device index, once q, k and v are on one card in one dtype with a
+    contiguous last dim and heads the kernel takes (alignment is the C entry
+    point's check). One test on the common path; the reason on the other."""
+    dev, dt = q.get_device(), q.dtype
+    if (dev < 0 or k.get_device() != dev or v.get_device() != dev or k.dtype != dt
+            or v.dtype != dt or dt not in _DTYPES or q.stride(-1) != 1 or k.stride(-1) != 1
+            or v.stride(-1) != 1 or hd not in _SCALE or KH == 0 or H % KH or H > 8 * KH):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not t.is_cuda or t.get_device() != dev:
+                raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
+            if t.dtype != dt or dt not in _DTYPES:
+                raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
+                                 "float32/bfloat16, alike for q, k, v")
+            if t.stride(-1) != 1:
+                raise ValueError(f"{what}: {name} needs a contiguous last dim")
         raise ValueError(f"{what}: needs hd in (64, 128) and H/KH <= 8, "
                          f"got hd={hd} H={H} KH={KH}")
-    for name, t in kv:
-        _check_16b(name, t, what)
+    return dev
 
 
-def _pos_vector(pos, B, device):
-    if torch.is_tensor(pos):
-        return pos.to(device=device, dtype=torch.int32).reshape(-1).expand(B).contiguous()
-    return torch.full((B,), int(pos), dtype=torch.int32, device=device)
+def _pos_args(pos, B, dev, what):
+    """(pointer, element stride, scalar, kind) of pos for the C entry points:
+    an int32 or int64 tensor on q's card is read as it is, one value a row
+    or one for all; a Python int goes by value."""
+    if not isinstance(pos, torch.Tensor):
+        return None, 0, int(pos), 2
+    if pos.get_device() != dev or pos.dtype not in _POS_KINDS:
+        pos = pos.to(device=torch.device("cuda", dev), dtype=torch.int64)
+    if pos.dim() != 1:
+        pos = pos.reshape(-1)
+    n = pos.shape[0]
+    if n != B and n != 1:
+        raise ValueError(f"{what}: pos has {n} values for {B} rows")
+    return pos.data_ptr(), pos.stride(0) if n > 1 else 0, 0, _POS_KINDS[pos.dtype]
+
+
+def _raise_on(rc, what, *tensors):
+    if rc == _MISALIGNED:
+        raise ValueError(f"{what}: k and v need 16-byte aligned bases and rows (bfloat16 q "
+                         f"4-byte aligned pairs), got strides "
+                         + ", ".join(str(t.stride()) for t in tensors))
+    check_launch(rc, what)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> torch.Tensor:
-    """q (B, H, hd); k, v (B, KH, S, hd) views with a contiguous last dim;
-    pos an int or an int (B,) tensor (attend to key slots <= pos).
-    Returns (B, H, hd) in q's dtype."""
+    """q (B, H, hd); k, v (B, KH, S, hd) views with a contiguous last dim and
+    16-byte aligned rows; pos an int, or an int32/int64 tensor of B values or
+    one (attend to key slots <= pos). Returns (B, H, hd) in q's dtype."""
+    what = "decode_attention"
     B, H, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
-        raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     KH, S = k.shape[1], k.shape[2]
-    _check_operands("decode_attention", q, (("k", k), ("v", v)), hd, H, KH)
-    pos = _pos_vector(pos, B, q.device)
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    dev = _operands(what, q, k, v, hd, H, KH)
+    pp, ps, pv, pk = _pos_args(pos, B, dev, what)
+    out = q.new_empty((B, H, hd))
     if B == 0:
         return out
-    fn = _fn()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, H, KH, S, hd, q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(rc, "decode_attention")
+    # the raw current stream: torch.cuda.current_stream() builds a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    splits = _splits(dev, q.dtype, B, KH, S)
+    cnt, part = _workspace(dev, stream, B * KH, B * H * splits * (hd + 2)) if splits > 1 \
+        else (None, None)
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pp, out.data_ptr(), part, cnt, B, H, KH,
+               S, hd, splits, qs[0], qs[1], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], ps, pv, pk,
+               _SCALE[hd], _DTYPES[q.dtype], stream)
+    if rc:
+        _raise_on(rc, what, q, k, v)
     decode_attention.launches += 1
     return out
 
@@ -94,49 +190,75 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> 
 decode_attention.launches = 0
 
 
-# the block table lives in shared memory beside the tiles (at most 227 KB)
+# the bf16 kernel keeps its range's table entries in shared memory, the f32
+# kernel its row's (at most 227 KB)
 MAX_TABLE_BLOCKS = 16384
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            block_table: torch.Tensor, pos) -> torch.Tensor:
     """q (B, H, hd); k_pool, v_pool (P, bs, KH, hd) with a contiguous last
-    dim; block_table int (B, nb), row b's virtual block j at pool block
-    ``block_table[b, j]``; pos an int or an int (B,) tensor (attend to
-    virtual slots <= pos, walked up to nb*bs - 1). Returns (B, H, hd) in
-    q's dtype."""
+    dim and 16-byte aligned rows; block_table int (B, nb), row b's virtual
+    block j at pool block ``block_table[b, j]`` (an int32 table with a
+    contiguous last dim is read as it is); pos as for ``decode_attention``
+    (attend to virtual slots <= pos, walked up to nb*bs - 1). Returns
+    (B, H, hd) in q's dtype."""
+    what = "paged_decode_attention"
     B, H, hd = q.shape
     if (k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != hd
             or block_table.dim() != 2 or block_table.shape[0] != B):
-        raise ValueError(f"paged_decode_attention: bad shapes q {tuple(q.shape)} "
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
                          f"pools {tuple(k_pool.shape)} {tuple(v_pool.shape)} "
                          f"table {tuple(block_table.shape)}")
     P, bs, KH, _ = k_pool.shape
     nb = block_table.shape[1]
-    _check_operands("paged_decode_attention", q, (("k_pool", k_pool), ("v_pool", v_pool)),
-                    hd, H, KH)
-    if block_table.device != q.device:
-        raise ValueError(f"paged_decode_attention: block_table must be on {q.device}")
+    dev = _operands(what, q, k_pool, v_pool, hd, H, KH)
+    table = block_table
+    if table.get_device() != dev:
+        raise ValueError(f"{what}: block_table must be on {q.device}")
     if not 1 <= nb <= MAX_TABLE_BLOCKS or P < 1:
-        raise ValueError(f"paged_decode_attention: needs 1 <= nb <= {MAX_TABLE_BLOCKS} "
+        raise ValueError(f"{what}: needs 1 <= nb <= {MAX_TABLE_BLOCKS} "
                          f"and a non-empty pool, got nb={nb} P={P}")
-    table = block_table.to(torch.int32).contiguous()
-    pos = _pos_vector(pos, B, q.device)
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    if table.dtype != torch.int32 or table.stride(1) != 1:
+        table = table.to(torch.int32).contiguous()
+    pp, ps, pv, pk = _pos_args(pos, B, dev, what)
+    out = q.new_empty((B, H, hd))
     if B == 0:
         return out
-    fn = _fn("paged_decode_attention_launch")
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, H, KH, P, bs, nb, hd, q.stride(0), q.stride(1),
-            k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
-            v_pool.stride(0), v_pool.stride(1), v_pool.stride(2), 1.0 / math.sqrt(hd),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(rc, "paged_decode_attention")
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    splits = _splits(dev, q.dtype, B, KH, nb * bs)
+    cnt, part = _workspace(dev, stream, B * KH, B * H * splits * (hd + 2)) if splits > 1 \
+        else (None, None)
+    qs, ks, vs = q.stride(), k_pool.stride(), v_pool.stride()
+    rc = _fn("paged_decode_attention_launch")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(), pp,
+        out.data_ptr(), part, cnt, B, H, KH, P, bs, nb, hd, splits, qs[0], qs[1], ks[0], ks[1],
+        ks[2], vs[0], vs[1], vs[2], table.stride(0), ps, pv, pk, _SCALE[hd], _DTYPES[q.dtype],
+        stream)
+    if rc:
+        _raise_on(rc, what, q, k_pool, v_pool)
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def decode_launch_info(dtype, B, H, KH, keys, hd=128, *, paged=False, bs=1, device=0):
+    """The split count and the CTAs an SM (as the card's occupancy API
+    reports them) of a flash-decode launch over ``keys`` slots: what
+    chip_smoke.py prints beside the kernel rows."""
+    splits = _splits(device, dtype, B, KH, keys)
+    n = _fn("decode_attention_ctas_per_sm")(_DTYPES[dtype], hd, int(paged), keys, bs, splits)
+    if n < 0:
+        check_launch(-n, "decode_attention_ctas_per_sm")
+    return {"splits": splits, "ctas": B * KH * splits, "ctas_per_sm": n}
+
+
+def _pos_vector(pos, B, device):
+    if torch.is_tensor(pos):
+        return pos.to(device=device, dtype=torch.int32).reshape(-1).expand(B).contiguous()
+    return torch.full((B,), int(pos), dtype=torch.int32, device=device)
 
 
 _MLA_ARGS = [_P] * 8 + [_I] * 8 + [_L] * 8 + [ctypes.c_float, _I, _P]

@@ -14,10 +14,12 @@ from repro_torch.models.common import tree_map
 
 
 def _tensor(x, device) -> torch.Tensor:
-    a = np.asarray(x)
+    # always a copy: the port updates caches in place, and the caller's array
+    # may also back a JAX array on the CPU that a computation still reads
+    a = np.array(x, order="C")
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: carry the raw bits over
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def from_numpy_params(tree, device="cuda"):

@@ -64,7 +64,7 @@ def test_decode_kernel_matches_plain(gen, dtype, hd, H, KH, S):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("bs", [8, 16, 48])  # 48 does not divide the 32-key tile
+@pytest.mark.parametrize("bs", [8, 16, 48])  # 48 does not divide the f32 kernel's 32-key tile
 def test_paged_kernel_matches_plain_and_contiguous(gen, dtype, hd, bs):
     """A shuffled table over a pool whose block 0 is the trash block. Row 1
     owns three blocks and points the rest at block 0; pos covers the first
@@ -88,6 +88,137 @@ def test_paged_kernel_matches_plain_and_contiguous(gen, dtype, hd, bs):
     vc = v_pool[table.long()].reshape(B, S, KH, hd)
     cont = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
     assert torch.equal(out, cont)  # same key order, same arithmetic
+
+
+def _range_edges(chunk, S):
+    """pos at the first slot, inside the first key range (so the later
+    ranges are empty), both sides of the first two range boundaries, the
+    last slot and past it."""
+    return [0, 5, chunk - 2, chunk - 1, chunk, chunk + 1, 2 * chunk - 1, 2 * chunk,
+            S - 1, S + 9]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 6, 8])
+def test_decode_split_ranges_match_plain(gen, dtype, hd, G):
+    """The key axis cut into ranges (bf16: 3 ranges of 336 keys for these 10
+    rows): pos on every side of the range edges, S = 1000 not a multiple of
+    the 16-key tile, int64 pos as the model holds it."""
+    from repro_torch.kernels.decode_attention.kernel import DECODE_TILE, decode_launch_info  # repro: allow[tier1-deps] — the port under test
+
+    dt = getattr(torch, dtype)
+    KH, S = 2, 1000
+    B = len(_range_edges(0, S))
+    info = decode_launch_info(dt, B, G * KH, KH, S, hd)
+    tiles = -(-S // DECODE_TILE)
+    chunk = -(-tiles // info["splits"]) * DECODE_TILE
+    if dtype == "bfloat16":
+        assert info["splits"] > 2 and info["ctas_per_sm"] >= 2
+    q = torch.randn(B, G * KH, hd, generator=gen, device="cuda").to(dt)
+    kc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    vc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    pos = torch.tensor(_range_edges(chunk, S), device="cuda")  # int64
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    out = decode_attention(q, k, v, pos)
+    ref = decode_attention_ref(q, k, v, pos)
+    # f32: sums in another order (1e-5); bf16: one output rounding (1e-2)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    # int32 pos, and one pos for every row (a tensor of one value, an int)
+    torch.testing.assert_close(decode_attention(q, k, v, pos.to(torch.int32)), out, rtol=0, atol=0)
+    one = decode_attention(q, k, v, pos[6:7])
+    assert torch.equal(one, decode_attention(q, k, v, int(pos[6])))
+    torch.testing.assert_close(one.float(), decode_attention_ref(q, k, v, pos[6]).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(200, 300), (4, 40)])
+def test_decode_one_range_matches_plain(gen, dtype, B, S):
+    """Shapes where the kernel takes each row's keys in one range: enough
+    (row, KV head) pairs to fill the card, or too few tiles to split."""
+    from repro_torch.kernels.decode_attention.kernel import decode_launch_info  # repro: allow[tier1-deps] — the port under test
+
+    dt = getattr(torch, dtype)
+    H, KH, hd = 12, 2, 128
+    assert decode_launch_info(dt, B, H, KH, S, hd)["splits"] == 1
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    kc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    vc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    pos = torch.randint(0, S + 4, (B,), generator=gen, device="cuda")
+    out = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
+    ref = decode_attention_ref(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [8, 16, 24, 48])  # 24: a 16-key tile spans two blocks
+def test_paged_split_ranges_match_contiguous_bit_for_bit(gen, dtype, bs):
+    """The paged kernel across key-range edges over a shuffled table (block
+    0 the trash block no row owns): within tolerance of its plain version
+    and bit for bit equal to the contiguous kernel on the same keys (same
+    S, same ranges, same merge order)."""
+    from repro_torch.kernels.decode_attention.kernel import DECODE_TILE, decode_launch_info  # repro: allow[tier1-deps] — the port under test
+
+    dt = getattr(torch, dtype)
+    H, KH, hd = 12, 2, 128
+    nb = -(-960 // bs)
+    S = nb * bs
+    B = len(_range_edges(0, S))
+    P = B * nb + 1
+    info = decode_launch_info(dt, B, H, KH, S, hd, paged=True, bs=bs)
+    tiles = -(-S // DECODE_TILE)
+    chunk = -(-tiles // info["splits"]) * DECODE_TILE
+    if dtype == "bfloat16":
+        assert info["splits"] > 2
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    k_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
+    v_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
+    table = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).reshape(B, nb)
+    table = table.to(torch.int32)
+    pos = torch.tensor(_range_edges(chunk, S), device="cuda")
+    out = paged_decode_attention(q, k_pool, v_pool, table, pos)
+    ref = paged_decode_attention_ref(q, k_pool, v_pool, table, pos)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    kc = k_pool[table.long()].reshape(B, S, KH, hd)
+    vc = v_pool[table.long()].reshape(B, S, KH, hd)
+    assert torch.equal(out, decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos))
+    # an int64 table is taken too (converted once), with the same result
+    assert torch.equal(out, paged_decode_attention(q, k_pool, v_pool, table.long(), pos))
+
+
+def test_decode_wrappers_launch_only_their_kernel(gen):
+    """On the model's operands (int64 pos, an int32 table) a call launches
+    the attention kernel and nothing else: no cast, no copy, no fill, also
+    where the key axis is split (the merge runs inside the kernel)."""
+    dt = torch.bfloat16
+    B, H, KH, hd, bs, nb = 8, 12, 2, 128, 16, 64
+    S, P = nb * bs, B * nb + 1
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    kc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
+    table = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).reshape(B, nb)
+    table = table.to(torch.int32)
+    pos = torch.randint(S // 2, S, (B,), generator=gen, device="cuda")  # int64
+    k = kc.transpose(1, 2)
+
+    def calls():
+        decode_attention(q, k, k, pos)
+        paged_decode_attention(q, pool, pool, table, pos)
+
+    calls()  # the first call sizes the merge's cached workspace
+    torch.cuda.synchronize()
+    n0 = (decode_attention.launches, paged_decode_attention.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        calls()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2 and all("decode_bf16_kernel" in n for n in names), names
+    assert (decode_attention.launches, paged_decode_attention.launches) == (n0[0] + 1, n0[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -149,6 +149,39 @@ def test_ops_records_on_cpu():
     assert int(dec["exit"][2]) == 0  # a zero threshold never fires
 
 
+# -- the bf16 kernel's key ranges -------------------------------------------------
+
+
+@pytest.mark.parametrize("n_sm", [132, 1])
+@pytest.mark.parametrize("B,KH", [(1, 1), (8, 2), (32, 2), (200, 2), (3, 16)])
+@pytest.mark.parametrize("keys", [1, 17, 162, 1000, 4096, 65536])
+def test_decode_splits_whole_tiles_fill_the_card(n_sm, B, KH, keys):
+    """decode_splits is a pure function of static shapes: ranges of whole
+    16-key tiles, none past the last tile, at least DECODE_RANGE_TILES tiles
+    a range where there is more than one, and about DECODE_WAVES waves of
+    CTAs (within the 0.8 that equal whole-tile ranges lose) wherever the
+    tiles allow them."""
+    from repro_torch.kernels.decode_attention.kernel import (  # repro: allow[tier1-deps] — the port under test
+        DECODE_CTAS_PER_SM,
+        DECODE_MAX_SPLITS,
+        DECODE_RANGE_TILES,
+        DECODE_TILE,
+        DECODE_WAVES,
+        decode_splits,
+    )
+
+    s = decode_splits(n_sm, B, KH, keys)
+    tiles = -(-keys // DECODE_TILE)
+    per = -(-tiles // s)  # tiles a range; the kernel's chunk is per * DECODE_TILE keys
+    assert 1 <= s <= min(tiles, DECODE_MAX_SPLITS) and (s - 1) * per < tiles
+    assert s == 1 or per >= DECODE_RANGE_TILES
+    target = DECODE_WAVES * n_sm * DECODE_CTAS_PER_SM
+    allowed = min(target, B * KH * max(1, min(tiles // DECODE_RANGE_TILES, DECODE_MAX_SPLITS)))
+    assert B * KH * s >= 0.8 * allowed
+    assert s == 1 or B * KH * (s - 1) < target  # no more ranges than the target needs
+    assert decode_splits(n_sm, B, KH, keys) == s
+
+
 # -- dispatch rules -------------------------------------------------------------
 
 
