@@ -338,6 +338,7 @@ def check_paged_mla(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=16, r=512, dr=64
         paged_mla_decode_attention,
         paged_mla_decode_attention_ref,
     )
+    from repro_torch.kernels.decode_attention.kernel import mla_launch_info
 
     dt = torch.bfloat16
     S, P = nb * bs, B * nb + 1
@@ -347,7 +348,7 @@ def check_paged_mla(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=16, r=512, dr=64
     kpe_pool = torch.randn(P, bs, dr, generator=gen, device="cuda").to(dt)
     table = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).reshape(B, nb)
     table = table.to(torch.int32)
-    pos = torch.randint(pos_lo, pos_hi, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.randint(pos_lo, pos_hi, (B,), generator=gen, device="cuda")  # int64, as the model
     scale = 1.0 / (128 + dr) ** 0.5  # 1/sqrt(dn + dr) of DeepSeek-V2-Lite
     args = (q_lat, q_pe, c_pool, kpe_pool, table, pos)
     n0 = paged_mla_decode_attention.launches
@@ -373,7 +374,7 @@ def check_paged_mla(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=16, r=512, dr=64
     nk = torch.clamp(pos.long(), max=S - 1) + 1
     nblk = ((nk + bs - 1) // bs).sum().item()  # table entries the walk reads
     nk = nk.sum().item()
-    nbytes = (q_lat.numel() + q_pe.numel()) * 2 + nk * (r + dr) * 2 + nblk * 4 + B * 4 \
+    nbytes = (q_lat.numel() + q_pe.numel()) * 2 + nk * (r + dr) * 2 + nblk * 4 + B * 8 \
         + B * H * r * 2
     flops = nk * H * (2 * (r + dr) + 2 * r)  # scores against c and k_pe, then p.c
     bm, by = bound_ms(nbytes, flops)
@@ -385,10 +386,15 @@ def check_paged_mla(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=16, r=512, dr=64
         "library": "c_pool[table] and kpe_pool[table] gathers, torch.matmul scores, "
                    "torch.softmax, torch.matmul context",
         "bound_ms": bm, "bound_by": by, "bytes": nbytes, "flops": flops,
-        # on the CUDA cores (67 TFLOP/s f32, the operations a CTA runs in
-        # f32) the same work takes at least this long
-        "cuda_core_ms": 1e3 * flops / 67e12,
     }
+    call = lambda: paged_mla_decode_attention(*args, scale=scale)  # noqa: E731
+    row["device_ms"] = device_ms(call)
+    row["library_device_ms"] = device_ms(library)
+    row["host_us"] = host_us(call)
+    row["tb_per_s"] = nbytes / row["device_ms"] / 1e9  # DRAM rate of the counted bytes
+    # the launch's key ranges and the CTAs an SM the occupancy API allows
+    # (Nsight Compute does not run on the card's machine)
+    row.update(mla_launch_info(dt, B, H, r, dr, bs, nb))
     paged_mla_decode_attention.launches = n0  # comparison launches do not count
     print(f"paged_mla_decode_attention {label}: {json.dumps(row)}", flush=True)
     return row
@@ -447,6 +453,7 @@ def check_ssd(B, H, S, hp, N, label, gen):
     inputs as the model hands them over (x and dt views of (B, S, H, .)
     storage, bf16 x/B/C, f32 dt). No single PyTorch call computes SSD."""
     from repro_torch.kernels.ssd import ssd, ssd_chunked
+    from repro_torch.kernels.ssd.kernel import ssd_launch_info
 
     dt = torch.bfloat16
     x = torch.randn(B, S, H, hp, generator=gen, device="cuda").to(dt).transpose(1, 2)
@@ -486,8 +493,11 @@ def check_ssd(B, H, S, hp, N, label, gen):
         "plain_ms": time_ms(lambda: ssd(x, dts, A, Bm, Cm, use_kernel=False)),
         "library_ms": None, "library": "none: no single PyTorch call computes SSD",
         "bound_ms": bm, "bound_by": by, "bytes": nbytes, "flops": flops,
-        "cuda_core_ms": 1e3 * flops / PEAK_F32,
     }
+    row["device_ms"] = device_ms(lambda: ssd_chunked(x, dts, A, Bm, Cm))
+    row["host_us"] = host_us(lambda: ssd_chunked(x, dts, A, Bm, Cm))
+    row["tb_per_s"] = nbytes / row["device_ms"] / 1e9  # DRAM rate of the counted bytes
+    row.update(ssd_launch_info(dt, B, H, hp, N))  # head-dim slices, CTAs, CTAs an SM
     ssd_chunked.launches = n0  # comparison launches do not count
     print(f"ssd_chunked {label}: {json.dumps(row)}", flush=True)
     return row
@@ -867,6 +877,9 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
     nxt = o_off["final"]["label"].reshape(B, 1).long()
     times["profile_on"] = profile_step(lambda: on.decode(
         params, c_on, nxt, pos, active_sites=act, exit_thresholds=thr, block_tables=tables))
+    if prefill_kernel is not None:  # one prefill of the on path: its prefill kernel's share
+        times["profile_prefill_on"] = profile_step(lambda: on.prefill(
+            params, toks, cache_len=cache_len, active_sites=act))
     print(f"model {cfg.name} kernels off ({off_cfg.decode_attn}, {off_cfg.pallas_head}, "
           f"{off_kw or {}}) vs on ({on_cfg.decode_attn}, {on_cfg.pallas_head}, {on_kw or {}}): "
           f"{stats['labels']} labels, {stats['near_ties']} near-ties, max logit eps "

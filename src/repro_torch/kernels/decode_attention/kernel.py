@@ -9,8 +9,9 @@ the same kernel, instantiated to walk a per-row block table over (P, bs,
 KH, hd) pools. In bfloat16 both cut each row's key axis into
 ``decode_splits`` ranges, one CTA each, merged inside the launch. ``paged_mla_decode_attention``
 replaces the Pallas ``paged_mla_decode_attention``: absorbed MLA decode over
-paged latent pools, one CTA per row and key range serving all heads. All
-launch on PyTorch's current stream and never sync.
+paged latent pools, one CTA per row and key range (``mla_splits``) serving
+all heads, a second kernel merging the ranges. All launch on PyTorch's
+current stream and never sync.
 """
 from __future__ import annotations
 
@@ -27,29 +28,32 @@ _L = ctypes.c_longlong
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# each C entry point's arguments
-_ARGS = {"decode_attention_launch": [_P] * 7 + [_I] * 6 + [_L] * 10 + [_I, ctypes.c_float, _I, _P],
+# each C entry point's source and arguments
+_ARGS = {"decode_attention_launch":
+             ("decode_attention", [_P] * 7 + [_I] * 6 + [_L] * 10 + [_I, ctypes.c_float, _I, _P]),
          "paged_decode_attention_launch":
-             [_P] * 8 + [_I] * 8 + [_L] * 11 + [_I, ctypes.c_float, _I, _P],
-         "decode_attention_ctas_per_sm": [_I] * 6}
+             ("decode_attention", [_P] * 8 + [_I] * 8 + [_L] * 11 + [_I, ctypes.c_float, _I, _P]),
+         "decode_attention_ctas_per_sm": ("decode_attention", [_I] * 6),
+         "paged_mla_decode_attention_launch":
+             ("paged_mla_decode", [_P] * 8 + [_I] * 8 + [_L] * 11 + [_I, ctypes.c_float, _I, _P]),
+         "paged_mla_decode_ctas_per_sm": ("paged_mla_decode", [_I] * 7)}
 _MISALIGNED = 716  # cudaErrorMisalignedAddress, returned before any launch
+_DECODE_ALIGN = ("k and v need 16-byte aligned bases and rows (bfloat16 q 4-byte aligned "
+                 "pairs)")
+_MLA_ALIGN = ("c_pool and kpe_pool (bfloat16: q_lat and q_pe too) need 16-byte aligned bases "
+              "and rows")
 _fns = {}
 
 
 def _fn(name="decode_attention_launch"):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(load("decode_attention"), name)
-        fn.argtypes = _ARGS[name]
+        src, args = _ARGS[name]
+        fn = getattr(load(src), name)
+        fn.argtypes = args
         fn.restype = _I
         _fns[name] = fn
     return fn
-
-
-def _check_16b(name, t, what):
-    if t.data_ptr() % 16 or any((s * t.element_size()) % 16 for s in t.stride()[:-1]):
-        raise ValueError(f"{what}: {name} rows must be 16-byte aligned "
-                         f"(strides {t.stride()})")
 
 
 DECODE_TILE = 16  # keys of a warp tile of the bf16 kernel; a key range is whole tiles
@@ -83,17 +87,19 @@ _SCALE = {64: 1.0 / 8.0, 128: 1.0 / math.sqrt(128)}  # the head widths the kerne
 _POS_KINDS = {torch.int32: 0, torch.int64: 1}  # and 2: a Python int
 
 
+def _sm_count(dev):
+    n = _n_sm.get(dev)
+    if n is None:
+        n = _n_sm[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
 def _splits(dev, dtype, B, KH, keys):
     key = (dev, dtype, B * KH, keys)
     s = _splits_of.get(key)
     if s is None:
-        if dtype != torch.bfloat16:
-            s = 1  # the f32 kernel takes the whole key axis in one CTA
-        else:
-            n = _n_sm.get(dev)
-            if n is None:
-                n = _n_sm[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-            s = decode_splits(n, B, KH, keys)
+        # the f32 kernel takes the whole key axis in one CTA
+        s = decode_splits(_sm_count(dev), B, KH, keys) if dtype == torch.bfloat16 else 1
         _splits_of[key] = s
     return s
 
@@ -149,10 +155,9 @@ def _pos_args(pos, B, dev, what):
     return pos.data_ptr(), pos.stride(0) if n > 1 else 0, 0, _POS_KINDS[pos.dtype]
 
 
-def _raise_on(rc, what, *tensors):
+def _raise_on(rc, what, need, *tensors):
     if rc == _MISALIGNED:
-        raise ValueError(f"{what}: k and v need 16-byte aligned bases and rows (bfloat16 q "
-                         f"4-byte aligned pairs), got strides "
+        raise ValueError(f"{what}: {need}, got strides "
                          + ", ".join(str(t.stride()) for t in tensors))
     check_launch(rc, what)
 
@@ -182,7 +187,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> 
                S, hd, splits, qs[0], qs[1], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], ps, pv, pk,
                _SCALE[hd], _DTYPES[q.dtype], stream)
     if rc:
-        _raise_on(rc, what, q, k, v)
+        _raise_on(rc, what, _DECODE_ALIGN, q, k, v)
     decode_attention.launches += 1
     return out
 
@@ -236,7 +241,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
         ks[2], vs[0], vs[1], vs[2], table.stride(0), ps, pv, pk, _SCALE[hd], _DTYPES[q.dtype],
         stream)
     if rc:
-        _raise_on(rc, what, q, k_pool, v_pool)
+        _raise_on(rc, what, _DECODE_ALIGN, q, k_pool, v_pool)
     paged_decode_attention.launches += 1
     return out
 
@@ -255,35 +260,75 @@ def decode_launch_info(dtype, B, H, KH, keys, hd=128, *, paged=False, bs=1, devi
     return {"splits": splits, "ctas": B * KH * splits, "ctas_per_sm": n}
 
 
-def _pos_vector(pos, B, device):
-    if torch.is_tensor(pos):
-        return pos.to(device=device, dtype=torch.int32).reshape(-1).expand(B).contiguous()
-    return torch.full((B,), int(pos), dtype=torch.int32, device=device)
+MLA_MAX_HEADS, MLA_MAX_RANK, MLA_MAX_WIDTH = 16, 512, 1024  # H, r, r + dr the kernel takes
+MLA_TILE = 32  # keys a tile; a key range is a whole number of tiles
+# what the kernels' shared memory lets an SM hold at DeepSeek's widths: the
+# bf16 kernel's ~105 KB two, the f32 kernel's ~113 KB one
+MLA_CTAS_PER_SM = {torch.bfloat16: 2, torch.float32: 1}
+# CTAs for a wave and a half, of which rows of uniformly drawn lengths keep
+# about half live (ranges past a row's keys exit at once): at B 32 x 4096
+# keys on an H100, 13 ranges kept the live CTAs inside one wave of two an SM
+# where 16 spilled past it and took longer (tools/mla_ssd_probe.py)
+MLA_WAVES = 1.5
+MLA_MAX_SPLITS = 128  # the merge keeps each range's weight in shared memory
 
 
-_MLA_ARGS = [_P] * 8 + [_I] * 8 + [_L] * 8 + [ctypes.c_float, _I, _P]
-MLA_MAX_HEADS, MLA_MAX_RANK = 16, 512  # the kernel's register and thread layout
-MLA_TILE = 32  # keys per tile; a key range is a whole number of tiles
-
-
-def mla_splits(n_sm, B, keys):
-    """Key ranges per row for ``keys`` table slots: enough CTAs to fill the
-    ``n_sm`` SMs once (one CTA fits an SM), ranges of whole tiles, none of
-    them past the last tile."""
+def mla_splits(n_sm, B, keys, ctas_per_sm=MLA_CTAS_PER_SM[torch.bfloat16]):
+    """Key ranges per row of the paged MLA kernel over ``keys`` table slots
+    (nb * bs), from static shapes only, so that a captured launch stays
+    valid: enough CTAs for MLA_WAVES waves of ``n_sm`` SMs at
+    ``ctas_per_sm`` each, ranges of whole tiles, none past the last tile."""
     tiles = -(-keys // MLA_TILE)
-    want = max(1, min(tiles, n_sm // B))
+    want = math.ceil(MLA_WAVES * n_sm * ctas_per_sm / max(1, B))
+    want = max(1, min(want, tiles, MLA_MAX_SPLITS))
     return -(-tiles // -(-tiles // want))  # ranges of ceil(tiles / want) tiles
+
+
+_mla_splits_of = {}  # (device, dtype, B, keys) -> mla_splits
+
+
+def _mla_splits(dev, dtype, B, keys):
+    key = (dev, dtype, B, keys)
+    s = _mla_splits_of.get(key)
+    if s is None:
+        s = _mla_splits_of[key] = mla_splits(_sm_count(dev), B, keys, MLA_CTAS_PER_SM[dtype])
+    return s
+
+
+def _mla_refuse(what, q_lat, q_pe, c_pool, kpe_pool, block_table, H, r, dr, nb, P, bs):
+    """Raise the reason the MLA operands are refused (the slow path)."""
+    dev = q_lat.device
+    for name, t in (("q_lat", q_lat), ("q_pe", q_pe), ("c_pool", c_pool),
+                    ("kpe_pool", kpe_pool)):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on {dev}")
+        if t.dtype != q_lat.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
+                             "float32/bfloat16, alike for all four")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last dim")
+    if block_table.device != dev:
+        raise ValueError(f"{what}: block_table must be on {dev}")
+    if not (1 <= H <= MLA_MAX_HEADS and 8 <= r <= MLA_MAX_RANK and r % 8 == 0
+            and dr >= 8 and dr % 8 == 0 and r + dr <= MLA_MAX_WIDTH):
+        raise ValueError(f"{what}: needs H <= {MLA_MAX_HEADS}, r <= {MLA_MAX_RANK}, r and dr "
+                         f"multiples of 8 and r + dr <= {MLA_MAX_WIDTH}, "
+                         f"got H={H} r={r} dr={dr}")
+    raise ValueError(f"{what}: needs 1 <= nb <= {MAX_TABLE_BLOCKS} and a non-empty "
+                     f"pool, got nb={nb} P={P} bs={bs}")
 
 
 def paged_mla_decode_attention(q_lat: torch.Tensor, q_pe: torch.Tensor, c_pool: torch.Tensor,
                                kpe_pool: torch.Tensor, block_table: torch.Tensor, pos, *,
                                scale: float) -> torch.Tensor:
-    """q_lat (B, H, r) absorbed query; q_pe (B, H, dr) rope query; c_pool
-    (P, bs, r) latent pool (keys and values); kpe_pool (P, bs, dr) rope-key
-    pool, both with a contiguous last dim and 16-byte aligned rows;
-    block_table int (B, nb); pos an int or an int (B,) tensor (attend to
-    virtual slots <= pos, walked up to nb*bs - 1); ``scale`` multiplies the
-    scores (1/sqrt(dn + dr) in MLA). Returns (B, H, r) in q_lat's dtype."""
+    """q_lat (B, H, r) absorbed query; q_pe (B, H, dr) rope query (bfloat16
+    rows 16-byte aligned); c_pool (P, bs, r) latent pool (keys and values);
+    kpe_pool (P, bs, dr) rope-key pool, both with a contiguous last dim and
+    16-byte aligned rows; block_table int (B, nb) (an int32 table with a
+    contiguous last dim is read as it is); pos as for ``decode_attention``
+    (attend to virtual slots <= pos, walked up to nb*bs - 1); ``scale``
+    multiplies the scores (1/sqrt(dn + dr) in MLA). Returns (B, H, r) in
+    q_lat's dtype."""
     what = "paged_mla_decode_attention"
     B, H, r = q_lat.shape
     if (q_pe.dim() != 3 or q_pe.shape[:2] != (B, H) or c_pool.dim() != 3
@@ -295,49 +340,48 @@ def paged_mla_decode_attention(q_lat: torch.Tensor, q_pe: torch.Tensor, c_pool: 
                          f"kpe_pool {tuple(kpe_pool.shape)} table {tuple(block_table.shape)}")
     P, bs, _ = c_pool.shape
     dr, nb = q_pe.shape[2], block_table.shape[1]
-    for name, t in (("q_lat", q_lat), ("q_pe", q_pe), ("c_pool", c_pool),
-                    ("kpe_pool", kpe_pool)):
-        if t.device.type != "cuda" or t.device != q_lat.device:
-            raise ValueError(f"{what}: {name} must be a CUDA tensor on {q_lat.device}")
-        if t.dtype != q_lat.dtype or t.dtype not in _DTYPES:
-            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
-                             "float32/bfloat16, alike for all four")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{what}: {name} needs a contiguous last dim")
-    if not (1 <= H <= MLA_MAX_HEADS and 8 <= r <= MLA_MAX_RANK and r % 8 == 0
-            and dr >= 8 and dr % 8 == 0):
-        raise ValueError(f"{what}: needs H <= {MLA_MAX_HEADS}, r <= {MLA_MAX_RANK} and "
-                         f"r, dr multiples of 8, got H={H} r={r} dr={dr}")
-    _check_16b("c_pool", c_pool, what)
-    _check_16b("kpe_pool", kpe_pool, what)
-    if block_table.device != q_lat.device:
-        raise ValueError(f"{what}: block_table must be on {q_lat.device}")
-    if not 1 <= nb <= MAX_TABLE_BLOCKS or P < 1 or bs < 1:
-        raise ValueError(f"{what}: needs 1 <= nb <= {MAX_TABLE_BLOCKS} and a non-empty "
-                         f"pool, got nb={nb} P={P} bs={bs}")
-    table = block_table.to(torch.int32).contiguous()
-    pos = _pos_vector(pos, B, q_lat.device)
-    out = torch.empty((B, H, r), dtype=q_lat.dtype, device=q_lat.device)
+    dev, dt = q_lat.get_device(), q_lat.dtype
+    if (dev < 0 or q_pe.get_device() != dev or c_pool.get_device() != dev
+            or kpe_pool.get_device() != dev or block_table.get_device() != dev
+            or q_pe.dtype != dt or c_pool.dtype != dt or kpe_pool.dtype != dt
+            or dt not in _DTYPES or q_lat.stride(-1) != 1 or q_pe.stride(-1) != 1
+            or c_pool.stride(-1) != 1 or kpe_pool.stride(-1) != 1
+            or not (1 <= H <= MLA_MAX_HEADS and 8 <= r <= MLA_MAX_RANK and r % 8 == 0
+                    and dr >= 8 and dr % 8 == 0 and r + dr <= MLA_MAX_WIDTH)
+            or not 1 <= nb <= MAX_TABLE_BLOCKS or P < 1 or bs < 1):
+        _mla_refuse(what, q_lat, q_pe, c_pool, kpe_pool, block_table, H, r, dr, nb, P, bs)
+    table = block_table
+    if table.dtype != torch.int32 or table.stride(1) != 1:
+        table = table.to(torch.int32).contiguous()
+    pp, ps, pv, pk = _pos_args(pos, B, dev, what)
+    out = q_lat.new_empty((B, H, r))
     if B == 0:
         return out
-    splits = mla_splits(torch.cuda.get_device_properties(q_lat.device).multi_processor_count,
-                        B, nb * bs)
-    # each range's unnormalised (context, m, l) in f32, merged by a second kernel
-    part = (torch.empty(B * splits * H * (r + 2), dtype=torch.float32, device=q_lat.device)
-            if splits > 1 else None)
-    fn = getattr(load("paged_mla_decode"), "paged_mla_decode_attention_launch")
-    if fn.argtypes is None:
-        fn.argtypes = _MLA_ARGS
-        fn.restype = _I
-    rc = fn(q_lat.data_ptr(), q_pe.data_ptr(), c_pool.data_ptr(), kpe_pool.data_ptr(),
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            part.data_ptr() if part is not None else None, B, H, r, dr, P, bs, nb, splits,
-            q_lat.stride(0), q_lat.stride(1), q_pe.stride(0), q_pe.stride(1),
-            c_pool.stride(0), c_pool.stride(1), kpe_pool.stride(0), kpe_pool.stride(1),
-            float(scale), _DTYPES[q_lat.dtype], torch.cuda.current_stream(q_lat.device).cuda_stream)
-    check_launch(rc, what)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    splits = _mla_splits(dev, dt, B, nb * bs)
+    part = _workspace(dev, stream, 0, B * splits * (H * r + 2 * MLA_MAX_HEADS))[1] \
+        if splits > 1 else None
+    qs, es, cs, ks = q_lat.stride(), q_pe.stride(), c_pool.stride(), kpe_pool.stride()
+    rc = _fn("paged_mla_decode_attention_launch")(
+        q_lat.data_ptr(), q_pe.data_ptr(), c_pool.data_ptr(), kpe_pool.data_ptr(),
+        table.data_ptr(), pp, out.data_ptr(), part, B, H, r, dr, P, bs, nb, splits, qs[0],
+        qs[1], es[0], es[1], cs[0], cs[1], ks[0], ks[1], table.stride(0), ps, pv, pk, scale,
+        _DTYPES[dt], stream)
+    if rc:
+        _raise_on(rc, what, _MLA_ALIGN, q_lat, q_pe, c_pool, kpe_pool)
     paged_mla_decode_attention.launches += 1
     return out
 
 
 paged_mla_decode_attention.launches = 0
+
+
+def mla_launch_info(dtype, B, H, r, dr, bs, nb, device=0):
+    """The split count and the CTAs an SM (as the card's occupancy API
+    reports them) of a paged MLA launch: what chip_smoke.py prints beside
+    the kernel rows."""
+    splits = _mla_splits(device, dtype, B, nb * bs)
+    n = _fn("paged_mla_decode_ctas_per_sm")(_DTYPES[dtype], H, r, dr, bs, nb, splits)
+    if n < 0:
+        check_launch(-n, "paged_mla_decode_ctas_per_sm")
+    return {"splits": splits, "ctas": B * splits, "ctas_per_sm": n}

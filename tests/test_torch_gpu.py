@@ -262,6 +262,113 @@ def test_paged_mla_kernel_refuses_what_it_cannot_take(gen):
     assert out.shape == (0, 4, 64) and paged_mla_decode_attention.launches == n0
 
 
+def _mla_inputs(gen, B, nb, bs, dt, H=16, r=512, dr=64):
+    """A shuffled table over a latent pool whose block 0 is the trash block
+    no row owns, q_pe a strided view as the model hands it over."""
+    P = B * nb + 1
+    q_lat = torch.randn(B, H, r, generator=gen, device="cuda").to(dt)
+    q_pe = torch.randn(B, H, 16 + dr, generator=gen, device="cuda").to(dt)[..., 16:]
+    c_pool = torch.randn(P, bs, r, generator=gen, device="cuda").to(dt)
+    kpe_pool = torch.randn(P, bs, dr, generator=gen, device="cuda").to(dt)
+    table = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).reshape(B, nb)
+    return q_lat, q_pe, c_pool, kpe_pool, table.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nb,one_range", [(32, 256, False), (8, 2, True), (600, 10, True)])
+def test_paged_mla_split_ranges_match_plain(gen, dtype, B, nb, one_range):
+    """DeepSeek's widths with each row's keys in many ranges (B 32 x 256
+    blocks of 16: pos on every side of the range edges, and random) or in
+    one (two blocks: too few tiles to split; B 600: enough rows to fill the
+    card), int64 pos as the model holds it."""
+    from repro_torch.kernels.decode_attention.kernel import MLA_TILE, mla_launch_info  # repro: allow[tier1-deps] — the port under test
+
+    dt, bs = getattr(torch, dtype), 16
+    S = nb * bs
+    info = mla_launch_info(dt, B, 16, 512, 64, bs, nb)
+    assert (info["splits"] == 1) == one_range
+    if dtype == "bfloat16":
+        assert info["ctas_per_sm"] >= 2
+    args = _mla_inputs(gen, B, nb, bs, dt)
+    pos = torch.randint(0, S + 4, (B,), generator=gen, device="cuda")  # int64
+    if not one_range:
+        chunk = -(-(-(-S // MLA_TILE)) // info["splits"]) * MLA_TILE
+        edges = _range_edges(chunk, S)
+        pos[:len(edges)] = torch.tensor(edges, device="cuda")
+    scale = 1.0 / 192 ** 0.5
+    out = paged_mla_decode_attention(*args, pos, scale=scale)
+    ref = paged_mla_decode_attention_ref(*args, pos, scale=scale)
+    # f32: sums in another order (1e-5); bf16: one output rounding (1e-2)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    # int32 pos, one pos for every row, and an int64 table give the same result
+    torch.testing.assert_close(paged_mla_decode_attention(*args, pos.to(torch.int32),
+                                                          scale=scale), out, rtol=0, atol=0)
+    torch.testing.assert_close(paged_mla_decode_attention(*args[:4], args[4].long(), pos,
+                                                          scale=scale), out, rtol=0, atol=0)
+    one = paged_mla_decode_attention(*args, int(pos[3]), scale=scale)
+    torch.testing.assert_close(one.float(), paged_mla_decode_attention_ref(
+        *args, int(pos[3]), scale=scale).float(), rtol=tol, atol=tol)
+
+
+def test_paged_mla_bf16_refuses_misaligned_queries(gen):
+    """bf16 query rows reach shared memory by TMA bulk copies, so they need
+    16-byte aligned rows: a q_pe view 4 bytes off raises before any launch."""
+    q_lat, q_pe, c_pool, kpe_pool, table = _mla_inputs(gen, 2, 2, 16, torch.bfloat16, H=4, r=32,
+                                                       dr=8)
+    off = torch.randn(2, 4, 10, generator=gen, device="cuda").to(torch.bfloat16)[..., 2:]
+    n0 = paged_mla_decode_attention.launches
+    with pytest.raises(ValueError):
+        paged_mla_decode_attention(q_lat, off, c_pool, kpe_pool, table, 5, scale=0.1)
+    assert paged_mla_decode_attention.launches == n0
+    paged_mla_decode_attention(q_lat, q_pe, c_pool, kpe_pool, table, 5, scale=0.1)
+    assert paged_mla_decode_attention.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_mla_merge_order_is_fixed(gen, dtype):
+    """The ranges are merged in range order, whichever CTA finishes last:
+    two calls on the same operands give the same bits."""
+    from repro_torch.kernels.decode_attention.kernel import mla_launch_info  # repro: allow[tier1-deps] — the port under test
+
+    dt = getattr(torch, dtype)
+    B, nb = 32, 256
+    assert mla_launch_info(dt, B, 16, 512, 64, 16, nb)["splits"] > 4
+    args = _mla_inputs(gen, B, nb, 16, dt)
+    pos = torch.randint(2048, nb * 16, (B,), generator=gen, device="cuda")
+    first = paged_mla_decode_attention(*args, pos, scale=0.07)
+    for _ in range(3):
+        assert torch.equal(paged_mla_decode_attention(*args, pos, scale=0.07), first)
+
+
+def test_mla_and_ssd_wrappers_launch_only_their_kernel(gen):
+    """On the model's operands (int64 pos, an int32 table; x and dt views of
+    (B, S, H, .) storage) a call launches its kernels and nothing else: no
+    cast, no copy, no fill; where the MLA key axis is split, the walk and
+    the kernel that merges its ranges."""
+    dt = torch.bfloat16
+    q_lat, q_pe, c_pool, kpe_pool, table = _mla_inputs(gen, 8, 64, 16, dt)
+    pos = torch.randint(512, 1024, (8,), generator=gen, device="cuda")  # int64
+    x, dts, A, Bm, Cm = _ssd_inputs(gen, 1, 80, 128, 64, 128, dt)
+
+    def calls():
+        paged_mla_decode_attention(q_lat, q_pe, c_pool, kpe_pool, table, pos, scale=0.07)
+        ssd_chunked(x, dts, A, Bm, Cm)
+
+    calls()  # the first call sizes the merge's cached workspace
+    torch.cuda.synchronize()
+    n0 = (paged_mla_decode_attention.launches, ssd_chunked.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        calls()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3, names
+    for name, kernel in zip(names, ("mla_bf16_kernel", "mla_combine_kernel", "ssd_bf16_kernel")):
+        assert kernel in name, names
+    assert (paged_mla_decode_attention.launches, ssd_chunked.launches) == (n0[0] + 1, n0[1] + 1)
+
+
 def _w(gen, layout, d, V, dt):
     if layout == "embed_T":  # the tied head: embed (V, d) viewed (d, V), contiguous along d
         return (0.05 * torch.randn(V, d, generator=gen, device="cuda")).to(dt).T
@@ -529,6 +636,8 @@ def _ssd_inputs(gen, B, H, S, hp, N, dt):
     (1, 80, 120, 64, 128),  # a ragged last chunk
     (2, 4, 200, 32, 16),    # tiny widths, four chunks, the last ragged
     (2, 3, 1, 48, 100),     # one step
+    (2, 6, 1000, 48, 100),  # 16 chunks, the last ragged; a half slice, N not a multiple of 8
+    (2, 5, 1000, 64, 128),  # 16 chunks at Mamba2's widths, the state carried 15 times
 ])
 def test_ssd_kernel_matches_plain(gen, dtype, B, H, S, hp, N):
     """Against the plain version at the reference's chunking (64 where it

@@ -182,6 +182,36 @@ def test_decode_splits_whole_tiles_fill_the_card(n_sm, B, KH, keys):
     assert decode_splits(n_sm, B, KH, keys) == s
 
 
+# -- the paged MLA kernel's key ranges --------------------------------------------
+
+
+@pytest.mark.parametrize("n_sm", [132, 16])
+@pytest.mark.parametrize("B", [1, 8, 32, 400])
+@pytest.mark.parametrize("keys", [16, 160, 4096, 65536])
+@pytest.mark.parametrize("ctas_per_sm", [1, 2])
+def test_mla_splits_whole_tiles_fill_the_card(n_sm, B, keys, ctas_per_sm):
+    """mla_splits is a pure function of static shapes: ranges of whole
+    32-key tiles, none empty, at most MLA_MAX_SPLITS, and about MLA_WAVES
+    waves of CTAs (within the half that equal whole-tile ranges can lose)
+    wherever the tiles allow them, and at least one wave."""
+    from repro_torch.kernels.decode_attention.kernel import (  # repro: allow[tier1-deps] — the port under test
+        MLA_MAX_SPLITS,
+        MLA_TILE,
+        MLA_WAVES,
+        mla_splits,
+    )
+
+    s = mla_splits(n_sm, B, keys, ctas_per_sm)
+    tiles = -(-keys // MLA_TILE)
+    per = -(-tiles // s)  # tiles a range; the kernel's chunk is per * MLA_TILE keys
+    assert 1 <= s <= min(tiles, MLA_MAX_SPLITS) and (s - 1) * per < tiles <= s * per
+    wave = n_sm * ctas_per_sm
+    allowed = min(MLA_WAVES * wave, B * min(tiles, MLA_MAX_SPLITS))
+    assert B * s >= 0.5 * allowed and B * s >= min(wave, allowed)
+    assert s == 1 or B * (s - 1) < MLA_WAVES * wave  # no more ranges than the target needs
+    assert mla_splits(n_sm, B, keys, ctas_per_sm) == s
+
+
 # -- dispatch rules -------------------------------------------------------------
 
 

@@ -507,13 +507,17 @@ def test_serve_launcher_deepseek_on_cpu_tiny():
                                          (132, 200, 4096), (132, 1, 8), (16, 3, 1000)])
 def test_paged_mla_key_ranges_tile_the_table(n_sm, B, keys):
     """The CUDA wrapper's key split: whole 32-key tiles, every range but the
-    last full, the last not empty, and no more CTAs than fill the SMs once
-    (when a row has fewer tiles than that, one range a tile)."""
-    from repro_torch.kernels.decode_attention.kernel import MLA_TILE, mla_splits  # repro: allow[tier1-deps] — the port under test
+    last full, the last not empty, and no more ranges than MLA_WAVES waves
+    of the bf16 kernel's CTAs an SM need."""
+    from repro_torch.kernels.decode_attention.kernel import (  # repro: allow[tier1-deps] — the port under test
+        MLA_CTAS_PER_SM,
+        MLA_TILE,
+        MLA_WAVES,
+        mla_splits,
+    )
 
     splits = mla_splits(n_sm, B, keys)
     tiles = -(-keys // MLA_TILE)
     per = -(-tiles // splits)  # the kernel's range, in tiles
     assert 1 <= splits <= tiles and (splits - 1) * per < tiles <= splits * per
-    assert B * splits <= max(n_sm, B)
-    assert splits == min(tiles, max(1, n_sm // B)) or per > 1
+    assert splits == 1 or B * (splits - 1) < MLA_WAVES * n_sm * MLA_CTAS_PER_SM[torch.bfloat16]
