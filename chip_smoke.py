@@ -25,6 +25,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
      4c. prefix sharing and swap preemption on a pool that runs dry;
      4d. chunked prefill on the paged pool, first tokens held against
      one-shot prefill;
+     4e. one sync window as one CUDA graph replay, on both layouts: the
+     same windows through a graphed and an eager runner (the graphed one's
+     first eager, its second captured, its third replayed) give records,
+     n_done and cache leaves equal bit for bit, the graph's kernel nodes
+     equal the eager window's launches (the paged MLA combine keeps its
+     programmatic edge), host ms per replayed vs eager window, device-busy
+     ms per window, aten ops per replayed window, the graph pool's bytes;
+     then one schedule served graphed and eager, tokens equal except
+     near-ties;
   3c. (run beside 3 and 3b) the paged MLA kernel against its plain version
      at DeepSeek-V2-Lite's served shape and on 4096-token rows;
   3d. the flash-attention (prefill) kernel against its plain version at
@@ -37,18 +46,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      pool with the kernels off and on; 5b. contiguous rows vs the paged pool
      on one schedule (the paged MLA kernel in all 27 layers of every decode
      step), the paged run on the contiguous run's MoE routing, then both
-     layouts' aten ops a window counted and their times taken without
-     hooks; 5c. swap preemption on a pool that runs
-     dry;
+     layouts' aten ops a window counted (eager) and their times taken
+     without hooks; 5c. swap preemption on a pool that runs dry; 5d. as 4e;
   6. full-width Mamba2-2.7B with seeded random weights, once DeepSeek's are
      freed: the ramp-head kernels at its d 2560 and V 51200, one layer's
      plain recurrent state update timed; 6a. prefill (the SSD kernel) + 8
      decode steps with the kernels off and on; 6b.
      contiguous state rows vs state pages on one schedule; 6c. swap of state
-     pages on a pool that runs dry.
-Every serving phase zeroes the launch counters just before it and reads
-them just after, and counts the model's prefills and decode steps. The
-last two lines are the kernels JSON and the result JSON.
+     pages on a pool that runs dry; 6d. as 4e.
+Every serving phase serves its sync windows as CUDA graph replays (the
+runner's default on a card; a key's first window runs eager, its second
+is captured), except runs that carry Python hooks, which run eager
+(``graphs=False``). Each zeroes the launch counters just before it and
+reads them just after (a replay adds what its capture recorded, and each
+capture raises unless the graph's kernel nodes, read by name, are those
+launches), and counts the model's prefills and its runners' decode steps. The last
+two lines are the kernels JSON and the result JSON.
 """
 from __future__ import annotations
 
@@ -930,48 +943,54 @@ ATTENTION = ("decode_attention", "paged_decode_attention", "paged_mla_decode_att
 PREFILL = ("flash_attention", "ssd_chunked")
 
 
-def _kernel_fns():
-    from repro_torch.kernels.decode_attention import (
-        decode_attention,
-        paged_decode_attention,
-        paged_mla_decode_attention,
-    )
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ramp_head import ramp_head_exit, ramp_head_stats
-    from repro_torch.kernels.ssd import ssd_chunked
+def _tracked_runners():
+    """Wrap ``DecodeRunner.__init__`` so that every runner built meanwhile
+    lands in the returned list; call the returned ``undo`` to unwrap."""
+    from repro_torch.serving.runner import DecodeRunner
 
-    return {"decode_attention": decode_attention,
-            "paged_decode_attention": paged_decode_attention,
-            "ramp_head_stats": ramp_head_stats, "ramp_head_exit": ramp_head_exit,
-            "paged_mla_decode_attention": paged_mla_decode_attention,
-            "flash_attention": flash_attention, "ssd_chunked": ssd_chunked}
+    runners, init = [], DecodeRunner.__init__
+
+    def tracking(self, *a, **kw):
+        init(self, *a, **kw)
+        runners.append(self)
+
+    DecodeRunner.__init__ = tracking
+
+    def undo():
+        DecodeRunner.__init__ = init
+
+    return runners, undo
 
 
 def counted(fn):
     """Run fn() with every kernel's launch count set to 0 just before and
-    read just after, and count the model's prefills and decode steps
-    (``LM.prefill`` and ``LM.decode`` calls) in between. Returns (fn's
-    result, {kernel: launches, "prefills": n, "decode_steps": n})."""
+    read just after, and count the model's prefills (``LM.prefill`` calls)
+    and the decode steps of every runner fn builds (``decode_steps``: a
+    replayed window graph runs its steps without calling ``LM.decode``).
+    Returns (fn's result, {kernel: launches, "prefills": n, "decode_steps":
+    n})."""
+    from repro_torch.kernels import counted_wrappers
     from repro_torch.models.transformer import LM
 
-    fns = _kernel_fns()
+    fns = counted_wrappers()
     for f in fns.values():
         f.launches = 0
-    calls = {"prefills": 0, "decode_steps": 0}
-    prefill, decode = LM.prefill, LM.decode
+    calls = {"prefills": 0}
+    prefill = LM.prefill
 
-    def counting(key, method):
-        def call(self, *a, **kw):
-            calls[key] += 1
-            return method(self, *a, **kw)
-        return call
+    def counting(self, *a, **kw):
+        calls["prefills"] += 1
+        return prefill(self, *a, **kw)
 
-    LM.prefill, LM.decode = counting("prefills", prefill), counting("decode_steps", decode)
+    LM.prefill = counting
+    runners, undo = _tracked_runners()
     try:
         out = fn()
     finally:
-        LM.prefill, LM.decode = prefill, decode
+        LM.prefill = prefill
+        undo()
     torch.cuda.synchronize()
+    calls["decode_steps"] = sum(r.decode_steps for r in runners)
     return out, {**{name: f.launches for name, f in fns.items()}, **calls}
 
 
@@ -1063,19 +1082,36 @@ def _complete(resp, n, n_tokens, vocab, what):
             fail(f"{what}: request {r.rid} has tokens outside the vocabulary")
 
 
+def _window_kind(runner):
+    """What the runner's last window did: "capture", "replay" or "eager"."""
+    return "eager" if runner.graphs is None else runner.graphs.last
+
+
+def graph_note(m) -> str:
+    """A served run's windows by kind: captured, replayed, eager (a graphed
+    run's first window of each key runs eager)."""
+    return (f"windows {m['windows']}: {m['capture_windows']} captured "
+            f"({m['capture_window_ms_mean']:.3f} ms each), {m['replay_windows']} replayed "
+            f"({m['replay_window_ms_mean']:.3f} ms each), {m['eager_windows']} eager "
+            f"({m['eager_window_ms_mean']:.3f} ms each)")
+
+
 def window_ops(fn):
-    """fn() with the aten ops that ``DecodeRunner.step_multi`` dispatches
-    counted, those inside its ``LM.decode`` calls apart: the host work a
-    window costs, whatever the host's speed. The count slows the run, so
-    its times are not used. Returns (fn's result, {"ops_per_window",
-    "decode_ops_per_step"})."""
+    """fn() with the aten ops that each ``DecodeRunner.step_multi`` call
+    dispatches counted, by the kind of window (capture, replay, eager), and
+    those inside ``LM.decode`` apart: the host work a window costs, whatever
+    the host's speed. Steps are the runner's ``decode_steps``. The count
+    slows the run, so its times are not used. Returns (fn's result,
+    {"ops_per_window": {kind: ops}, "windows": {kind: n},
+    "decode_ops_per_step": ops inside LM.decode a step of the eager
+    windows})."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.models.transformer import LM
     from repro_torch.serving.runner import DecodeRunner
 
-    c = {"windows": 0, "steps": 0, "ops": 0, "decode_ops": 0, "in_window": False,
-         "in_decode": False}
+    c = {"ops": 0, "decode_ops": 0, "in_decode": False, "decode_steps": 0,
+         "by_kind": {}, "windows": {}}
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -1086,17 +1122,20 @@ def window_ops(fn):
     step_multi, decode = DecodeRunner.step_multi, LM.decode
 
     def counting_step_multi(runner, *a, **kw):
-        c["windows"] += 1
-        c["in_window"] = True
-        try:
-            with Count():
-                return step_multi(runner, *a, **kw)
-        finally:
-            c["in_window"] = False
+        ops0, dec0, steps0 = c["ops"], c["decode_ops"], runner.decode_steps
+        with Count():
+            out = step_multi(runner, *a, **kw)
+        kind = _window_kind(runner)
+        c["by_kind"][kind] = c["by_kind"].get(kind, 0) + c["ops"] - ops0
+        c["windows"][kind] = c["windows"].get(kind, 0) + 1
+        if kind == "eager":  # a capture runs its steps twice, a replay not at all
+            c["decode_steps"] += runner.decode_steps - steps0
+        else:
+            c["decode_ops"] = dec0
+        return out
 
     def counting_decode(model, *a, **kw):
-        c["steps"] += c["in_window"]
-        c["in_decode"] = c["in_window"]
+        c["in_decode"] = True
         try:
             return decode(model, *a, **kw)
         finally:
@@ -1107,10 +1146,11 @@ def window_ops(fn):
         out = fn()
     finally:
         DecodeRunner.step_multi, LM.decode = step_multi, decode
-    if not c["windows"] or not c["steps"]:
-        fail(f"window_ops: {c['windows']} windows, {c['steps']} decode steps")
-    return out, {"ops_per_window": c["ops"] / c["windows"],
-                 "decode_ops_per_step": c["decode_ops"] / c["steps"]}
+    if not c["windows"]:
+        fail("window_ops: no window ran")
+    return out, {"ops_per_window": {k: c["by_kind"][k] / n for k, n in c["windows"].items()},
+                 "windows": c["windows"],
+                 "decode_ops_per_step": c["decode_ops"] / max(c["decode_steps"], 1)}
 
 
 def _divergence_gap(params, cfg, prompt, toks_a, toks_b):
@@ -1166,21 +1206,23 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
     (``prefill_kernel``; None: none) once per layer per prefill, and both
     ramp-head kernels.
 
-    For the MoE model the compared runs carry hooks (the paged run replays
-    the contiguous run's routing, both record their final-head inputs), so
-    the times come from four more runs of each layout without any hook, in
-    the order contiguous, paged, paged, contiguous, twice, and one more run
-    of each counts the aten ops of a window (``window_ops``). Returns the
-    compared paged run's launch counts."""
+    Every run serves its windows as CUDA graph replays, except where a run
+    carries Python hooks, which a replay would skip. For the MoE model the
+    compared runs carry hooks (the paged run replays the contiguous run's
+    routing, both record their final-head inputs) and run eager, so the
+    times come from four more runs of each layout without any hook, in the
+    order contiguous, paged, paged, contiguous, twice, and one more eager
+    run of each counts the aten ops of a window (``window_ops``). Returns
+    the compared paged run's launch counts."""
     import numpy as np
 
     prompts = np.random.default_rng(SEED + 2).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
     layouts = (("contiguous", 0), ("paged", 16))
 
-    def serve_once(name, bs, wrap=lambda call: call()):
+    def serve_once(name, bs, wrap=lambda call: call(), graphs=None):
         (out, resp), launches = counted(lambda: wrap(lambda: serve(
             cfg.name, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
-            verbose=False, kv_block_size=bs, prompts=prompts, params=params)))
+            verbose=False, kv_block_size=bs, prompts=prompts, params=params, graphs=graphs)))
         _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, f"{phase} {name}")
         want = cont_kernel if bs == 0 else paged_kernel
         steps = launches["decode_steps"]
@@ -1202,7 +1244,7 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
             hidden[name] = TokenHidden(params, cfg)
             mode = "record" if bs == 0 else "replay"
             runs[name] = serve_once(name, bs, lambda call, h=hidden[name], m=mode: h(
-                lambda: routes(m, call)))
+                lambda: routes(m, call)), graphs=False)
         ties = _moe_divergences(phase, runs, hidden)
         timed = []
         for name, bs in (layouts + layouts[::-1]) * 2:
@@ -1210,14 +1252,16 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
             timed.append((name, serve_once(name, bs)))
         hooked = " vs ".join(f"{runs[name][0]['measured']['window_ms_mean']:.3f}"
                              for name, _ in layouts)
-        ops = [window_ops(lambda: serve_once(name, bs))[1] for name, bs in layouts]
+        ops = [window_ops(lambda: serve_once(name, bs, graphs=False))[1]
+               for name, bs in layouts]
         extra = (f"MoE routing replayed from the contiguous run: {routes.flip_count()} of "
                  f"{routes.routes} token routes of the paged run would have taken other "
-                 f"experts; ms per window with the hooks {hooked}; aten ops per window "
-                 f"{ops[0]['ops_per_window']:.1f} vs {ops[1]['ops_per_window']:.1f}, in "
-                 f"LM.decode per step {ops[0]['decode_ops_per_step']:.1f} vs "
-                 f"{ops[1]['decode_ops_per_step']:.1f}; times below from runs without hooks "
-                 "in the order c, p, p, c, c, p, p, c (median last); ")
+                 f"experts; eager ms per window with the hooks {hooked}; eager aten ops per "
+                 f"window {ops[0]['ops_per_window']['eager']:.1f} vs "
+                 f"{ops[1]['ops_per_window']['eager']:.1f}, in LM.decode per step "
+                 f"{ops[0]['decode_ops_per_step']:.1f} vs "
+                 f"{ops[1]['decode_ops_per_step']:.1f}; times below from graphed runs without "
+                 "hooks in the order c, p, p, c, c, p, p, c (median last); ")
     else:
         for name, bs in layouts:
             runs[name] = serve_once(name, bs)
@@ -1248,7 +1292,12 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
     print(f"{phase} {cfg.name} paged vs contiguous serving on {card_line()}, 8 x "
           f"{PAGED_TOKENS} tokens: {8 - len(ties)} of 8 requests token-identical, near-tie "
           f"divergences {ties}; {extra}ms per window {each('window_ms_mean', '.3f')} "
-          f"(contiguous vs paged), prefill ms {each('prefill_ms_mean', '.3f')}, decode "
+          f"(contiguous vs paged), of it ms per replayed window "
+          f"{each('replay_window_ms_mean', '.3f')} and per capture window "
+          f"{each('capture_window_ms_mean', '.3f')} (windows captured/replayed/eager "
+          f"{each('capture_windows', 'g')} / {each('replay_windows', 'g')} / "
+          f"{each('eager_windows', 'g')}), prefill ms "
+          f"{each('prefill_ms_mean', '.3f')}, decode "
           f"tokens/s {each('decode_tokens_per_s', '.2f')}; launches {json.dumps(c_l)} vs "
           f"{json.dumps(p_l)}; paged kv {json.dumps(runs['paged'][0]['kv_cache'])}",
           flush=True)
@@ -1279,7 +1328,8 @@ def serve_prefix_swap(params, cfg, serve):
     if launches["paged_decode_attention"] <= 0:
         fail("4c: the paged kernel was not launched")
     check_prefill_launches("4c", cfg, launches, "flash_attention")
-    print(f"4c prefix sharing + swap preemption, 24-block pool: kv {json.dumps(kv)}; engine "
+    print(f"4c prefix sharing + swap preemption, 24-block pool: {graph_note(out['measured'])}; "
+          f"kv {json.dumps(kv)}; engine "
           f"{json.dumps(out['simulated']['engine'], default=float)}; launches "
           f"{json.dumps(launches)}", flush=True)
 
@@ -1320,6 +1370,7 @@ def serve_chunked(params, cfg, serve):
     print(f"4d chunked prefill (64-token chunks): 4 of 4 complete, first tokens equal to "
           f"one-shot prefill on {4 - len(ties)} of 4 (near-ties {ties}); "
           f"{m['prefill_chunk_calls']} chunk calls, {m['prefill_chunk_ms_mean']:.3f} ms each; "
+          f"{graph_note(m)}; "
           f"launches {json.dumps(launches)}", flush=True)
 
 
@@ -1355,15 +1406,16 @@ def serve_swap(params, cfg, serve, phase, seed, decode_kernel, prefill_kernel):
         if launches[k] <= 0:
             fail(f"{phase}: {k} launched {launches[k]} times")
     check_prefill_launches(phase, cfg, launches, prefill_kernel)
-    print(f"{phase} {cfg.name} swap preemption, 24-block pool: kv {json.dumps(kv)}; engine "
+    print(f"{phase} {cfg.name} swap preemption, 24-block pool: {graph_note(out['measured'])}; "
+          f"kv {json.dumps(kv)}; engine "
           f"{json.dumps(out['simulated']['engine'], default=float)}; launches "
           f"{json.dumps(launches)}", flush=True)
 
 
 def deepseek_phases(gen, serve):
-    """Phases 5a-5c on full-width DeepSeek-V2-Lite with seeded random
+    """Phases 5a-5d on full-width DeepSeek-V2-Lite with seeded random
     weights. Returns (phase 5b's paged serving run's launches, the
-    ramp-head rows at this model's shapes)."""
+    ramp-head rows at this model's shapes, phase 5d's summary)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
@@ -1387,7 +1439,7 @@ def deepseek_phases(gen, serve):
     launches = serve_paged_vs_contiguous(params, cfg, serve, "5b", None,
                                          "paged_mla_decode_attention", None)
     serve_swap(params, cfg, serve, "5c", SEED + 5, "paged_mla_decode_attention", None)
-    return launches, rh
+    return launches, rh, graph_vs_eager(params, cfg, serve, "5d", SEED + 8)
 
 
 # ---------------------------------------------------------------------------
@@ -1424,9 +1476,9 @@ def time_state_update(cfg, gen, B=8):
 
 
 def mamba_phases(gen, serve):
-    """Phases 6a-6c on full-width Mamba2-2.7B with seeded random weights.
+    """Phases 6a-6d on full-width Mamba2-2.7B with seeded random weights.
     Returns (phase 6b's paged serving run's launches, the ramp-head rows at
-    this model's shapes)."""
+    this model's shapes, phase 6d's summary)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
@@ -1450,7 +1502,191 @@ def mamba_phases(gen, serve):
     # 6b: contiguous state rows vs state pages (no decode attention kernel)
     launches = serve_paged_vs_contiguous(params, cfg, serve, "6b", None, None, "ssd_chunked")
     serve_swap(params, cfg, serve, "6c", SEED + 6, None, "ssd_chunked")
-    return launches, rh
+    return launches, rh, graph_vs_eager(params, cfg, serve, "6d", SEED + 9)
+
+
+# ---------------------------------------------------------------------------
+# phases 4e, 5d and 6d: one sync window as one CUDA graph replay
+
+
+def graph_vs_eager(params, cfg, serve, phase, seed):
+    """Phases 4e, 5d and 6d. On each layout, two runners over the same
+    weights and prompts, one serving its windows as CUDA graphs and one
+    eager: the same windows through both (the graphed runner's first runs
+    eager, its second is captured, its third replays) must give records,
+    n_done and every cache leaf equal bit for bit; the graph's kernel nodes
+    must equal the eager window's launches; then host ms per replayed and per eager
+    window (in turns), device-busy ms per window (``profile_step``), aten
+    ops per replayed window and the graph pool's bytes. Last, one schedule
+    served graphed and eager: greedy tokens equal except differences that
+    begin at a near-tie. Its runners, and with them every graph, are gone
+    before it returns."""
+    import numpy as np
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import counted_wrappers
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import DecodeRunner
+    from repro_torch.serving.graphs import kernel_nodes
+
+    prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
+    act = [2, 5, 8, 11]
+    thr = np.full(len(act), 0.5, np.float32)
+    slots = list(range(8))
+    fns = counted_wrappers()
+    summary = {}
+    for layout, bs in (("contiguous", 0), ("paged", 16)):
+        mcfg = cfg.replace(decode_attn="paged-kernel" if bs else "kernel", pallas_head="kernel")
+        model = build_model(mcfg, prefill_attn="kernel", ssd_impl="kernel")
+        kw = dict(max_new_tokens=PAGED_TOKENS + 2, max_slots=4, n_slots=8)
+        if bs:
+            kw["kv_block_size"] = bs
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        e = DecodeRunner(model, params, prompts, graphs=False, **kw)
+        g = DecodeRunner(model, params, prompts, **kw)
+        if g.graphs is None:
+            fail(f"{phase} {layout}: a runner on the card built no window graphs")
+        for r in (e, g):
+            for sl in slots:
+                r.start(sl, sl)
+
+        def window(r):
+            n0 = {k: f.launches for k, f in fns.items()}
+            out = r.step_multi(slots, act, 4, thr)
+            return out, {k: f.launches - n0[k] for k, f in fns.items()}
+
+        # a key's first window runs eager, its second is captured, then replays
+        for what in ("eager", "capture", "replay"):
+            torch.cuda.synchronize()
+            reserved1 = torch.cuda.memory_reserved()
+            ge, gl = window(g)
+            torch.cuda.synchronize()
+            if _window_kind(g) != what:
+                fail(f"{phase} {layout}: the graphed runner's {what} window was a "
+                     f"{_window_kind(g)}")
+            if what == "capture":  # what the capture window added: the graph pool
+                pool_bytes = torch.cuda.memory_reserved() - reserved1
+            ee, el = window(e)
+            for name, a, b in zip(("labels", "unc", "finals", "exits"), ge, ee):
+                if not np.array_equal(a, b):
+                    fail(f"{phase} {layout}: the {what} window's {name} differ from the eager "
+                         f"window's (max abs {np.abs(a.astype(float) - b).max()})")
+            if gl != el:
+                fail(f"{phase} {layout}: the {what} window counted {gl}, the eager one {el}")
+            for j, (a, b) in enumerate(zip(tree_leaves(g._cache), tree_leaves(e._cache))):
+                if not torch.equal(a, b):
+                    fail(f"{phase} {layout}: cache leaf {j} differs after the {what} window "
+                         f"(max abs {(a.float() - b.float()).abs().max().item()})")
+        gs = g.graphs
+        if (gs.eagers, gs.captures, gs.replays) != (1, 1, 1):
+            fail(f"{phase} {layout}: {gs.eagers} eager, {gs.captures} captured and "
+                 f"{gs.replays} replayed windows; expected one of each")
+        # the graph's kernel nodes (checked at capture against the launches it
+        # counted) against the eager window's launches
+        (w,) = gs.windows.values()
+        nodes, edges, n_kernels = kernel_nodes(w.graph, with_edges=True)
+        if nodes != w.nodes:
+            fail(f"{phase} {layout}: the graph's nodes read now {nodes}, at capture {w.nodes}")
+        want = {"decode_attention": el["decode_attention"],
+                "paged_decode_attention": el["paged_decode_attention"],
+                "paged_mla_decode_attention": el["paged_mla_decode_attention"],
+                "ramp_head": el["ramp_head_stats"] + el["ramp_head_exit"],
+                "ramp_merge": el["ramp_head_stats"] + el["ramp_head_exit"]}
+        for k, v in want.items():
+            if nodes[k] != v:
+                fail(f"{phase} {layout}: the graph holds {nodes[k]} {k} kernel nodes, the "
+                     f"eager window launched {v}")
+        pdl = sum(1 for a, b, t in edges if (a, b) == ("paged_mla_decode_attention",
+                                                      "mla_combine") and t == 1)
+        if el["paged_mla_decode_attention"] and not (
+                nodes["mla_combine"] == pdl == el["paged_mla_decode_attention"]):
+            fail(f"{phase} {layout}: {nodes['mla_combine']} MLA combine nodes, {pdl} "
+                 f"programmatic walk -> combine edges, {el['paged_mla_decode_attention']} "
+                 "walks")
+        # host ms a window, graphed (replays) and eager, in turns
+        ms = {"replay": [], "eager": []}
+        for r, kind in ((g, "replay"), (e, "eager"), (e, "eager"), (g, "replay")):
+            t0 = time.perf_counter()
+            r.step_multi(slots, act, 4, thr)  # ends in its host read of n_done
+            ms[kind].append(1e3 * (time.perf_counter() - t0))
+            if _window_kind(r) != kind:
+                fail(f"{phase} {layout}: a timed window was not a {kind}")
+        prof = {kind: profile_step(lambda r=r: r.step_multi(slots, act, 4, thr))
+                for r, kind in ((g, "replay"), (e, "eager"))}
+        c = {"ops": 0}
+
+        class Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                c["ops"] += 1
+                return func(*args, **(kwargs or {}))
+
+        with Count():
+            g.step_multi(slots, act, 4, thr)
+        if _window_kind(g) != "replay":
+            fail(f"{phase} {layout}: the counted window was not a replay")
+        steps = g.decode_steps
+        if steps != e.decode_steps + 4:  # g ran one window more
+            fail(f"{phase} {layout}: decode steps {steps} graphed vs {e.decode_steps} eager")
+        row = {"windows_compared": 3, "kernel_nodes": n_kernels, "graph_nodes": nodes,
+               "programmatic_mla_edges": pdl, "eager_window_launches": el,
+               "host_ms_per_replayed_window": ms["replay"],
+               "host_ms_per_eager_window": ms["eager"],
+               "device_busy_ms_per_window": {k: v["device_busy_ms"] for k, v in prof.items()},
+               "profiled_wall_ms": {k: v["wall_ms"] for k, v in prof.items()},
+               "aten_ops_per_replayed_window": c["ops"],
+               "graph_pool_bytes": pool_bytes,
+               "reserved_bytes_before_runners": reserved0}
+        print(f"{phase} {cfg.name} {layout}: graph vs eager window on {card_line()}: records, "
+              f"n_done and every cache leaf equal bit for bit; {json.dumps(row)}", flush=True)
+        summary[layout] = row
+        del e, g, gs, model, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one schedule served both ways
+    runs = {}
+    for name, graphs in (("graphed", None), ("eager", False)):
+        (out, resp), launches = counted(lambda graphs=graphs: serve(
+            cfg.name, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
+            verbose=False, kv_block_size=16, prompts=prompts, params=params, graphs=graphs))
+        _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, f"{phase} {name}")
+        runs[name] = (out["measured"], {r.rid: r for r in resp}, launches)
+    ties = []
+    for rid, rg in runs["graphed"][1].items():
+        t, gap = _divergence_gap(params, cfg, prompts[rid], rg.final_tokens,
+                                 runs["eager"][1][rid].final_tokens)
+        if t is not None:
+            print(f"{phase} request {rid}: graphed and eager tokens differ from token {t}, "
+                  f"logit gap {gap:.4f}", flush=True)
+            if gap >= NEAR_TIE:
+                fail(f"{phase} request {rid}: graphed and eager differ at no near-tie")
+            ties.append(rid)
+    mg, me = runs["graphed"][0], runs["eager"][0]
+    lg, le = runs["graphed"][2], runs["eager"][2]
+    for k in ATTENTION:  # once a layer a step in both
+        if lg[k] * le["decode_steps"] != le[k] * lg["decode_steps"]:
+            fail(f"{phase}: {k} launched {lg[k]} times in {lg['decode_steps']} graphed steps, "
+                 f"{le[k]} in {le['decode_steps']} eager ones")
+    if not (lg["ramp_head_exit"] > 0 and mg["replay_windows"] > 0 and me["replay_windows"] == 0):
+        fail(f"{phase}: the graphed run replayed {mg['replay_windows']} windows and launched "
+             f"the exit heads {lg['ramp_head_exit']} times; the eager run replayed "
+             f"{me['replay_windows']}")
+    keys = ("windows", "capture_windows", "replay_windows", "eager_windows",
+            "capture_window_ms_mean", "replay_window_ms_mean", "eager_window_ms_mean",
+            "window_ms_mean", "decode_tokens_per_s")
+    for m in (mg, me):  # the engine's and controller's host time outside the runner's calls
+        m["engine_ms_per_window"] = 1e3 * (m["engine_wall_s"] - m["runner_s"]) / m["windows"]
+    keys += ("engine_ms_per_window",)
+    serve_row = {"graphed": {k: mg[k] for k in keys}, "eager": {k: me[k] for k in keys},
+                 "graph_keys": mg["graphs"]["keys"],
+                 "token_identical": 8 - len(ties), "near_tie_divergences": ties}
+    print(f"{phase} {cfg.name} paged serving graphed vs eager, 8 x {PAGED_TOKENS} tokens: "
+          f"{json.dumps(serve_row)}", flush=True)
+    summary["serve"] = serve_row
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
 
 
 def main() -> None:
@@ -1544,8 +1780,8 @@ def main() -> None:
     m = out["measured"]
     print(f"served 8 requests x 32 tokens on {card}: prefill {m['prefill_ms_mean']:.3f} ms "
           f"(prompt 128), {m['window_ms_mean']:.3f} ms per window of up to 4 steps, "
-          f"{m['decode_tokens_per_s']:.1f} decode tokens/s; launches {json.dumps(launches)}",
-          flush=True)
+          f"{m['decode_tokens_per_s']:.1f} decode tokens/s; {graph_note(m)}; launches "
+          f"{json.dumps(launches)}", flush=True)
     print("engine summary (SIMULATED from the analytic H100 profile, not timed): "
           + json.dumps(out["simulated"]["apparate"], default=float), flush=True)
     paged_launches = serve_paged_vs_contiguous(params, cfg, serve_generative, "4b",
@@ -1553,6 +1789,7 @@ def main() -> None:
                                                "flash_attention")
     serve_prefix_swap(params, cfg, serve_generative)
     serve_chunked(params, cfg, serve_generative)
+    graphs = {CONFIG: graph_vs_eager(params, cfg, serve_generative, "4e", SEED + 7)}
     print(f"qwen2-1.5b phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # -- phase 5: DeepSeek-V2-Lite, once qwen2-1.5b's weights are freed (the
@@ -1560,13 +1797,13 @@ def main() -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    ds_launches, ds_rh = deepseek_phases(gen, serve_generative)
+    ds_launches, ds_rh, graphs[DS_CONFIG] = deepseek_phases(gen, serve_generative)
     print(f"DeepSeek-V2-Lite phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # -- phase 6: Mamba2-2.7B, once DeepSeek-V2-Lite's weights are freed
     gc.collect()
     torch.cuda.empty_cache()
-    mb_launches, mb_rh = mamba_phases(gen, serve_generative)
+    mb_launches, mb_rh, graphs[MB_CONFIG] = mamba_phases(gen, serve_generative)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1608,6 +1845,14 @@ def main() -> None:
             "library_ms": r["library_ms"], "path": path, "shape": r["shape"],
             **{k: r[k] for k in ("device_ms", "host_us") if k in r},
         })
+    print("window graphs (4e, 5d, 6d): " + json.dumps(
+        {name: {"host_ms_per_replayed_window": {lay: v[lay]["host_ms_per_replayed_window"]
+                                                for lay in ("contiguous", "paged")},
+                "host_ms_per_eager_window": {lay: v[lay]["host_ms_per_eager_window"]
+                                             for lay in ("contiguous", "paged")},
+                "device_busy_ms_per_window": {lay: v[lay]["device_busy_ms_per_window"]
+                                              for lay in ("contiguous", "paged")},
+                "served": v["serve"]} for name, v in graphs.items()}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

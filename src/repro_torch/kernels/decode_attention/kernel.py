@@ -83,6 +83,7 @@ def decode_splits(n_sm, B, KH, keys):
 _n_sm = {}
 _splits_of = {}  # (device, dtype, B * KH, keys) -> decode_splits
 _scratch = {}  # (device, stream) -> [counters, partials]
+_retired = []  # workspaces growth replaced: graphs captured over them still write them
 _SCALE = {64: 1.0 / 8.0, 128: 1.0 / math.sqrt(128)}  # the head widths the kernel takes
 _POS_KINDS = {torch.int32: 0, torch.int64: 1}  # and 2: a Python int
 
@@ -107,13 +108,24 @@ def _splits(dev, dtype, B, KH, keys):
 def _workspace(dev, stream, groups, floats):
     """Pointers to the merge's counters (int32, zero between calls: the
     kernel resets them) and its f32 partials, cached per device and stream
-    and grown as needed, so a call allocates nothing."""
+    and grown as needed, so a call allocates nothing.
+
+    A CUDA graph captured over a workspace writes it on every replay, so
+    growth keeps the tensors it replaces (``_retired``; they are small) and
+    growth inside a capture raises: a run of the same call on the capture
+    stream sizes them first."""
     w = _scratch.get((dev, stream))
     if w is None:
         w = _scratch[(dev, stream)] = [None, None]
-    if w[0] is None or w[0].numel() < groups:
+    grow_cnt = w[0] is None or w[0].numel() < groups
+    grow_part = w[1] is None or w[1].numel() < floats
+    if (grow_cnt or grow_part) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("decode attention: its workspace would grow inside a CUDA graph "
+                           "capture; run the same call on the capture stream first")
+    _retired.extend(t for t, grow in zip(w, (grow_cnt, grow_part)) if grow and t is not None)
+    if grow_cnt:
         w[0] = torch.zeros(max(groups, 1024), dtype=torch.int32, device=dev)
-    if w[1] is None or w[1].numel() < floats:
+    if grow_part:
         w[1] = torch.empty(max(floats, 1 << 18), dtype=torch.float32, device=dev)
     return w[0].data_ptr(), w[1].data_ptr()
 

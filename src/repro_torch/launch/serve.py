@@ -49,13 +49,15 @@ from repro_torch.serving import (
 
 class _TimedRunner(DecodeRunner):
     """``DecodeRunner`` that records the host wall time of each one-shot
-    prefill, each prefill chunk and each sync window. Each call ends in a
+    prefill, each prefill chunk and each sync window, and whether a window
+    captured its CUDA graph, replayed it or ran eager. Each call ends in a
     host read of a device result (a chunk that only shares cached blocks
     does no device work), so the time covers the device work."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.prefill_s, self.chunk_s, self.window_s, self.window_tokens = [], [], [], 0
+        self.window_kind = []  # "capture" | "replay" | "eager", one a window
 
     def start(self, slot, item):
         t0 = time.perf_counter()
@@ -80,7 +82,13 @@ class _TimedRunner(DecodeRunner):
         out = super().step_multi(slots, active, n_steps, thresholds)
         self.window_s.append(time.perf_counter() - t0)
         self.window_tokens += out[2].size
+        self.window_kind.append("eager" if self.graphs is None else self.graphs.last)
         return out
+
+    def window_ms(self, kind):
+        """Mean host ms of the windows of one kind (0.0 without any)."""
+        ts = [t for t, k in zip(self.window_s, self.window_kind) if k == kind]
+        return 1e3 * float(np.mean(ts)) if ts else 0.0
 
 
 BATCH = 8  # decode slots
@@ -97,7 +105,7 @@ LOAD = 0.5  # offered load, a fraction of one replica's decode capacity
 def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=128,
                      steps_per_sync=4, seed=0, tiny=False, device="cuda", verbose=True,
                      kv_block_size=0, kv_blocks=None, prefix_cache=False, preempt="none",
-                     prefill_chunk=0, prompts=None, params=None):
+                     prefill_chunk=0, prompts=None, params=None, graphs=None):
     """Vanilla (no-EE, simulated only) vs Apparate per-token exits served on
     the real model at the same accuracy constraint. ``tiny`` serves the
     config's TINY variant (CPU tests). Returns (summary, responses).
@@ -111,7 +119,9 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     'none': raise). ``prefill_chunk > 0`` prefills prompts in chunks
     interleaved with decode steps. ``prompts`` (n, prompt_len) replaces the
     seeded random prompts; ``params`` reuses weights already drawn with
-    ``seed`` (the same tree for every decode_attn)."""
+    ``seed`` (the same tree for every decode_attn). ``graphs`` goes to the
+    runner: each sync window one CUDA graph replay on a card (None, True)
+    or eager (False)."""
     if prefix_cache and not kv_block_size:
         raise ValueError("--prefix-cache requires --kv-block-size > 0 (paged KV)")
     if preempt != "none" and not kv_block_size:
@@ -151,13 +161,16 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     if kv_block_size:
         rkw = dict(kv_block_size=kv_block_size, kv_blocks=kv_blocks, prefix_cache=prefix_cache)
     runner = _TimedRunner(model, params, prompts, max_new_tokens=decode_tokens + 2,
-                          max_slots=SLOTS, n_slots=BATCH, **rkw)
+                          max_slots=SLOTS, n_slots=BATCH, graphs=graphs, **rkw)
     eng = GenerativeEngine(prof, gcfg, runner, ctl)
     t0 = time.perf_counter()
     resp = eng.run(reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall_s = time.perf_counter() - t0
+    g = runner.graphs
+    graph_stats = ({"eager": g.eagers, "captures": g.captures, "replays": g.replays,
+                    "keys": len(g.windows)} if g is not None else None)
     mo = summarize_generative(resp, horizon_ms=eng.makespan_ms)
     dev_s = sum(runner.prefill_s) + sum(runner.chunk_s) + sum(runner.window_s)
     out = {
@@ -182,6 +195,12 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
             "prefill_chunk_ms_mean": 1e3 * float(np.mean(runner.chunk_s)) if runner.chunk_s else 0.0,
             "window_ms_mean": 1e3 * float(np.mean(runner.window_s)) if runner.window_s else 0.0,
             "windows": len(runner.window_s),
+            "graphs": graph_stats,
+            **{f"{kind}_windows": runner.window_kind.count(kind)
+               for kind in ("capture", "replay", "eager")},
+            **{f"{kind}_window_ms_mean": runner.window_ms(kind)
+               for kind in ("capture", "replay", "eager")},
+            "decode_steps": runner.decode_steps,
             "decode_tokens": runner.window_tokens,
             "decode_tokens_per_s": runner.window_tokens / max(sum(runner.window_s), 1e-12),
             "runner_s": dev_s,

@@ -14,7 +14,8 @@ Differences from the reference that are PyTorch idiom, not semantics:
 recompile to avoid, and a host index keeps ``head[site]`` a view instead
 of a 472 MB gather); the KV cache is updated in place; ``decode_multi``'s
 ``lax.while_loop`` is a Python loop whose writes past the window's end are
-switched off on device, so the host reads nothing inside a window. Decode
+switched off on device, so the host reads nothing inside a window and the
+runner can capture the window as one CUDA graph. Decode
 runs on a contiguous cache or on a paged block pool (full attention, MLA
 latents, or one mamba state page a slot). MoE runs the dense dispatch only
 (the reference's ``moe_impl='dense'``, what its serving runner passes).
@@ -446,8 +447,10 @@ class LM:
         every valid row exited. Here the loop runs ``n_steps`` times and a
         device flag ``running`` switches off each later step's cache write,
         so the cache ends as the reference leaves it; ``n_done`` counts the
-        steps that ran with ``running`` set. Those later steps still run
-        the model (skipping them without a host read needs a CUDA graph).
+        steps that ran with ``running`` set. The serving runner captures
+        the whole window in one CUDA graph (``serving/graphs.py``), so steps
+        past ``n_done`` still run there, gated; a conditional while-node
+        could skip them, which would be the reference's early stop.
 
         Returns ``(cache, (ramp_label (n_max,K,B), ramp_maxprob (n_max,K,B),
         final_label (n_max,B), exit_site (n_max,B), n_done))``; entries past

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.serving.graphs import WindowGraphs
 
 
 def _bucket(n: int) -> int:
@@ -370,12 +371,19 @@ class DecodeRunner:
     run for every token, because the controller needs agreement labels to
     adapt; serving *time* is simulated by the engine from the latency
     profile. The decoded trajectory follows the model's greedy tokens.
+
+    ``graphs`` runs each sync window as one CUDA graph replay
+    (``serving/graphs.py``; one graph per bucket, step count and active
+    set, captured when the key comes a second time): None captures on a
+    CUDA device and runs eager on the CPU, False runs eager, True captures
+    and refuses a CPU device. ``step`` and resumed prefill tokens always
+    run eager.
     """
 
     def __init__(self, model, params, prompts: np.ndarray, *, max_new_tokens: int = 64,
                  max_slots: int = 8, n_slots: Optional[int] = None,
                  kv_block_size: int = 16, kv_blocks: Optional[int] = None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, graphs: Optional[bool] = None):
         self.model = model
         self.params = params
         self.device = params["tok"]["embed"].device
@@ -384,6 +392,12 @@ class DecodeRunner:
         self.max_slots = max_slots  # K ramp slots (not decode rows)
         self.n_sites = len(model.sites)
         self.dispatches = 0  # decode calls: 1 per step or per window
+        self.decode_steps = 0  # decode steps run, gated window steps included
+        if graphs is True and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs a CUDA device; the params are on {self.device}")
+        self.graphs: Optional[WindowGraphs] = (
+            WindowGraphs(self.device, capture=True)
+            if graphs or (graphs is None and self.device.type == "cuda") else None)
         self._cache = None  # batched slot cache or block pool; grown on demand
         self._rows = 0 if n_slots is None else _bucket(max(n_slots, 1))
         self._cache_len = self.prompts.shape[1] + self.max_new
@@ -392,10 +406,6 @@ class DecodeRunner:
         self._tok = np.zeros(0, np.int64)
         self._axes: Optional[Tuple[int, ...]] = None  # per-leaf batch axis
         self._pf_progress = {}  # slot -> item for in-flight chunked prefills
-        # device-resident exit thresholds: pushed once per sync window and
-        # ONLY when the controller actually changed them
-        self._thr_host = None
-        self._thr_dev = None
         # -- paged-KV state (decode_attn='paged' | 'paged-kernel')
         self.paged = str(model.cfg.decode_attn).startswith("paged")
         self._bs_blk = int(kv_block_size)
@@ -475,8 +485,15 @@ class DecodeRunner:
             )
         if self._cache is not None:
             self._grow_leaves(new, self._cache, self._axes)
-        self._cache = new
+        self._set_cache(new)
         self._grow_rows(rows)
+
+    def _set_cache(self, new) -> None:
+        """Replace the cache (or pool): the window graphs built over the old
+        leaves go with it."""
+        self._cache = new
+        if self.graphs is not None:
+            self.graphs.clear()
 
     def _tree_take(self, cache, rows: torch.Tensor):
         leaves = iter(self._axes)
@@ -506,7 +523,7 @@ class DecodeRunner:
                     self.model.paged_cache_schema(1, bs), self.model.paged_cache_schema(2, bs)
                 )
             self._alloc = BlockAllocator(nblk, self._max_blocks, rows)
-            self._cache = self.model.init_paged_cache(nblk + 1, bs, device=self.device)
+            self._set_cache(self.model.init_paged_cache(nblk + 1, bs, device=self.device))
             if self._want_prefix:
                 self._prefix = PrefixCache(self._alloc, bs)
         else:
@@ -514,7 +531,7 @@ class DecodeRunner:
             if nblk > self._alloc.n_blocks:
                 new = self.model.init_paged_cache(nblk + 1, bs, device=self.device)
                 self._grow_leaves(new, self._cache, self._pool_axes)
-                self._cache = new
+                self._set_cache(new)
                 self._alloc.grow_pool(nblk)
         self._grow_rows(rows)
 
@@ -635,14 +652,14 @@ class DecodeRunner:
             self._copy_block(old, new)
             self.cow_copies += 1
 
-    def _ship_tables(self, rows: np.ndarray, zero_lo: int, zero_hi: int) -> torch.Tensor:
-        """Device block tables for ``rows``, one host->device copy. Rows in
-        ``[zero_lo, zero_hi)``, the FREE bucket-padding rows whose stale
-        entries may reference blocks live slots now own, are redirected
-        wholesale to the reserved trash block 0."""
+    def _tables(self, rows: np.ndarray, zero_lo: int, zero_hi: int) -> np.ndarray:
+        """Host block tables for ``rows``. Rows in ``[zero_lo, zero_hi)``,
+        the FREE bucket-padding rows whose stale entries may reference
+        blocks live slots now own, are redirected wholesale to the reserved
+        trash block 0."""
         t = self._alloc.table[rows].copy()
         t[zero_lo:zero_hi] = 0
-        return self._to_dev(t)
+        return t
 
     def _check_admission_capacity(self) -> None:
         """A slot started now writes ``prompt_len + max_new`` tokens into a
@@ -871,13 +888,14 @@ class DecodeRunner:
         if self.paged:
             self._claim_step_blocks([slot])
             _, outs = self.model.decode(self.params, self._cache, toks, pos,
-                                        block_tables=self._ship_tables(rows, 1, 1))
+                                        block_tables=self._to_dev(self._tables(rows, 1, 1)))
         else:
             rows_d = self._to_dev(rows)
             sub = self._tree_take(self._cache, rows_d)
             sub, outs = self.model.decode(self.params, sub, toks, pos)
             self._tree_put(self._cache, sub, rows_d)
         self.dispatches += 1
+        self.decode_steps += 1
         self._pos[slot] += 1
         # the sanctioned token read: resumed prefill feeds it to the next chunk
         return int(outs["final"]["label"].reshape(-1)[0])
@@ -932,9 +950,9 @@ class DecodeRunner:
             # raises PoolExhausted here BEFORE any state changes. FREE pad
             # rows' tables point at the trash block 0.
             self._claim_step_blocks(slots)
+            tables = self._to_dev(self._tables(rows, B, B + n_free))
             _, outs = self.model.decode(self.params, self._cache, toks, pos,
-                                        active_sites=act if k else None,
-                                        block_tables=self._ship_tables(rows, B, B + n_free))
+                                        active_sites=act if k else None, block_tables=tables)
         else:
             rows_d = self._to_dev(rows)
             sub = self._tree_take(self._cache, rows_d)
@@ -942,6 +960,7 @@ class DecodeRunner:
                                           active_sites=act if k else None)
             self._tree_put(self._cache, sub, rows_d)
         self.dispatches += 1
+        self.decode_steps += 1
         # the sanctioned per-step record drain (the sync step_multi amortizes)
         final = outs["final"]["label"].cpu().numpy().reshape(-1)[:B].astype(np.int64)
         if k:
@@ -955,16 +974,28 @@ class DecodeRunner:
         self._tok[rows[:B]] = final  # vanilla greedy trajectory (agreement baseline)
         return labels, unc, final
 
-    def _thr_device(self, thr: np.ndarray) -> torch.Tensor:
-        """Device-resident per-site exit thresholds, padded to ``max_slots``
-        with 0.0 (strict ``<``: pad sites never fire). Re-pushed ONLY when
-        the controller's values changed."""
+    def _thr_pad(self, thr: np.ndarray) -> np.ndarray:
+        """Per-site exit thresholds padded to ``max_slots`` with 0.0 (strict
+        ``<``: pad sites never fire)."""
         pad = np.zeros(self.max_slots, np.float32)
         pad[: len(thr)] = thr
-        if self._thr_host is None or not np.array_equal(pad, self._thr_host):
-            self._thr_host = pad
-            self._thr_dev = self._to_dev(pad)
-        return self._thr_dev
+        return pad
+
+    def _window(self, inp: dict, n: int, act: List[int], cache):
+        """One sync window of ``n`` decode steps over the device inputs
+        ``inp`` (toks, pos, valid, thr, and rows or tables) and ``cache``:
+        the body a window graph captures, so it reads nothing else but the
+        params. Returns ``(rl, rm, fl, ex, n_done)``."""
+        k = len(act)
+        kw = dict(n_max=_bucket(n), active_sites=act if k else None,
+                  thresholds=inp["thr"] if k else None, row_valid=inp["valid"])
+        if self.paged:
+            return self.model.decode_multi(self.params, cache, inp["toks"], inp["pos"], n,
+                                           block_tables=inp["tables"], **kw)[1]
+        sub = self._tree_take(cache, inp["rows"])
+        sub, recs = self.model.decode_multi(self.params, sub, inp["toks"], inp["pos"], n, **kw)
+        self._tree_put(cache, sub, inp["rows"])
+        return recs
 
     def step_multi(self, slots: Sequence[int], active: Sequence[int],
                    n_steps: int, thresholds: np.ndarray):
@@ -1000,14 +1031,9 @@ class DecodeRunner:
         headroom = min(self._cache_len - int(self._pos[s]) for s in slots)
         n = min(int(n_steps), max(1, headroom))
         rows, n_free = self._batch_rows(slots)
-        toks = self._to_dev(self._tok[rows].reshape(-1, 1))
-        pos = self._to_dev(self._pos[rows])
         # FREE pad rows hold garbage: mask them out of the all-exited vote
         valid = np.zeros(len(rows), bool)
         valid[:B] = True
-        kw = dict(n_max=_bucket(n), active_sites=act if k else None,
-                  thresholds=self._thr_device(thr) if k else None,
-                  row_valid=self._to_dev(valid))
         if self.paged:
             # pre-claim the window as n sequential per-step claims (the
             # claim and eviction order of n ``step`` calls); on
@@ -1022,16 +1048,19 @@ class DecodeRunner:
                 for s in slots:
                     al.release_tail(s, base_owned[s])
                 raise
-            _, (rl, rm, fl, ex, ndv) = self.model.decode_multi(
-                self.params, self._cache, toks, pos, n,
-                block_tables=self._ship_tables(rows, B, B + n_free), **kw)
+        host = {"toks": self._tok[rows].reshape(-1, 1), "pos": self._pos[rows], "valid": valid,
+                "thr": self._thr_pad(thr)}
+        host["tables" if self.paged else "rows"] = (
+            self._tables(rows, B, B + n_free) if self.paged else rows)
+        if self.graphs is not None:
+            rl, rm, fl, ex, ndv = self.graphs.run(
+                (len(rows), n, tuple(act), self.paged), host,
+                lambda st: self._window(st, n, act, self._cache))
         else:
-            rows_d = self._to_dev(rows)
-            sub = self._tree_take(self._cache, rows_d)
-            sub, (rl, rm, fl, ex, ndv) = self.model.decode_multi(
-                self.params, sub, toks, pos, n, **kw)
-            self._tree_put(self._cache, sub, rows_d)
+            rl, rm, fl, ex, ndv = self._window(
+                {name: self._to_dev(a) for name, a in host.items()}, n, act, self._cache)
         self.dispatches += 1  # ONE call per window, however many steps ran
+        self.decode_steps += n
         # the ONE host sync per window; the record copies below find the
         # device idle
         nd = int(ndv)

@@ -1,12 +1,14 @@
 """On a CUDA card: each CUDA kernel against its plain PyTorch version (the
-paged decode kernel also bit for bit against the contiguous one), and the
+paged decode kernel also bit for bit against the contiguous one), the
 tiny models with the kernels on against the plain path (tiny mamba2 and
-qwen2 prefills through the SSD and flash-attention kernels too). Every test is
+qwen2 prefills through the SSD and flash-attention kernels too), and the
+runner's CUDA-graph sync windows against its eager ones. Every test is
 marked `gpu` and skips without a card; the file imports no jax, so it runs
 on a machine that has only PyTorch:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,7 +33,11 @@ from repro_torch.kernels.ramp_head import (  # noqa: E402  # repro: allow[tier1-
     ramp_head_stats,
 )
 from repro_torch.kernels.ssd import ssd, ssd_chunked  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+from repro_torch.kernels import counted_wrappers  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.models import build_model  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+from repro_torch.models.common import tree_leaves  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+from repro_torch.serving import DecodeRunner  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+from repro_torch.serving.graphs import WindowGraphs  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 
 pytestmark = pytest.mark.gpu
 
@@ -704,3 +710,94 @@ def test_tiny_qwen_flash_prefill_matches_sdpa(gen):
     for a, b in ((o_on["final"], o_off["final"]), (o_on["ramps"], o_off["ramps"])):
         assert torch.equal(a["label"], b["label"])
         torch.testing.assert_close(a["maxprob"], b["maxprob"], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b",
+                                  "mamba2-2.7b"])
+def test_window_graphs_match_eager_runner(gen, arch, paged, dtype):
+    """One schedule of sync windows through a runner on CUDA graphs and an
+    eager one: records, host state, launch counts and every cache leaf
+    equal bit for bit; each key runs eager once, is captured at its second
+    window (its kernel nodes checked against its launches) and replays
+    after."""
+    cfg = get_tiny(arch).replace(dtype=dtype, pallas_head="kernel",
+                                 decode_attn="paged-kernel" if paged else "kernel")
+    if cfg.mla:
+        cfg = cfg.replace(mla_absorbed=True)
+    elif not cfg.ssm:
+        cfg = cfg.replace(head_dim=64)  # a width the decode kernel takes
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab_size, (8, 9))
+    kw = dict(max_new_tokens=24, max_slots=2, n_slots=8, kv_block_size=4)
+    runs = {}
+    for name, graphs in (("eager", False), ("graphed", None)):
+        r = DecodeRunner(model, params, prompts, graphs=graphs, **kw)
+        assert (r.graphs is None) == (graphs is False)
+        for s in range(8):
+            r.start(s, s)
+        fns = counted_wrappers()
+        for f in fns.values():
+            f.launches = 0
+        thr, thr2 = np.array([0.5, 0.9], np.float32), np.array([0.2], np.float32)
+        recs = [r.step_multi(list(range(8)), [0, 1], 4, thr) for _ in range(3)]
+        recs += [r.step_multi([0, 1, 2, 3], [1], 2, thr2) for _ in range(2)]
+        recs += [r.step_multi(list(range(8)), [0, 1], 4, np.ones(2, np.float32))]
+        torch.cuda.synchronize()
+        runs[name] = (r, recs, {k: f.launches for k, f in fns.items()})
+    (e, e_recs, e_n), (g, g_recs, g_n) = runs["eager"], runs["graphed"]
+    for a, b in zip(e_recs, g_recs):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert g_recs[-1][2].shape[0] == 1  # every row exits at once: the gated steps run
+    assert e_n == g_n and e.decode_steps == g.decode_steps
+    assert g_n["ramp_head_exit"] > 0
+    assert (g.graphs.eagers, g.graphs.captures, g.graphs.replays) == (2, 2, 2)
+    assert (e._pos.tolist(), e._tok.tolist()) == (g._pos.tolist(), g._tok.tolist())
+    for a, b in zip(tree_leaves(e._cache), tree_leaves(g._cache)):
+        assert torch.equal(a, b)
+
+
+def test_window_graph_keeps_its_decode_workspace(gen):
+    """A graph captured at a small key split keeps the workspace it writes:
+    a larger eager call on the capture stream grows the cached workspace,
+    fresh allocations there may take memory it would have given up, and
+    the replay still equals the eager result. Growth inside a capture
+    raises."""
+    dt, H, KH, hd = torch.bfloat16, 12, 2, 128
+
+    def case(B, S):
+        q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
+        v = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
+        return q, k, v, torch.randint(S // 2, S, (B,), generator=gen, device="cuda")
+
+    q, k, v, pos = case(2, 1024)
+    want = decode_attention(q, k, v, pos)
+    graphs = WindowGraphs(q.device, capture=True)
+    host = {"pos": pos.cpu().numpy()}
+
+    def body(static):
+        return (decode_attention(q, k, v, static["pos"]),)
+
+    first = graphs.run("small", host, body)[0]  # eager: sizes the capture stream's workspace
+    second = graphs.run("small", host, body)[0].clone()  # captured, then replayed
+    with torch.cuda.stream(graphs._stream):
+        decode_attention(*case(32, 4096))  # grows the capture stream's workspace
+        junk = [torch.full((1 << 20,), -1, dtype=torch.int32, device="cuda") for _ in range(8)]
+    again = graphs.run("small", host, body)[0]
+    torch.cuda.synchronize()
+    assert (graphs.eagers, graphs.captures, graphs.replays) == (1, 1, 1) and junk
+    assert graphs.windows["small"].nodes["decode_attention"] == 1
+    for got in (first, second, again):
+        assert torch.equal(got, want)
+    s, g = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+    with torch.cuda.stream(s):
+        g.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="capture"):
+                decode_attention(q, k, v, pos)  # a new stream: nothing sized yet
+        finally:
+            g.capture_end()
