@@ -40,6 +40,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      qwen2-1.5b's served prefill and on a 4096-token causal prompt;
   3e. the SSD chunk-scan kernel against its plain version at Mamba2-2.7B's
      served prefill (two chunks), a ragged 120-step prompt and 4096 steps;
+  3f. the flash-attention kernel with no mask against its plain version at
+     BERT-base's served shape (8 x 32 tokens, 12 heads of 64) and on one
+     512-token row;
+  4f. (after 4e, on qwen2-1.5b's weights) next-token serving through
+     LMTokenRunner: 8 contexts of 128 tokens with 4 active ramps and none,
+     kernels on vs off (labels equal except near-ties), then 64 requests
+     through the launcher's classification serve() on the cluster engine;
   5. full-width DeepSeek-V2-Lite (MLA + MoE, absorbed MLA) with seeded
      random weights, once qwen2-1.5b's are freed: the ramp-head kernels at
      its d 2048 and V 102400; 5a. prefill + 8 decode steps on the paged
@@ -54,13 +61,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      decode steps with the kernels off and on; 6b.
      contiguous state rows vs state pages on one schedule; 6c. swap of state
      pages on a pool that runs dry; 6d. as 4e.
+  7. the paper's classifiers, once Mamba2-2.7B's weights are freed, with
+     seeded random weights: 7a. ResNet-50 at 224 px in f32 (TF32 off): the
+     card's forward against the CPU forward of the same weights on 2
+     images, ClassifierRunner at buckets 1-8 with 0 and 4 ramps (host ms,
+     device-busy ms, the FLOP count), then 600 requests served with and
+     without admission; 7b. BERT-base in bf16: the runner through sdpa vs
+     the flash kernel, then 600 requests served through the kernel (12
+     launches a forward). Their engine latencies are SIMULATED.
 Every serving phase serves its sync windows as CUDA graph replays (the
 runner's default on a card; a key's first window runs eager, its second
 is captured), except runs that carry Python hooks, which run eager
 (``graphs=False``). Each zeroes the launch counters just before it and
 reads them just after (a replay adds what its capture recorded, and each
 capture raises unless the graph's kernel nodes, read by name, are those
-launches), and counts the model's prefills and its runners' decode steps. The last
+launches), and counts the model's prefills, the classifiers' forwards and its
+runners' decode steps. The last
 two lines are the kernels JSON and the result JSON.
 """
 from __future__ import annotations
@@ -413,10 +429,11 @@ def check_paged_mla(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=16, r=512, dr=64
     return row
 
 
-def check_flash_attention(B, H, KH, Sq, Sk, hd, label, gen):
-    """Phase 3d: the flash-attention kernel, causal from query 0, against its
-    plain version, q/k/v handed over as the model does (views of (B, S,
-    heads, hd) storage); timed beside SDPA (top-left causal)."""
+def check_flash_attention(B, H, KH, Sq, Sk, hd, label, gen, causal=True):
+    """Phases 3d and 3f: the flash-attention kernel, causal from query 0 (3d)
+    or with no mask (3f, BERT's encoder), against its plain version, q/k/v
+    handed over as the model does (views of (B, S, heads, hd) storage);
+    timed beside SDPA (top-left causal, or no mask)."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
     dt = torch.bfloat16
@@ -424,8 +441,8 @@ def check_flash_attention(B, H, KH, Sq, Sk, hd, label, gen):
     k = torch.randn(B, Sk, KH, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
     v = torch.randn(B, Sk, KH, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
     n0 = flash_attention.launches
-    out = flash_attention(q, k, v, causal=True)
-    ref = attention_ref(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=causal)
+    ref = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     # bf16 output: the kernel rounds once from f32; the plain version sums
     # in another order; 1e-2 covers bf16's 8-bit mantissa
@@ -434,27 +451,29 @@ def check_flash_attention(B, H, KH, Sq, Sk, hd, label, gen):
         fail(f"flash_attention {label}: max abs err {err}")
 
     def library():
-        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                                 enable_gqa=True)
 
-    # what causal-from-0 needs: keys 0..Sq-1 of each head, (q_i, k_j) pairs j <= i
-    nk = min(Sk, Sq)
-    pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    # what causal-from-0 needs: keys 0..Sq-1 of each head, (q_i, k_j) pairs
+    # j <= i; with no mask every key and every pair
+    nk = min(Sk, Sq) if causal else Sk
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
     nbytes = 2 * (2 * q.numel() + 2 * B * KH * nk * hd)
     flops = 4 * B * H * pairs * hd  # q.k and p.v
     bm, by = bound_ms(nbytes, flops)
     row = {
         "shape": label, "max_abs_err": err,
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
-        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True)),
-        "library_ms": time_ms(library), "library": "SDPA (is_causal, top-left)",
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=causal)),
+        "library_ms": time_ms(library),
+        "library": "SDPA (is_causal, top-left)" if causal else "SDPA (no mask)",
         "bound_ms": bm, "bound_by": by, "bytes": nbytes, "flops": flops,
         "cuda_core_ms": 1e3 * flops / PEAK_F32,
     }
     row["tflop_per_s"] = flops / row["ms"] / 1e9  # of the counted flop
-    row["device_ms"] = device_ms(lambda: flash_attention(q, k, v, causal=True))
+    row["device_ms"] = device_ms(lambda: flash_attention(q, k, v, causal=causal))
     row["library_device_ms"] = device_ms(library)
-    row["host_us"] = host_us(lambda: flash_attention(q, k, v, causal=True))
+    row["host_us"] = host_us(lambda: flash_attention(q, k, v, causal=causal))
     flash_attention.launches = n0  # comparison launches do not count
     print(f"flash_attention {label}: {json.dumps(row)}", flush=True)
     return row
@@ -964,30 +983,39 @@ def _tracked_runners():
 
 def counted(fn):
     """Run fn() with every kernel's launch count set to 0 just before and
-    read just after, and count the model's prefills (``LM.prefill`` calls)
-    and the decode steps of every runner fn builds (``decode_steps``: a
-    replayed window graph runs its steps without calling ``LM.decode``).
-    Returns (fn's result, {kernel: launches, "prefills": n, "decode_steps":
-    n})."""
+    read just after, and count the model's prefills (``LM.prefill`` calls),
+    the classifiers' forwards (``EncoderClassifier.forward`` and
+    ``ResNet.forward`` calls) and the decode steps of every runner fn
+    builds (``decode_steps``: a replayed window graph runs its steps without
+    calling ``LM.decode``). Returns (fn's result, {kernel: launches,
+    "prefills": n, "forwards": n, "decode_steps": n})."""
     from repro_torch.kernels import counted_wrappers
+    from repro_torch.models.encdec import EncoderClassifier
+    from repro_torch.models.resnet import ResNet
     from repro_torch.models.transformer import LM
 
     fns = counted_wrappers()
     for f in fns.values():
         f.launches = 0
-    calls = {"prefills": 0}
-    prefill = LM.prefill
+    calls = {"prefills": 0, "forwards": 0}
+    hooked = [(LM, "prefill", "prefills"), (EncoderClassifier, "forward", "forwards"),
+              (ResNet, "forward", "forwards")]
+    origs = [getattr(cls, name) for cls, name, _ in hooked]
 
-    def counting(self, *a, **kw):
-        calls["prefills"] += 1
-        return prefill(self, *a, **kw)
+    def counting(orig, key):
+        def call(self, *a, **kw):
+            calls[key] += 1
+            return orig(self, *a, **kw)
+        return call
 
-    LM.prefill = counting
+    for (cls, name, key), orig in zip(hooked, origs):
+        setattr(cls, name, counting(orig, key))
     runners, undo = _tracked_runners()
     try:
         out = fn()
     finally:
-        LM.prefill = prefill
+        for (cls, name, _), orig in zip(hooked, origs):
+            setattr(cls, name, orig)
         undo()
     torch.cuda.synchronize()
     calls["decode_steps"] = sum(r.decode_steps for r in runners)
@@ -1004,9 +1032,10 @@ def check_prefill_launches(phase, cfg, launches, kernel):
             fail(f"{phase} launched {k} {launches[k]} times in {n} prefills; expected {expect}")
 
 
-def _final_logits(params, cfg, toks):
+def _final_logits(params, cfg, toks, act=()):
     """f32 logits of the final head at the last position of each row of
-    toks, through the dense path (no kernel, no launch counted)."""
+    toks, through the dense path (no kernel, no launch counted); with
+    ``act`` (site indices), (ramp logits (K, B, V), final logits (B, V))."""
     from repro_torch.models import build_model
     from repro_torch.models import layers as LY
 
@@ -1014,14 +1043,20 @@ def _final_logits(params, cfg, toks):
     seen = {}
     orig = model._head_stats
 
-    def head_stats(params_, h_last, *a, **kw):
-        seen["h"] = h_last
-        return orig(params_, h_last, *a, **kw)
+    def head_stats(params_, h_last, pooled, *a, **kw):
+        seen["h"], seen["pooled"] = h_last, pooled
+        return orig(params_, h_last, pooled, *a, **kw)
 
     model._head_stats = head_stats
     model.prefill(params, toks, active_sites=None, with_cache=False)
     h = LY.apply_norm(cfg, params["final_norm"], seen["h"])[:, 0]
-    return _logits_ref(h, head_weight(params, cfg), cfg.vocab_size)
+    final = _logits_ref(h, head_weight(params, cfg), cfg.vocab_size)
+    if not act:
+        return final
+    hs = model._ramp_hidden(params, seen["pooled"], act)[:, :, 0]
+    ramps = torch.stack([_logits_ref(hs[j], params["ramps"]["head"][i], cfg.vocab_size)
+                         for j, i in enumerate(act)])
+    return ramps, final
 
 
 class TokenHidden:
@@ -1689,6 +1724,255 @@ def graph_vs_eager(params, cfg, serve, phase, seed):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 4f and phases 7a-7b: the paper's classification workloads
+
+
+CLS_ACT = 4  # active ramps in the runner checks
+
+
+def _spread(n_sites: int, k: int) -> list:
+    """k site indices spread from the first site to the last."""
+    return sorted({round(i * (n_sites - 1) / (k - 1)) for i in range(k)})
+
+
+def _records_agree(rec, rec_ref, logits, tol, unc_tol, what):
+    """Runner records (labels (K, B), unc (K, B), final (B,)) against a
+    reference path's: labels equal except near-ties (by the reference's f32
+    ``logits``: (ramp (K, B, C), final (B, C))), unc within ``unc_tol``.
+    Returns (near-ties, max |unc difference|)."""
+    (lab, unc, fin), (lab_r, unc_r, fin_r) = rec, rec_ref
+    ramp_logits, final_logits = logits
+    ties = _near_tie_labels(torch.as_tensor(fin), torch.as_tensor(fin_r), final_logits.cpu(),
+                            tol, f"{what} final")
+    K, B = lab.shape
+    ties += _near_tie_labels(torch.as_tensor(lab).reshape(-1), torch.as_tensor(lab_r).reshape(-1),
+                             ramp_logits.cpu().reshape(K * B, -1), tol, f"{what} ramps")
+    du = float(abs(unc - unc_r).max()) if unc.size else 0.0
+    if du > unc_tol:
+        fail(f"{what}: ramp uncertainties differ by {du}")
+    return ties, du
+
+
+def _bucket_times(runner, act, buckets=(1, 2, 4, 8), reps=3):
+    """Host ms of one ``infer`` a bucket (each ends in its record read),
+    with no ramp and with ``act``, after a warm-up call."""
+    out = {}
+    for bs in buckets:
+        for a in ([], act):
+            items = list(range(bs))
+            runner.infer(items, a)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                runner.infer(items, a)
+            out[f"{bs}/{len(a)}"] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
+def _served_note(out) -> str:
+    m = out["measured"]
+    return (f"host ms per infer by bucket {json.dumps(m['infer_ms_by_bucket'])} "
+            f"(calls {json.dumps(m['infer_calls_by_bucket'])}), ramp-set variants "
+            f"{m['ramp_set_variants']}, no-ramp variants {m['noramp_variants']}, agreement with "
+            f"the model's own labels {out['accuracy']:.4f}, active ramps {out['active_ramps']}, "
+            f"controllers {json.dumps(out['controllers'])}")
+
+
+def _simulated_note(out) -> str:
+    sim = out["simulated"]
+    keys = ("p50_ms", "p99_ms", "exit_rate", "slo_miss_rate", "throughput_rps")
+    pick = {name: {k: sim[name][k] for k in keys if k in sim[name]}
+            for name in ("vanilla", "apparate")}
+    return ("SIMULATED from the analytic H100 profile, not timed: "
+            + json.dumps({**pick, "wins": sim["wins"],
+                          **({"admission": out["admission"]} if "admission" in out else {})},
+                         default=float))
+
+
+def lm_token_phase(params, cfg, gen, serve):
+    """Phase 4f: next-token serving of qwen2-1.5b through ``LMTokenRunner``,
+    on the drawn weights: 8 contexts of 128 tokens with 4 active ramps and
+    with none, kernels on (the flash kernel in every prefill layer, the
+    ramp-head kernel on every head) against kernels off; then 64 requests
+    through the launcher's ``serve()`` on the cluster engine. Returns the
+    served run's launches."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import LMTokenRunner
+
+    toks = torch.randint(1, cfg.vocab_size, (8, 128), generator=gen, device="cuda")
+    data, items = toks.cpu().numpy(), list(range(8))
+    on = build_model(cfg.replace(pallas_head="kernel"), prefill_attn="kernel")
+    off = build_model(cfg.replace(pallas_head="off"), prefill_attn="sdpa")
+    act = _spread(len(on.sites), CLS_ACT)
+    recs = {}
+    for name, model in (("off", off), ("on", on)):
+        runner = LMTokenRunner(model, params, data, max_slots=CLS_ACT)
+        recs[name] = counted(lambda: (runner.infer(items, act), runner.infer(items, [])))
+    times = _bucket_times(runner, act)  # kernels on
+    busy = profile_step(lambda: runner.infer(items, act))["device_busy_ms"]
+    (ramped, plain), launches = recs["on"]
+    (ramped_off, plain_off), off_launches = recs["off"]
+    expect = {"flash_attention": 2 * cfg.n_layers, "ramp_head_stats": 2 + len(act),
+              "ramp_head_exit": 0}
+    for k, n in expect.items():
+        if launches[k] != n or off_launches[k] != 0:
+            fail(f"4f: the runner launched {k} {launches[k]} times kernels on, "
+                 f"{off_launches[k]} off; expected {n} and 0")
+    if (plain[2] != ramped[2]).any() or (plain_off[2] != ramped_off[2]).any():
+        fail("4f: the no-ramp variant's final labels differ from the ramped one's")
+    ties, du = _records_agree(ramped, ramped_off, _final_logits(params, cfg, toks, act),
+                              NEAR_TIE, 1e-2, "4f kernels on vs off")
+    print(f"4f {cfg.name} LMTokenRunner, 8 contexts of 128 tokens, sites {act}: kernels on vs "
+          f"off, labels equal except {ties} near-ties, unc within {du:.2e}; launches "
+          f"{json.dumps({k: launches[k] for k in expect})}; kernels on, host ms per infer "
+          f"(bucket/active ramps) {json.dumps(times)}, device-busy ms at bucket 8 {busy:.3f}",
+          flush=True)
+    (out, resp), launches = counted(lambda: serve(
+        CONFIG, 64, policy="tfserve", workers=1, seed=SEED, budget=0.6, device="cuda",
+        params=params, verbose=False))
+    if len(resp) != 64 or any(r.dropped or not 0 <= r.label < cfg.vocab_size for r in resp):
+        fail("4f: the served run did not answer 64 requests with tokens of the vocabulary")
+    n = launches["prefills"]
+    if n <= 0 or launches["flash_attention"] != cfg.n_layers * n \
+            or launches["ramp_head_stats"] <= n:
+        fail(f"4f: {n} prefills launched flash_attention {launches['flash_attention']} and "
+             f"ramp_head_stats {launches['ramp_head_stats']} times; expected "
+             f"{cfg.n_layers} a prefill and ramps beside the final head")
+    print(f"4f {cfg.name} next-token serving, 64 requests, 1 worker, tfserve: {n} prefills, "
+          f"launches {json.dumps({k: launches[k] for k in expect})}; {_served_note(out)}",
+          flush=True)
+    print(f"4f engine summary ({_simulated_note(out)})", flush=True)
+    return launches
+
+
+def resnet_flops(cfg) -> float:
+    """2 x the multiply-adds of one image's forward at ``cfg.img_size``, from
+    the convolutions' shapes (stem, each block's convolutions and
+    projection, the final FC)."""
+    hw, cin = cfg.img_size, cfg.resnet_widths[0]
+    f = 2 * hw * hw * 9 * 3 * cin
+    for stage, (n, w) in enumerate(zip(cfg.resnet_blocks, cfg.resnet_widths)):
+        wout = w * (4 if cfg.resnet_bottleneck else 1)
+        for b in range(n):
+            ho = -(-hw // (2 if b == 0 and stage > 0 else 1))
+            if cfg.resnet_bottleneck:
+                f += 2 * (hw * hw * cin * w + ho * ho * 9 * w * w + ho * ho * w * wout)
+            else:
+                f += 2 * ho * ho * 9 * (cin * w + w * wout)
+            if cin != wout or (b == 0 and stage > 0):
+                f += 2 * ho * ho * cin * wout
+            hw, cin = ho, wout
+    return f + 2 * cin * cfg.n_classes
+
+
+def resnet_phase(gen, serve):
+    """Phase 7a: ResNet-50 at 224 px, f32 (TF32 off), weights from SEED:
+    the card's forward against the port's CPU forward of the same weights
+    on 2 images, ``ClassifierRunner.infer`` at buckets 1-8 with 0 and 4
+    active ramps (host ms a batch, device-busy ms from one profiler
+    window), then 600 requests served by ``serve()``, with and without
+    admission."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ClassifierRunner
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("resnet50").replace(img_size=224)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    act = _spread(len(model.sites), CLS_ACT)
+    data = torch.randn(8, 224, 224, 3, generator=gen, device="cuda").cpu().numpy()
+    x = torch.from_numpy(data[:2])
+    card = model.forward(params, x.cuda(), active_sites=act)
+    host = model.forward(tree_map(lambda t: t.cpu(), params), x, active_sites=act)
+    for part in ("final", "ramps"):
+        for k in ("maxprob", "entropy"):
+            a, b = card[part][k].cpu(), host[part][k]
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-7):
+                fail(f"7a: the card's {part} {k} differs from the CPU forward's by "
+                     f"{(a - b).abs().max().item()}")
+    runner = ClassifierRunner(model, params, data, max_slots=CLS_ACT)
+    rec = runner.infer([0, 1], act)
+    rec_host = (host["ramps"]["label"].numpy(), (1.0 - host["ramps"]["maxprob"]).numpy(),
+                host["final"]["label"].numpy())
+    ties, du = _records_agree(rec, rec_host, (host["ramp_logits"], host["final_logits"]), 1e-3,
+                              1e-4, "7a card vs CPU")
+    times = _bucket_times(runner, act)
+    busy = {bs: profile_step(lambda: runner.infer(list(range(bs)), act))["device_busy_ms"]
+            for bs in (1, 8)}
+    flops = resnet_flops(cfg)
+    print(f"7a resnet50 at 224 px f32 on {card_line()}: {flops / 1e9:.2f} GFLOP an image; card "
+          f"vs CPU forward within 1e-4 relative, labels equal except {ties} near-ties, unc "
+          f"within {du:.2e}; host ms per infer (bucket/active ramps) {json.dumps(times)}; "
+          f"device-busy ms per batch {json.dumps(busy)} "
+          f"({8 * flops / busy[8] / 1e9:.1f} TFLOP/s at bucket 8); variants built: "
+          f"{runner.compiles} ramp sets, {runner.noramp_compiles} no-ramp", flush=True)
+    for adm in (False, True):
+        (out, resp), launches = counted(lambda: serve(
+            "resnet50", 600, policy="tfserve", workers=1, seed=SEED, admission=adm,
+            device="cuda", params=params, verbose=False))
+        if len(resp) != 600 or any(not r.dropped and not 0 <= r.label < cfg.n_classes
+                                   for r in resp):
+            fail("7a: the served run did not answer 600 requests with class labels")
+        if launches["forwards"] <= 0:
+            fail("7a: the served run ran no forward")
+        print(f"7a resnet50 served 600 requests, 1 worker, tfserve, admission {adm}: "
+              f"{launches['forwards']} forwards, {sum(r.dropped for r in resp)} dropped; "
+              f"{_served_note(out)}", flush=True)
+        print(f"7a engine summary ({_simulated_note(out)})", flush=True)
+
+
+def bert_phase(gen, serve):
+    """Phase 7b: BERT-base, bf16, weights from SEED: the runner with its
+    attention through sdpa and through the flash kernel (no mask), then 600
+    requests served by ``serve()`` through the kernel, 12 launches a
+    forward. Returns the served run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ClassifierRunner
+
+    cfg = get_config("bert-base")
+    kern = build_model(cfg, prefill_attn="kernel")
+    params = kern.init(SEED, device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (8, 32), generator=gen, device="cuda")
+    data, items = toks.cpu().numpy(), list(range(8))
+    act = _spread(len(kern.sites), CLS_ACT)
+    recs = {}
+    for name, model in (("sdpa", build_model(cfg, prefill_attn="sdpa")), ("kernel", kern)):
+        runner = ClassifierRunner(model, params, data, max_slots=CLS_ACT)
+        recs[name] = counted(lambda: runner.infer(items, act))
+    times = _bucket_times(runner, act)  # through the kernel
+    busy = profile_step(lambda: runner.infer(items, act))["device_busy_ms"]
+    if recs["kernel"][1]["flash_attention"] != cfg.n_layers \
+            or recs["sdpa"][1]["flash_attention"] != 0:
+        fail(f"7b: the runner launched flash_attention {recs['kernel'][1]['flash_attention']} "
+             f"times through the kernel, {recs['sdpa'][1]['flash_attention']} through sdpa")
+    ref = build_model(cfg).forward(params, toks, active_sites=act)
+    ties, du = _records_agree(recs["kernel"][0], recs["sdpa"][0],
+                              (ref["ramp_logits"], ref["final_logits"]), NEAR_TIE, 1e-2,
+                              "7b kernel vs sdpa")
+    print(f"7b bert-base bf16, 8 x 32 tokens, sites {act}: flash kernel vs sdpa, labels equal "
+          f"except {ties} near-ties, maxprob within {du:.2e}; through the kernel, host ms per "
+          f"infer (bucket/active ramps) {json.dumps(times)}, device-busy ms at bucket 8 "
+          f"{busy:.3f}", flush=True)
+    (out, resp), launches = counted(lambda: serve(
+        "bert-base", 600, policy="tfserve", workers=1, seed=SEED, device="cuda",
+        params=params, verbose=False))
+    n = launches["forwards"]
+    if len(resp) != 600 or any(not r.dropped and not 0 <= r.label < cfg.n_classes
+                               for r in resp):
+        fail("7b: the served run did not answer 600 requests with class labels")
+    if n <= 0 or launches["flash_attention"] != cfg.n_layers * n:
+        fail(f"7b: {n} forwards launched flash_attention {launches['flash_attention']} times; "
+             f"expected {cfg.n_layers} a forward")
+    print(f"7b bert-base served 600 requests, 1 worker, tfserve: {n} forwards, flash_attention "
+          f"{launches['flash_attention']} launches ({cfg.n_layers} a forward); "
+          f"{_served_note(out)}", flush=True)
+    print(f"7b engine summary ({_simulated_note(out)})", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
@@ -1697,7 +1981,7 @@ def main() -> None:
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build
-        from repro_torch.launch.serve import serve_generative
+        from repro_torch.launch.serve import serve, serve_generative
         from repro_torch.models import build_model
         from repro_torch.models.common import tree_leaves
     except ImportError as e:
@@ -1753,6 +2037,13 @@ def main() -> None:
     ssd_main = check_ssd(1, 80, 128, 64, 128, "B=1 H=80 S=128 hp=64 N=128 chunk 64 bf16", gen)
     check_ssd(1, 80, 120, 64, 128, "B=1 H=80 S=120 (ragged) hp=64 N=128 bf16", gen)
     check_ssd(1, 80, 4096, 64, 128, "B=1 H=80 S=4096 hp=64 N=128 bf16", gen)
+    # -- phase 3f: flash attention with no mask at BERT-base's served shape (8
+    # requests of 32 tokens, 12 heads of 64) and one 512-token row (its
+    # max_position)
+    fa_bert = check_flash_attention(8, 12, 12, 32, 32, 64,
+                                    "B=8 H=KH=12 hd=64 Sq=Sk=32 no mask bf16", gen, causal=False)
+    check_flash_attention(1, 12, 12, 512, 512, 64, "B=1 H=KH=12 hd=64 Sq=Sk=512 no mask bf16",
+                          gen, causal=False)
     cfg = get_config(CONFIG)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -1790,6 +2081,7 @@ def main() -> None:
     serve_prefix_swap(params, cfg, serve_generative)
     serve_chunked(params, cfg, serve_generative)
     graphs = {CONFIG: graph_vs_eager(params, cfg, serve_generative, "4e", SEED + 7)}
+    lm_launches = lm_token_phase(params, cfg, gen, serve)
     print(f"qwen2-1.5b phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # -- phase 5: DeepSeek-V2-Lite, once qwen2-1.5b's weights are freed (the
@@ -1804,6 +2096,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     mb_launches, mb_rh, graphs[MB_CONFIG] = mamba_phases(gen, serve_generative)
+    print(f"Mamba2-2.7B phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
+
+    # -- phase 7: the classifiers, once Mamba2-2.7B's weights are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_phase(gen, serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_launches = bert_phase(gen, serve)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1835,7 +2136,11 @@ def main() -> None:
                ("flash_attention", fa_main, launches, f"{CONFIG} 4a"),
                ("ramp_head_stats", mb_rh["ramp_head_stats"], mb_launches, mb_path),
                ("ramp_head_exit", mb_rh["ramp_head_exit"], mb_launches, mb_path),
-               ("ssd_chunked", ssd_main, mb_launches, mb_path)]
+               ("ssd_chunked", ssd_main, mb_launches, mb_path),
+               ("flash_attention", fa_bert, bert_launches, "bert-base 7b"),
+               ("ramp_head_stats", rh["ramp_head_stats"], lm_launches, f"{CONFIG} 4f")]
+    if lm_launches["ramp_head_exit"]:
+        entries.append(("ramp_head_exit", rh["ramp_head_exit"], lm_launches, f"{CONFIG} 4f"))
     kernels = []
     for name, r, counts, path in entries:
         kernels.append({

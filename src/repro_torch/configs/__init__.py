@@ -3,9 +3,9 @@
 A field-for-field copy of the JAX package's ``ArchConfig``, so every port
 config pairs with its reference config. The port registers the two dense
 decoder LMs of the generative main path, the MLA + MoE decoder
-DeepSeek-V2-Lite and the attention-free SSD stack Mamba2-2.7B: ``CONFIG``
-is the published shape, ``TINY`` a reduced same-family config for CPU
-tests.
+DeepSeek-V2-Lite, the attention-free SSD stack Mamba2-2.7B and the paper's
+classifiers (ResNet-18/50, BERT-base): ``CONFIG`` is the published shape,
+``TINY`` a reduced same-family config for CPU tests.
 """
 from __future__ import annotations
 
@@ -118,6 +118,9 @@ _MODULES = {
     "mamba2-2.7b": "mamba2_2_7b",
     "qwen2-1.5b": "qwen2_1_5b",
     "gpt2-medium": "gpt2_medium",
+    "bert-base": "bert_base",
+    "resnet50": "resnet50",
+    "resnet18": "resnet18",
 }
 
 

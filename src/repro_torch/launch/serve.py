@@ -1,6 +1,9 @@
-"""Generative serving launcher of the port: Apparate's per-token early exits
-on a decoder LM with seeded random weights, driven by the continuous-
-batching engine, on the CUDA card.
+"""Serving launcher of the port, on the CUDA card, with seeded random
+weights. ``--mode generative`` (the default): Apparate's per-token early
+exits on a decoder LM, driven by the continuous-batching engine.
+``--mode classification``: the paper's classification workloads (ResNet,
+BERT, or an LM's next token) on the cluster engine, each worker with its
+own Apparate controller, vanilla against Apparate.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2-1.5b \\
       --n 8 --decode-tokens 32 --steps-per-sync 4
@@ -15,14 +18,21 @@ batching engine, on the CUDA card.
   # pool (no prefix cache: state pages are not shared)
   PYTHONPATH=src python -m repro_torch.launch.serve --config mamba2-2.7b \\
       --kv-block-size 16
+  # classification: ResNet-50 at 224 px (f32), BERT-base (its attention on
+  # the flash-attention kernel) or qwen2-1.5b's next token
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode classification \\
+      --config resnet50 --n 600 --workers 2 --dispatch jsq --admission
 
 Prefills run the port's prefill kernels: flash attention for the attention
 models' whole prompts, the SSD chunk scan for Mamba2's.
 
-The engine's latencies (TTFT, TPT, the vanilla-vs-Apparate wins) are
-SIMULATED from the analytic H100 latency profile, as in the JAX package;
-the ``measured`` block holds host wall times of the runner's calls on the
-device, each of which ends in a host read of its result.
+The engine's latencies (TTFT, TPT, response latencies, the
+vanilla-vs-Apparate wins) are SIMULATED from the analytic H100 latency
+profile, as in the JAX package; the ``measured`` block holds host wall
+times of the runner's calls on the device, each of which ends in a host
+read of its result. The JAX launcher trains a bench-size model before it
+serves; the port serves the config's weights drawn from ``--seed`` (or a
+caller's ``params``), and random weights exit little or nothing.
 """
 from __future__ import annotations
 
@@ -35,16 +45,29 @@ import torch
 
 from repro_torch.configs import get_config, get_tiny
 from repro_torch.core import ApparateController, ControllerConfig, build_profile
+from repro_torch.data import make_image_stream, make_token_stream
 from repro_torch.models import build_model
 from repro_torch.serving import (
+    AdmissionConfig,
+    AdmissionPolicy,
+    ClassifierRunner,
+    ClusterConfig,
+    ClusterSimulator,
     DecodeRunner,
     GenerativeConfig,
     GenerativeEngine,
+    LMTokenRunner,
+    PlatformConfig,
     make_gen_requests,
+    make_requests,
     maf_trace,
     offered_decode_qps,
+    savings_vs,
+    summarize_cluster,
     summarize_generative,
+    video_trace,
 )
+from repro_torch.serving.runner import _bucket
 
 
 class _TimedRunner(DecodeRunner):
@@ -91,6 +114,46 @@ class _TimedRunner(DecodeRunner):
         return 1e3 * float(np.mean(ts)) if ts else 0.0
 
 
+class _TimedInfer:
+    """A classification runner that records the host wall time of each
+    ``infer`` by bucket. Each call ends in a host read of its records, so
+    the time covers the device work."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.infer_s = {}  # bucket -> [seconds]
+
+    def infer(self, items, active):
+        t0 = time.perf_counter()
+        out = super().infer(items, active)
+        self.infer_s.setdefault(_bucket(len(items)), []).append(time.perf_counter() - t0)
+        return out
+
+
+class _TimedClassifier(_TimedInfer, ClassifierRunner):
+    pass
+
+
+class _TimedLMToken(_TimedInfer, LMTokenRunner):
+    pass
+
+
+def _cuda_or_cpu(device, what):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device (pass device='cpu' to run the plain "
+                           "versions on the CPU)")
+    # fp32 matmuls and convolutions stay full fp32 on the card (never TF32),
+    # so fp32 runs compare with the reference at fp32 tolerances
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def _admission(on, slack):
+    return AdmissionPolicy(AdmissionConfig(slack=slack)) if on else None
+
+
 BATCH = 8  # decode slots
 SLOTS = 4  # the controller's ramp gather slots
 # ramp-overhead budget, a fraction of a vanilla step: at full width each
@@ -105,7 +168,8 @@ LOAD = 0.5  # offered load, a fraction of one replica's decode capacity
 def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=128,
                      steps_per_sync=4, seed=0, tiny=False, device="cuda", verbose=True,
                      kv_block_size=0, kv_blocks=None, prefix_cache=False, preempt="none",
-                     prefill_chunk=0, prompts=None, params=None, graphs=None):
+                     prefill_chunk=0, prompts=None, params=None, graphs=None,
+                     admission=False, admission_slack=1.0):
     """Vanilla (no-EE, simulated only) vs Apparate per-token exits served on
     the real model at the same accuracy constraint. ``tiny`` serves the
     config's TINY variant (CPU tests). Returns (summary, responses).
@@ -121,19 +185,14 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     seeded random prompts; ``params`` reuses weights already drawn with
     ``seed`` (the same tree for every decode_attn). ``graphs`` goes to the
     runner: each sync window one CUDA graph replay on a card (None, True)
-    or eager (False)."""
+    or eager (False). ``admission`` sheds hopeless requests at admission
+    and doomed slots mid-stream (the SLO-aware ``AdmissionPolicy``, its
+    deadlines stretched by ``admission_slack``)."""
     if prefix_cache and not kv_block_size:
         raise ValueError("--prefix-cache requires --kv-block-size > 0 (paged KV)")
     if preempt != "none" and not kv_block_size:
         raise ValueError("--preempt requires --kv-block-size > 0 (paged KV)")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("serve_generative: no CUDA device (pass device='cpu' to "
-                           "run the plain versions on the CPU)")
-    # fp32 matmuls stay full fp32 on the card (never TF32), so fp32 runs
-    # compare with the reference at fp32 tolerances
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = _cuda_or_cpu(device, "serve_generative")
     cfg = (get_tiny if tiny else get_config)(config).replace(
         decode_attn="paged-kernel" if kv_block_size else "kernel", pallas_head="kernel")
     if cfg.mla:
@@ -153,7 +212,7 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
                              prompt_len=prompt_len, slo_ms=3 * prof.vanilla_time(1))
     gcfg = GenerativeConfig(max_batch_size=BATCH, steps_per_sync=steps_per_sync,
                             prefill_chunk=prefill_chunk, preempt=preempt)
-    base_eng = GenerativeEngine(prof, gcfg)
+    base_eng = GenerativeEngine(prof, gcfg, admission=_admission(admission, admission_slack))
     mb = summarize_generative(base_eng.run(reqs), horizon_ms=base_eng.makespan_ms)
     ctl = ApparateController(len(model.sites), prof, ControllerConfig(
         max_slots=SLOTS, ramp_budget_frac=BUDGET, acc_constraint=ACC))
@@ -162,7 +221,8 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
         rkw = dict(kv_block_size=kv_block_size, kv_blocks=kv_blocks, prefix_cache=prefix_cache)
     runner = _TimedRunner(model, params, prompts, max_new_tokens=decode_tokens + 2,
                           max_slots=SLOTS, n_slots=BATCH, graphs=graphs, **rkw)
-    eng = GenerativeEngine(prof, gcfg, runner, ctl)
+    eng = GenerativeEngine(prof, gcfg, runner, ctl,
+                           admission=_admission(admission, admission_slack))
     t0 = time.perf_counter()
     resp = eng.run(reqs)
     if device.type == "cuda":
@@ -210,6 +270,117 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
         "active_ramps": list(map(int, ctl.active)),
         "kv_cache": runner.kv_stats(),
     }
+    if admission:
+        out["admission"] = {"vanilla": base_eng.admission.stats(),
+                            "apparate": eng.admission.stats()}
+    if verbose:
+        print(json.dumps(out, indent=1, default=float))
+    return out, resp
+
+
+IMG_SIZE = 224  # ResNet images: the reference launcher's CV profile size
+NLP_SEQ = 32  # BERT: the reference launcher's NLP stream
+LM_CONTEXT = 128  # next-token serving: a context's tokens
+
+
+def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, load=0.5,
+          seed=2, slots=6, workers=1, dispatch="jsq", admission=False, admission_slack=1.0,
+          tiny=False, device="cuda", params=None, verbose=True):
+    """Classification serving on the real model, the reference launcher's
+    ``serve()``: a drifting synthetic stream (a video trace of images for a
+    ResNet, MAF arrivals of token sequences for BERT or an LM's next token)
+    served by the cluster engine with ``workers`` replicas behind
+    ``dispatch``, batched by ``policy`` (``max_batch_size`` 8, timeout one
+    vanilla batch-1 time), SLO twice that; vanilla (no ramps, simulated
+    only) against Apparate (one controller a worker, the runner on the
+    device), and the agreement of the released labels with the model's own
+    (``vanilla_labels``). ``admission`` sheds hopeless requests
+    (``AdmissionPolicy``, deadlines stretched by ``admission_slack``).
+
+    A ResNet serves 224 px images in f32, BERT a 32-token stream, an LM the
+    next token of 128-token contexts; BERT's attention and an LM's prefill
+    run the flash-attention kernel, an LM's heads the ramp-head kernel.
+    ``tiny`` serves the config's TINY variant at its own sizes (CPU tests).
+    ``params`` reuses weights already drawn with ``seed``. Unlike the
+    reference, nothing is trained (so there is no bootstrap split: all
+    ``n`` items are served). Returns (summary, responses)."""
+    device = _cuda_or_cpu(device, "serve")
+    cfg = (get_tiny if tiny else get_config)(config)
+    if cfg.family == "resnet":
+        cfg = cfg if tiny else cfg.replace(img_size=IMG_SIZE)
+        model = build_model(cfg)
+        stream = make_image_stream(n, img_size=cfg.img_size, n_classes=cfg.n_classes,
+                                   mode="cv", seed=seed)
+        runner_cls = _TimedClassifier
+    elif cfg.family in ("encoder_cls", "lm"):
+        if cfg.family == "lm":
+            cfg = cfg.replace(pallas_head="kernel")
+        model = build_model(cfg, prefill_attn="kernel")
+        seq = NLP_SEQ if cfg.family == "encoder_cls" else LM_CONTEXT
+        stream = make_token_stream(n, seq_len=seq, vocab=cfg.vocab_size,
+                                   n_classes=max(cfg.n_classes, 2), mode="nlp", seed=seed)
+        runner_cls = _TimedClassifier if cfg.family == "encoder_cls" else _TimedLMToken
+    else:
+        raise ValueError(f"{cfg.name}: classification serving takes a resnet, an "
+                         "encoder_cls or an lm config")
+    if params is None:
+        params = model.init(seed, device=device)
+    runner = runner_cls(model, params, stream.data, max_slots=slots)
+    prof = build_profile(cfg, mode="decode", chips=1, sites=model.sites)
+    exec1 = prof.vanilla_time(1)
+    # the offered load scales with the cluster: each replica sees ~`load`
+    if cfg.family == "resnet":
+        arrivals = video_trace(n, fps=workers * load * 1000.0 / exec1)
+    else:
+        arrivals = maf_trace(n, mean_qps=workers * load * 1000.0 / exec1, seed=seed)
+    reqs = make_requests(arrivals, slo_ms=2 * exec1)
+    pf = PlatformConfig(policy=policy, max_batch_size=8, batch_timeout_ms=exec1)
+
+    def cluster():
+        return ClusterConfig(n_workers=workers, dispatch=dispatch, platform=pf,
+                             admission=_admission(admission, admission_slack))
+
+    base_sim = ClusterSimulator(prof, cluster())
+    base = base_sim.run(reqs)
+    ccfg = ControllerConfig(max_slots=slots, ramp_budget_frac=budget, acc_constraint=acc)
+    ctls = [ApparateController(len(model.sites), prof, ccfg) for _ in range(workers)]
+    sim = ClusterSimulator(prof, cluster(), runner=runner, controllers=ctls)
+    t0 = time.perf_counter()
+    resp = sim.run(reqs)
+    wall_s = time.perf_counter() - t0
+    served = {b: list(ts) for b, ts in sorted(runner.infer_s.items())}
+    van = runner.vanilla_labels(n)
+    live = [r for r in resp if not r.dropped]
+    agree = float(np.mean([r.label == van[r.rid] for r in live])) if live else 0.0
+    rep_b = summarize_cluster(base, horizon_ms=base_sim.makespan_ms, n_workers=workers)
+    rep_o = summarize_cluster(resp, horizon_ms=sim.makespan_ms, n_workers=workers)
+    mb, mo = rep_b["aggregate"], rep_o["aggregate"]
+    out = {
+        "mode": "classification", "config": cfg.name, "n": n, "policy": policy,
+        "workers": workers, "dispatch": dispatch,
+        "simulated": {
+            "note": "latencies from the analytic H100 latency profile, not timed",
+            "vanilla": mb, "apparate": mo, "wins": savings_vs(mb, mo),
+        },
+        "accuracy": agree,
+        "measured": {
+            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            "infer_ms_by_bucket": {b: 1e3 * float(np.mean(ts)) for b, ts in served.items()},
+            "infer_calls_by_bucket": {b: len(ts) for b, ts in served.items()},
+            "ramp_set_variants": runner.compiles,
+            "noramp_variants": runner.noramp_compiles,
+            "runner_s": float(sum(map(sum, served.values()))),
+            "engine_wall_s": wall_s,
+        },
+        "controllers": [dict(c.stats) for c in ctls],
+        "active_ramps": [list(map(int, c.active)) for c in ctls],
+    }
+    if admission:
+        out["admission"] = {"vanilla": base_sim.cfg.admission.stats(),
+                            "apparate": sim.cfg.admission.stats()}
+    if workers > 1:
+        out["per_worker"] = rep_o["workers"]
+        out["worker_stats"] = sim.worker_stats()
     if verbose:
         print(json.dumps(out, indent=1, default=float))
     return out, resp
@@ -217,16 +388,22 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="qwen2-1.5b",
+    ap.add_argument("--mode", default="generative", choices=["generative", "classification"])
+    ap.add_argument("--config", default=None,
                     choices=["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b",
-                             "mamba2-2.7b"])
+                             "mamba2-2.7b", "resnet18", "resnet50", "bert-base"],
+                    help="default: qwen2-1.5b (generative), resnet50 (classification); "
+                         "classification also serves an LM's next token")
     ap.add_argument("--tiny", action="store_true", help="the config's TINY variant")
-    ap.add_argument("--n", type=int, default=8, help="requests")
+    ap.add_argument("--n", type=int, default=None,
+                    help="requests (default: 8 generative, 600 classification)")
     ap.add_argument("--decode-tokens", type=int, default=32)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--steps-per-sync", type=int, default=4,
                     help="decode steps per controller sync (one host read per window)")
-    ap.add_argument("--seed", type=int, default=0, help="weights, prompts and arrivals")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="weights, data and arrivals (default: 0 generative, 2 "
+                         "classification, the reference launcher's)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kv-block-size", type=int, default=0,
                     help=">0 pages the decode KV cache into blocks of this many tokens "
@@ -242,12 +419,30 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help=">0 prefills each prompt in chunks of this many tokens, "
                          "interleaved with decode steps (0 = one-shot prefill)")
+    ap.add_argument("--admission", action="store_true",
+                    help="SLO-aware admission: drop hopeless requests at admission; "
+                         "generative mode also sheds doomed slots mid-stream")
+    ap.add_argument("--admission-slack", type=float, default=1.0,
+                    help="deadline slack multiplier for --admission")
+    ap.add_argument("--policy", default="tfserve", choices=["tfserve", "clockwork"],
+                    help="classification: batch formation")
+    ap.add_argument("--workers", type=int, default=1, help="classification: replicas")
+    ap.add_argument("--dispatch", default="jsq", choices=["round_robin", "jsq", "slo_aware"],
+                    help="classification: how requests are routed to replicas")
     a = ap.parse_args(argv)
-    serve_generative(a.config, a.n, decode_tokens=a.decode_tokens, prompt_len=a.prompt_len,
-                     steps_per_sync=a.steps_per_sync, seed=a.seed, tiny=a.tiny,
-                     device=a.device, kv_block_size=a.kv_block_size, kv_blocks=a.kv_blocks,
-                     prefix_cache=a.prefix_cache, preempt=a.preempt,
-                     prefill_chunk=a.prefill_chunk)
+    if a.mode == "classification":
+        serve(a.config or "resnet50", 600 if a.n is None else a.n, policy=a.policy,
+              seed=2 if a.seed is None else a.seed, workers=a.workers, dispatch=a.dispatch,
+              admission=a.admission, admission_slack=a.admission_slack, tiny=a.tiny,
+              device=a.device)
+        return
+    serve_generative(a.config or "qwen2-1.5b", 8 if a.n is None else a.n,
+                     decode_tokens=a.decode_tokens, prompt_len=a.prompt_len,
+                     steps_per_sync=a.steps_per_sync, seed=0 if a.seed is None else a.seed,
+                     tiny=a.tiny, device=a.device, kv_block_size=a.kv_block_size,
+                     kv_blocks=a.kv_blocks, prefix_cache=a.prefix_cache, preempt=a.preempt,
+                     prefill_chunk=a.prefill_chunk, admission=a.admission,
+                     admission_slack=a.admission_slack)
 
 
 if __name__ == "__main__":

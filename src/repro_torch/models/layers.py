@@ -209,7 +209,7 @@ def _update_pool(pool, new, blk, off, gate=None):
 
 def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
                rope_theta=None, decode_impl: str = "dense", write_gate=None,
-               block_table=None, prefill_attn: str = "sdpa"):
+               block_table=None, prefill_attn: str = "sdpa", causal: bool = True):
     """GQA attention. If `cache` (dict k,v: (B, S, K, hd)) is given, the new
     k/v are written into it in place at `cache_index` (an int, or a per-row
     int tensor (B,)) and attention runs against the cache. `decode_impl`
@@ -226,10 +226,11 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
     tensors).
 
     `prefill_attn` selects a whole-prompt prefill's attention (S > 1 written
-    at cache index 0, or no cache): 'sdpa', or 'kernel', the flash-attention
-    kernel (its plain version on CPU tensors) under the causal mask from
-    query 0, which is the mask ``LM.prefill`` builds; `mask` is then not
-    read. Returns (out, cache)."""
+    at cache index 0, or no cache): 'sdpa' under `mask`, or 'kernel', the
+    flash-attention kernel (its plain version on CPU tensors), which reads
+    `causal` in place of `mask`: True, the causal mask from query 0 that
+    ``LM.prefill`` builds; False, no mask, the encoder's (its `mask` is
+    None). Returns (out, cache)."""
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
@@ -282,7 +283,7 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
 
         # (B, H, S, hd) views of the projections and the cache: no copies
         out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=True).transpose(1, 2)
+                        causal=causal).transpose(1, 2)
     else:
         out = sdpa(q, k, v, mask)
     out = out.reshape(B, S, H * hd)

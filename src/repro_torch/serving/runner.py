@@ -1,9 +1,12 @@
-"""Generative decode runner: drives the real model over a batched slot cache
-and streams one ramp record per in-flight token to the controller.
+"""Model runners: execute the real model per batch and stream ramp records to
+the controller.
 
-The port's counterpart of the JAX package's ``DecodeRunner``
-(``serving/runner.py``), over a contiguous slot cache or a paged block pool
-with prefix sharing, copy-on-write, swap preemption and chunked prefill.
+The port's counterparts of the JAX package's ``serving/runner.py``: the
+classification runners (``ClassifierRunner`` for ResNet and BERT,
+``LMTokenRunner`` for next-token serving, and the model-free
+``SyntheticRunner``, a verbatim copy) and the generative ``DecodeRunner``,
+over a contiguous slot cache or a paged block pool with prefix sharing,
+copy-on-write, swap preemption and chunked prefill.
 Only ~KB record arrays (top-1 label, max-prob per ramp, the final label)
 travel to the host, never logits. ``BlockAllocator`` and ``PrefixCache``
 are host numpy, copied verbatim from the JAX package (a test pins each copy
@@ -26,6 +29,14 @@ def _bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device without a host sync (pinned, async copy)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 class PoolExhausted(RuntimeError):
@@ -343,6 +354,149 @@ class PrefixCache:
         self._root = {"children": {}, "block": 0, "tick": 0, "tails": {}, "first": None}
 
 
+class SyntheticRunner:
+    """Profile-only serving: deterministic ramp records without a model.
+
+    A fixed fraction of items is "easy" — confidently predictable from
+    ``exit_site`` onward — so controllers activate ramps and exit traffic
+    exactly as with a trained model, at zero model cost. Used by the
+    scale-out demos/benchmarks where training one model per replica-count
+    sweep would dominate runtime.
+    """
+
+    def __init__(self, n_sites: int, exit_site: int, easy_frac: float = 0.7,
+                 n_classes: int = 17):
+        self.n_sites = n_sites
+        self.exit_site = exit_site
+        self.easy_frac = easy_frac
+        self.n_classes = n_classes
+
+    def infer(self, items: np.ndarray, active: Sequence[int]):
+        items = np.asarray(items)  # repro: allow[host-sync] — host input normalization — items never lives on device
+        k = len(active)
+        B = len(items)
+        final = (items % self.n_classes).astype(np.int64)
+        easy = (items % 100) < self.easy_frac * 100
+        # hard items DISAGREE with the original model at every ramp (like
+        # SyntheticDecodeRunner): an over-opened threshold that releases
+        # them costs accuracy, exactly as with a trained model. Tiling the
+        # final label into every row made hard exits free.
+        wrong = (final + 1) % self.n_classes
+        labels = np.tile(wrong, (max(k, 1), 1))
+        unc = np.full((max(k, 1), B), 0.9, np.float32)
+        for j, s in enumerate(sorted(active)):
+            if s >= self.exit_site:
+                labels[j] = np.where(easy, final, wrong)
+                unc[j] = np.where(easy, 0.02, 0.9)
+        if k == 0:
+            return labels[:0], unc[:0], final
+        return labels[:k], unc[:k], final
+
+    def vanilla_labels(self, n: int) -> np.ndarray:
+        return np.arange(n, dtype=np.int64) % self.n_classes
+
+
+class _BatchRunner:
+    """One batch of classification requests through the model and its active
+    ramps, with ONE device-to-host read of the records (the hot path makes
+    no other sync). Items are padded to a power-of-two bucket by repeating
+    the last one, as the reference pads them. The subclass's ``_forward``
+    runs the model on a device batch.
+
+    There is no jit: ``compiles`` and ``noramp_compiles`` count the variants
+    the first time each runs, as the reference's compile cache would (a new
+    (bucket, active set) key, a ramp-set change: the paper's model
+    re-upload; a new bucket of the no-ramp variant)."""
+
+    VANILLA_CHUNK = 128  # items a ``vanilla_labels`` batch
+
+    def __init__(self, model, params, data: np.ndarray, max_slots: int = 8):
+        self.model = model
+        self.params = params
+        self.data = data  # (N, ...) model inputs on the host
+        self.max_slots = max_slots
+        self.device = tree_leaves(params)[0].device
+        self._variants = set()
+        self.compiles = 0  # ramp-set changes (paper: model re-upload)
+        self.noramp_compiles = 0  # no-ramp (vanilla) variants
+
+    def _forward(self, x: torch.Tensor, act: Optional[List[int]]):
+        """(ramp labels (K, B), ramp maxprob (K, B), final labels (B,)) on the
+        device; ``act`` None is the no-ramp variant (ramp entries None)."""
+        raise NotImplementedError
+
+    def _count(self, key) -> None:
+        if key not in self._variants:
+            self._variants.add(key)
+            if key[1] is None:
+                self.noramp_compiles += 1
+            else:
+                self.compiles += 1
+
+    def infer(self, items: np.ndarray, active: Sequence[int]):
+        """Records of one batch: (ramp labels (K, n), ramp uncertainties
+        1 - maxprob (K, n), final labels (n,)), rows in sorted(active)
+        order. With no active ramp the model runs without any ramp head."""
+        items = np.asarray(items)
+        # sorted: the controller consumes record rows in ascending-site order
+        act = sorted(int(s) for s in active)
+        if len(act) > self.max_slots:
+            # silently truncating would return fewer record rows than the
+            # controller asked for: rows would land against the wrong sites
+            raise ValueError(
+                f"active ramp set has {len(act)} sites, max_slots={self.max_slots}")
+        n, k = len(items), len(act)
+        bs = _bucket(n)
+        x = _to_device(self.data[np.pad(items, (0, bs - n), mode="edge")], self.device)
+        self._count((bs, tuple(act) if k else None))
+        labels, maxprob, final = self._forward(x, act if k else None)
+        if not k:
+            final = final.to(torch.int32).cpu().numpy()[:n].astype(np.int64)
+            return np.zeros((0, n), np.int64), np.zeros((0, n), np.float32), final
+        unc = (1.0 - maxprob.float()).view(torch.int32)
+        rec = torch.cat([labels.to(torch.int32), unc, final.to(torch.int32)[None]])
+        rec = rec.cpu().numpy()[:, :n]  # the sanctioned record drain: one read a batch
+        return (rec[:k].astype(np.int64), rec[k:2 * k].view(np.float32).copy(),
+                rec[2 * k].astype(np.int64))
+
+    def vanilla_labels(self, n: Optional[int] = None) -> np.ndarray:
+        """Original-model labels for the first ``n`` items (None: all), the
+        accuracy ground truth, through the no-ramp variant."""
+        # `n or len` would remap an explicit n=0 to the whole dataset
+        n = n if n is not None else len(self.data)
+        if n < 1:
+            return np.zeros(0, np.int64)
+        return np.concatenate([self.infer(np.arange(lo, min(lo + self.VANILLA_CHUNK, n)), [])[2]
+                               for lo in range(0, n, self.VANILLA_CHUNK)])
+
+
+class ClassifierRunner(_BatchRunner):
+    """ResNet / BERT-style classifier serving (the paper's workloads): the
+    model's ``forward`` on a batch of images or token sequences."""
+
+    # the reference takes 256: a 256-image batch of ResNet-50 at 224 px holds
+    # 13 GB f32 activations a stage-1 tensor
+    VANILLA_CHUNK = 64
+
+    def _forward(self, x, act):
+        outs = self.model.forward(self.params, x, active_sites=act)
+        if act is None:
+            return None, None, outs["final"]["label"]
+        return outs["ramps"]["label"], outs["ramps"]["maxprob"], outs["final"]["label"]
+
+
+class LMTokenRunner(_BatchRunner):
+    """Per-token early-exit serving for decoder LMs: each request is a
+    context, the served result its next token (``LM.prefill`` without a
+    cache, at the last position)."""
+
+    def _forward(self, toks, act):
+        _, outs = self.model.prefill(self.params, toks, active_sites=act, with_cache=False)
+        if act is None:
+            return None, None, outs["final"]["label"]
+        return outs["ramps"]["label"], outs["ramps"]["maxprob"], outs["final"]["label"]
+
+
 class DecodeRunner:
     """Real-model generative runner over ONE batched slot cache.
 
@@ -440,11 +594,7 @@ class DecodeRunner:
     # -- host <-> device -----------------------------------------------------
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device without a host sync (pinned, async copy)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return _to_device(a, self.device)
 
     # -- batched-cache plumbing ---------------------------------------------
 

@@ -11,7 +11,8 @@ from repro.configs import get_config as ref_config  # noqa: E402
 from repro.configs import get_tiny as ref_tiny  # noqa: E402
 from repro_torch.configs import get_config, get_tiny  # noqa: E402  # repro: allow[tier1-deps] — the port under test; torch-only, skipped above without torch
 
-ARCHS = ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b", "mamba2-2.7b"]
+ARCHS = ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b", "mamba2-2.7b", "resnet18",
+         "resnet50", "bert-base"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -98,4 +99,4 @@ def test_mamba2_full_width_schema_equals_reference():
 
 def test_unknown_arch_raises():
     with pytest.raises(KeyError):
-        get_config("resnet50")  # not ported yet
+        get_config("gemma3-4b")  # not ported yet

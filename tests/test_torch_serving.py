@@ -1,6 +1,7 @@
 """The port's serving stack against the JAX package's: seeded runner
 schedules at equal bucket shapes, the engine + controller end to end, and
 the numpy modules the port copies (they must stay copies)."""
+import ast
 import re
 from pathlib import Path
 
@@ -130,15 +131,109 @@ def test_engine_end_to_end_agrees():
     assert RS.summarize_generative(rr) == TS.summarize_generative(tr)
 
 
+# -- classification: the cluster engine over the real model --------------------
+
+# (workers, dispatch, admission): one and two replicas under each dispatcher,
+# and SLO-aware admission on one replica
+SCHEDULES = [(w, d, False) for w in (1, 2) for d in ("round_robin", "jsq", "slo_aware")]
+SCHEDULES.append((1, "jsq", True))
+
+
+@pytest.fixture(scope="module")
+def bert_stacks():
+    """Tiny BERT in both packages on one perturbed seed, a 2-class token
+    stream and ONE reference profile; each side's runner is shared across
+    the schedules (a runner is a pure batch -> records function)."""
+    from repro.data import make_token_stream
+
+    rm = ref_build(get_tiny("bert-base"))
+    tm = build_model(port_tiny("bert-base"), prefill_attn="kernel")
+    rng = np.random.default_rng(0)
+    p = jax.tree.map(
+        lambda x: np.asarray(x) + 0.05 * rng.standard_normal(x.shape).astype(np.float32),
+        rm.init(jax.random.PRNGKey(0)))
+    data = make_token_stream(160, seq_len=16, vocab=rm.cfg.vocab_size, n_classes=2,
+                             mode="nlp", seed=3).data
+    prof = RC.build_profile(get_tiny("bert-base"), mode="decode", chips=1)
+    runners = {"ref": RS.ClassifierRunner(rm, jax.tree.map(jnp.asarray, p), data, max_slots=2),
+               "port": TS.ClassifierRunner(tm, from_numpy_params(p, "cpu"), data, max_slots=2)}
+    return rm, prof, runners
+
+
+@pytest.mark.parametrize("workers,dispatch,admission", SCHEDULES)
+def test_classification_cluster_end_to_end_agrees(bert_stacks, workers, dispatch, admission):
+    """ClusterSimulator + ClassifierRunner + one ApparateController a worker,
+    both stacks handed ONE profile object: identical responses (rid, label,
+    exit site, release ms, dropped), controller stats and histories. The
+    controllers accept 50% agreement and adjust every 32 samples, so the
+    schedule exits and changes its ramp set; admission sheds requests."""
+    rm, prof, runners = bert_stacks
+    exec1 = prof.vanilla_time(1)
+    arr = RS.maf_trace(160, mean_qps=workers * 0.5 * 1000.0 / exec1, seed=3)
+    ccfg = dict(max_slots=2, ramp_budget_frac=0.5, acc_constraint=0.5, adjust_every=32,
+                tune_window=64, min_samples_to_tune=16)
+    out = {}
+    for name, S, C in (("ref", RS, RC), ("port", TS, TC)):
+        ctls = [C.ApparateController(len(rm.sites), prof, C.ControllerConfig(**ccfg))
+                for _ in range(workers)]
+        pf = S.PlatformConfig(policy="tfserve", max_batch_size=8, batch_timeout_ms=exec1)
+        adm = S.AdmissionPolicy(S.AdmissionConfig(slack=1.0)) if admission else None
+        sim = S.ClusterSimulator(prof, S.ClusterConfig(n_workers=workers, dispatch=dispatch,
+                                                       platform=pf, admission=adm),
+                                 runner=runners[name], controllers=ctls)
+        resp = sim.run(S.make_requests(arr, slo_ms=2 * exec1))
+        out[name] = ([(r.rid, r.label, r.exit_site, r.release_ms, r.dropped) for r in resp],
+                     [c.stats["ramp_changes"] for c in ctls], [c.history for c in ctls],
+                     sim.worker_stats())
+    (rr, rch, rh, rws), (tr, tch, th, tws) = out["ref"], out["port"]
+    assert tr == rr and len(tr) == 160
+    assert (tch, tws) == (rch, rws)
+    for a, b in zip(th, rh):
+        assert [(e["kind"], e["sample"]) for e in a] == [(e["kind"], e["sample"]) for e in b]
+    assert sum(r[2] >= 0 for r in tr) >= 1 and sum(rch) >= 1  # exits; a ramp-set change
+    assert sum(r[4] for r in tr) >= (1 if admission else 0)  # admission shed requests
+    if not admission:
+        assert not any(r[4] for r in tr)
+
+
+@pytest.mark.parametrize("config", ["resnet18", "bert-base", "qwen2-1.5b"])
+def test_serve_classification_on_cpu_tiny(config):
+    """The port's classification launcher end to end on the CPU at tiny size
+    (an LM serves its next token): every request answered, the latencies
+    labelled simulated, the runner's host times by bucket measured."""
+    from repro_torch.launch.serve import serve  # repro: allow[tier1-deps] — the port under test
+
+    out, resp = serve(config, 40, tiny=True, device="cpu", workers=2, verbose=False)
+    assert len(resp) == 40 and not any(r.dropped for r in resp)
+    m = out["measured"]
+    assert m["device"] == "cpu" and sum(m["infer_calls_by_bucket"].values()) > 0
+    assert set(m["infer_ms_by_bucket"]) <= {1, 2, 4, 8}
+    assert m["ramp_set_variants"] + m["noramp_variants"] >= 1
+    assert "not timed" in out["simulated"]["note"] and 0.0 <= out["accuracy"] <= 1.0
+    assert len(out["active_ramps"]) == 2
+
+
+def test_serve_generative_admission_on_cpu_tiny():
+    from repro_torch.launch.serve import serve_generative  # repro: allow[tier1-deps] — the port under test
+
+    out, resp = serve_generative("gpt2-medium", 4, decode_tokens=5, prompt_len=8,
+                                 steps_per_sync=3, tiny=True, device="cpu", verbose=False,
+                                 admission=True, admission_slack=2.0)
+    assert len(resp) == 4
+    assert set(out["admission"]) == {"vanilla", "apparate"}
+
+
 # -- the copied numpy modules ------------------------------------------------
 
 COPIES = ["core/exits.py", "core/threshold_tuning.py", "core/ramp_adjust.py",
-          "core/controller.py", "serving/request.py", "serving/arrivals.py",
-          "serving/engine.py", "serving/generative.py", "serving/metrics.py"]
+          "core/controller.py", "core/ramps.py", "serving/request.py",
+          "serving/arrivals.py", "serving/engine.py", "serving/generative.py",
+          "serving/metrics.py", "serving/policies.py", "serving/cluster.py",
+          "serving/platform.py", "data/synthetic.py", "data/__init__.py"]
 
 
 def _rewrite(src):
-    return re.sub(r"\bfrom repro\.(core|serving|models)\b", r"from repro_torch.\1", src)
+    return re.sub(r"\bfrom repro\.(core|serving|models|data)\b", r"from repro_torch.\1", src)
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -146,6 +241,17 @@ def test_numpy_module_is_a_verbatim_copy(rel):
     ref = (SRC / "repro" / rel).read_text()
     port = (SRC / "repro_torch" / rel).read_text()
     assert port == _rewrite(ref)
+
+
+def test_synthetic_runner_is_a_verbatim_copy():
+    def source(path):
+        text = path.read_text()
+        node = next(n for n in ast.parse(text).body
+                    if isinstance(n, ast.ClassDef) and n.name == "SyntheticRunner")
+        return ast.get_source_segment(text, node)
+
+    rel = "serving/runner.py"
+    assert source(SRC / "repro_torch" / rel) == source(SRC / "repro" / rel)
 
 
 def test_profiles_copy_differs_only_in_h100_constants():
