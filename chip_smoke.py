@@ -69,6 +69,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
      without admission; 7b. BERT-base in bf16: the runner through sdpa vs
      the flash kernel, then 600 requests served through the kernel (12
      launches a forward). Their engine latencies are SIMULATED.
+  3 (beside the ramp-head rows) the 'mlp' and 'tied' ramp styles' records
+     through kernels #2/#3 against the dense path at qwen2-1.5b's shape;
+  8. training on the card, once the classifiers' weights are freed: 8a.
+     full-width qwen2-1.5b ramps_only training through the launcher
+     (8 steps, batch 4 x 128; ms a step, losses, peak memory against the
+     memory reckoned from shapes; the backbone bit-identical to the seed's
+     draw; the ramp loss on step 0's batch falls), then 4 decode steps of
+     8 TokenPipeline rows with the trained ramps, kernels on vs off; 8b.
+     full-width BERT-base trained with the reference launcher's recipe on
+     its bootstrap split (checkpoints every 50 steps, async), steps
+     100-199 rerun from step 100's checkpoint against the uninterrupted
+     run, then the rest of the stream served through kernel #4 (exit
+     share and agreement beside 7b's random weights). The loss paths reach
+     no kernel: the kernel dispatchers raise under autograd.
 Every serving phase serves its sync windows as CUDA graph replays (the
 runner's default on a card; a key's first window runs eager, its second
 is captured), except runs that carry Python hooks, which run eager
@@ -90,6 +104,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -778,9 +793,11 @@ def _to_pool(model, cache, bs, gen):
 
 
 def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on_kw=None,
-                  prefill_kernel=None):
+                  prefill_kernel=None, toks=None, T=8, thr=None):
     """Prefill 128 tokens for 8 rows (each path twice, timed in the order
-    off, on, on, off), then 8 greedy decode steps, through the model with
+    off, on, on, off; ``toks`` (B, P) replaces the drawn prompts), then
+    ``T`` greedy decode steps (exit thresholds ``thr``, 0.5 by default),
+    through the model with
     the kernels off (``off_cfg``, built with ``off_kw``) and on
     (``on_cfg``, ``on_kw``); with ``paged_bs`` the decode steps run on a
     paged pool of that block size (both paths on the same pool contents).
@@ -803,13 +820,15 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
     from repro_torch.models import layers as LY
 
     off, on = build_model(off_cfg, **(off_kw or {})), build_model(on_cfg, **(on_kw or {}))
-    B, P, T = 8, 128, 8
     act = [2, 5, 8, 11]
     vl = cfg.vocab_size
-    thr = torch.full((len(act),), 0.5, device="cuda")
-    g = torch.Generator(device="cuda")
-    g.manual_seed(SEED + 1)
-    toks = torch.randint(1, vl, (B, P), generator=g, device="cuda")
+    if thr is None:
+        thr = torch.full((len(act),), 0.5, device="cuda")
+    if toks is None:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 1)
+        toks = torch.randint(1, vl, (8, 128), generator=g, device="cuda")
+    B, P = toks.shape
 
     def spy(model):
         seen = {}
@@ -835,7 +854,8 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
     def labels(o):
         return [o["final"]["label"]] + [o["ramps"]["label"][j] for j in range(len(act))]
 
-    stats = {"labels": 0, "near_ties": 0, "max_eps": 0.0, "eps_by_step": []}
+    stats = {"labels": 0, "near_ties": 0, "max_eps": 0.0, "eps_by_step": [],
+             "ramp_exits": 0, "ramp_records": 0, "ramp_maxprob_over_half": 0}
     cap = EPS_CAP * max(1.0, cfg.n_layers / 28)
     routes = RouteReplay()  # MoE: the on path takes the off path's experts
 
@@ -859,6 +879,10 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
                 stats["near_ties"] += 1
             stats["labels"] += B
         stats["eps_by_step"].append(round(step_eps, 4))
+        if t:  # a decode step's exit bits at thr, and its confident ramp records
+            stats["ramp_exits"] += int(o_on["ramps"]["exit"].sum())
+            stats["ramp_records"] += o_on["ramps"]["exit"].numel()
+            stats["ramp_maxprob_over_half"] += int((o_on["ramps"]["maxprob"] > 0.5).sum())
 
     cache_len = P + T + 1
     if paged_bs:
@@ -916,11 +940,16 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
           f"{off_kw or {}}) vs on ({on_cfg.decode_attn}, {on_cfg.pallas_head}, {on_kw or {}}): "
           f"{stats['labels']} labels, {stats['near_ties']} near-ties, max logit eps "
           f"{stats['max_eps']:.4f} (cap {cap:.3f}; by step {stats['eps_by_step']}); "
+          f"kernels-on ramp records: {stats['ramp_exits']} of {stats['ramp_records']} exit at "
+          f"thresholds {[round(x, 4) for x in thr.tolist()]}, "
+          f"{stats['ramp_maxprob_over_half']} with maxprob > 0.5; "
           + (f"MoE routing replayed from the off path: {routes.flip_count()} of "
              f"{routes.routes} token routes of the on path would have taken other experts "
              "(router near-ties); "
              if cfg.moe else "") + json.dumps(times), flush=True)
-    return times
+    return {**times, **{k: stats[k] for k in ("ramp_exits", "ramp_records",
+                                              "ramp_maxprob_over_half", "near_ties",
+                                              "max_eps")}}
 
 
 def profile_step(fn, top=6):
@@ -1927,7 +1956,7 @@ def bert_phase(gen, serve):
     """Phase 7b: BERT-base, bf16, weights from SEED: the runner with its
     attention through sdpa and through the flash kernel (no mask), then 600
     requests served by ``serve()`` through the kernel, 12 launches a
-    forward. Returns the served run's launches."""
+    forward. Returns (the served run's launches, its summary)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import ClassifierRunner
@@ -1970,7 +1999,316 @@ def bert_phase(gen, serve):
           f"{launches['flash_attention']} launches ({cfg.n_layers} a forward); "
           f"{_served_note(out)}", flush=True)
     print(f"7b engine summary ({_simulated_note(out)})", flush=True)
-    return launches
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the ramp styles: 'mlp' and 'tied' records through kernels #2/#3
+
+
+def check_ramp_styles(params, cfg, gen):
+    """The 'mlp' and 'tied' ramp records of 8 rows at 4 active sites through
+    the kernel head path (#2 on the final head, #3 on each ramp) against
+    the dense path, at ``cfg``'s shape: the 'mlp' ramps on the drawn heads
+    with GELU-residual weights drawn here, the 'tied' ramps on the final
+    head. Stats within 1e-4 relative of the f32 logits of the features the
+    dense path forms (the kernel sums in f32), labels equal to the dense
+    path's except near-ties of its bf16 logits (gap under 0.05), exit bits
+    equal except where |unc - thr| < 1e-6; thresholds at each ramp's median
+    uncertainty, so rows exit and stay. Comparison launches are not
+    counted."""
+    from repro_torch.kernels import counted_wrappers
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import _stats
+
+    B, L, d, vl = 8, cfg.n_layers, cfg.d_model, cfg.vocab_size
+    act = [2, 5, 8, 11]
+    wdt = params["ramps"]["head"].dtype
+    h_last = torch.randn(B, 1, d, generator=gen, device="cuda").to(wdt)
+    pooled = torch.randn(L, B, 1, d, generator=gen, device="cuda").to(wdt)
+    S = len(params["ramps"]["norm_w"])
+    n0 = {k: f.launches for k, f in counted_wrappers().items()}
+    for style in ("mlp", "tied"):
+        ramps = {"norm_w": params["ramps"]["norm_w"]}
+        if style == "mlp":
+            ramps["head"] = params["ramps"]["head"]
+            for k, shp in (("w1", (S, d, cfg.ramp_hidden)), ("w2", (S, cfg.ramp_hidden, d))):
+                ramps[k] = (0.02 * torch.randn(shp, generator=gen, device="cuda")).to(wdt)
+        p = {**params, "ramps": ramps}
+        scfg = cfg.replace(ramp_style=style)
+        on = build_model(scfg.replace(pallas_head="kernel"))
+        off = build_model(scfg.replace(pallas_head="off"))
+        with torch.no_grad():
+            hs = off._ramp_hidden(p, pooled, act)[:, :, 0]  # (K, B, d): what the heads read
+            ref = [_logits_ref(hs[j], off.ramp_head(p, i), vl) for j, i in enumerate(act)]
+            unc = 1.0 - torch.stack([_stats(lg)["maxprob"] for lg in ref])  # (K, B)
+            thr = unc.median(dim=1).values
+            o_on = on._head_stats(p, h_last, pooled, act, exit_thresholds=thr)
+            o_off = off._head_stats(p, h_last, pooled, act, exit_thresholds=thr)
+        torch.cuda.synchronize()
+        err, ties, bits = 0.0, 0, 0
+        for j in range(len(act)):
+            want = _stats(ref[j])
+            for k in ("maxprob", "entropy"):
+                a, b = o_on["ramps"][k][j].float(), want[k]
+                if not torch.allclose(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max())):
+                    fail(f"3 ramp style {style} {k}, ramp {act[j]}: max abs err "
+                         f"{(a - b).abs().max().item()}")
+                err = max(err, (a - b).abs().max().item())
+            ties += _near_tie_labels(o_on["ramps"]["label"][j], want["label"], ref[j], 1e-3,
+                                     f"3 ramp style {style} kernel vs f32, ramp {act[j]}")
+            ties += _near_tie_labels(o_on["ramps"]["label"][j], o_off["ramps"]["label"][j],
+                                     ref[j], 0.05, f"3 ramp style {style} kernel vs dense")
+            mism = (o_on["ramps"]["exit"][j] != o_off["ramps"]["exit"][j]).nonzero()
+            for r in mism.flatten().tolist():
+                if abs((unc[j, r] - thr[j]).item()) >= 1e-6:
+                    fail(f"3 ramp style {style}: exit bit of ramp {act[j]}, row {r} differs")
+                bits += 1
+        n_exit = int(o_on["ramps"]["exit"].sum())
+        if not 0 < n_exit < o_on["ramps"]["exit"].numel():
+            fail(f"3 ramp style {style}: {n_exit} exits; thresholds at the median should "
+                 "give both exit values")
+        print(f"3 ramp style {style} ({cfg.name}, B={B}, sites {act}, d {d}, V {vl}): kernel "
+              f"head path vs dense, stats max abs err {err:.3e} vs f32 logits, {ties} label "
+              f"near-ties, {bits} exit bits at |unc - thr| < 1e-6, {n_exit} exits", flush=True)
+    for k, f in counted_wrappers().items():
+        f.launches = n0[k]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training on the card, then serving what was trained
+
+
+TRAIN_ARGS = ["--arch", CONFIG, "--mode", "ramps_only", "--steps", "8", "--batch", "4",
+              "--seq", "128"]
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def train_qwen_phase(gen):
+    """Phase 8a: full-width qwen2-1.5b ramps_only training through the
+    launcher (``launch.train.main(TRAIN_ARGS)``): ms a step (CUDA events),
+    each step's loss and ramp loss, the peak memory against the one
+    reckoned from shapes; the backbone bit-identical to a fresh draw from
+    the seed; the ramp loss on step 0's batch below step 0's; then 8 rows
+    of TokenPipeline prompts prefilled and decoded 4 steps with the trained
+    ramps, kernels on (#1-#4) vs off, at the controller's initial
+    thresholds (0: nothing exits). Returns (the decode steps' launches,
+    summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    hist = []
+    t0 = time.perf_counter()
+    state = train_main(TRAIN_ARGS, history=hist)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params = state["params"]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = _nbytes(params)
+    ramp_bytes = _nbytes(params["ramps"])
+    B, S, npos = 4, 128, 16
+    logits = B * S * cfg.padded_vocab * 4
+    ramp_logits = len(params["ramps"]["norm_w"]) * B * npos * cfg.padded_vocab * 4
+    reckoned = p_bytes + 8 * n_params + ramp_bytes + logits + ramp_logits
+    if peak - resident > 1.2 * reckoned:
+        fail(f"8a: peak {peak / 1e9:.2f} GB above the {reckoned / 1e9:.2f} GB reckoned from "
+             "shapes (params, f32 moments, ramp grads, logits)")
+    first = hist[0]["ramp_loss"]
+    model = build_model(cfg)
+    batch0 = {k: torch.as_tensor(v, device="cuda")
+              for k, v in TokenPipeline(cfg.vocab_size, S, B, seed=0).batch_at(0).items()}
+    with torch.no_grad():
+        _, met = model.loss(params, batch0, train_mode="ramps_only")
+    after0 = float(met["ramp_loss"])
+    if not after0 < first:
+        fail(f"8a: the ramp loss on step 0's batch is {after0} after training, {first} before")
+    # one more step (after a warm-up one) under the profiler: where a step's
+    # device time goes
+    from repro_torch.training import TrainConfig, make_train_step
+
+    step_fn, _ = make_train_step(model, TrainConfig(steps=10, lr=3e-4,
+                                                    train_mode="ramps_only"))
+    pipe = TokenPipeline(cfg.vocab_size, S, B, seed=0)
+    prof_step = profile_step(lambda: step_fn(state, pipe.batch_at(8)), top=8)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = model.init(0, device="cuda")  # the launcher's --seed 0
+    same = moved = 0
+    for key in sorted(params):
+        for a, b in zip(tree_leaves(params[key]), tree_leaves(fresh[key])):
+            if key == "ramps":
+                moved += int(not torch.equal(a, b))
+            elif not torch.equal(a, b):
+                fail(f"8a: backbone leaf under {key!r} changed in ramps_only training")
+            else:
+                same += 1
+    del fresh
+    torch.cuda.empty_cache()
+    if moved == 0:
+        fail("8a: no ramp leaf moved")
+    ms = [h["ms"] for h in hist]
+    print(f"8a {CONFIG} ramps_only training on {card_line()}, {' '.join(TRAIN_ARGS)}: "
+          f"{n_params / 1e9:.3f} B params; ms a step {json.dumps([round(m, 2) for m in ms])} "
+          f"(median of steps 1-7 {statistics.median(ms[1:]):.2f}); loss by step "
+          f"{json.dumps([round(h['loss'], 4) for h in hist])}; ramp loss by step "
+          f"{json.dumps([round(h['ramp_loss'], 4) for h in hist])}; step 0's batch ramp loss "
+          f"{first:.4f} before, {after0:.4f} after; peak memory "
+          f"{(peak - resident) / 1e9:.2f} GB over {resident / 1e9:.2f} GB resident (reckoned "
+          f"{reckoned / 1e9:.2f}: params {p_bytes / 1e9:.2f}, f32 mu + nu "
+          f"{8 * n_params / 1e9:.2f}, ramp grads {ramp_bytes / 1e9:.2f}, logits "
+          f"{logits / 1e9:.2f} + ramp logits {ramp_logits / 1e9:.2f}); backbone "
+          f"{same} leaves bit-identical to the seed's draw, {moved} ramp leaves moved; "
+          f"wall {wall:.1f} s", flush=True)
+    print(f"8a one more ramps_only step under torch.profiler (after the checks): "
+          f"{json.dumps(prof_step)}", flush=True)
+    toks = torch.as_tensor(TokenPipeline(cfg.vocab_size, 128, 8, seed=1).batch_at(0)["tokens"],
+                           device="cuda")
+    thr0 = torch.zeros(4, device="cuda")  # ApparateController's initial thresholds
+    res, launches = counted(lambda: compare_paths(
+        params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
+        cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
+        on_kw={"prefill_attn": "kernel"}, prefill_kernel="flash_attention", toks=toks, T=4,
+        thr=thr0))
+    # compare_paths counts each prefill itself (the flash kernel once a layer
+    # in the on path's); these are the decode steps' launches
+    for k in ("decode_attention", "ramp_head_stats", "ramp_head_exit"):
+        if launches[k] <= 0:
+            fail(f"8a: the trained model's decode launched {k} no time")
+    if res["ramp_exits"]:
+        fail(f"8a: {res['ramp_exits']} exits at thresholds 0 (the compare is strict)")
+    summary = {"ms_per_step": ms, "peak_gb": (peak - resident) / 1e9,
+               "step_device_busy_ms": prof_step["device_busy_ms"],
+               "reckoned_gb": reckoned / 1e9, "ramp_loss": [h["ramp_loss"] for h in hist],
+               "records": res["ramp_records"], "maxprob_over_half": res["ramp_maxprob_over_half"]}
+    print(f"8a trained ramps, 8 TokenPipeline rows x 4 decode steps, kernels on vs off: "
+          f"decode launches {json.dumps({k: launches[k] for k in ATTENTION[:1] + ('ramp_head_stats', 'ramp_head_exit')})}; "
+          f"{res['ramp_exits']} exits at the controller's initial thresholds (0), "
+          f"{res['ramp_maxprob_over_half']} of {res['ramp_records']} ramp records with maxprob "
+          f"> 0.5", flush=True)
+    del params
+    return launches, summary
+
+
+BERT_TRAIN_STEPS = 200  # the reference launcher's NLP recipe
+RESUME_RTOL = 2e-2  # steps 100-199 resumed vs uninterrupted, relative (see bert_train_phase)
+
+
+def bert_train_phase(serve, random_run):
+    """Phase 8b: full-width BERT-base (10 classes, bf16) trained with the
+    reference launcher's recipe on the NLP stream's bootstrap split (the
+    first 256 of 600 items, 200 steps of 64, lr 1e-3, the whole model),
+    checkpointed every 50 steps (``save_async``) to a temporary directory,
+    then the other 344 items served through kernel #4 (12 launches a served
+    forward). Step 100's checkpoint is restored into a fresh state and
+    steps 100-199 run again: their losses must equal the uninterrupted
+    run's within ``RESUME_RTOL`` (no deterministic-algorithms switch; the
+    line says whether they came out bit-identical). Prints ms a training
+    step, the simulated exit share and the agreement with the model's own
+    labels beside 7b's random-weight run, and the ramp-set variants built.
+    Returns the served run's launches."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_stream
+    from repro_torch.launch.serve import TRAIN_RECIPE, bootstrap_batches
+    from repro_torch.models import build_model
+    from repro_torch.training import TrainConfig, train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        (out, resp), launches = counted(lambda: serve(
+            "bert-base", 600, policy="tfserve", workers=1, seed=SEED, device="cuda",
+            verbose=False, train=True, ckpt_dir=tmp))
+        tr = out["train"]
+        n_fwd = launches["forwards"] - BERT_TRAIN_STEPS  # the loss runs one forward a step
+        if len(resp) != out["served"] or out["served"] != 600 - tr["bootstrap"] \
+                or any(not r.dropped and not 0 <= r.label < 10 for r in resp):
+            fail("8b: the served run did not answer the 344 items past the split with labels")
+        if n_fwd <= 0 or launches["flash_attention"] != 12 * n_fwd:
+            fail(f"8b: {n_fwd} served forwards launched flash_attention "
+                 f"{launches['flash_attention']} times; expected 12 a forward (training: none)")
+        losses = tr["losses"]
+        if not losses[-1] < losses[0]:
+            fail(f"8b: the training loss went from {losses[0]} to {losses[-1]}")
+        mgr = CheckpointManager(tmp)
+        if mgr.all_steps() != [100, 150, 200]:
+            fail(f"8b: checkpoints {mgr.all_steps()}; expected [100, 150, 200] (keep 3)")
+        cfg = get_config("bert-base").replace(n_classes=10)
+        model = build_model(cfg, prefill_attn="kernel")
+        stream = make_token_stream(600, seq_len=32, vocab=cfg.vocab_size, n_classes=10,
+                                   mode="nlp", seed=SEED)
+        lr, steps = TRAIN_RECIPE["encoder_cls"]
+        state = mgr.restore(100, device="cuda")
+        if int(state["step"]) != 100:
+            fail(f"8b: step 100's checkpoint holds step {int(state['step'])}")
+        _, logs = train(model, bootstrap_batches(stream, tr["bootstrap"], "tokens"),
+                        TrainConfig(steps=steps, lr=lr, log_every=1), state=state,
+                        start_step=100, verbose=False)
+        again = [r["loss"] for r in logs]
+        ref = losses[100:]
+        dev = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(again, ref))
+        if len(again) != len(ref) or dev > RESUME_RTOL:
+            fail(f"8b: steps 100-199 resumed from the checkpoint differ from the "
+                 f"uninterrupted run by {dev} relative (tolerance {RESUME_RTOL})")
+        # the trained ramps on the served items (the final checkpoint): each
+        # ramp's agreement with the final head and its mean maxprob
+        from repro_torch.serving import ClassifierRunner
+
+        final = mgr.restore(steps, device="cuda")["params"]
+        runner = ClassifierRunner(model, final, stream.data, max_slots=len(model.sites))
+        sites = list(range(len(model.sites)))
+        lab, unc, fin = zip(*(runner.infer(list(range(lo, min(lo + 8, 600))), sites)
+                              for lo in range(tr["bootstrap"], 600, 8)))
+        lab, unc, fin = (np.concatenate(x, axis=-1) for x in (lab, unc, fin))
+        agree_by_ramp = [round(float(np.mean(lab[k] == fin)), 4) for k in sites]
+        maxprob_by_ramp = [round(float(np.mean(1.0 - unc[k])), 4) for k in sites]
+        # where a step's device time goes (two more steps, one profiled)
+        from repro_torch.training import make_train_step
+
+        step_fn, _ = make_train_step(model, TrainConfig(steps=steps, lr=lr))
+        batches = bootstrap_batches(stream, tr["bootstrap"], "tokens")
+        prof_step = profile_step(lambda: step_fn(state, batches(0)), top=8)
+        del state, final, runner
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sim, rsim = out["simulated"]["apparate"], random_run["simulated"]["apparate"]
+    print(f"8b bert-base (10 classes, bf16) trained on {card_line()}: {steps} steps of 64 x 32 "
+          f"tokens on the first {tr['bootstrap']} items, {1e3 * tr['wall_s'] / steps:.2f} ms a "
+          f"training step (host clock, each step ending in its loss read, checkpoints every 50 "
+          f"steps written async); loss {losses[0]:.4f} -> {losses[-1]:.4f}, ramp loss "
+          f"{tr['ramp_losses'][0]:.4f} -> {tr['ramp_losses'][-1]:.4f}; steps 100-199 resumed "
+          f"from step 100's checkpoint: max relative loss difference {dev:.3e} "
+          f"({'bit-identical' if again == ref else 'not bit-identical'}; tolerance "
+          f"{RESUME_RTOL})", flush=True)
+    print(f"8b served {out['served']} items past the split, 1 worker, tfserve: {n_fwd} forwards "
+          f"({launches['flash_attention']} flash_attention launches); trained vs random "
+          f"weights (7b): simulated exit share {sim.get('exit_rate', 0.0):.4f} vs "
+          f"{rsim.get('exit_rate', 0.0):.4f}, agreement with the model's own labels "
+          f"{out['accuracy']:.4f} vs {random_run['accuracy']:.4f}; {_served_note(out)}",
+          flush=True)
+    print(f"8b trained ramps on the {out['served']} served items (step {steps}'s "
+          f"checkpoint, every site active): agreement with the final head by ramp "
+          f"{agree_by_ramp}, mean maxprob by ramp {maxprob_by_ramp}; one more training step "
+          f"under torch.profiler: {json.dumps(prof_step)}", flush=True)
+    print(f"8b engine summary ({_simulated_note(out)})", flush=True)
+    return launches, {"train_ms_per_step": 1e3 * tr["wall_s"] / steps,
+                      "exit_rate": sim.get("exit_rate", 0.0), "accuracy": out["accuracy"],
+                      "random_exit_rate": rsim.get("exit_rate", 0.0),
+                      "random_accuracy": random_run["accuracy"], "resume_max_rel": dev,
+                      "ramp_set_variants": out["measured"]["ramp_set_variants"]}
 
 
 def main() -> None:
@@ -2052,6 +2390,7 @@ def main() -> None:
     print(f"drew {CONFIG} weights ({sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
           f"params, {cfg.dtype}) in {time.perf_counter() - t0:.1f} s", flush=True)
     rh = check_ramp_head(params, cfg, gen)
+    check_ramp_styles(params, cfg, gen)
 
     # -- phase 4: the full-width model, then serving (the weights drawn above
     # are the ones serve_generative draws from the same seed)
@@ -2104,7 +2443,16 @@ def main() -> None:
     resnet_phase(gen, serve)
     gc.collect()
     torch.cuda.empty_cache()
-    bert_launches = bert_phase(gen, serve)
+    bert_launches, bert_out = bert_phase(gen, serve)
+    print(f"classifier phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
+
+    # -- phase 8: training, once the classifiers' weights are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    qt_launches, _ = train_qwen_phase(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bt_launches, _ = bert_train_phase(serve, bert_out)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -2138,7 +2486,12 @@ def main() -> None:
                ("ramp_head_exit", mb_rh["ramp_head_exit"], mb_launches, mb_path),
                ("ssd_chunked", ssd_main, mb_launches, mb_path),
                ("flash_attention", fa_bert, bert_launches, "bert-base 7b"),
-               ("ramp_head_stats", rh["ramp_head_stats"], lm_launches, f"{CONFIG} 4f")]
+               ("ramp_head_stats", rh["ramp_head_stats"], lm_launches, f"{CONFIG} 4f"),
+               ("decode_attention", da_main, qt_launches, f"{CONFIG} 8a trained ramps"),
+               ("ramp_head_stats", rh["ramp_head_stats"], qt_launches,
+                f"{CONFIG} 8a trained ramps"),
+               ("ramp_head_exit", rh["ramp_head_exit"], qt_launches, f"{CONFIG} 8a trained ramps"),
+               ("flash_attention", fa_bert, bt_launches, "bert-base 8b trained")]
     if lm_launches["ramp_head_exit"]:
         entries.append(("ramp_head_exit", rh["ramp_head_exit"], lm_launches, f"{CONFIG} 4f"))
     kernels = []

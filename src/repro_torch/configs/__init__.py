@@ -5,7 +5,8 @@ config pairs with its reference config. The port registers the two dense
 decoder LMs of the generative main path, the MLA + MoE decoder
 DeepSeek-V2-Lite, the attention-free SSD stack Mamba2-2.7B and the paper's
 classifiers (ResNet-18/50, BERT-base): ``CONFIG`` is the published shape,
-``TINY`` a reduced same-family config for CPU tests.
+``TINY`` a reduced same-family config for CPU tests, and ``get_bench``
+the reference's paper-shape, tiny-width benchmark stand-ins.
 """
 from __future__ import annotations
 
@@ -136,3 +137,26 @@ def get_config(name: str) -> ArchConfig:
 
 def get_tiny(name: str) -> ArchConfig:
     return _module(name).TINY
+
+
+# Benchmark stand-ins: PAPER-SHAPE (same layer count => same ramp sites as
+# the full model, so the full model's latency profile applies), tiny widths
+# (CPU-trainable); the reference's, for the configs the port has.
+_BENCH_REPL = {
+    "gpt2-medium": dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
+                        vocab_size=512, max_position=64, dtype="float32"),
+    "bert-base": dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
+                      vocab_size=512, max_position=64, dtype="float32"),
+    "resnet18": dict(resnet_widths=(16, 32, 64, 128), img_size=16),
+    "resnet50": dict(resnet_widths=(8, 8, 16, 16), img_size=16),
+    "qwen2-1.5b": dict(d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                       vocab_size=512, dtype="float32"),
+}
+
+
+def get_bench(name: str) -> ArchConfig:
+    base = get_config(name)
+    repl = _BENCH_REPL.get(name)
+    if repl is None:
+        raise KeyError(f"no bench variant for {name}")
+    return base.replace(name=f"bench-{name}", **repl)

@@ -1,6 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
 from __future__ import annotations
 
+import torch
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad. A kernel
+    returns tensors with no ``grad_fn``, so a backward through it would
+    skip its inputs without a word; the loss paths call the plain
+    counterparts instead (``sdpa``, the plain SSD scan, the dense ramp
+    outputs), as the reference's loss does."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel dispatchers have no backward; call it under "
+                           "torch.no_grad() or use its plain counterpart")
+
 
 def counted_wrappers() -> dict:
     """The seven kernel wrappers by name. Each carries a ``launches`` count

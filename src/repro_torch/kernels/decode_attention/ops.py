@@ -3,6 +3,7 @@ latent decode: the plain version for CPU tensors, the CUDA kernel for CUDA
 tensors (it raises rather than fall back)."""
 from __future__ import annotations
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention,
     paged_decode_attention,
@@ -16,6 +17,7 @@ from repro_torch.kernels.decode_attention.ref import (
 
 
 def attend_decode(q, k, v, pos, *, use_kernel=True):
+    refuse_autograd("attend_decode", q, k, v)
     if not use_kernel or q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos)
     if q.device.type != "cuda":
@@ -24,6 +26,7 @@ def attend_decode(q, k, v, pos, *, use_kernel=True):
 
 
 def attend_decode_paged(q, k_pool, v_pool, block_table, pos, *, use_kernel=True):
+    refuse_autograd("attend_decode_paged", q, k_pool, v_pool)
     if not use_kernel or q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, block_table, pos)
     if q.device.type != "cuda":
@@ -32,6 +35,7 @@ def attend_decode_paged(q, k_pool, v_pool, block_table, pos, *, use_kernel=True)
 
 
 def attend_decode_paged_mla(q_lat, q_pe, c_pool, kpe_pool, block_table, pos, *, scale):
+    refuse_autograd("attend_decode_paged_mla", q_lat, q_pe, c_pool, kpe_pool)
     if q_lat.device.type == "cpu":
         return paged_mla_decode_attention_ref(q_lat, q_pe, c_pool, kpe_pool, block_table,
                                               pos, scale=scale)

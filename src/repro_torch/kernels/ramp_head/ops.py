@@ -2,6 +2,7 @@
 the CUDA kernel for CUDA tensors (it raises rather than fall back)."""
 from __future__ import annotations
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ramp_head.kernel import ramp_head_exit, ramp_head_stats
 from repro_torch.kernels.ramp_head.ref import (
     ramp_head_exit_ref,
@@ -21,6 +22,7 @@ def _on_cpu(h):
 def ramp_confidence(h, w, *, v_limit=None):
     """h: (B, d) pooled hiddens; w: (d, V) head. Returns the paper's per-ramp
     record {label, maxprob, entropy, lse} without writing (B, V) logits."""
+    refuse_autograd("ramp_confidence", h, w)
     if _on_cpu(h):
         m, s, t, idx = ramp_head_stats_ref(h, w, v_limit)
     else:
@@ -32,6 +34,7 @@ def ramp_confidence(h, w, *, v_limit=None):
 def ramp_exit_decision(h, w, thresholds, *, v_limit=None):
     """The per-ramp record plus the on-device exit bit
     ``(1 - maxprob) < threshold``."""
+    refuse_autograd("ramp_exit_decision", h, w, thresholds)
     if _on_cpu(h):
         m, s, t, idx, mask = ramp_head_exit_ref(h, w, thresholds, v_limit)
     else:

@@ -2,6 +2,7 @@
 CUDA kernel for CUDA tensors (it raises rather than fall back)."""
 from __future__ import annotations
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ssd.kernel import CHUNK, ssd_chunked
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
@@ -14,6 +15,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk=CHUNK, use_kernel=True):
     ``chunk`` when it divides S, else one chunk of S. The kernel always
     chunks by its 64 and masks a ragged last chunk (zero steps leave the
     state unchanged); chunking changes the sums' order, not the function."""
+    refuse_autograd("ssd", x, dt, A, Bm, Cm)
     if not use_kernel or x.device.type == "cpu":
         S = x.shape[2]
         return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk if S % chunk == 0 else S)

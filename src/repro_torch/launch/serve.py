@@ -1,5 +1,5 @@
-"""Serving launcher of the port, on the CUDA card, with seeded random
-weights. ``--mode generative`` (the default): Apparate's per-token early
+"""Serving launcher of the port, on the CUDA card unless ``--device cpu``.
+``--mode generative`` (the default): Apparate's per-token early
 exits on a decoder LM, driven by the continuous-batching engine.
 ``--mode classification``: the paper's classification workloads (ResNet,
 BERT, or an LM's next token) on the cluster engine, each worker with its
@@ -22,6 +22,9 @@ own Apparate controller, vanilla against Apparate.
   # the flash-attention kernel) or qwen2-1.5b's next token
   PYTHONPATH=src python -m repro_torch.launch.serve --mode classification \\
       --config resnet50 --n 600 --workers 2 --dispatch jsq --admission
+  # train on the bootstrap split first (the reference launcher's recipe)
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode classification \\
+      --config bert-base --n 600 --train
 
 Prefills run the port's prefill kernels: flash attention for the attention
 models' whole prompts, the SSD chunk scan for Mamba2's.
@@ -30,9 +33,14 @@ The engine's latencies (TTFT, TPT, response latencies, the
 vanilla-vs-Apparate wins) are SIMULATED from the analytic H100 latency
 profile, as in the JAX package; the ``measured`` block holds host wall
 times of the runner's calls on the device, each of which ends in a host
-read of its result. The JAX launcher trains a bench-size model before it
-serves; the port serves the config's weights drawn from ``--seed`` (or a
-caller's ``params``), and random weights exit little or nothing.
+read of its result. Weights: the config's drawn from ``--seed`` (or a
+caller's ``params``), which exit little or nothing; or, with ``--train``,
+trained first as the JAX launcher trains its models (classification: the
+whole model on the bootstrap split, the first ``max(n // 10, 256)``
+items, then the rest served; generative: 300 steps on the decode
+stream), so the ramps exit on a learned confidence. The port trains the
+config's own model on the card where the reference trains a CPU-size
+bench stand-in.
 """
 from __future__ import annotations
 
@@ -45,7 +53,7 @@ import torch
 
 from repro_torch.configs import get_config, get_tiny
 from repro_torch.core import ApparateController, ControllerConfig, build_profile
-from repro_torch.data import make_image_stream, make_token_stream
+from repro_torch.data import make_decode_stream, make_image_stream, make_token_stream
 from repro_torch.models import build_model
 from repro_torch.serving import (
     AdmissionConfig,
@@ -169,7 +177,7 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
                      steps_per_sync=4, seed=0, tiny=False, device="cuda", verbose=True,
                      kv_block_size=0, kv_blocks=None, prefix_cache=False, preempt="none",
                      prefill_chunk=0, prompts=None, params=None, graphs=None,
-                     admission=False, admission_slack=1.0):
+                     admission=False, admission_slack=1.0, train=False):
     """Vanilla (no-EE, simulated only) vs Apparate per-token exits served on
     the real model at the same accuracy constraint. ``tiny`` serves the
     config's TINY variant (CPU tests). Returns (summary, responses).
@@ -187,7 +195,11 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     runner: each sync window one CUDA graph replay on a card (None, True)
     or eager (False). ``admission`` sheds hopeless requests at admission
     and doomed slots mid-stream (the SLO-aware ``AdmissionPolicy``, its
-    deadlines stretched by ``admission_slack``)."""
+    deadlines stretched by ``admission_slack``). ``train`` first trains
+    the model (from the TrainConfig's seed 0, as the reference launcher
+    does) for 300 steps at lr 3e-3 on 32 rows a step of a decode stream
+    whose rows carry the prompts, then serves those prompts with the
+    trained weights; ``report["train"]`` holds the losses."""
     if prefix_cache and not kv_block_size:
         raise ValueError("--prefix-cache requires --kv-block-size > 0 (paged KV)")
     if preempt != "none" and not kv_block_size:
@@ -200,6 +212,11 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
         # layouts run it, so they compute the same math
         cfg = cfg.replace(mla_absorbed=True)
     model = build_model(cfg, prefill_attn="kernel", ssd_impl="kernel")
+    trained = None
+    if train:
+        if params is not None or prompts is not None:
+            raise ValueError("train=True draws its own weights and prompts")
+        params, prompts, trained = _train_generative(model, n, prompt_len, seed, device)
     if params is None:
         params = model.init(seed, device=device)
     if prompts is None:
@@ -273,9 +290,40 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     if admission:
         out["admission"] = {"vanilla": base_eng.admission.stats(),
                             "apparate": eng.admission.stats()}
+    if trained is not None:
+        out["train"] = trained
     if verbose:
         print(json.dumps(out, indent=1, default=float))
     return out, resp
+
+
+def _train_report(logs, wall_s, steps, lr):
+    return {"steps": steps, "lr": lr, "losses": [r["loss"] for r in logs],
+            "ramp_losses": [r["ramp_loss"] for r in logs if "ramp_loss" in r],
+            "wall_s": wall_s}
+
+
+def _train_generative(model, n, prompt_len, seed, device):
+    """The reference launcher's generative recipe: 300 steps at lr 3e-3, 32
+    rows a step drawn by ``default_rng(step)`` from a decode stream of
+    ``max(2n, 256)`` rows of ``prompt_len + 1`` tokens (tokens and their
+    next tokens); the served prompts are the stream's first ``n`` rows.
+    Returns (params, prompts, report)."""
+    from repro_torch.training import TrainConfig, train
+
+    stream = make_decode_stream(max(2 * n, 256), seq_len=prompt_len + 1,
+                                vocab=model.cfg.vocab_size, predict=0.96, seed=seed)
+
+    def batches(s):
+        rng = np.random.default_rng(s)
+        toks = stream.data[rng.integers(0, len(stream.data), 32)].astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    tcfg = TrainConfig(steps=300, lr=3e-3, log_every=1)
+    t0 = time.perf_counter()
+    state, logs = train(model, batches, tcfg, verbose=False, device=device)
+    report = _train_report(logs, time.perf_counter() - t0, tcfg.steps, tcfg.lr)
+    return state["params"], stream.data[:n, :prompt_len], report
 
 
 IMG_SIZE = 224  # ResNet images: the reference launcher's CV profile size
@@ -283,9 +331,16 @@ NLP_SEQ = 32  # BERT: the reference launcher's NLP stream
 LM_CONTEXT = 128  # next-token serving: a context's tokens
 
 
+# the reference launcher's training recipe by family: (lr, steps); 64 items
+# a step drawn by default_rng(step) from the bootstrap split
+TRAIN_RECIPE = {"resnet": (3e-3, 150), "encoder_cls": (1e-3, 200)}
+TRAIN_CLASSES = 10
+CKPT_EVERY = 50  # training steps between checkpoints (with ckpt_dir)
+
+
 def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, load=0.5,
           seed=2, slots=6, workers=1, dispatch="jsq", admission=False, admission_slack=1.0,
-          tiny=False, device="cuda", params=None, verbose=True):
+          tiny=False, device="cuda", params=None, verbose=True, train=False, ckpt_dir=None):
     """Classification serving on the real model, the reference launcher's
     ``serve()``: a drifting synthetic stream (a video trace of images for a
     ResNet, MAF arrivals of token sequences for BERT or an LM's next token)
@@ -301,11 +356,25 @@ def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, 
     next token of 128-token contexts; BERT's attention and an LM's prefill
     run the flash-attention kernel, an LM's heads the ramp-head kernel.
     ``tiny`` serves the config's TINY variant at its own sizes (CPU tests).
-    ``params`` reuses weights already drawn with ``seed``. Unlike the
-    reference, nothing is trained (so there is no bootstrap split: all
-    ``n`` items are served). Returns (summary, responses)."""
+    ``params`` reuses weights already drawn with ``seed``; without
+    ``train`` all ``n`` items are served.
+
+    ``train`` first trains the whole model (from the TrainConfig's seed 0,
+    as the reference launcher does) with the reference launcher's recipe
+    (``TRAIN_RECIPE``, 10 classes) on the bootstrap split, the first
+    ``max(n // 10, 256)`` items, then serves the rest and reports the
+    agreement over them; ``ckpt_dir`` writes a checkpoint every
+    ``CKPT_EVERY`` steps there meanwhile; ``report["train"]`` holds every
+    step's losses. Returns (summary, responses)."""
     device = _cuda_or_cpu(device, "serve")
     cfg = (get_tiny if tiny else get_config)(config)
+    if train:
+        if cfg.family not in TRAIN_RECIPE:
+            raise ValueError(f"{cfg.name}: serve(train=True) takes a resnet or an "
+                             "encoder_cls config (the reference's recipes)")
+        if params is not None:
+            raise ValueError("train=True draws its own weights")
+        cfg = cfg.replace(n_classes=TRAIN_CLASSES)
     if cfg.family == "resnet":
         cfg = cfg if tiny else cfg.replace(img_size=IMG_SIZE)
         model = build_model(cfg)
@@ -323,17 +392,23 @@ def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, 
     else:
         raise ValueError(f"{cfg.name}: classification serving takes a resnet, an "
                          "encoder_cls or an lm config")
+    boot, trained = 0, None
+    if train:
+        boot = max(n // 10, 256)
+        params, trained = _train_classifier(model, stream, boot, device, ckpt_dir)
     if params is None:
         params = model.init(seed, device=device)
     runner = runner_cls(model, params, stream.data, max_slots=slots)
     prof = build_profile(cfg, mode="decode", chips=1, sites=model.sites)
     exec1 = prof.vanilla_time(1)
+    n_serve = n - boot
     # the offered load scales with the cluster: each replica sees ~`load`
     if cfg.family == "resnet":
-        arrivals = video_trace(n, fps=workers * load * 1000.0 / exec1)
+        arrivals = video_trace(n_serve, fps=workers * load * 1000.0 / exec1)
     else:
-        arrivals = maf_trace(n, mean_qps=workers * load * 1000.0 / exec1, seed=seed)
-    reqs = make_requests(arrivals, slo_ms=2 * exec1)
+        arrivals = maf_trace(n_serve, mean_qps=workers * load * 1000.0 / exec1, seed=seed)
+    reqs = make_requests(arrivals, slo_ms=2 * exec1,
+                         items=np.arange(boot, n) if boot else None)
     pf = PlatformConfig(policy=policy, max_batch_size=8, batch_timeout_ms=exec1)
 
     def cluster():
@@ -351,12 +426,13 @@ def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, 
     served = {b: list(ts) for b, ts in sorted(runner.infer_s.items())}
     van = runner.vanilla_labels(n)
     live = [r for r in resp if not r.dropped]
-    agree = float(np.mean([r.label == van[r.rid] for r in live])) if live else 0.0
+    agree = float(np.mean([r.label == van[boot + r.rid] for r in live])) if live else 0.0
     rep_b = summarize_cluster(base, horizon_ms=base_sim.makespan_ms, n_workers=workers)
     rep_o = summarize_cluster(resp, horizon_ms=sim.makespan_ms, n_workers=workers)
     mb, mo = rep_b["aggregate"], rep_o["aggregate"]
     out = {
-        "mode": "classification", "config": cfg.name, "n": n, "policy": policy,
+        "mode": "classification", "config": cfg.name, "n": n, "served": n_serve,
+        "policy": policy,
         "workers": workers, "dispatch": dispatch,
         "simulated": {
             "note": "latencies from the analytic H100 latency profile, not timed",
@@ -381,9 +457,42 @@ def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, 
     if workers > 1:
         out["per_worker"] = rep_o["workers"]
         out["worker_stats"] = sim.worker_stats()
+    if trained is not None:
+        out["train"] = trained
     if verbose:
         print(json.dumps(out, indent=1, default=float))
     return out, resp
+
+
+def bootstrap_batches(stream, boot, key):
+    """The reference launcher's training batches: 64 items a step drawn by
+    ``default_rng(step)`` from the first ``boot`` items of ``stream``."""
+    def batches(s):
+        rng = np.random.default_rng(s)
+        idx = rng.integers(0, boot, 64)
+        return {key: stream.data[idx], "labels": stream.labels[idx]}
+
+    return batches
+
+
+def _train_classifier(model, stream, boot, device, ckpt_dir):
+    """Train the whole model (TrainConfig 'full', as the reference launcher
+    does) with its family's recipe on the bootstrap split. Returns
+    (params, report)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.training import TrainConfig, train
+
+    lr, steps = TRAIN_RECIPE[model.cfg.family]
+    key = "images" if model.cfg.family == "resnet" else "tokens"
+    tcfg = TrainConfig(steps=steps, lr=lr, log_every=1,
+                       checkpoint_every=CKPT_EVERY if ckpt_dir else 0)
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    t0 = time.perf_counter()
+    state, logs = train(model, bootstrap_batches(stream, boot, key), tcfg,
+                        checkpoint_mgr=mgr, verbose=False, device=device)
+    report = _train_report(logs, time.perf_counter() - t0, steps, lr)
+    report["bootstrap"] = boot
+    return state["params"], report
 
 
 def main(argv=None):
@@ -429,12 +538,15 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=1, help="classification: replicas")
     ap.add_argument("--dispatch", default="jsq", choices=["round_robin", "jsq", "slo_aware"],
                     help="classification: how requests are routed to replicas")
+    ap.add_argument("--train", action="store_true",
+                    help="train first (the reference launcher's recipe; classification "
+                         "serves the items past the bootstrap split)")
     a = ap.parse_args(argv)
     if a.mode == "classification":
         serve(a.config or "resnet50", 600 if a.n is None else a.n, policy=a.policy,
               seed=2 if a.seed is None else a.seed, workers=a.workers, dispatch=a.dispatch,
               admission=a.admission, admission_slack=a.admission_slack, tiny=a.tiny,
-              device=a.device)
+              device=a.device, train=a.train)
         return
     serve_generative(a.config or "qwen2-1.5b", 8 if a.n is None else a.n,
                      decode_tokens=a.decode_tokens, prompt_len=a.prompt_len,
@@ -442,7 +554,7 @@ def main(argv=None):
                      tiny=a.tiny, device=a.device, kv_block_size=a.kv_block_size,
                      kv_blocks=a.kv_blocks, prefix_cache=a.prefix_cache, preempt=a.preempt,
                      prefill_chunk=a.prefill_chunk, admission=a.admission,
-                     admission_slack=a.admission_slack)
+                     admission_slack=a.admission_slack, train=a.train)
 
 
 if __name__ == "__main__":

@@ -59,11 +59,12 @@ class EncoderClassifier:
         gen.manual_seed(seed)
         return init_from_schema(self.schema(), gen, device)
 
-    def forward(self, params, tokens, *, active_sites=None):
+    def forward(self, params, tokens, *, active_sites=None, prefill_attn=None):
         """tokens: (B, S). Returns {'final': stats, 'final_logits'} over
         n_classes logits (CLS position pooling, the paper's BERT recipe) and,
         with ``active_sites`` (host site indices), 'ramps' stats and
-        'ramp_logits' (K, B, n_classes)."""
+        'ramp_logits' (K, B, n_classes). ``prefill_attn`` overrides the
+        model's choice for this call ('sdpa' for the loss)."""
         from repro_torch.models.transformer import _layer, _stats
 
         cfg = self.cfg
@@ -75,7 +76,8 @@ class EncoderClassifier:
             p = _layer(params["enc"], l)
             x = LY.apply_norm(cfg, p["ln1"], h)
             out, _ = LY.attn_apply(cfg, p["attn"], x, positions=positions, mask=None,
-                                   prefill_attn=self.prefill_attn, causal=False)
+                                   prefill_attn=prefill_attn or self.prefill_attn,
+                                   causal=False)
             h = h + out
             x = LY.apply_norm(cfg, p["ln2"], h)
             h = h + LY.ffn_apply(cfg, p["ffn"], x)
@@ -95,3 +97,25 @@ class EncoderClassifier:
             outs["ramps"] = _stats(rl)
             outs["ramp_logits"] = rl
         return outs
+
+    def loss(self, params, batch, **kw):
+        """Classification CE + per-ramp CE over every site, through ``sdpa``
+        (the kernel has no backward). The reference's
+        ``stop_gradient(0.0) + ramp_logits`` stops nothing, so in 'full'
+        training the ramp loss reaches the encoder; the port computes the
+        same gradients (ROADMAP.md, Queue 3)."""
+        tokens, labels = batch["tokens"], batch["labels"].long()
+        outs = self.forward(params, tokens, active_sites=list(range(len(self.sites))),
+                            prefill_attn="sdpa")
+        return _cls_losses(outs, labels)
+
+
+def _cls_losses(outs, labels):
+    """(CE of the final logits + mean CE of every ramp's, metrics): the
+    reference's classifier losses, labels (B,) int64."""
+    lf = outs["final_logits"]
+    ce = -torch.mean(torch.gather(torch.log_softmax(lf, -1), 1, labels[:, None]))
+    rl = outs["ramp_logits"]
+    idx = labels[None, :, None].expand(rl.shape[0], -1, 1)
+    rce = -torch.mean(torch.gather(torch.log_softmax(rl, -1), 2, idx))
+    return ce + rce, {"cls_loss": ce, "ramp_loss": rce}

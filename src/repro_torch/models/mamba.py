@@ -132,7 +132,9 @@ def mamba_apply(cfg, p, x, *, cache: Optional[dict] = None, chunk: int = 64,
     recurrent step; cache = {'conv': (B,d_conv-1,convdim), 'ssm': (B,h,p,n)}.
     A prefill (S > 1) runs the chunk scan through ``kernels.ssd.ops.ssd``
     (``ssd_impl='kernel'``: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors; ``'ref'``: the plain version) and, with a cache
+    version on CPU tensors; ``'ref'``: ``ssd_ref`` itself, as the
+    reference's ``mamba_apply`` always runs it, and the only choice under
+    autograd: the kernel has no backward) and, with a cache
     given, returns the state a decode continues from. The cache is read,
     never written: the caller stores the new state (gated, in place).
     Returns (out (B,S,d), new_cache)."""
@@ -171,9 +173,13 @@ def mamba_apply(cfg, p, x, *, cache: Optional[dict] = None, chunk: int = 64,
         xs = xbc_c[..., :di].reshape(Bb, S, H, hp)
         Bmat = xbc_c[..., di: di + N]
         Cmat = xbc_c[..., di + N:]
-        y, final = SSD.ssd(xs.transpose(1, 2), dt.transpose(1, 2), A, Bmat, Cmat,
-                           chunk=chunk, use_kernel=ssd_impl == "kernel")
-        y = y.transpose(1, 2)  # (B,S,H,hp)
+        if ssd_impl == "kernel":
+            y, final = SSD.ssd(xs.transpose(1, 2), dt.transpose(1, 2), A, Bmat, Cmat,
+                               chunk=chunk)
+            y = y.transpose(1, 2)  # (B,S,H,hp)
+        else:  # the plain scan, called directly: a loss differentiates through it
+            ck = chunk if S % chunk == 0 else S
+            y, final = ssd_ref(xs, dt, A, Bmat[:, :, None], Cmat[:, :, None], chunk=ck)
         y = y + p["D"][None, None, :, None] * xs.float()
         y = y.reshape(Bb, S, di)
         new_cache = None

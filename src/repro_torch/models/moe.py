@@ -1,14 +1,16 @@
 """Top-k mixture of experts (the port's counterpart of the JAX package's
-``models/moe.py``), dense dispatch only.
+``models/moe.py``) on one device.
 
 ``moe_apply_dense`` is the reference's oracle: every expert processes every
 token, and each token sums its top-k experts' outputs weighted by their
-normalised f32 gates, in top-k order. Every MoE layer of the port runs this
-way, as the reference's serving runner asks for (``moe_impl='dense'``).
-The reference's capacity-dropping dispatch (``moe_apply_ep``: its
-single-device path, which its ``LM.prefill``/``decode`` default to and
-training uses, and the expert-parallel all-to-all path) is not ported:
-see ROADMAP.md, Queue 1.
+normalised f32 gates, in top-k order. Every serving path of the port runs
+it, as the reference's serving runner asks for (``moe_impl='dense'``).
+``moe_apply_ep`` is the reference's capacity-dropping dispatch on one
+device (``moe_apply_ep`` with ``mesh=None``), which the reference's
+``LM.loss`` defaults to: assignments sorted by expert id into (E, C)
+slot buffers, overflows past the capacity C dropped. ``moe_apply`` picks
+one by ``impl``. The expert-parallel all-to-all path is multi-device and
+not ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -93,3 +95,64 @@ def moe_apply_dense(cfg, p, x):
         y = y + _shared_ffn(cfg, p["shared"], x2)
     return y.reshape(B, S, d), _aux_loss(cfg, probs, idx)
 
+
+
+def _dispatch_local(cfg, x2, gates, idx, capacity):
+    """Sort-based dispatch of local tokens into (E, C, d) slot buffers.
+
+    Returns (buf (E,C,d), slot (T*k,), keep (T*k,), tok (T*k,), gate (T*k,));
+    a dropped assignment's slot is the sentinel E*C."""
+    T, d = x2.shape
+    k, E, C = cfg.top_k, cfg.n_experts, capacity
+    dev = x2.device
+    flat_e = idx.reshape(-1)
+    flat_g = gates.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
+    order = torch.sort(flat_e, stable=True).indices
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    M = se.shape[0]
+    ar = torch.arange(M, device=dev)
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), se[1:] != se[:-1]])
+    seg_start = torch.cummax(torch.where(is_start, ar, 0), dim=0).values
+    pos = ar - seg_start
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, E * C)
+    # row E*C takes every dropped assignment and is cut off: the reference's
+    # scatter drops them
+    buf = torch.zeros((E * C + 1, d), dtype=x2.dtype, device=dev).index_copy(
+        0, slot, x2[st] * keep[:, None].to(x2.dtype))
+    return buf[:E * C].reshape(E, C, d), slot, keep, st, sg
+
+
+def moe_apply_ep(cfg, p, x):
+    """Capacity-dropping dispatch on one device (the reference's
+    ``moe_apply_ep`` single-device path): capacity C = capacity_factor * T
+    * k / E slots an expert, overflows dropped (their share of the output
+    is zero). x: (B,S,d). Returns (y, aux)."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    x2 = x.reshape(-1, d)
+    gates, idx, probs = _router(cfg, p, x2)
+    aux = _aux_loss(cfg, probs, idx)
+    T = x2.shape[0]
+    C = max(1, int(cfg.capacity_factor * T * cfg.top_k / E))
+    buf, slot, keep, st, sg = _dispatch_local(cfg, x2, gates, idx, C)
+    out = _expert_ffn(cfg, p, buf).reshape(E * C, d)
+    out = F.pad(out, (0, 0, 0, 1))  # row E*C: the drop sentinel
+    taken = out[slot] * (sg * keep)[:, None].to(out.dtype)
+    y = torch.zeros(x2.shape, dtype=torch.float32, device=x.device).index_add(
+        0, st, taken.float())
+    y = y.to(x.dtype)
+    if cfg.n_shared_experts:
+        y = y + _shared_ffn(cfg, p["shared"], x2)
+    return y.reshape(B, S, d), aux
+
+
+def moe_apply(cfg, p, x, impl: str = "ep"):
+    """``impl``: 'dense' (every expert on every token) | 'ep' (the
+    capacity-dropping dispatch). Returns (y, aux)."""
+    if impl == "dense":
+        return moe_apply_dense(cfg, p, x)
+    if impl == "ep":
+        return moe_apply_ep(cfg, p, x)
+    raise ValueError(f"moe_impl={impl!r}: the port takes 'dense' | 'ep'")

@@ -144,3 +144,12 @@ class ResNet:
             outs["ramps"] = _stats(rl)
             outs["ramp_logits"] = rl
         return outs
+
+    def loss(self, params, batch, **kw):
+        """Classification CE + per-ramp CE over every site. No stop-grad: the
+        ramps read pooled features that also carry backbone gradients; ramp
+        training freezes the backbone through the optimizer mask."""
+        from repro_torch.models.encdec import _cls_losses
+
+        outs = self.forward(params, batch["images"], active_sites=list(self.sites))
+        return _cls_losses(outs, batch["labels"].long())

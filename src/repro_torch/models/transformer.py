@@ -7,7 +7,9 @@ layer stack follows the same *plan* (a period of slots repeated
 ``n_periods`` times); params of the period's slots carry a leading
 ``n_periods`` axis, as the reference's scanned params do, and the scan
 becomes a loop over views ``p[l]``. Early-exit ramps attach at block
-boundaries: pooled hidden -> per-ramp RMSNorm -> per-ramp LM head.
+boundaries: pooled hidden -> per-ramp RMSNorm -> per-ramp LM head
+(``ramp_style`` 'fc'), with a GELU MLP residual before the head ('mlp'),
+or onto the model's own LM head ('tied').
 
 Differences from the reference that are PyTorch idiom, not semantics:
 ``active_sites`` is a host sequence of site indices (there is no
@@ -17,9 +19,19 @@ of a 472 MB gather); the KV cache is updated in place; ``decode_multi``'s
 switched off on device, so the host reads nothing inside a window and the
 runner can capture the window as one CUDA graph. Decode
 runs on a contiguous cache or on a paged block pool (full attention, MLA
-latents, or one mamba state page a slot). MoE runs the dense dispatch only
-(the reference's ``moe_impl='dense'``, what its serving runner passes).
-Ring, local, hybrid (jamba) and cross-attention slots are not ported.
+latents, or one mamba state page a slot). Serving runs MoE on the dense
+dispatch (the reference's ``moe_impl='dense'``, what its serving runner
+passes); ``loss`` takes ``moe_impl`` 'ep' (the default, as in the
+reference) or 'dense'. Ring, local, hybrid (jamba) and cross-attention
+slots are not ported.
+
+``loss`` is the training objective. Like the reference's, it reaches no
+kernel: attention through ``sdpa``, the mamba scan through ``ssd_ref``,
+the ramps through the dense ``ramp_outputs`` (the kernel dispatchers have
+no backward and raise under autograd). An 'mlp' ramp is served as it is
+trained: the kernel head path applies its residual before the head, as
+the reference's dense path does (the reference's Pallas head path skips
+it; ROADMAP.md, Queue 3).
 
 Two choices of the port that the configs do not carry (so that they stay
 field-for-field the reference's): ``prefill_attn`` ('sdpa' | 'kernel')
@@ -160,10 +172,14 @@ def ramp_sites(cfg, max_sites: int = 12) -> Tuple[int, ...]:
 def ramp_schema(cfg) -> dict:
     S = len(ramp_sites(cfg))
     d, Vp = cfg.d_model, cfg.padded_vocab
-    return {
-        "norm_w": ParamInfo((S, d), torch.float32, "zeros"),
-        "head": ParamInfo((S, d, Vp), torch_dtype(cfg.dtype), "normal:0.02"),
-    }
+    dt = torch_dtype(cfg.dtype)
+    sch = {"norm_w": ParamInfo((S, d), torch.float32, "zeros")}
+    if cfg.ramp_style != "tied":  # 'tied' shares the model's own LM head
+        sch["head"] = ParamInfo((S, d, Vp), dt, "normal:0.02")
+    if cfg.ramp_style == "mlp":  # heavier ramps (paper Fig 9 comparison)
+        sch["w1"] = ParamInfo((S, d, cfg.ramp_hidden), dt, "normal:0.02")
+        sch["w2"] = ParamInfo((S, cfg.ramp_hidden, d), dt, "normal:0.02")
+    return sch
 
 
 def paged_leaf_kinds(schema) -> List[str]:
@@ -196,8 +212,9 @@ def _layer(tree, l: int):
 
 class LM:
     """Functional decoder LM (attention + dense-FFN, MLA + MoE or mamba
-    slots, a prefix of leading slots, 'fc' ramps). ``prefill_attn`` and
-    ``ssd_impl`` pick the prefill's kernels (module docstring)."""
+    slots, a prefix of leading slots; 'fc', 'mlp' or 'tied' ramps).
+    ``prefill_attn`` and ``ssd_impl`` pick the prefill's kernels (module
+    docstring)."""
 
     def __init__(self, cfg, *, prefill_attn: str = "sdpa", ssd_impl: str = "kernel"):
         self.cfg = cfg
@@ -217,8 +234,9 @@ class LM:
             raise NotImplementedError(f"ssm_ngroups={cfg.ssm_ngroups}: the SSD scan takes "
                                       "one group")
         self.prefill_attn, self.ssd_impl = prefill_attn, ssd_impl
-        if cfg.ramp_style != "fc":
-            raise NotImplementedError(f"ramp_style={cfg.ramp_style!r}: only 'fc' is ported")
+        if cfg.ramp_style not in ("fc", "mlp", "tied"):
+            raise NotImplementedError(f"ramp_style={cfg.ramp_style!r}: the port takes 'fc' | "
+                                      "'mlp' | 'tied'")
         if cfg.decode_attn not in ("dense", "ref", "kernel", "paged", "paged-kernel"):
             raise NotImplementedError(f"decode_attn={cfg.decode_attn!r} is not ported")
         if cfg.pallas_head not in ("off", "kernel"):
@@ -285,30 +303,35 @@ class LM:
     # -- forward ------------------------------------------------------------
 
     def _block(self, slot: SlotSpec, p, h, *, positions, mask, cache, cache_index,
-               write_gate=None, block_tables=None):
+               write_gate=None, block_tables=None, moe_impl="dense", plain=False):
+        """One layer. ``plain`` (the loss) runs attention through ``sdpa``
+        and the mamba scan through ``ssd_ref``. Returns (h, the MoE aux loss
+        or None)."""
         cfg = self.cfg
         x = LY.apply_norm(cfg, p["ln1"], h)
         kw = dict(positions=positions, mask=mask, cache=cache, cache_index=cache_index,
                   decode_impl=cfg.decode_attn, write_gate=write_gate,
                   block_table=block_tables)
         if slot.mixer == "mamba":
-            out = self._mamba(p["mixer"], x, cache, write_gate, block_tables)
+            out = self._mamba(p["mixer"], x, cache, write_gate, block_tables,
+                              ssd_impl="ref" if plain else self.ssd_impl)
         elif slot.mixer == "mla":
             out, _ = LY.mla_apply(cfg, p["mixer"], x, absorbed=cfg.mla_absorbed, **kw)
         else:
             # prefill_attn applies to a whole-prompt prefill only (S > 1 at
             # cache index 0); a decode step keeps decode_impl's path
-            out, _ = LY.attn_apply(cfg, p["mixer"], x, prefill_attn=self.prefill_attn, **kw)
+            out, _ = LY.attn_apply(cfg, p["mixer"], x,
+                                   prefill_attn="sdpa" if plain else self.prefill_attn, **kw)
         h = h + out
         if slot.ffn == "none":
-            return h
+            return h, None
         x = LY.apply_norm(cfg, p["ln2"], h)
         if slot.ffn == "moe":
-            out, _ = MOE.moe_apply_dense(cfg, p["ffn"], x)  # aux: training only
-            return h + out
-        return h + LY.ffn_apply(cfg, p["ffn"], x)
+            out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl)
+            return h + out, aux
+        return h + LY.ffn_apply(cfg, p["ffn"], x), None
 
-    def _mamba(self, p, x, cache, write_gate, block_tables):
+    def _mamba(self, p, x, cache, write_gate, block_tables, ssd_impl):
         """The mamba mixer. With a cache, the new state is stored in place:
         in the row's own cache (contiguous) or in the state page at the
         row's FIRST table entry (paged; duplicate bucket-padding rows write
@@ -317,13 +340,13 @@ class LM:
         past a window's end leaves conv and ssm unchanged."""
         cfg = self.cfg
         if cache is None:
-            return MB.mamba_apply(cfg, p, x, ssd_impl=self.ssd_impl)[0]
+            return MB.mamba_apply(cfg, p, x, ssd_impl=ssd_impl)[0]
         if block_tables is not None:
             blk0 = block_tables[:, 0].long()
             view = {k: cache[k][blk0] for k in ("conv", "ssm")}
         else:
             view = {k: cache[k] for k in ("conv", "ssm")}
-        out, st = MB.mamba_apply(cfg, p, x, cache=view, ssd_impl=self.ssd_impl)
+        out, st = MB.mamba_apply(cfg, p, x, cache=view, ssd_impl=ssd_impl)
         for k in ("conv", "ssm"):
             new = st[k].to(cache[k].dtype)
             if write_gate is not None:
@@ -336,45 +359,135 @@ class LM:
         return out
 
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
-               write_gate=None, block_tables=None):
+               write_gate=None, block_tables=None, moe_impl="dense", plain=False,
+               remat=False):
         """Run the prefix slots, then the periods layer by layer; caches are
-        updated in place. ``pool_idx`` is a slice of positions (a view, so
-        no index tensor crosses to the device). Returns (h, pooled (L, B,
-        npos, d)), prefix layers first, as the reference assembles them."""
+        updated in place. ``pool_idx`` is a slice of positions (serving: a
+        view, so no index tensor crosses to the device) or an index tensor
+        (the loss's ``ramp_positions``). ``remat`` recomputes each layer in
+        the backward (``torch.utils.checkpoint``): memory only, the same
+        numbers. Returns (h, pooled (L, B, npos, d), the summed MoE aux
+        loss or None), prefix layers first, as the reference assembles
+        them."""
         plan = self.plan
         kw = dict(positions=positions, mask=mask, cache_index=cache_index,
-                  write_gate=write_gate, block_tables=block_tables)
-        pooled = []
+                  write_gate=write_gate, block_tables=block_tables, moe_impl=moe_impl,
+                  plain=plain)
+        pooled, aux = [], None
+
+        def run(slot, p, hh, c):
+            if not remat:
+                return self._block(slot, p, hh, cache=c, **kw)
+            return torch.utils.checkpoint.checkpoint(
+                lambda x: self._block(slot, p, x, cache=c, **kw), hh, use_reentrant=False)
+
+        def layer(slot, p, hh, c):
+            nonlocal aux
+            hh, a = run(slot, p, hh, c)
+            if a is not None:
+                aux = a if aux is None else aux + a
+            pooled.append(hh[:, pool_idx])
+            return hh
+
         for i, slot in enumerate(plan.prefix):
             c = caches["prefix"][i] if caches else None
-            h = self._block(slot, params["prefix"][i], h, cache=c, **kw)
-            pooled.append(h[:, pool_idx])
+            h = layer(slot, params["prefix"][i], h, c)
         for l in range(plan.n_periods):
             for s, slot in enumerate(plan.period):
                 c = _layer(caches["blocks"][s], l) if caches else None
-                h = self._block(slot, _layer(params["blocks"][s], l), h, cache=c, **kw)
-                pooled.append(h[:, pool_idx])
-        return h, torch.stack(pooled)
+                h = layer(slot, _layer(params["blocks"][s], l), h, c)
+        return h, torch.stack(pooled), aux
 
     # -- ramp heads ----------------------------------------------------------
 
-    def _ramp_hidden(self, params, pooled, active_sites: Sequence[int]):
-        """Normed pooled hidden of each active site: (K, B, npos, d)."""
+    def _ramp_hidden(self, params, pooled, active_sites: Sequence[int], stop_grad=False):
+        """What each active site's head reads: the normed pooled hidden, with
+        the 'mlp' style's GELU residual ``hs + gelu(hs @ w1) @ w2`` added:
+        (K, B, npos, d). ``stop_grad`` detaches the pooled features."""
         hs = torch.stack([pooled[self.sites[i]] for i in active_sites])
+        if stop_grad:
+            hs = hs.detach()
         nw = torch.stack([params["ramps"]["norm_w"][i] for i in active_sites])
-        return LY.rms_norm(hs, nw[:, None, None, :])
+        hs = LY.rms_norm(hs, nw[:, None, None, :])
+        if self.cfg.ramp_style == "mlp":
+            w1 = torch.stack([params["ramps"]["w1"][i] for i in active_sites])
+            w2 = torch.stack([params["ramps"]["w2"][i] for i in active_sites])
+            act = LY.act_fn("gelu")  # jax.nn.gelu's default (tanh) form
+            hs = hs + torch.einsum("kbnh,khd->kbnd",
+                                   act(torch.einsum("kbnd,kdh->kbnh", hs, w1)), w2)
+        return hs
 
-    def ramp_outputs(self, params, pooled, site_idx: Optional[Sequence[int]] = None):
+    def ramp_head(self, params, i: int):
+        """The (d, Vp) head site ``i`` reads: its own (a view of the stack),
+        or with 'tied' the model's final head (the tied embed^T view or
+        lm_head)."""
+        if self.cfg.ramp_style == "tied":
+            tok = params["tok"]
+            return tok["embed"].T if self.cfg.tie_embeddings else tok["lm_head"]
+        return params["ramps"]["head"][i]
+
+    def ramp_outputs(self, params, pooled, site_idx: Optional[Sequence[int]] = None,
+                     stop_grad=True):
         """pooled: (L,B,npos,d). site_idx: host site indices or None = all
-        sites. Returns ramp logits (K,B,npos,Vp) in f32."""
+        sites. Returns ramp logits (K,B,npos,Vp) in f32. Ramp features are
+        stop-grad (the reference's default): the ramp loss trains the ramps
+        and, with 'tied', the final head, never the backbone."""
         if site_idx is None:
             site_idx = range(len(self.sites))
         site_idx = list(site_idx)
-        hs = self._ramp_hidden(params, pooled, site_idx)
-        head = params["ramps"]["head"]
-        return torch.stack([(hs[j] @ head[i]).float() for j, i in enumerate(site_idx)])
+        hs = self._ramp_hidden(params, pooled, site_idx, stop_grad=stop_grad)
+        if site_idx == list(range(len(self.sites))) and self.cfg.ramp_style != "tied":
+            # every site (the loss): one batched product with the whole head
+            # stack, whose gradient is then one (S, d, Vp) tensor, not the
+            # sum of S full-size select gradients
+            K, B, n, d = hs.shape
+            out = torch.matmul(hs.reshape(K, B * n, d), params["ramps"]["head"])
+            return out.reshape(K, B, n, -1).float()
+        return torch.stack([(hs[j] @ self.ramp_head(params, i)).float()
+                            for j, i in enumerate(site_idx)])
 
     # -- public entry points --------------------------------------------------
+
+    def loss(self, params, batch, *, moe_impl="ep", remat=False, ramp_positions=16,
+             train_mode="full"):
+        """batch: {'tokens': (B,S) int, 'labels': (B,S) int (-1 = pad)}.
+        Returns (loss, metrics). Ramp losses use stop-grad features at
+        ``ramp_positions`` positions spread over the sequence (the paper:
+        backbone frozen w.r.t. ramps; ramps trained on every input).
+        ``train_mode`` 'full' is ``lm + ramp + 0.01 * moe aux``,
+        'ramps_only' is ``ramp + 0.0 * lm``. Runs without a cache, so it
+        writes none, and reaches no kernel (module docstring)."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        dev = tokens.device
+        positions = torch.arange(S, device=dev)[None, :]
+        h = LY.embed_apply(cfg, params["tok"], tokens, positions)
+        mask = LY.causal_mask(S, S, 0, device=dev)
+        npos = min(ramp_positions, S)
+        # the reference's f32 linspace truncated to int, formed on the host
+        pool_idx = torch.linspace(S // npos - 1, S - 1, npos,
+                                  dtype=torch.float32).to(torch.int64).to(dev)
+        h, pooled, aux = self._stack(
+            params, h, positions=positions, mask=mask, caches=None, cache_index=None,
+            pool_idx=pool_idx, moe_impl=moe_impl, plain=True, remat=remat)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=dev)
+        h = LY.apply_norm(cfg, params["final_norm"], h)
+        lm = _masked_ce(cfg, LY.unembed(cfg, params["tok"], h), labels)
+        if len(self.sites):
+            ramp_logits = self.ramp_outputs(params, pooled)
+            R = ramp_logits.shape[0]
+            ramp_labels = labels[:, pool_idx]  # (B,npos)
+            rloss = _masked_ce(cfg, ramp_logits.reshape(R * B, npos, -1),
+                               ramp_labels.repeat(R, 1))
+        else:  # reduced-depth configs can have zero ramp sites
+            rloss = torch.zeros((), dtype=torch.float32, device=dev)
+        if train_mode == "ramps_only":
+            loss = rloss + 0.0 * lm
+        else:
+            loss = lm + rloss + 0.01 * aux
+        return loss, {"lm_loss": lm, "ramp_loss": rloss, "moe_aux": aux}
 
     def prefill(self, params, tokens, *, cache_len=None, active_sites=None,
                 with_cache=True):
@@ -390,8 +503,8 @@ class LM:
         h = LY.embed_apply(self.cfg, params["tok"], tokens, positions)
         mask = LY.causal_mask(S, cache_len if with_cache else S, 0, device=dev)
         caches = self.init_cache(B, cache_len, device=dev) if with_cache else None
-        h, pooled = self._stack(params, h, positions=positions, mask=mask, caches=caches,
-                                cache_index=0, pool_idx=slice(S - 1, S))
+        h, pooled, _ = self._stack(params, h, positions=positions, mask=mask, caches=caches,
+                                   cache_index=0, pool_idx=slice(S - 1, S))
         outs = self._head_stats(params, h[:, -1:], pooled, active_sites)
         return caches, outs
 
@@ -420,7 +533,7 @@ class LM:
         Sc = _cache_len(cache) if block_tables is None else None
         if Sc is not None:  # a mamba-only cache has no sequence to mask
             mask = (torch.arange(Sc, device=tokens.device)[None, :] <= pc)[:, None, None, :]
-        h, pooled = self._stack(
+        h, pooled, _ = self._stack(
             params, h, positions=pc, mask=mask, caches=cache, cache_index=pos,
             pool_idx=slice(0, 1), write_gate=write_gate,
             block_tables=block_tables,
@@ -505,7 +618,9 @@ class LM:
 
         With cfg.pallas_head == 'kernel' the stats stream through the ramp
         head kernel (its plain version on CPU tensors): (B,V) logits are
-        never written. With ``exit_thresholds`` (K,) f32 the ramps output
+        never written. The kernel reads each ramp's features as the dense
+        path forms them ('mlp': the residual included) and its head by
+        stride ('tied': the final head). With ``exit_thresholds`` (K,) f32 the ramps output
         also carries ``exit`` (K,B) int32, the on-device exit decision
         ``(1 - maxprob) < threshold`` (strict); the dense path applies the
         identical f32 formula."""
@@ -552,7 +667,7 @@ class LM:
             for kk, i in enumerate(act):  # K is small (ramp budget slots)
                 thr = (exit_thresholds[kk].float().expand(B)
                        if exit_thresholds is not None else None)
-                per.append(stats_of(hs[kk], params["ramps"]["head"][i], thr))
+                per.append(stats_of(hs[kk], self.ramp_head(params, i), thr))
             outs["ramps"] = {key: torch.stack([p[key] for p in per]) for key in per[0]}
         return outs
 
@@ -588,3 +703,18 @@ def _mask_pad_vocab(cfg, logits):
         return logits
     col = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(col < V, logits, -1e30)
+
+
+def _masked_ce(cfg, logits, labels):
+    """Cross-entropy with -1 padding labels and padded-vocab masking (the
+    reference's formula: max-shifted log-sum-exp, mean over valid labels)."""
+    logits = logits.float()
+    if logits.shape[-1] > cfg.vocab_size:
+        logits = _mask_pad_vocab(cfg, logits)
+    valid = labels >= 0
+    lab = torch.clamp(labels, min=0).long()
+    m = torch.max(logits, dim=-1).values
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = (lse - ll) * valid
+    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)

@@ -2,8 +2,10 @@
 paged decode kernel also bit for bit against the contiguous one), the
 tiny models with the kernels on against the plain path (tiny mamba2 and
 qwen2 prefills through the SSD and flash-attention kernels too), the
-runner's CUDA-graph sync windows against its eager ones, and the
-classifier runners (ResNet, BERT) against their CPU forward. Every test is
+runner's CUDA-graph sync windows against its eager ones, the
+classifier runners (ResNet, BERT) against their CPU forward, and training:
+a ramps_only step on the card against the CPU, the kernel dispatchers'
+refusal under autograd, a bf16 checkpoint round trip. Every test is
 marked `gpu` and skips without a card; the file imports no jax, so it runs
 on a machine that has only PyTorch:
 
@@ -878,3 +880,99 @@ def test_classifier_runner_on_card_matches_cpu_forward(gen, arch):
                                        rtol=1e-4, atol=1e-5)
     expect = 0 if cfg.family == "resnet" else cfg.n_layers * len(calls)
     assert flash_attention.launches - n0 == expect
+
+
+# -- training (the loss reaches no kernel; the dispatchers refuse autograd) -----
+
+
+def test_ramps_only_step_on_card_matches_cpu(gen):
+    """One ramps_only step of tiny qwen2 (f32, TF32 off) on the card and on
+    the CPU from the same state: loss, grad norm and every leaf within
+    1e-5 (the products sum in other orders); the backbone bit-identical."""
+    from repro_torch.data import TokenPipeline  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.common import tree_map  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.training import TrainConfig, init_state, make_train_step  # repro: allow[tier1-deps] — the port under test
+
+    cfg = get_tiny("qwen2-1.5b")
+    model = build_model(cfg)
+    tcfg = TrainConfig(steps=4, lr=1e-2, warmup=1, train_mode="ramps_only")
+    step_fn, oc = make_train_step(model, tcfg)
+    cpu = init_state(model, 0, oc, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    before = tree_map(torch.clone, cpu)
+    pipe = TokenPipeline(cfg.vocab_size, 32, 4, seed=0)
+    outs = []
+    for state in (cpu, card):
+        for s in range(2):  # the second step has a non-zero lr scale
+            state, out = step_fn(state, pipe.batch_at(s))
+        outs.append((state, out))
+    (sc, oc_), (sg, og) = outs
+    for k in ("loss", "grad_norm", "ramp_loss"):
+        torch.testing.assert_close(og[k].cpu(), oc_[k], rtol=1e-5, atol=1e-6)
+    for a, b in zip(tree_leaves(sg), tree_leaves(sc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    for key in ("tok", "blocks", "final_norm"):
+        for a, b in zip(tree_leaves(sg["params"][key]), tree_leaves(before["params"][key])):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_kernel_dispatchers_raise_under_autograd_on_card(gen):
+    from repro_torch.kernels.decode_attention import (  # repro: allow[tier1-deps] — the port under test
+        attend_decode,
+        attend_decode_paged,
+        attend_decode_paged_mla,
+    )
+    from repro_torch.kernels.flash_attention import attention  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.kernels.ramp_head import ramp_confidence, ramp_exit_decision  # repro: allow[tier1-deps] — the port under test
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k = r(2, 4, 64), r(2, 2, 32, 64)
+    pos = torch.tensor([3, 5], device="cuda")
+    pool = r(5, 16, 2, 64)
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
+    qf = r(1, 2, 32, 64)
+    h, w = r(3, 64), r(64, 256)
+    calls = {
+        "attend_decode": (lambda t: attend_decode(t, k, k, pos), q),
+        "attend_decode_paged": (lambda t: attend_decode_paged(t, pool, pool, table, pos), q),
+        "attend_decode_paged_mla": (
+            lambda t: attend_decode_paged_mla(t, r(2, 16, 64), r(5, 16, 512), r(5, 16, 64),
+                                              table, pos, scale=0.1), r(2, 16, 512)),
+        "attention": (lambda t: attention(t, qf, qf), qf.clone()),
+        "ramp_confidence": (lambda t: ramp_confidence(t, w), h),
+        "ramp_exit_decision": (
+            lambda t: ramp_exit_decision(t, w, torch.zeros(3, device="cuda")), h),
+    }
+    n0 = {name: f.launches for name, f in counted_wrappers().items()}
+    for name, (fn, arg) in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(arg.clone().requires_grad_(True))
+    x = torch.randn(1, 2, 64, 32, generator=gen, device="cuda", requires_grad=True)
+    dt = torch.rand(1, 2, 64, generator=gen, device="cuda")
+    A = -torch.rand(2, generator=gen, device="cuda")
+    Bm = torch.randn(1, 64, 16, generator=gen, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd(x, dt, A, Bm, Bm)
+    # a refused call launches nothing
+    assert {name: f.launches for name, f in counted_wrappers().items()} == n0
+
+
+def test_bf16_checkpoint_round_trip_on_card(gen, tmp_path):
+    """bf16 and f32 leaves of a card state saved (sync and async) and
+    restored onto the card bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager  # repro: allow[tier1-deps] — the port under test
+
+    state = {"params": {"w": torch.randn(64, 48, generator=gen, device="cuda")
+                        .to(torch.bfloat16),
+                        "ramps": [torch.randn(3, 8, generator=gen, device="cuda")]},
+             "step": torch.tensor(5, dtype=torch.int32, device="cuda")}
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(state, step=5)
+    mgr.save_async(state, step=6)
+    mgr.wait()
+    for s in (5, 6):
+        back = mgr.restore(s, device="cuda")
+        for a, b in zip(tree_leaves(back), tree_leaves(state)):
+            assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
