@@ -83,6 +83,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
      run, then the rest of the stream served through kernel #4 (exit
      share and agreement beside 7b's random weights). The loss paths reach
      no kernel: the kernel dispatchers raise under autograd.
+  9. full-width Gemma3-4B (34 layers: 29 local with a 1024-token window, 5
+     global; d 2560, 8 heads on 4 of 256, qk-norm, a tied 262144-token
+     vocab) with seeded random bf16 weights, once the trained models are
+     freed, on prompts of 1100 tokens (every ring wraps in the prefill):
+     9a. #1 and #5 at hd 256, #4 with the window and causal, #2/#3 on the
+     tied embed^T and a ramp head, each against its plain version; the
+     local decode window's plain gather timed; the step's byte floor;
+     9b. the prefill through sdpa vs the flash kernel, then 40 decode
+     steps with the kernels off vs on (labels equal except near-ties), one
+     eager step profiled; 9c. 8 requests x 38 tokens on the full cache, on
+     windowed_cache rings and on the paged pool (ring pages), then one on
+     the pool with a 1060-token first chunk and 40 resumed tokens: greedy
+     tokens equal except from a near-tie; a prefix cache refused; 9d. as
+     4e.
 Every serving phase serves its sync windows as CUDA graph replays (the
 runner's default on a card; a key's first window runs eager, its second
 is captured), except runs that carry Python hooks, which run eager
@@ -253,12 +267,12 @@ def _decode_probe(name, label, info, nbytes, dev_ms):
     return probe
 
 
-def check_decode_attention(B, S, label, gen, pos_lo=0):
-    """Per-row pos drawn from [pos_lo, S), int64 as the model holds it."""
+def check_decode_attention(B, S, label, gen, pos_lo=0, H=12, KH=2, hd=128):
+    """Per-row pos drawn from [pos_lo, S), int64 as the model holds it;
+    qwen2-1.5b's heads by default."""
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
     from repro_torch.kernels.decode_attention.kernel import decode_launch_info
 
-    H, KH, hd = 12, 2, 128
     dt = torch.bfloat16
     q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
     # the cache in its (B, S, KH, hd) storage, viewed (B, KH, S, hd) as the
@@ -305,7 +319,8 @@ def check_decode_attention(B, S, label, gen, pos_lo=0):
     return row
 
 
-def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16):
+def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=12, KH=2,
+                                 hd=128):
     """The paged kernel over a shuffled block table (pool block 0 is the
     trash block no row owns), per-row pos drawn from [pos_lo, pos_hi):
     against its plain version, and bit for bit against the contiguous
@@ -317,7 +332,6 @@ def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16):
     )
     from repro_torch.kernels.decode_attention.kernel import decode_launch_info
 
-    H, KH, hd = 12, 2, 128
     dt = torch.bfloat16
     S, P = nb * bs, B * nb + 1
     q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
@@ -444,51 +458,67 @@ def check_paged_mla(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=16, r=512, dr=64
     return row
 
 
-def check_flash_attention(B, H, KH, Sq, Sk, hd, label, gen, causal=True):
-    """Phases 3d and 3f: the flash-attention kernel, causal from query 0 (3d)
-    or with no mask (3f, BERT's encoder), against its plain version, q/k/v
+def check_flash_attention(B, H, KH, Sq, Sk, hd, label, gen, causal=True, window=None):
+    """Phases 3d, 3f and 9a: the flash-attention kernel, causal from query 0
+    (3d), with no mask (3f, BERT's encoder) or causal within a sliding
+    window (9a, Gemma3's local layers), against its plain version, q/k/v
     handed over as the model does (views of (B, S, heads, hd) storage);
-    timed beside SDPA (top-left causal, or no mask)."""
+    timed beside SDPA (top-left causal, no mask, or the window's boolean
+    mask)."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
     dt = torch.bfloat16
     q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
     k = torch.randn(B, Sk, KH, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
     v = torch.randn(B, Sk, KH, hd, generator=gen, device="cuda").to(dt).transpose(1, 2)
+    kw = dict(causal=causal, window=window)
     n0 = flash_attention.launches
-    out = flash_attention(q, k, v, causal=causal)
-    ref = attention_ref(q, k, v, causal=causal)
+    out = flash_attention(q, k, v, **kw)
+    ref = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     # bf16 output: the kernel rounds once from f32; the plain version sums
     # in another order; 1e-2 covers bf16's 8-bit mantissa
     err = (out.float() - ref.float()).abs().max().item()
     if not torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2):
         fail(f"flash_attention {label}: max abs err {err}")
+    mask = None
+    if window is not None:
+        qi = torch.arange(Sq, device="cuda")[:, None]
+        kj = torch.arange(Sk, device="cuda")[None, :]
+        mask = (kj > qi - window) & ((kj <= qi) if causal else True)
 
     def library():
+        if mask is not None:
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                    enable_gqa=True)
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                                 enable_gqa=True)
 
     # what causal-from-0 needs: keys 0..Sq-1 of each head, (q_i, k_j) pairs
-    # j <= i; with no mask every key and every pair
+    # j <= i (and j > i - window); with no mask every key and every pair
     nk = min(Sk, Sq) if causal else Sk
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    if causal:
+        pairs = sum(min(i + 1, Sk, window or Sk) for i in range(Sq))
+    else:
+        pairs = Sq * Sk if window is None else \
+            sum(sum(1 for j in range(Sk) if j > i - window) for i in range(Sq))
     nbytes = 2 * (2 * q.numel() + 2 * B * KH * nk * hd)
     flops = 4 * B * H * pairs * hd  # q.k and p.v
     bm, by = bound_ms(nbytes, flops)
     row = {
         "shape": label, "max_abs_err": err,
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
-        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=causal)),
+        "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, **kw)),
         "library_ms": time_ms(library),
-        "library": "SDPA (is_causal, top-left)" if causal else "SDPA (no mask)",
+        "library": ("SDPA (boolean sliding-window mask)" if window is not None
+                    else "SDPA (is_causal, top-left)" if causal else "SDPA (no mask)"),
         "bound_ms": bm, "bound_by": by, "bytes": nbytes, "flops": flops,
         "cuda_core_ms": 1e3 * flops / PEAK_F32,
     }
     row["tflop_per_s"] = flops / row["ms"] / 1e9  # of the counted flop
-    row["device_ms"] = device_ms(lambda: flash_attention(q, k, v, causal=causal))
+    row["device_ms"] = device_ms(lambda: flash_attention(q, k, v, **kw))
     row["library_device_ms"] = device_ms(library)
-    row["host_us"] = host_us(lambda: flash_attention(q, k, v, causal=causal))
+    row["host_us"] = host_us(lambda: flash_attention(q, k, v, **kw))
     flash_attention.launches = n0  # comparison launches do not count
     print(f"flash_attention {label}: {json.dumps(row)}", flush=True)
     return row
@@ -1573,8 +1603,8 @@ def mamba_phases(gen, serve):
 # phases 4e, 5d and 6d: one sync window as one CUDA graph replay
 
 
-def graph_vs_eager(params, cfg, serve, phase, seed):
-    """Phases 4e, 5d and 6d. On each layout, two runners over the same
+def graph_vs_eager(params, cfg, serve, phase, seed, prompt_len=PAGED_PROMPT):
+    """Phases 4e, 5d, 6d and 9d. On each layout, two runners over the same
     weights and prompts, one serving its windows as CUDA graphs and one
     eager: the same windows through both (the graphed runner's first runs
     eager, its second is captured, its third replays) must give records,
@@ -1594,7 +1624,7 @@ def graph_vs_eager(params, cfg, serve, phase, seed):
     from repro_torch.serving import DecodeRunner
     from repro_torch.serving.graphs import kernel_nodes
 
-    prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
+    prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (8, prompt_len))
     act = [2, 5, 8, 11]
     thr = np.full(len(act), 0.5, np.float32)
     slots = list(range(8))
@@ -1751,6 +1781,233 @@ def graph_vs_eager(params, cfg, serve, phase, seed):
     gc.collect()
     torch.cuda.empty_cache()
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Gemma3-4B (5 local : 1 global sliding-window attention) at full width
+
+
+GM_CONFIG = "gemma3-4b"
+# prompts longer than the 1024-token window, so every local layer's ring
+# wraps during the prefill; 38 new tokens (+ 2) make a 1140-slot cache, 72
+# blocks of 16 (1152 slots) paged
+GM_PROMPT, GM_TOKENS = 1100, 38
+# chunked prefill: a first chunk past the window (its scatter wraps every
+# ring), then 40 resumed prompt tokens, one eager decode call each (tens of
+# ms at full width, host-bound: 256-token chunks would resume 844 tokens,
+# over a minute for one request)
+GM_CHUNK, GM_CHUNKED_REQUESTS = 1060, 1
+
+
+class _Config:
+    """serve_generative builds its config from the name, as the launcher
+    does; this hands it ``cfg`` (Gemma3's ``windowed_cache`` rings) for the
+    name instead, the way the reference reaches its ring caches: through
+    the config's own field."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def __enter__(self):
+        from repro_torch.launch import serve as LS
+
+        self.orig = LS.get_config
+        LS.get_config = lambda name: self.cfg if name == self.cfg.name else self.orig(name)
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import serve as LS
+
+        LS.get_config = self.orig
+
+
+def gather_probe(gen, B=8, S=GM_PROMPT + GM_TOKENS + 2):
+    """Phase 9a: what a local layer's decode step spends on its window
+    outside any kernel: the chronological W-row gather of k and v out of a
+    full contiguous cache (the reference's arithmetic: (B, W, KH, hd) each)
+    and the masked sdpa over the gathered rows, at Gemma3's B 8, W 1024."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as LY
+
+    cfg = get_config(GM_CONFIG)
+    W, KH, hd, H = cfg.window, cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    kc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.randint(S - GM_TOKENS - 2, S, (B,), generator=gen, device="cuda")
+    rows = torch.arange(B, device="cuda")[:, None]
+
+    def gather():
+        tpos = pos[:, None] - (W - 1) + torch.arange(W, device="cuda")
+        slot = torch.clamp(tpos, min=0)
+        return kc[rows, slot], vc[rows, slot], (tpos >= 0)[:, None, None, :]
+
+    k, v, mask = gather()
+    row = {"shape": f"B={B} W={W} KH={KH} hd={hd} bf16, cache {S} rows",
+           "gather_ms": device_ms(gather),
+           "sdpa_ms": device_ms(lambda: LY.sdpa(q, k, v, mask)),
+           "gathered_bytes_per_layer": 2 * k.numel() * k.element_size()}
+    # read W rows of k and v, write them, read them again in sdpa
+    row["gather_bound_ms"] = 1e3 * 3 * row["gathered_bytes_per_layer"] / HBM_BW
+    row["per_step_ms_29_layers"] = 29 * (row["gather_ms"] + row["sdpa_ms"])
+    print(f"9a local decode window (gather + sdpa, no kernel) on {card_line()}: "
+          f"{json.dumps(row)}", flush=True)
+    return row
+
+
+def step_bytes(params, cfg, model, B, n_ramps, pos):
+    """What one decode step of B rows at ``pos`` must read at least: every
+    layer's weights, the tied final head, ``n_ramps`` ramp heads, the global
+    layers' keys and values up to pos, and the local layers' W-row
+    windows."""
+    from repro_torch.models.common import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    layers = nbytes(params["blocks"]) + nbytes(params.get("suffix", []))
+    head = nbytes(params["tok"]["embed"])
+    ramp = params["ramps"]["head"][0].numel() * params["ramps"]["head"].element_size()
+    kv_row = 2 * cfg.n_kv_heads * cfg.hd * 2
+    n_local = sum(1 for sl in model.plan.layer_specs() if sl.is_local)
+    caches = B * kv_row * ((cfg.n_layers - n_local) * (pos + 1) + n_local * cfg.window)
+    return {"layers": layers, "final_head": head, "ramp_heads": n_ramps * ramp,
+            "caches": caches, "total": layers + head + n_ramps * ramp + caches}
+
+
+def serve_gemma_layouts(params, cfg, serve):
+    """Phase 9c: the same 8 prompts of 1100 tokens, 38 tokens each, served on
+    the full contiguous cache, on ``windowed_cache`` rings and on the paged
+    pool (bs 16), then the pool once more with chunked prefill (one
+    request, a 1060-token first chunk, then 40 resumed tokens). Greedy
+    tokens equal across the layouts except a difference that begins at a
+    near-tie (by the dense path's logits); the global layers launch their
+    decode kernel once a layer a step, the flash kernel runs once a layer a
+    prefill. The runs serve eager, so the layouts alone differ; 9d serves
+    graphs. A prefix cache is refused."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    prompts = np.random.default_rng(SEED + 9).integers(1, cfg.vocab_size, (8, GM_PROMPT))
+    n_global = sum(1 for sl in build_model(cfg).plan.layer_specs() if not sl.is_local)
+    runs = {}
+    for name, bs, ccfg, kw in (
+            ("full", 0, cfg, {}),
+            ("ring", 0, cfg.replace(windowed_cache=True), {}),
+            ("paged", 16, cfg, {}),
+            ("paged chunked", 16, cfg, {"prefill_chunk": GM_CHUNK})):
+        pr = prompts[:GM_CHUNKED_REQUESTS] if kw else prompts
+        t0 = time.perf_counter()
+        with _Config(ccfg):
+            (out, resp), launches = counted(lambda: serve(
+                cfg.name, decode_tokens=GM_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
+                verbose=False, kv_block_size=bs, prompts=pr, params=params, graphs=False, **kw))
+        wall = time.perf_counter() - t0
+        _complete(resp, len(pr), GM_TOKENS, cfg.vocab_size, f"9c {name}")
+        want = "paged_decode_attention" if bs else "decode_attention"
+        steps = launches["decode_steps"]
+        for k in ATTENTION:
+            expect = n_global * steps if k == want else 0
+            if launches[k] != expect or steps <= 0:
+                fail(f"9c {name} launched {k} {launches[k]} times in {steps} decode steps; "
+                     f"expected {expect}")
+        for k in ("ramp_head_stats", "ramp_head_exit"):
+            if launches[k] <= 0:
+                fail(f"9c {name} launched {k} {launches[k]} times")
+        check_prefill_launches(f"9c {name}", cfg, launches, "flash_attention")
+        runs[name] = (out, {r.rid: r for r in resp}, launches)
+        m = out["measured"]
+        print(f"9c {cfg.name} {name} ({len(pr)} x {GM_PROMPT}-token prompts, {GM_TOKENS} tokens)"
+              f": {wall:.1f} s, prefill {m['prefill_ms_mean']:.3f} ms, chunk calls "
+              f"{m['prefill_chunk_calls']} at {m['prefill_chunk_ms_mean']:.3f} ms, "
+              f"{m['window_ms_mean']:.3f} ms per eager window of up to 4 steps, "
+              f"{m['decode_tokens_per_s']:.1f} decode tokens/s; kv {json.dumps(out['kv_cache'])}; "
+              f"launches {json.dumps(launches)}", flush=True)
+    ties, same = [], 0
+    base = runs["full"][1]
+    for name in ("ring", "paged", "paged chunked"):
+        for rid, rr in runs[name][1].items():
+            t, gap = _divergence_gap(params, cfg, prompts[rid], base[rid].final_tokens,
+                                     rr.final_tokens)
+            if t is None:
+                same += 1
+                continue
+            print(f"9c request {rid}: {name} and full tokens differ from token {t}, logit gap "
+                  f"{gap:.4f}", flush=True)
+            if gap >= NEAR_TIE:
+                fail(f"9c request {rid}: {name} and full differ at no near-tie")
+            ties.append((name, rid))
+    try:
+        serve(cfg.name, 2, decode_tokens=2, prompt_len=16, seed=SEED, device="cuda",
+              verbose=False, kv_block_size=16, prefix_cache=True, params=params)
+        fail("9c: a prefix cache over ring pages was not refused")
+    except ValueError as e:
+        refused = str(e)
+    print(f"9c layouts on {card_line()}: {same} of {8 + 8 + GM_CHUNKED_REQUESTS} "
+          f"(ring, paged, chunked) requests token-identical to the full cache, near-tie "
+          f"divergences {ties}; prefix cache refused: {refused}", flush=True)
+    return runs["full"][2], runs["paged"][2]
+
+
+def gemma_phases(gen, serve):
+    """Phase 9: Gemma3-4B at full width (34 layers: 29 local with a
+    1024-token window and RoPE base 1e4, 5 global; d 2560, 8 heads on 4 of
+    256, qk-norm, a tied 262144-token vocab, 12 ramp heads), seeded random
+    bf16 weights. 9a: the kernels alone at its shapes and the local decode
+    window's plain gather; 9b: an 1100-token prefill through sdpa vs the
+    flash kernel, then 40 decode steps with the kernels off vs on, one
+    eager step profiled; 9c: three layouts; 9d: window graphs. Returns the
+    kernel rows and the runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(GM_CONFIG)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"drew {GM_CONFIG} weights ({n / 1e9:.3f} B params, {cfg.dtype}, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rows = {}
+    # -- 9a: the kernels alone at Gemma3's shapes
+    rows["decode"] = check_decode_attention(
+        8, 1200, "B=8 H=8 KH=4 hd=256 S=1200 pos 1100..1199 bf16", gen, pos_lo=1100,
+        H=8, KH=4, hd=256)
+    rows["paged"] = check_paged_decode_attention(
+        8, 75, "B=8 H=8 KH=4 hd=256 bs=16 nb=75 pos 1100..1199 shuffled bf16", gen, 1100, 1200,
+        H=8, KH=4, hd=256)
+    rows["flash_window"] = check_flash_attention(
+        1, 8, 4, GM_PROMPT, GM_PROMPT, 256,
+        f"B=1 H=8 KH=4 hd=256 Sq=Sk={GM_PROMPT} causal window=1024 bf16", gen, window=1024)
+    rows["flash_causal"] = check_flash_attention(
+        1, 8, 4, GM_PROMPT, GM_PROMPT, 256, f"B=1 H=8 KH=4 hd=256 Sq=Sk={GM_PROMPT} causal bf16",
+        gen)
+    rows["ramp"] = check_ramp_head(params, cfg, gen)
+    rows["gather"] = gather_probe(gen)
+    floor = step_bytes(params, cfg, model, 8, 4, GM_PROMPT + 20)
+    floor["ms"] = 1e3 * floor["total"] / HBM_BW
+    rows["floor"] = floor
+    print(f"9a {GM_CONFIG} decode step byte floor at B 8, 4 ramps, pos {GM_PROMPT + 20}: "
+          f"{json.dumps(floor)} (bytes; ms at 3.35 TB/s)", flush=True)
+    # -- 9b: the model, kernels off vs on
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    toks = torch.randint(1, cfg.vocab_size, (8, GM_PROMPT), generator=g, device="cuda")
+    rows["paths"] = compare_paths(
+        params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
+        cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen, toks=toks, T=40,
+        on_kw={"prefill_attn": "kernel"}, prefill_kernel="flash_attention")
+    # -- 9c: three layouts; 9d: window graphs
+    full_l, paged_l = serve_gemma_layouts(params, cfg, serve)
+    rows["graphs"] = graph_vs_eager(params, cfg, serve, "9d", SEED + 11, prompt_len=GM_PROMPT)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, full_l, paged_l
+
 
 
 # ---------------------------------------------------------------------------
@@ -2453,6 +2710,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     bt_launches, _ = bert_train_phase(serve, bert_out)
+    print(f"training phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
+
+    # -- phase 9: Gemma3-4B, once the trained models are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    gm, gm_full, gm_paged = gemma_phases(gen, serve_generative)
+    graphs[GM_CONFIG] = gm["graphs"]
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -2491,7 +2755,16 @@ def main() -> None:
                ("ramp_head_stats", rh["ramp_head_stats"], qt_launches,
                 f"{CONFIG} 8a trained ramps"),
                ("ramp_head_exit", rh["ramp_head_exit"], qt_launches, f"{CONFIG} 8a trained ramps"),
-               ("flash_attention", fa_bert, bt_launches, "bert-base 8b trained")]
+               ("flash_attention", fa_bert, bt_launches, "bert-base 8b trained"),
+               ("decode_attention", gm["decode"], gm_full, f"{GM_CONFIG} 9c full"),
+               ("paged_decode_attention", gm["paged"], gm_paged, f"{GM_CONFIG} 9c paged"),
+               ("flash_attention", gm["flash_window"], gm_full,
+                f"{GM_CONFIG} 9c full (29 of a prefill's 34 launches windowed)"),
+               ("flash_attention", gm["flash_causal"], gm_full,
+                f"{GM_CONFIG} 9c full (5 of a prefill's 34 launches causal)"),
+               ("ramp_head_stats", gm["ramp"]["ramp_head_stats"], gm_full,
+                f"{GM_CONFIG} 9c full"),
+               ("ramp_head_exit", gm["ramp"]["ramp_head_exit"], gm_full, f"{GM_CONFIG} 9c full")]
     if lm_launches["ramp_head_exit"]:
         entries.append(("ramp_head_exit", rh["ramp_head_exit"], lm_launches, f"{CONFIG} 4f"))
     kernels = []
@@ -2503,7 +2776,7 @@ def main() -> None:
             "library_ms": r["library_ms"], "path": path, "shape": r["shape"],
             **{k: r[k] for k in ("device_ms", "host_us") if k in r},
         })
-    print("window graphs (4e, 5d, 6d): " + json.dumps(
+    print("window graphs (4e, 5d, 6d, 9d): " + json.dumps(
         {name: {"host_ms_per_replayed_window": {lay: v[lay]["host_ms_per_replayed_window"]
                                                 for lay in ("contiguous", "paged")},
                 "host_ms_per_eager_window": {lay: v[lay]["host_ms_per_eager_window"]

@@ -3,7 +3,8 @@
 A field-for-field copy of the JAX package's ``ArchConfig``, so every port
 config pairs with its reference config. The port registers the two dense
 decoder LMs of the generative main path, the MLA + MoE decoder
-DeepSeek-V2-Lite, the attention-free SSD stack Mamba2-2.7B and the paper's
+DeepSeek-V2-Lite, the attention-free SSD stack Mamba2-2.7B, Gemma3-4B's
+5 local : 1 global sliding-window stack and the paper's
 classifiers (ResNet-18/50, BERT-base): ``CONFIG`` is the published shape,
 ``TINY`` a reduced same-family config for CPU tests, and ``get_bench``
 the reference's paper-shape, tiny-width benchmark stand-ins.
@@ -118,6 +119,7 @@ _MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "mamba2-2.7b": "mamba2_2_7b",
     "qwen2-1.5b": "qwen2_1_5b",
+    "gemma3-4b": "gemma3_4b",
     "gpt2-medium": "gpt2_medium",
     "bert-base": "bert_base",
     "resnet50": "resnet50",

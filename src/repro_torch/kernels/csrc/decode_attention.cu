@@ -32,7 +32,13 @@
 //     its own two-stage cp.async ring (16-byte copies of 16 key rows of K and
 //     of V, rows padded by 16 bytes so that ldmatrix's row reads hit
 //     distinct banks; rows past the range zero-filled). 70 KB of shared
-//     memory at hd 128, so three CTAs fit an SM.
+//     memory at hd 128, so three CTAs fit an SM. At hd 256 (Gemma3) the
+//     padded rows double to 528 bytes and the ring to 132 KB: one CTA an
+//     SM, whose 4 warps keep 64 KB of K and V in flight (more than the
+//     ~25 KB an SM needs to cover the memory latency at 3.35 TB/s), and
+//     with one CTA an SM the 128 accumulator registers a lane of the
+//     16 x 256 output fragment fit without spilling. The split count
+//     (decode_splits) reads the CTAs an SM each head width allows.
 //   * S = Q.K^T and O += P.V on mma.sync.m16n8k16 (bf16 in, f32 out). The
 //     G <= 8 query heads are rows 0..7 of the A operand, rows 8..15 zero:
 //     Q sits in A fragments for the whole walk (read once from global
@@ -44,7 +50,8 @@
 //     ldmatrix.trans.
 //   * The warps' (m, l, acc) are combined in warp order in shared memory.
 // float32 (the card tests' exact reference path) stays on the CUDA cores,
-// one CTA per (row, KV head): 4 warps take interleaved 32-key tiles, lane j
+// one CTA per (row, KV head): 4 warps (2 at hd 256, whose 32-key f32 tiles
+// would not fit 227 KB four times) take interleaved 32-key tiles, lane j
 // scores key j for all G heads, each warp keeps its own online softmax
 // state, and the warps are combined at the end (neither bf16 nor TF32
 // products hold the 1e-5 that f32 attention is tested to).
@@ -132,8 +139,16 @@ __device__ __forceinline__ void load_table(int* tab, const int* __restrict__ tab
 
 constexpr int FT = 32;  // keys per warp tile: one per lane when scoring
 
+// warps of the f32 kernel: four tiles of 32 f32 keys at hd 256 would take
+// 268 KB of shared memory
+template <int HD>
+__host__ __device__ constexpr int f32_warps() {
+  return HD > 128 ? 2 : WARPS;
+}
+
 template <int HD>
 struct F32Layout {
+  static constexpr int FW = f32_warps<HD>();
   static constexpr int CPR = HD / 4;    // 16-byte chunks per row
   static constexpr int KPAD = HD + 4;   // padded K row, in floats
   static constexpr int EPL = HD / 32;   // output dims owned by a lane
@@ -141,23 +156,24 @@ struct F32Layout {
   static constexpr size_t K_BYTES = FT * KPAD * 4;
   static constexpr size_t KV_BYTES = K_BYTES + FT * HD * 4;
   static constexpr size_t WARP_BYTES = KV_BYTES + MAXG * FT * 4;  // K, V, then p
-  static constexpr size_t COMB_BYTES = WARPS * MAXG * (HD + 2) * 4;
+  static constexpr size_t COMB_BYTES = FW * MAXG * (HD + 2) * 4;
   static constexpr size_t SMEM =
-      Q_BYTES + (WARPS * WARP_BYTES > COMB_BYTES ? WARPS * WARP_BYTES : COMB_BYTES);
+      Q_BYTES + (FW * WARP_BYTES > COMB_BYTES ? FW * WARP_BYTES : COMB_BYTES);
+  static_assert(SMEM + 16384 * 4 <= 232448, "the layout and a table of 16384 blocks fit");
 };
 
 // PAGED == false: k, v are (B, KH, S, hd) by the strides (sb, sh, ss).
 // PAGED == true: k, v are (P, bs, KH, hd) pools by the strides (sb = block,
 // ss = slot, sh = head), table is int32 with row stride t_sb and S = nb * bs.
 template <int HD, bool PAGED>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(f32_warps<HD>() * 32)
 decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, Pos pos, const int* __restrict__ table,
                   long long t_sb, float* __restrict__ out, int H, int KH, int S, int G, int bs,
                   int P, long long q_sb, long long q_sh, long long k_sb, long long k_sh,
                   long long k_ss, long long v_sb, long long v_sh, long long v_ss, float scale) {
   using Lt = F32Layout<HD>;
-  constexpr int CPR = Lt::CPR, KPAD = Lt::KPAD, EPL = Lt::EPL;
+  constexpr int CPR = Lt::CPR, KPAD = Lt::KPAD, EPL = Lt::EPL, FW = Lt::FW;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   int* tab = reinterpret_cast<int*>(smem + Lt::SMEM);  // PAGED: this row's block ids
@@ -187,7 +203,7 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
-  for (int t0 = warp * FT; t0 < nk; t0 += WARPS * FT) {
+  for (int t0 = warp * FT; t0 < nk; t0 += FW * FT) {
     // the tile, all of its 16-byte copies in flight at once; rows past nk
     // are zero-filled, so masked v lanes are zero
 #pragma unroll
@@ -262,9 +278,9 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   // combine the warps' partial softmax states
-  float* cm = reinterpret_cast<float*>(smem + Lt::Q_BYTES);  // [WARPS][MAXG]
-  float* cl = cm + WARPS * MAXG;                               // [WARPS][MAXG]
-  float* ca = cl + WARPS * MAXG;                               // [WARPS][MAXG][HD]
+  float* cm = reinterpret_cast<float*>(smem + Lt::Q_BYTES);  // [FW][MAXG]
+  float* cl = cm + FW * MAXG;                                  // [FW][MAXG]
+  float* ca = cl + FW * MAXG;                                  // [FW][MAXG][HD]
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     if (g < G) {
@@ -281,10 +297,10 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int g = i / HD, e = i % HD;
     float M = NEG;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, cm[w * MAXG + g]);
+    for (int w = 0; w < FW; ++w) M = fmaxf(M, cm[w * MAXG + g]);
     float L = 0.f, O = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
+    for (int w = 0; w < FW; ++w) {
       const float a = expf(cm[w * MAXG + g] - M);
       L += cl[w * MAXG + g] * a;
       O += ca[(w * MAXG + g) * HD + e] * a;
@@ -299,7 +315,7 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 using bf16 = __nv_bfloat16;
 constexpr int TK = 16;      // keys per warp tile
 constexpr int STAGES = 2;   // cp.async ring depth, per warp
-constexpr int BF16_CTAS = 3;  // CTAs an SM the shared memory allows at hd 128
+constexpr int BF16_CTAS = 3;  // CTAs an SM the shared memory allows at hd 128 (one at hd 256)
 constexpr int MAX_SPLITS = 256;  // key ranges a (row, KV head): the merge's weights fit the ring
 
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
@@ -353,7 +369,7 @@ struct Bf16Layout {
 // part: f32 scratch [B * KH][splits][G][HD + 2] (acc, then (m, l) per head);
 // counters: int [B * KH], zero between launches. Both unused with one split.
 template <int HD, bool PAGED>
-__global__ void __launch_bounds__(WARPS * 32, BF16_CTAS)
+__global__ void __launch_bounds__(WARPS * 32, HD > 128 ? 1 : BF16_CTAS)
 decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, Pos pos, const int* __restrict__ table,
                    long long t_sb, bf16* __restrict__ out, float* __restrict__ part,
@@ -695,7 +711,7 @@ int launch_f32(const Args& a, cudaStream_t st) {
   if (a.splits != 1) return (int)cudaErrorInvalidValue;
   const int rc = allow_smem<Inst<HD, PAGED, false>>(decode_f32_kernel<HD, PAGED>, smem);
   if (rc) return rc;
-  decode_f32_kernel<HD, PAGED><<<a.B * a.KH, WARPS * 32, smem, st>>>(
+  decode_f32_kernel<HD, PAGED><<<a.B * a.KH, f32_warps<HD>() * 32, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.pos, static_cast<const int*>(a.table), a.t_sb,
       static_cast<float*>(a.out), a.H, a.KH, a.S, a.H / a.KH, a.bs, a.P, a.q_sb, a.q_sh,
@@ -711,7 +727,7 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2, int esiz
 template <bool PAGED>
 int launch(Args a, int hd, int dtype, cudaStream_t st) {
   if (a.B < 1 || a.KH < 1 || a.H % a.KH || a.H / a.KH > MAXG || a.S < 1 || a.bs < 1 ||
-      a.P < 1 || (hd != 64 && hd != 128))
+      a.P < 1 || (hd != 64 && hd != 128 && hd != 256))
     return (int)cudaErrorInvalidValue;
   // a dim of size 1 is only ever read at index 0: its stride is free
   if (!PAGED && a.B == 1) a.k_sb = a.v_sb = 0;
@@ -725,26 +741,32 @@ int launch(Args a, int hd, int dtype, cudaStream_t st) {
   if (!aligned16(a.k, a.k_sb, a.k_sh, a.k_ss, es) || !aligned16(a.v, a.v_sb, a.v_sh, a.v_ss, es) ||
       (dtype == 1 && (reinterpret_cast<uintptr_t>(a.q) % 4 || a.q_sb % 2 || a.q_sh % 2)))
     return (int)cudaErrorMisalignedAddress;
-  if (dtype == 1) return hd == 128 ? launch_bf16<128, PAGED>(a, st) : launch_bf16<64, PAGED>(a, st);
-  if (dtype == 0) return hd == 128 ? launch_f32<128, PAGED>(a, st) : launch_f32<64, PAGED>(a, st);
+  if (dtype == 1)
+    return hd == 256   ? launch_bf16<256, PAGED>(a, st)
+           : hd == 128 ? launch_bf16<128, PAGED>(a, st)
+                       : launch_bf16<64, PAGED>(a, st);
+  if (dtype == 0)
+    return hd == 256   ? launch_f32<256, PAGED>(a, st)
+           : hd == 128 ? launch_f32<128, PAGED>(a, st)
+                       : launch_f32<64, PAGED>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename I, typename F>
-int occupancy(F* kernel, size_t smem) {
+int occupancy(F* kernel, int threads, size_t smem) {
   const int rc = allow_smem<I>(kernel, smem);
   if (rc) return -rc;
   int n = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, WARPS * 32, smem);
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
   return e == cudaSuccess ? n : -(int)e;
 }
 
 template <int HD, bool PAGED>
 int ctas_per_sm(int dtype, int S, int bs, int splits) {
   if (dtype == 1)
-    return occupancy<Inst<HD, PAGED, true>>(decode_bf16_kernel<HD, PAGED>,
+    return occupancy<Inst<HD, PAGED, true>>(decode_bf16_kernel<HD, PAGED>, WARPS * 32,
                                             bf16_smem<HD, PAGED>(S, bs, splits));
-  return occupancy<Inst<HD, PAGED, false>>(decode_f32_kernel<HD, PAGED>,
+  return occupancy<Inst<HD, PAGED, false>>(decode_f32_kernel<HD, PAGED>, f32_warps<HD>() * 32,
                                            f32_smem<HD, PAGED>(S, bs));
 }
 
@@ -762,7 +784,7 @@ Pos make_pos(const void* pos, long long pos_stride, long long pos_scalar, int po
 // 1 = bfloat16: the key axis in `splits` ranges (1 <= splits <= ceil(S / 16));
 // with splits > 1, part is f32 scratch of B * KH * splits * (H/KH) * (hd + 2)
 // floats and counters B * KH ints, zero before the first call (the kernel
-// leaves them zero). hd 64 or 128, H/KH at most 8. Returns the CUDA error
+// leaves them zero). hd 64, 128 or 256, H/KH at most 8. Returns the CUDA error
 // code of the launch (0 on success; cudaErrorMisalignedAddress before any
 // launch for misaligned operands).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
@@ -801,8 +823,12 @@ extern "C" int paged_decode_attention_launch(
 // dynamic shared memory), or a negative CUDA error code.
 extern "C" int decode_attention_ctas_per_sm(int dtype, int hd, int paged, int S, int bs,
                                             int splits) {
-  if (splits < 1 || bs < 1 || S < 1 || (hd != 64 && hd != 128) || (dtype != 0 && dtype != 1))
+  if (splits < 1 || bs < 1 || S < 1 || (hd != 64 && hd != 128 && hd != 256) ||
+      (dtype != 0 && dtype != 1))
     return -(int)cudaErrorInvalidValue;
+  if (hd == 256)
+    return paged ? ctas_per_sm<256, true>(dtype, S, bs, splits)
+                 : ctas_per_sm<256, false>(dtype, S, bs, splits);
   if (hd == 128)
     return paged ? ctas_per_sm<128, true>(dtype, S, bs, splits)
                  : ctas_per_sm<128, false>(dtype, S, bs, splits);

@@ -31,7 +31,8 @@
 //   * Q, K and V reach shared memory as bf16 through 16-byte cp.async
 //     copies (rows past Sq or Sk, and columns past hd, zero-filled by a
 //     short source size), rows padded by 16 bytes so that ldmatrix's eight
-//     row reads hit distinct banks. hd is rounded up to 16, 32, 64 or 128.
+//     row reads hit distinct banks. hd is rounded up to 16, 32, 64, 128 or
+//     256.
 //   * 64-key K/V tiles in a two-stage ring: tile j + 1's copies are in
 //     flight (cp.async commit / wait groups) while tile j is computed, and
 //     K and V are separate groups, so Q.K^T starts before V has landed.
@@ -42,6 +43,11 @@
 //     score. P is rounded to bf16 in registers and is the A operand of P.V
 //     directly, V coming through ldmatrix.trans. Shared memory 87 KB at hd
 //     128 and 64 queries, so two CTAs fit an SM.
+//   * hd 256 (Gemma3): a warp's 16 x 256 f32 output fragment alone is 128
+//     registers a lane, so Q is not kept in registers (each k16 step reads
+//     its A fragment from shared memory by ldmatrix, once a key tile) and
+//     key tiles are 32 deep (16 score registers, not 32). Shared memory is
+//     then 99 KB at 64 queries: two CTAs an SM, as at hd 128.
 //   * The softmax's instruction count is the limit next to the mma: a tile that
 //     every row of a warp sees takes a path with no mask test at all. A
 //     masked score counts as -1e30: it never raises the row max (which
@@ -53,7 +59,8 @@
 // agreement that f32 attention is tested to. One CTA per (64 queries, head,
 // row), 64-key tiles of K (transposed) and V in f32 shared memory, warp w
 // owning query rows 8w..8w+7, register-blocked scores, P through shared
-// memory.
+// memory; a lane owns 4 output columns (8 at hd > 128: 214 KB of shared
+// memory at hd 256).
 // The next step (ROADMAP): wgmma with TMA (the FlashAttention-3 shape) for the bf16
 // path.
 #include <cuda_bf16.h>
@@ -64,7 +71,7 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int MAXHD = 128;
+constexpr int MAXHD = 256;
 constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block can use
 
 __device__ __forceinline__ bool visible(int qi, int kj, int Sk, int causal, int window) {
@@ -103,6 +110,8 @@ struct Layout {
   }
 };
 
+// NC: output columns a lane owns (4 up to hd 128, 8 up to hd 256)
+template <int NC>
 __global__ void __launch_bounds__(NT, 1)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out, int H, int KH, int Sq,
@@ -132,13 +141,13 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int k_hi = causal ? min(Sk - 1, q_last) : Sk - 1;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
 
-  float m[RW], l[RW], acc[RW][4];
+  float m[RW], l[RW], acc[RW][NC];
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     m[r] = NEG;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
 
   for (int kt = k_lo / BK; kt * BK <= k_hi; ++kt) {
@@ -180,16 +189,16 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
       l[r] = l[r] * alpha + warp_sum(p0 + p1);
       m[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] *= alpha;
+      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
       Ps[i * BK + lane] = p0;
       Ps[i * BK + lane + 32] = p1;
     }
     __syncwarp();  // a warp reads back only its own rows of P
     const int nj = min(BK, Sk - j0);
     for (int j = 0; j < nj; ++j) {
-      float vj[4];
+      float vj[NC];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < NC; ++c) {
         const int d = lane + 32 * c;
         vj[c] = d < hd ? Vs[j * hd + d] : 0.f;
       }
@@ -197,7 +206,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int r = 0; r < RW; ++r) {
         const float p = Ps[(warp * RW + r) * BK + j];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] += p * vj[c];
+        for (int c = 0; c < NC; ++c) acc[r][c] += p * vj[c];
       }
     }
   }
@@ -209,7 +218,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (i >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
       if (d < hd) ob[i * o_ss + d] = acc[r][c] * inv;
     }
@@ -223,10 +232,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
                int causal, int window, cudaStream_t stream) {
   const size_t bytes = (size_t)Layout(hd).total * sizeof(float);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(flash_attention_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)bytes);
+  auto kernel = hd > 128 ? flash_attention_f32<8> : flash_attention_f32<4>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_f32<<<grid, NT, bytes, stream>>>(
+  kernel<<<grid, NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), H, KH, Sq, Sk, hd, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
       v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, window);
@@ -237,7 +246,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 // bfloat16: FlashAttention-2 on the tensor cores (mma.sync)
 
 using bf16 = __nv_bfloat16;
-constexpr int TK = 64;  // keys per tile
+
+// keys per tile: 64, or 32 at hd > 128, where the output fragment takes
+// 128 registers a lane
+template <int HD>
+__host__ __device__ constexpr int key_tile() {
+  return HD > 128 ? 32 : 64;
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -364,10 +379,11 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                      long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                      long long o_ss, float scale_log2, int causal, int window) {
-  constexpr int NTH = NWQ * 32, TQ = NWQ * 16, PITCH = HD + 8;
+  constexpr int NTH = NWQ * 32, TQ = NWQ * 16, PITCH = HD + 8, TK = key_tile<HD>();
   constexpr int KS = HD / 16;  // k16 steps of q.k
-  constexpr int NB = TK / 8;   // n8 blocks of a score tile: 32 scores a lane
+  constexpr int NB = TK / 8;   // n8 blocks of a score tile: TK / 2 scores a lane
   constexpr int DB = HD / 8;   // n8 blocks of the output
+  constexpr bool QREG = HD <= 128;  // Q's A fragments live in registers for the walk
   extern __shared__ __align__(16) unsigned char smraw[];
   bf16* Qs = reinterpret_cast<bf16*>(smraw);  // [TQ][PITCH]
   bf16* Ks = Qs + TQ * PITCH;                 // [2][TK][PITCH]
@@ -398,7 +414,7 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int wq0 = q0 + warp * 16;  // this warp's first query row
   const int row0 = wq0 + g;        // a lane's rows: row0 and row0 + 8
-  unsigned qf[KS][4];
+  unsigned qf[QREG ? KS : 1][4];
   float o[DB][4], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int db = 0; db < DB; ++db) o[db][0] = o[db][1] = o[db][2] = o[db][3] = 0.f;
@@ -415,10 +431,12 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<3>();  // K(t) (and Q) landed; V(t), K(t+1), V(t+1) may not have
     __syncthreads();
-    if (t == t_lo) {
+    if constexpr (QREG) {
+      if (t == t_lo) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * PITCH + ks * 16 + (lane >> 4) * 8);
+        for (int ks = 0; ks < KS; ++ks)
+          ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * PITCH + ks * 16 + (lane >> 4) * 8);
+      }
     }
     const bf16* Kt = Ks + st * TK * PITCH;
     const bf16* Vt = Vs + st * TK * PITCH;
@@ -429,12 +447,19 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      unsigned qk[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qk[i] = qf[ks][i];
+      } else {
+        ldsm_x4(qk, Qs + (warp * 16 + (lane & 15)) * PITCH + ks * 16 + (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int nb = 0; nb < NB; nb += 2) {
         unsigned kf[4];
         ldsm_x4(kf, Kt + ((nb + (mi >> 1)) * 8 + (lane & 7)) * PITCH + ks * 16 + (mi & 1) * 8);
-        mma_bf16(s[nb], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[nb + 1], qf[ks], kf[2], kf[3]);
+        mma_bf16(s[nb], qk, kf[0], kf[1]);
+        mma_bf16(s[nb + 1], qk, kf[2], kf[3]);
       }
     }
 
@@ -516,7 +541,7 @@ int launch_bf16_t(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
                   long long v_ss, long long o_sb, long long o_sh, long long o_ss,
                   float scale_log2, int causal, int window, cudaStream_t stream) {
   constexpr int TQ = NWQ * 16;
-  constexpr size_t bytes = (size_t)(TQ + 4 * TK) * (HD + 8) * sizeof(bf16);
+  constexpr size_t bytes = (size_t)(TQ + 4 * key_tile<HD>()) * (HD + 8) * sizeof(bf16);
   static_assert(bytes <= MAX_SMEM, "shared memory");
   static bool attr = false;
   if (!attr) {
@@ -563,7 +588,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   if (!aligned16(q, q_sb, q_sh, q_ss) || !aligned16(k, k_sb, k_sh, k_ss) ||
       !aligned16(v, v_sb, v_sh, v_ss))
     return (int)cudaErrorMisalignedAddress;
-  const int HDP = hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+  const int HDP = hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
   // 32-query tiles when 64-query tiles would leave SMs without a CTA
   const long long ctas64 = (long long)B * H * ((Sq + 63) / 64);
   const int nwq = ctas64 < sm_count() ? 2 : 4;
@@ -579,7 +604,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
     case 16: return launch_bf16_hd<16>(FA_ARGS);
     case 32: return launch_bf16_hd<32>(FA_ARGS);
     case 64: return launch_bf16_hd<64>(FA_ARGS);
-    default: return launch_bf16_hd<128>(FA_ARGS);
+    case 128: return launch_bf16_hd<128>(FA_ARGS);
+    default: return launch_bf16_hd<256>(FA_ARGS);
   }
 #undef FA_ARGS
 }
@@ -591,7 +617,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 // causal: 0 or 1; window <= 0: none. dtype: 0 = float32, 1 = bfloat16 (then
 // every base pointer and stride of a dim longer than 1 16-byte aligned, else
 // cudaErrorMisalignedAddress, before any launch).
-// hd <= 128, H a multiple of KH. Returns the CUDA error code of the launch.
+// hd <= 256, H a multiple of KH. Returns the CUDA error code of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int H, int KH, int Sq, int Sk, int hd,
                                       long long q_sb, long long q_sh, long long q_ss,

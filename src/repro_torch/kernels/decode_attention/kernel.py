@@ -57,7 +57,9 @@ def _fn(name="decode_attention_launch"):
 
 
 DECODE_TILE = 16  # keys of a warp tile of the bf16 kernel; a key range is whole tiles
-DECODE_CTAS_PER_SM = 3  # what the bf16 kernel's 70 KB of shared memory lets an SM hold
+# what the bf16 kernel's shared memory lets an SM hold, by head width: 70 KB
+# at hd 128, 132 KB at hd 256
+DECODE_CTAS_PER_SM = {64: 3, 128: 3, 256: 1}
 # CTAs for a wave and a half: ranges that start past their row's keys exit
 # at once, so rows shorter than the cache leave slots that more ranges fill
 DECODE_WAVES = 1.5
@@ -68,23 +70,24 @@ DECODE_RANGE_TILES = 16
 DECODE_MAX_SPLITS = 256  # the kernel's merge keeps a weight a range and head in shared memory
 
 
-def decode_splits(n_sm, B, KH, keys):
+def decode_splits(n_sm, B, KH, keys, hd=128):
     """Key ranges per (row, KV head) of the bf16 flash-decode kernel over
     ``keys`` cache slots (S, or nb * bs paged), from static shapes only, so
     that a captured launch stays valid: enough CTAs for DECODE_WAVES waves
-    of ``n_sm`` SMs at DECODE_CTAS_PER_SM each, ranges of whole tiles, at
-    least DECODE_RANGE_TILES of them, none past the last tile."""
+    of ``n_sm`` SMs at DECODE_CTAS_PER_SM[hd] each, ranges of whole tiles,
+    at least DECODE_RANGE_TILES of them, none past the last tile."""
     tiles = -(-keys // DECODE_TILE)
-    want = math.ceil(DECODE_WAVES * n_sm * DECODE_CTAS_PER_SM / max(1, B * KH))
+    want = math.ceil(DECODE_WAVES * n_sm * DECODE_CTAS_PER_SM[hd] / max(1, B * KH))
     want = max(1, min(want, tiles // DECODE_RANGE_TILES, DECODE_MAX_SPLITS))
     return -(-tiles // -(-tiles // want))  # ranges of ceil(tiles / want) tiles
 
 
 _n_sm = {}
-_splits_of = {}  # (device, dtype, B * KH, keys) -> decode_splits
+_splits_of = {}  # (device, dtype, B * KH, keys, hd) -> decode_splits
 _scratch = {}  # (device, stream) -> [counters, partials]
 _retired = []  # workspaces growth replaced: graphs captured over them still write them
-_SCALE = {64: 1.0 / 8.0, 128: 1.0 / math.sqrt(128)}  # the head widths the kernel takes
+# the head widths the kernel takes
+_SCALE = {64: 1.0 / 8.0, 128: 1.0 / math.sqrt(128), 256: 1.0 / 16.0}
 _POS_KINDS = {torch.int32: 0, torch.int64: 1}  # and 2: a Python int
 
 
@@ -95,12 +98,12 @@ def _sm_count(dev):
     return n
 
 
-def _splits(dev, dtype, B, KH, keys):
-    key = (dev, dtype, B * KH, keys)
+def _splits(dev, dtype, B, KH, keys, hd):
+    key = (dev, dtype, B * KH, keys, hd)
     s = _splits_of.get(key)
     if s is None:
         # the f32 kernel takes the whole key axis in one CTA
-        s = decode_splits(_sm_count(dev), B, KH, keys) if dtype == torch.bfloat16 else 1
+        s = decode_splits(_sm_count(dev), B, KH, keys, hd) if dtype == torch.bfloat16 else 1
         _splits_of[key] = s
     return s
 
@@ -146,7 +149,7 @@ def _operands(what, q, k, v, hd, H, KH):
                                  "float32/bfloat16, alike for q, k, v")
             if t.stride(-1) != 1:
                 raise ValueError(f"{what}: {name} needs a contiguous last dim")
-        raise ValueError(f"{what}: needs hd in (64, 128) and H/KH <= 8, "
+        raise ValueError(f"{what}: needs hd in (64, 128, 256) and H/KH <= 8, "
                          f"got hd={hd} H={H} KH={KH}")
     return dev
 
@@ -191,7 +194,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> 
         return out
     # the raw current stream: torch.cuda.current_stream() builds a Stream object
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    splits = _splits(dev, q.dtype, B, KH, S)
+    splits = _splits(dev, q.dtype, B, KH, S, hd)
     cnt, part = _workspace(dev, stream, B * KH, B * H * splits * (hd + 2)) if splits > 1 \
         else (None, None)
     qs, ks, vs = q.stride(), k.stride(), v.stride()
@@ -243,7 +246,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     if B == 0:
         return out
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    splits = _splits(dev, q.dtype, B, KH, nb * bs)
+    splits = _splits(dev, q.dtype, B, KH, nb * bs, hd)
     cnt, part = _workspace(dev, stream, B * KH, B * H * splits * (hd + 2)) if splits > 1 \
         else (None, None)
     qs, ks, vs = q.stride(), k_pool.stride(), v_pool.stride()
@@ -265,7 +268,7 @@ def decode_launch_info(dtype, B, H, KH, keys, hd=128, *, paged=False, bs=1, devi
     """The split count and the CTAs an SM (as the card's occupancy API
     reports them) of a flash-decode launch over ``keys`` slots: what
     chip_smoke.py prints beside the kernel rows."""
-    splits = _splits(device, dtype, B, KH, keys)
+    splits = _splits(device, dtype, B, KH, keys, hd)
     n = _fn("decode_attention_ctas_per_sm")(_DTYPES[dtype], hd, int(paged), keys, bs, splits)
     if n < 0:
         check_launch(-n, "decode_attention_ctas_per_sm")

@@ -24,7 +24,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [_P] * 4 + [_I] * 6 + [_L] * 12 + [ctypes.c_float, _I, _I, _I, _P]
-MAX_HD = 128  # four output columns a lane
+MAX_HD = 256  # Gemma3's head width: the f32 kernel's eight output columns a lane
 _MISALIGNED = 716  # cudaErrorMisalignedAddress, returned before any launch
 _fn = None
 
@@ -43,7 +43,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                     window=None) -> torch.Tensor:
     """q (B, H, Sq, hd); k, v (B, KH, Sk, hd), views with a contiguous last
     dim, one dtype (float32 or bfloat16), on one CUDA device; H a multiple
-    of KH, hd <= 128. Query i and key j are positions from 0. Returns
+    of KH, hd <= 256. Query i and key j are positions from 0. Returns
     (B, H, Sq, hd) in q's dtype.
 
     bfloat16 takes q, k and v through 16-byte copies: each base pointer and

@@ -500,7 +500,8 @@ def main(argv=None):
     ap.add_argument("--mode", default="generative", choices=["generative", "classification"])
     ap.add_argument("--config", default=None,
                     choices=["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b",
-                             "mamba2-2.7b", "resnet18", "resnet50", "bert-base"],
+                             "mamba2-2.7b", "gemma3-4b", "resnet18", "resnet50",
+                             "bert-base"],
                     help="default: qwen2-1.5b (generative), resnet50 (classification); "
                          "classification also serves an LM's next token")
     ap.add_argument("--tiny", action="store_true", help="the config's TINY variant")

@@ -4,7 +4,8 @@ leaf paths.
 The contract is the JAX package's ``ParamInfo`` schema: a reference tree
 handed over as numpy arrays (``jax.tree.map(np.asarray, params)``) keeps its
 exact structure here. ``blocks`` stays a list with one dict per period slot,
-and its leaves keep their leading ``L`` axis.
+and its leaves keep their leading ``L`` axis; ``prefix`` and ``suffix``
+(Gemma3's trailing local layers) stay lists of unstacked slots.
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ with per-row positions) or on a paged block pool (single-token decode that
 walks a per-row block table), MLA (DeepSeek-V2's latent attention) on
 both layouts, and the embedding. Params are nested dicts of tensors under
 the reference's leaf paths; compute happens in the config's dtype with f32
-softmax and norms. Ring, local-window, cross-attention and tensor-parallel
-branches are not ported yet.
+softmax and norms. Local sliding-window layers (Gemma3) run on a full
+cache, on a W-row ring cache or as ring pages on the pool. Cross-attention
+and tensor-parallel branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -156,6 +157,13 @@ def causal_mask(Sq: int, Sk: int, q_offset, device=None) -> torch.Tensor:
     return (kpos <= qpos)[None, None]
 
 
+def window_mask(Sq: int, Sk: int, q_offset, window: int, device=None) -> torch.Tensor:
+    """(1, 1, Sq, Sk) True where query - window < key position <= query."""
+    qpos = q_offset + torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    return ((kpos <= qpos) & (kpos > qpos - window))[None, None]
+
+
 def _update_cache_rows(cache_leaf, new, idx, gate=None):
     """Write `new` (B, S_new, ...) into `cache_leaf` (B, S, ...) IN PLACE at
     sequence offset `idx` — an int (all rows at the same position) or an
@@ -208,8 +216,9 @@ def _update_pool(pool, new, blk, off, gate=None):
 
 
 def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
-               rope_theta=None, decode_impl: str = "dense", write_gate=None,
-               block_table=None, prefill_attn: str = "sdpa", causal: bool = True):
+               rope_theta=None, ring_window=None, local_window=None,
+               decode_impl: str = "dense", write_gate=None, block_table=None,
+               prefill_attn: str = "sdpa", causal: bool = True):
     """GQA attention. If `cache` (dict k,v: (B, S, K, hd)) is given, the new
     k/v are written into it in place at `cache_index` (an int, or a per-row
     int tensor (B,)) and attention runs against the cache. `decode_impl`
@@ -218,19 +227,34 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
     flash-decode kernel; its plain version on CPU tensors). `write_gate`
     gates the cache write (see ``_update_cache_rows``).
 
+    Local sliding-window layers, as the reference runs them:
+    `ring_window=W` stores only the last W tokens (slot = pos % W; the
+    caller passes ``cache_index = pos % W`` at decode); a prefill fills the
+    ring with the newest token of each slot and attends its in-flight k/v
+    under `mask` (the window mask). `local_window=W` marks a local layer on
+    a FULL cache: its prefill writes every token but attends the in-flight
+    k/v too. A local decode step gathers the W window rows in chronological
+    order (positions pos-W+1..pos) and attends them through masked ``sdpa``
+    with the pre-window columns masked, so full, ring and paged local
+    decode reduce over the same W columns in the same order; no kernel
+    runs there, as in the reference.
+
     With `block_table` (int (B, nb)), `cache` is a PAGED block pool (k/v:
     (P, bs, K, hd)): the single decode token is written to pool slot
     ``(block_table[b, pos // bs], pos % bs)`` and attention walks the
     table; `decode_impl` must be 'paged' (the plain version) or
     'paged-kernel' (the CUDA paged kernel; its plain version on CPU
-    tensors).
+    tensors). A paged local layer passes `ring_window` and the TRUE
+    position: the write goes to virtual row ``pos % W`` (the first
+    ``ceil(W / bs)`` table entries), then the W live rows are gathered in
+    order as above.
 
     `prefill_attn` selects a whole-prompt prefill's attention (S > 1 written
     at cache index 0, or no cache): 'sdpa' under `mask`, or 'kernel', the
     flash-attention kernel (its plain version on CPU tensors), which reads
     `causal` in place of `mask`: True, the causal mask from query 0 that
     ``LM.prefill`` builds; False, no mask, the encoder's (its `mask` is
-    None). Returns (out, cache)."""
+    None); a local layer adds its window. Returns (out, cache)."""
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
@@ -249,25 +273,68 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
         sin, cos = rope_sincos(positions, hd, theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
+    W = ring_window if ring_window is not None else local_window
     if block_table is not None:
         if cache is None or S != 1:
             raise ValueError("paged attention is a single-token decode path "
                              "over a block pool")
         if not decode_impl.startswith("paged"):
             raise ValueError(f"block_table given but decode_impl={decode_impl!r}")
+        bsz = cache["k"].shape[1]
+        idx = cache_index.reshape(-1).long()
+        if ring_window is not None:
+            # write virtual row pos % W through the table, then gather the W
+            # live rows in chronological order (virtual row tpos % W of the
+            # first ceil(W / bs) entries): the contiguous ring's arithmetic
+            blk, off = _paged_slots(block_table, idx % W, bsz)
+            _update_pool(cache["k"], k[:, 0], blk, off, write_gate)
+            _update_pool(cache["v"], v[:, 0], blk, off, write_gate)
+            tpos = idx[:, None] - (W - 1) + torch.arange(W, device=x.device)[None, :]
+            slot = tpos % W
+            # pre-window columns (tpos < 0) are masked: where their rows
+            # would lie past the table they read its last entry instead
+            nbw = min(-(-W // bsz), block_table.shape[1])
+            sblk = torch.gather(block_table.long(), 1, torch.clamp(slot // bsz, max=nbw - 1))
+            out = sdpa(q, cache["k"][sblk, slot % bsz], cache["v"][sblk, slot % bsz],
+                       (tpos >= 0)[:, None, None, :])
+            return out.reshape(B, S, H * hd) @ p["wo"], cache
         from repro_torch.kernels.decode_attention import attend_decode_paged
 
-        idx = cache_index.reshape(-1).long()
-        blk, off = _paged_slots(block_table, idx, cache["k"].shape[1])
+        blk, off = _paged_slots(block_table, idx, bsz)
         _update_pool(cache["k"], k[:, 0], blk, off, write_gate)
         _update_pool(cache["v"], v[:, 0], blk, off, write_gate)
         out = attend_decode_paged(q[:, 0], cache["k"], cache["v"], block_table, idx,
                                   use_kernel=decode_impl == "paged-kernel")[:, None]
         return out.reshape(B, S, H * hd) @ p["wo"], cache
     if cache is not None:
-        k = _update_cache_rows(cache["k"], k, cache_index, write_gate)
-        v = _update_cache_rows(cache["v"], v, cache_index, write_gate)
-    if decode_impl != "dense" and cache is not None and S == 1:
+        if ring_window is not None and S > 1:
+            # prefill into a ring: slot j holds the newest token t = j (mod
+            # W); a ring shorter than W (a cache shorter than the window)
+            # keeps its first rows, the prompt's tokens
+            j = torch.arange(W, device=x.device)
+            t = torch.clamp((S - 1) - ((S - 1 - j) % W), min=0)[:cache["k"].shape[1]]
+            cache["k"].copy_(k[:, t])
+            cache["v"].copy_(v[:, t])
+        else:
+            ck = _update_cache_rows(cache["k"], k, cache_index, write_gate)
+            cv = _update_cache_rows(cache["v"], v, cache_index, write_gate)
+            if local_window is None or S == 1:
+                k, v = ck, cv
+            # a local prefill on a full cache attends the in-flight (S-long)
+            # k/v, as the ring prefill does
+        if W is not None and S == 1:
+            tpos = positions.reshape(-1, 1) - (W - 1) + torch.arange(W, device=x.device)
+            # slots stay inside the cache: a ring shorter than W (see above),
+            # or a row whose stale pos lies past the cache (a FREE padding
+            # row, a gated step past the window's end) reads its last row
+            last = cache["k"].shape[1] - 1
+            slot = torch.clamp(tpos % W if ring_window is not None else tpos, 0, last)
+            rows = torch.arange(B, device=x.device)[:, None]
+            slot = slot.expand(B, W)
+            k, v = cache["k"][rows, slot], cache["v"][rows, slot]  # (B, W, KH, hd)
+            # pre-window columns gather arbitrary live rows: exact-zero probs
+            mask = (tpos >= 0).expand(B, W)[:, None, None, :]
+    if decode_impl != "dense" and cache is not None and S == 1 and W is None:
         # flash-decode path: one query token against the whole cache,
         # masked by position. The (B, KH, S, hd) views read the cache in
         # its (B, S, KH, hd) storage by stride: no transpose copy.
@@ -283,7 +350,7 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
 
         # (B, H, S, hd) views of the projections and the cache: no copies
         out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=causal).transpose(1, 2)
+                        causal=causal, window=W).transpose(1, 2)
     else:
         out = sdpa(q, k, v, mask)
     out = out.reshape(B, S, H * hd)

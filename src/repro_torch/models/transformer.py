@@ -22,8 +22,10 @@ runs on a contiguous cache or on a paged block pool (full attention, MLA
 latents, or one mamba state page a slot). Serving runs MoE on the dense
 dispatch (the reference's ``moe_impl='dense'``, what its serving runner
 passes); ``loss`` takes ``moe_impl`` 'ep' (the default, as in the
-reference) or 'dense'. Ring, local, hybrid (jamba) and cross-attention
-slots are not ported.
+reference) or 'dense'. Gemma3's local sliding-window slots run on a
+full cache, on W-row ring caches (``windowed_cache``) or as ring pages on
+the pool, with the reference's unrolled ``suffix`` of local layers after
+the periods. Hybrid (jamba) and cross-attention slots are not ported.
 
 ``loss`` is the training objective. Like the reference's, it reaches no
 kernel: attention through ``sdpa``, the mamba scan through ``ssd_ref``,
@@ -54,6 +56,7 @@ from repro_torch.models.common import (
     ParamInfo,
     init_from_schema,
     torch_dtype,
+    tree_leaves,
     tree_map,
     zeros_from_schema,
 )
@@ -153,8 +156,9 @@ def _slot_cache_schema(cfg, slot: SlotSpec, rows: tuple, L=None) -> dict:
     return {"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
 
 
-_PORTED_SLOTS = (SlotSpec("attn", "dense"), SlotSpec("mla", "dense"), SlotSpec("mla", "moe"),
-                 SlotSpec("mamba", "none"))
+_PORTED_SLOTS = (SlotSpec("attn", "dense"), SlotSpec("attn", "dense", is_local=True),
+                 SlotSpec("mla", "dense"), SlotSpec("mla", "moe"), SlotSpec("mamba", "none"))
+ROPE_THETA_LOCAL = 10_000.0  # the RoPE base of local slots (the reference's rope_theta_local)
 
 
 def ramp_sites(cfg, max_sites: int = 12) -> Tuple[int, ...]:
@@ -187,7 +191,8 @@ def paged_leaf_kinds(schema) -> List[str]:
     (dicts iterate sorted keys): ``"tokens"`` for per-token pages
     ``(P, bs, ...)``, ``"state"`` for per-slot recurrent pages (mamba
     ``conv``/``ssm``), ``"xkv"`` for pinned cross-attention pages. The
-    serving runner branches on them."""
+    serving runner branches on them; ``LM.paged_cache_kinds`` marks a local
+    slot's token pages ``"ring"``."""
     out: List[str] = []
 
     def walk(node, kind):
@@ -221,11 +226,10 @@ class LM:
         self.plan = build_plan(cfg)
         self.sites = ramp_sites(cfg)
         plan = self.plan
-        if (plan.suffix or cfg.window or cfg.qk_norm
-                or any(s not in _PORTED_SLOTS for s in plan.layer_specs())):
+        if any(s not in _PORTED_SLOTS for s in plan.layer_specs()):
             raise NotImplementedError(
-                f"{cfg.name}: the port runs attention + dense-FFN, MLA + MoE and "
-                "mamba stacks only")
+                f"{cfg.name}: the port runs attention + dense-FFN (local or global), "
+                "MLA + MoE and mamba stacks only")
         if prefill_attn not in ("sdpa", "kernel"):
             raise ValueError(f"prefill_attn={prefill_attn!r}: the port takes 'sdpa' | 'kernel'")
         if ssd_impl not in ("ref", "kernel"):
@@ -250,6 +254,8 @@ class LM:
         if plan.prefix:
             sch["prefix"] = [_slot_schema(cfg, s) for s in plan.prefix]
         sch["blocks"] = [_slot_schema(cfg, s, L=plan.n_periods) for s in plan.period]
+        if plan.suffix:
+            sch["suffix"] = [_slot_schema(cfg, s) for s in plan.suffix]
         sch["final_norm"] = LY.norm_schema(cfg)
         sch["ramps"] = ramp_schema(cfg)
         return sch
@@ -261,17 +267,26 @@ class LM:
 
     # -- cache --------------------------------------------------------------
 
-    def _cache_tree(self, rows: tuple) -> dict:
-        cfg, plan = self.cfg, self.plan
+    def _slot_tree(self, fn) -> dict:
+        """``fn(slot, L)`` for every slot of the plan, in the cache tree's
+        layout: prefix and suffix slots unstacked, period slots with
+        ``L = n_periods``."""
+        plan = self.plan
         sch = {}
         if plan.prefix:
-            sch["prefix"] = [_slot_cache_schema(cfg, s, rows) for s in plan.prefix]
-        sch["blocks"] = [_slot_cache_schema(cfg, s, rows, L=plan.n_periods)
-                         for s in plan.period]
+            sch["prefix"] = [fn(s, None) for s in plan.prefix]
+        sch["blocks"] = [fn(s, plan.n_periods) for s in plan.period]
+        if plan.suffix:
+            sch["suffix"] = [fn(s, None) for s in plan.suffix]
         return sch
 
     def cache_schema(self, B: int, S: int) -> dict:
-        return self._cache_tree((B, S))
+        """Contiguous rows (B, S); with ``windowed_cache`` a local slot keeps
+        a ring of ``min(W, S)`` rows (slot ``pos % W``)."""
+        cfg = self.cfg
+        ring = min(cfg.window, S) if cfg.windowed_cache and cfg.window else S
+        return self._slot_tree(lambda s, L: _slot_cache_schema(
+            cfg, s, (B, ring if s.is_local else S), L))
 
     def init_cache(self, B: int, S: int, device="cuda") -> dict:
         return zeros_from_schema(self.cache_schema(B, S), device)
@@ -283,30 +298,48 @@ class LM:
         pool axis at 1; prefix leaves have no L axis, the pool axis at 0);
         virtual token ``t`` of a row lives at ``(table[b, t // bs], t % bs)``.
         Mamba state pages ``(L, P, d_conv-1, conv_dim)`` and ``(L, P, H, hp,
-        N)`` hold a slot's state at its first table entry."""
-        return self._cache_tree((n_blocks, block_size))
+        N)`` hold a slot's state at its first table entry. A local slot's
+        k/v pages hold its window as a ring: virtual row ``pos % W`` of the
+        row's first ``ceil(W / bs)`` table entries."""
+        return self._slot_tree(lambda s, L: _slot_cache_schema(
+            self.cfg, s, (n_blocks, block_size), L))
 
     def init_paged_cache(self, n_blocks: int, block_size: int, device="cuda") -> dict:
         return zeros_from_schema(self.paged_cache_schema(n_blocks, block_size), device)
 
     def paged_cache_kinds(self, n_blocks: int, block_size: int) -> list:
-        return paged_leaf_kinds(self.paged_cache_schema(n_blocks, block_size))
+        """``paged_leaf_kinds`` of the paged schema, with a local slot's
+        token pages marked ``"ring"``: the prefill scatter writes its last W
+        prompt tokens at virtual rows ``t % W``, where the paged ring decode
+        reads them."""
+        def slot_kinds(s, L):
+            sub = _slot_cache_schema(self.cfg, s, (n_blocks, block_size), L)
+            ring = s.is_local and self.cfg.window
+            kinds = iter(["ring" if ring and k == "tokens" else k
+                          for k in paged_leaf_kinds(sub)])
+            return tree_map(lambda _: next(kinds), sub)
+
+        return tree_leaves(self._slot_tree(slot_kinds))
 
     @property
     def paged_sharing_ok(self) -> bool:
         """Prefix sharing / copy-on-write move token pages between tables:
-        sound for plain full attention only, so false for MLA and mamba, as
-        in the reference."""
-        return all(s.mixer == "attn" and not s.cross and not s.is_local
+        sound for plain full attention only, so false for MLA, mamba and
+        local ring pages (position-aliased mod W), as in the reference."""
+        return all(s.mixer == "attn" and not s.cross and not (s.is_local and self.cfg.window)
                    for s in self.plan.layer_specs())
 
     # -- forward ------------------------------------------------------------
 
-    def _block(self, slot: SlotSpec, p, h, *, positions, mask, cache, cache_index,
-               write_gate=None, block_tables=None, moe_impl="dense", plain=False):
+    def _block(self, slot: SlotSpec, p, h, *, positions, mask, mask_local, cache,
+               cache_index, write_gate=None, block_tables=None, moe_impl="dense",
+               plain=False):
         """One layer. ``plain`` (the loss) runs attention through ``sdpa``
-        and the mamba scan through ``ssd_ref``. Returns (h, the MoE aux loss
-        or None)."""
+        and the mamba scan through ``ssd_ref``. A local slot reads
+        ``mask_local`` and RoPE base ``ROPE_THETA_LOCAL``, and runs as a ring
+        (``windowed_cache``, or any paged local layer: the pool always
+        ring-pages local windows) or as a window over a full contiguous
+        cache. Returns (h, the MoE aux loss or None)."""
         cfg = self.cfg
         x = LY.apply_norm(cfg, p["ln1"], h)
         kw = dict(positions=positions, mask=mask, cache=cache, cache_index=cache_index,
@@ -318,8 +351,16 @@ class LM:
         elif slot.mixer == "mla":
             out, _ = LY.mla_apply(cfg, p["mixer"], x, absorbed=cfg.mla_absorbed, **kw)
         else:
+            if slot.is_local:
+                kw.update(mask=mask_local, rope_theta=ROPE_THETA_LOCAL)
+                if cfg.window and (cfg.windowed_cache or block_tables is not None):
+                    kw["ring_window"] = cfg.window
+                    if cache_index is not None and block_tables is None:
+                        kw["cache_index"] = cache_index % cfg.window  # the ring slot
+                elif cfg.window:
+                    kw["local_window"] = cfg.window
             # prefill_attn applies to a whole-prompt prefill only (S > 1 at
-            # cache index 0); a decode step keeps decode_impl's path
+            # cache index 0); a global decode step keeps decode_impl's path
             out, _ = LY.attn_apply(cfg, p["mixer"], x,
                                    prefill_attn="sdpa" if plain else self.prefill_attn, **kw)
         h = h + out
@@ -359,18 +400,19 @@ class LM:
         return out
 
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
-               write_gate=None, block_tables=None, moe_impl="dense", plain=False,
-               remat=False):
-        """Run the prefix slots, then the periods layer by layer; caches are
-        updated in place. ``pool_idx`` is a slice of positions (serving: a
+               mask_local=None, write_gate=None, block_tables=None, moe_impl="dense",
+               plain=False, remat=False):
+        """Run the prefix slots, the periods layer by layer, then the suffix
+        slots; caches are updated in place. ``pool_idx`` is a slice of positions (serving: a
         view, so no index tensor crosses to the device) or an index tensor
         (the loss's ``ramp_positions``). ``remat`` recomputes each layer in
         the backward (``torch.utils.checkpoint``): memory only, the same
         numbers. Returns (h, pooled (L, B, npos, d), the summed MoE aux
-        loss or None), prefix layers first, as the reference assembles
-        them."""
+        loss or None), prefix layers first and suffix layers last, as the
+        reference assembles them, so ramp sites keep their layer numbers."""
         plan = self.plan
-        kw = dict(positions=positions, mask=mask, cache_index=cache_index,
+        kw = dict(positions=positions, mask=mask, mask_local=mask_local,
+                  cache_index=cache_index,
                   write_gate=write_gate, block_tables=block_tables, moe_impl=moe_impl,
                   plain=plain)
         pooled, aux = [], None
@@ -396,6 +438,9 @@ class LM:
             for s, slot in enumerate(plan.period):
                 c = _layer(caches["blocks"][s], l) if caches else None
                 h = layer(slot, _layer(params["blocks"][s], l), h, c)
+        for i, slot in enumerate(plan.suffix):
+            c = caches["suffix"][i] if caches else None
+            h = layer(slot, params["suffix"][i], h, c)
         return h, torch.stack(pooled), aux
 
     # -- ramp heads ----------------------------------------------------------
@@ -464,13 +509,14 @@ class LM:
         positions = torch.arange(S, device=dev)[None, :]
         h = LY.embed_apply(cfg, params["tok"], tokens, positions)
         mask = LY.causal_mask(S, S, 0, device=dev)
+        mask_local = LY.window_mask(S, S, 0, cfg.window, device=dev) if cfg.window else mask
         npos = min(ramp_positions, S)
         # the reference's f32 linspace truncated to int, formed on the host
         pool_idx = torch.linspace(S // npos - 1, S - 1, npos,
                                   dtype=torch.float32).to(torch.int64).to(dev)
         h, pooled, aux = self._stack(
-            params, h, positions=positions, mask=mask, caches=None, cache_index=None,
-            pool_idx=pool_idx, moe_impl=moe_impl, plain=True, remat=remat)
+            params, h, positions=positions, mask=mask, mask_local=mask_local, caches=None,
+            cache_index=None, pool_idx=pool_idx, moe_impl=moe_impl, plain=True, remat=remat)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=dev)
         h = LY.apply_norm(cfg, params["final_norm"], h)
@@ -495,16 +541,21 @@ class LM:
         + per-active-ramp stats for the LAST position (the generated token).
         Attention attends the S prompt queries to the ``cache_len`` keys
         under the causal mask from query 0: through ``sdpa``, or with
-        ``prefill_attn='kernel'`` through the flash-attention kernel."""
+        ``prefill_attn='kernel'`` through the flash-attention kernel. A
+        local layer attends the S in-flight keys under the window mask,
+        whatever its cache holds (full rows or a ring)."""
+        cfg = self.cfg
         B, S = tokens.shape
         dev = tokens.device
         cache_len = cache_len or S
         positions = torch.arange(S, device=dev)[None, :]
-        h = LY.embed_apply(self.cfg, params["tok"], tokens, positions)
+        h = LY.embed_apply(cfg, params["tok"], tokens, positions)
         mask = LY.causal_mask(S, cache_len if with_cache else S, 0, device=dev)
+        mask_local = LY.window_mask(S, S, 0, cfg.window, device=dev) if cfg.window else mask
         caches = self.init_cache(B, cache_len, device=dev) if with_cache else None
-        h, pooled, _ = self._stack(params, h, positions=positions, mask=mask, caches=caches,
-                                   cache_index=0, pool_idx=slice(S - 1, S))
+        h, pooled, _ = self._stack(params, h, positions=positions, mask=mask,
+                                   mask_local=mask_local, caches=caches, cache_index=0,
+                                   pool_idx=slice(S - 1, S))
         outs = self._head_stats(params, h[:, -1:], pooled, active_sites)
         return caches, outs
 
@@ -520,7 +571,8 @@ class LM:
         ``(block_tables[b, pos[b] // bs], pos[b] % bs)`` and attention walks
         the table (``cfg.decode_attn`` must be 'paged' or 'paged-kernel');
         the paged attention masks by position itself, so no mask is built.
-        Returns (cache, outs)."""
+        A local layer builds its own window mask over the W rows it
+        gathers, so none is built for it either. Returns (cache, outs)."""
         cfg = self.cfg
         B, S = tokens.shape
         assert S == 1
@@ -673,16 +725,20 @@ class LM:
 
 
 def _cache_len(cache) -> Optional[int]:
-    """Sequence length of a contiguous cache, from any attention leaf: k
-    ``(.., B, S, KH, hd)`` or MLA's c ``(.., B, S, r)``, stacked or prefix.
-    None when the plan has no attention: a mamba-only cache holds one
-    recurrent state a row and no sequence (the reference skips the mask)."""
-    for blk in list(cache.get("prefix", [])) + list(cache["blocks"]):
-        if "k" in blk:
-            return blk["k"].shape[-3]
-        if "c" in blk:
-            return blk["c"].shape[-2]
-    return None
+    """Sequence length of a contiguous cache: the LONGEST attention leaf, k
+    ``(.., B, S, KH, hd)`` or MLA's c ``(.., B, S, r)``, stacked, prefix or
+    suffix, so a W-row ring leaf never sets the global mask (the
+    reference's max over leaves). None when the plan has no attention: a
+    mamba-only cache holds one recurrent state a row and no sequence (the
+    reference skips the mask)."""
+    found = []
+    for part in ("prefix", "blocks", "suffix"):
+        for blk in cache.get(part, []):
+            if "k" in blk:
+                found.append(blk["k"].shape[-3])
+            if "c" in blk:
+                found.append(blk["c"].shape[-2])
+    return max(found) if found else None
 
 
 def _stats(logits):

@@ -723,23 +723,38 @@ class DecodeRunner:
         block 0, so only the slot's own blocks are written. A "state" leaf
         (mamba) writes batch row 0's whole recurrent state into the slot's
         FIRST block, the id token leaves use for tokens 0..bs-1: distinct
-        leaves, so the double use never collides. Returns the prefill's
-        final-label tensor."""
+        leaves, so the double use never collides. A "ring" leaf (a local
+        layer's window) writes the last min(W, n) prompt tokens at virtual
+        rows ``t % W``, where the paged ring decode reads them, and zeros in
+        its other rows. (The reference scatters token t to virtual row t
+        here, which a prompt longer than W leaves where its ring decode does
+        not read it; the port follows the contiguous ring instead.) Returns
+        the prefill's final-label tensor."""
         cache, outs = self.model.prefill(self.params, toks, cache_len=self._cache_len,
                                          active_sites=None, with_cache=True)
         bs, nb = self._bs_blk, len(blk_ids)
         ids = self._to_dev(np.asarray(blk_ids, np.int64))
+        n, cfg = toks.shape[1], self.model.cfg
         for pool, cont, ax, kind in zip(tree_leaves(self._cache), tree_leaves(cache),
                                         self._pool_axes, self._kinds):
             if kind == "state":
                 pool.select(ax, int(blk_ids[0])).copy_(cont.select(ax, 0))
                 continue
-            if kind != "tokens":
+            if kind not in ("tokens", "ring"):
                 raise NotImplementedError(f"paged prefill of {kind!r} pages is not ported")
             # cont: batch (size 1) at ax, tokens at ax + 1; pool: P at ax,
             # then bs. Regroup the first nb*bs tokens into blocks.
             t = cont.select(ax, 0)
             need = nb * bs
+            if kind == "ring":
+                # virtual row j holds the newest prompt token t = j (mod W):
+                # the prefill's row t of a full cache, its row j of a ring
+                W = cfg.window
+                j = torch.arange(min(W, n), device=t.device)
+                src = j if cfg.windowed_cache else (n - 1) - ((n - 1 - j) % W)
+                ring = t.new_zeros(t.shape[:ax] + (need,) + t.shape[ax + 1:])
+                ring.narrow(ax, 0, len(j)).copy_(t.index_select(ax, src))
+                t = ring
             if t.shape[ax] < need:
                 pad = list(t.shape)
                 pad[ax] = need - t.shape[ax]

@@ -12,7 +12,7 @@ from repro.configs import get_tiny as ref_tiny  # noqa: E402
 from repro_torch.configs import get_config, get_tiny  # noqa: E402  # repro: allow[tier1-deps] — the port under test; torch-only, skipped above without torch
 
 ARCHS = ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b", "mamba2-2.7b", "resnet18",
-         "resnet50", "bert-base"]
+         "resnet50", "bert-base", "gemma3-4b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -97,6 +97,35 @@ def test_mamba2_full_width_schema_equals_reference():
     assert round((n - ramps) / 1e9, 2) == 2.84
 
 
+def test_gemma3_full_width_schema_equals_reference():
+    """Full-width Gemma3-4B from the schemas alone: 34 layers of d 2560 (5
+    periods of 5 local + 1 global, then 4 local), 8 query heads on 4 KV
+    heads of 256, qk-norm, a tied 262144-token vocab; the reference's leaf
+    shapes and dtypes, 3.88 B model parameters plus 12 ramp heads of
+    2560 x 262144 (~23.9 GB in bf16 together)."""
+    import jax
+
+    from repro.models import build_model as ref_build
+    from repro.models.common import is_info
+    from repro_torch.models import build_model  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.common import tree_leaves  # repro: allow[tier1-deps] — the port under test
+
+    cfg = get_config("gemma3-4b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window,
+            cfg.local_global_pattern) == (34, 2560, 8, 4, 256, 1024, 5)
+    assert (cfg.vocab_size, cfg.padded_vocab, cfg.tie_embeddings) == (262144, 262144, True)
+    ref = jax.tree.leaves(ref_build(ref_config("gemma3-4b")).schema(), is_leaf=is_info)
+    model = build_model(cfg)
+    port = tree_leaves(model.schema())
+    assert [tuple(i.shape) for i in ref] == [tuple(i.shape) for i in port]
+    assert [np.dtype(i.dtype).name for i in ref] == [str(i.dtype)[6:] for i in port]
+    n = sum(math.prod(i.shape) for i in port)
+    ramps = 12 * 2560 * 262144 + 12 * 2560
+    assert len(model.sites) == 12 and len(model.plan.suffix) == 4
+    assert round((n - ramps) / 1e9, 2) == 3.88
+    assert round(2 * n / 1e9, 1) == 23.9
+
+
 def test_unknown_arch_raises():
     with pytest.raises(KeyError):
-        get_config("gemma3-4b")  # not ported yet
+        get_config("qwen3-moe-30b-a3b")  # not ported yet

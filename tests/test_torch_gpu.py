@@ -1,5 +1,7 @@
 """On a CUDA card: each CUDA kernel against its plain PyTorch version (the
-paged decode kernel also bit for bit against the contiguous one), the
+paged decode kernel also bit for bit against the contiguous one; the
+attention kernels also at Gemma3-4B's head width 256 and the ramp-head
+kernels at its d 2560 and V 262144), the
 tiny models with the kernels on against the plain path (tiny mamba2 and
 qwen2 prefills through the SSD and flash-attention kernels too), the
 runner's CUDA-graph sync windows against its eager ones, the
@@ -750,7 +752,7 @@ def test_tiny_qwen_flash_prefill_matches_sdpa(gen):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b",
-                                  "mamba2-2.7b"])
+                                  "mamba2-2.7b", "gemma3-4b"])
 def test_window_graphs_match_eager_runner(gen, arch, paged, dtype):
     """One schedule of sync windows through a runner on CUDA graphs and an
     eager one: records, host state, launch counts and every cache leaf
@@ -793,6 +795,143 @@ def test_window_graphs_match_eager_runner(gen, arch, paged, dtype):
     assert (e._pos.tolist(), e._tok.tolist()) == (g._pos.tolist(), g._tok.tolist())
     for a, b in zip(tree_leaves(e._cache), tree_leaves(g._cache)):
         assert torch.equal(a, b)
+
+
+# -- Gemma3-4B's shapes: head width 256, a 1024-token window, a 262144 vocab --------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_decode_kernels_hd256_match_plain(gen, dtype, paged):
+    """#1 and #5 at hd 256, H 8, KH 4 (G 2): bf16 at Gemma3's served load (B
+    8, S 1200, pos 1100..1199, the key axis in ranges), f32 on 300 keys; pos
+    also on the range edges, and past the cache. The paged kernel walks a
+    shuffled table over 16-key blocks, bit for bit the contiguous kernel's
+    result on the same keys."""
+    from repro_torch.kernels.decode_attention.kernel import DECODE_TILE, decode_launch_info  # repro: allow[tier1-deps] — the port under test
+
+    dt = getattr(torch, dtype)
+    H, KH, hd, bs = 8, 4, 256, 16
+    S = 1200 if dtype == "bfloat16" else 304
+    info = decode_launch_info(dt, 8, H, KH, S, hd, paged=paged, bs=bs)
+    chunk = -(-(-(-S // DECODE_TILE)) // info["splits"]) * DECODE_TILE
+    served = torch.randint(S - 100, S, (8,), generator=gen, device="cuda")
+    pos = torch.cat([served, torch.tensor(_range_edges(chunk, S), device="cuda")])
+    B = pos.shape[0]
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    kc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    vc = torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt)
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    cont = decode_attention(q, k, v, pos)
+    ref = decode_attention_ref(q, k, v, pos)
+    # f32: sums in another order (1e-5); bf16: one output rounding (1e-2)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(cont.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        assert info["splits"] > 1 and info["ctas_per_sm"] >= 1
+    if not paged:
+        return
+    nb = S // bs
+    table = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).reshape(B, nb)
+    k_pool = torch.zeros(1 + B * nb, bs, KH, hd, device="cuda", dtype=dt)
+    v_pool = torch.zeros_like(k_pool)
+    k_pool[table.reshape(-1)] = kc.reshape(B * nb, bs, KH, hd)
+    v_pool[table.reshape(-1)] = vc.reshape(B * nb, bs, KH, hd)
+    table = table.to(torch.int32)
+    out = paged_decode_attention(q, k_pool, v_pool, table, pos)
+    torch.testing.assert_close(out.float(),
+                               paged_decode_attention_ref(q, k_pool, v_pool, table, pos).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(out, cont)  # same key order, same arithmetic
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,window", [(1100, 1024), (1100, None), (300, 100), (65, 16)])
+def test_flash_kernel_hd256_matches_plain(gen, dtype, S, window):
+    """#4 at hd 256, H 8, KH 4: Gemma3's prefill of 1100 tokens with its
+    1024-token window (local layers) and causal alone (global layers), a
+    window inside the key-tile ring, and ragged tails."""
+    dt = getattr(torch, dtype)
+    q = _strided(gen, (1, 8, S, 256), dt)
+    k = _strided(gen, (1, 4, S, 256), dt)
+    v = _strided(gen, (1, 4, S, 256), dt)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == n0 + 1
+    tol = 1e-5 if dtype == "float32" else 1e-2  # as for the other widths
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["d_by_V", "embed_T"])
+def test_ramp_kernels_gemma_width_match_plain(gen, layout):
+    """#2/#3 in bf16 at Gemma3's d 2560 and V 262144 (16384 sixteen-column
+    blocks): the tied embed^T head contiguous along d, a ramp head along V."""
+    d, V = 2560, 262144
+    h = torch.randn(8, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = _w(gen, layout, d, V, torch.bfloat16)
+    thr = torch.rand(8, generator=gen, device="cuda")
+    got = ramp_head_exit(h, w, thr, v_limit=V)
+    ref = ramp_head_exit_ref(h, w, thr, V)
+    for x, y, z in zip(got[:3], ref[:3], ramp_head_stats(h, w, v_limit=V)[:3]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4 * float(y.abs().max()))
+        torch.testing.assert_close(x, z, rtol=0, atol=0)
+    top2 = (h.float() @ w.float()).topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3  # labels exact unless a near-tie
+    assert torch.equal(got[3][clear], ref[3][clear])
+    far = (1.0 - 1.0 / ref[1] - thr).abs() > 1e-6
+    assert torch.equal(got[4][far], ref[4][far])
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_tiny_gemma_kernels_match_plain_path(gen, paged):
+    """Tiny gemma3 (8 layers: a 2-layer local suffix) at head width 256, f32:
+    a 40-token prefill (past its 16-token window) through the flash kernel
+    (windowed on local layers) vs sdpa, then four decode steps with the
+    decode kernels on (global layers; local layers gather their window
+    plainly) vs the plain path, on contiguous rows or ring pages."""
+    cfg = get_tiny("gemma3-4b").replace(n_layers=8, head_dim=256, pallas_head="kernel")
+    mode = "paged" if paged else "dense"
+    on = build_model(cfg.replace(decode_attn="paged-kernel" if paged else "kernel"),
+                     prefill_attn="kernel")
+    off = build_model(cfg.replace(decode_attn=mode))
+    params = on.init(0, device="cuda")
+    B, P = 3, 40
+    toks = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    act = list(range(len(on.sites)))
+    n0 = flash_attention.launches
+    (c_on, o_on), (c_off, o_off) = (m.prefill(params, toks, cache_len=48, active_sites=act)
+                                    for m in (on, off))
+    assert flash_attention.launches == n0 + cfg.n_layers
+    tabs = {}
+    if paged:  # the same rows, laid out as 4-token pages under a shuffled table
+        bs, nb = 4, 12
+        table = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).reshape(B, nb)
+        pools = []
+        for c in (c_on, c_off):
+            pool = on.init_paged_cache(1 + B * nb, bs, device="cuda")
+            for pl, cl, kind in zip(tree_leaves(pool), tree_leaves(c),
+                                    on.paged_cache_kinds(1, bs)):
+                ax = pl.dim() - 4
+                if kind == "ring":  # virtual row j: the newest token t = j (mod W)
+                    j = torch.arange(nb * bs, device="cuda")
+                    t = torch.where(j < cfg.window, (P - 1) - ((P - 1 - j) % cfg.window), 0)
+                    cl = torch.where((j < cfg.window).reshape(-1, 1, 1),
+                                     cl.index_select(ax + 1, t), 0)
+                blocks = cl.reshape(cl.shape[:ax] + (B * nb, bs) + cl.shape[-2:])
+                pl.index_copy_(ax, table.reshape(-1), blocks)
+            pools.append(pool)
+        c_on, c_off = pools
+        tabs = {"block_tables": table.to(torch.int32)}
+    pos = torch.full((B,), P, device="cuda")
+    for _ in range(4):
+        for a, b in ((o_on["final"], o_off["final"]), (o_on["ramps"], o_off["ramps"])):
+            assert torch.equal(a["label"], b["label"])
+            torch.testing.assert_close(a["maxprob"], b["maxprob"], rtol=1e-4, atol=1e-6)
+        tok = o_off["final"]["label"].reshape(-1, 1).long()
+        _, o_on = on.decode(params, c_on, tok, pos, active_sites=act, **tabs)
+        _, o_off = off.decode(params, c_off, tok, pos, active_sites=act, **tabs)
+        pos = pos + 1
 
 
 def test_window_graph_keeps_its_decode_workspace(gen):

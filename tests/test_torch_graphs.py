@@ -2,8 +2,9 @@
 the CPU, where each window runs its body uncaptured over the same static
 input buffers a CUDA graph replays on a card.
 
-For tiny qwen2-1.5b, gpt2-medium, deepseek-v2-lite-16b and mamba2-2.7b, on
-contiguous rows and on the paged pool, one schedule goes through three
+For tiny qwen2-1.5b, gpt2-medium, deepseek-v2-lite-16b, mamba2-2.7b and
+gemma3-4b (8 layers: a local suffix after the periods), on contiguous rows
+and on the paged pool, one schedule goes through three
 runners at equal batch shapes: the JAX package's ``DecodeRunner``, the
 port's eager runner and the port's runner on uncaptured window graphs. The
 two port runners must agree bit for bit (records, ``n_done``, host and
@@ -41,7 +42,7 @@ from repro_torch.models.common import tree_leaves  # noqa: E402  # repro: allow[
 
 REC_TOL = dict(rtol=1e-4, atol=1e-4)  # whole-model fp32 records and caches
 P_LEN, MAX_NEW, BS = 6, 30, 4
-ARCHS = ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b", "mamba2-2.7b"]
+ARCHS = ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b", "mamba2-2.7b", "gemma3-4b"]
 
 
 def _bucket(n):
@@ -55,6 +56,8 @@ def _runners(arch, paged, prompts, seed=0, **kw):
     """(JAX runner, port eager runner, port runner on uncaptured graphs)
     over one set of weights."""
     ref_cfg, port_cfg = get_tiny(arch), port_tiny(arch)
+    if ref_cfg.window:  # gemma3: 8 layers, so a local suffix's leaves ride in the graph too
+        ref_cfg, port_cfg = (c.replace(n_layers=8) for c in (ref_cfg, port_cfg))
     attn = "paged" if paged else ("dense" if ref_cfg.mla or ref_cfg.ssm else "ref")
     if ref_cfg.mla:
         ref_cfg, port_cfg = (c.replace(mla_absorbed=True) for c in (ref_cfg, port_cfg))

@@ -170,16 +170,19 @@ def test_decode_splits_whole_tiles_fill_the_card(n_sm, B, KH, keys):
         decode_splits,
     )
 
-    s = decode_splits(n_sm, B, KH, keys)
-    tiles = -(-keys // DECODE_TILE)
-    per = -(-tiles // s)  # tiles a range; the kernel's chunk is per * DECODE_TILE keys
-    assert 1 <= s <= min(tiles, DECODE_MAX_SPLITS) and (s - 1) * per < tiles
-    assert s == 1 or per >= DECODE_RANGE_TILES
-    target = DECODE_WAVES * n_sm * DECODE_CTAS_PER_SM
-    allowed = min(target, B * KH * max(1, min(tiles // DECODE_RANGE_TILES, DECODE_MAX_SPLITS)))
-    assert B * KH * s >= 0.8 * allowed
-    assert s == 1 or B * KH * (s - 1) < target  # no more ranges than the target needs
-    assert decode_splits(n_sm, B, KH, keys) == s
+    for hd, ctas in DECODE_CTAS_PER_SM.items():  # the CTAs an SM of each head width
+        s = decode_splits(n_sm, B, KH, keys, hd)
+        tiles = -(-keys // DECODE_TILE)
+        per = -(-tiles // s)  # tiles a range; the kernel's chunk is per * DECODE_TILE keys
+        assert 1 <= s <= min(tiles, DECODE_MAX_SPLITS) and (s - 1) * per < tiles
+        assert s == 1 or per >= DECODE_RANGE_TILES
+        target = DECODE_WAVES * n_sm * ctas
+        allowed = min(target,
+                      B * KH * max(1, min(tiles // DECODE_RANGE_TILES, DECODE_MAX_SPLITS)))
+        assert B * KH * s >= 0.8 * allowed
+        assert s == 1 or B * KH * (s - 1) < target  # no more ranges than the target needs
+        assert decode_splits(n_sm, B, KH, keys, hd) == s
+    assert decode_splits(n_sm, B, KH, keys) == decode_splits(n_sm, B, KH, keys, 128)
 
 
 # -- the paged MLA kernel's key ranges --------------------------------------------
