@@ -97,6 +97,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the pool with a 1060-token first chunk and 40 resumed tokens: greedy
      tokens equal except from a near-tie; a prefix cache refused; 9d. as
      4e.
+  10. full-width Qwen3-MoE-30B-A3B, whole (48 layers of attention + MoE: d
+     2048, 32 heads on 4 of 128, qk-norm, 128 experts top-8; 68.65 GB of
+     bf16 weights) with seeded random weights, once Gemma3's are freed:
+     10a. #1 and #5 at GQA group 8, #4 causal at 8 x 128, #2/#3 at d 2048 x
+     V 153600, each against its plain version; the step's byte floor with
+     the dense dispatch and with only the experts its routing touched;
+     10b. a prefill through sdpa vs the flash kernel, then 8 decode steps
+     with the kernels off vs on (MoE routing replayed), one eager step
+     profiled; 10c. 8 requests on contiguous rows and on the pool (its run
+     on the contiguous run's routing), then prefix sharing, copy-on-write
+     and swap on a 24-block pool; 10d. as 4e.
+  11. full-width Llama-3.2-Vision-90B at one period's depth (5 layers, the
+     last with a gated cross-attention over 1600 image tokens; d 8192, 64
+     heads on 8 of 128; 21.56 GB), its cross gate set to 1.0: 11a. #1/#5
+     at group 8 (#5 over tables with 100 trailing xkv columns), #4, #2/#3
+     at d 8192 x V 129024; 11b. a prefill with image memory through sdpa vs
+     the flash kernel, then 8 decode steps kernels off vs on; a step and
+     its cross layer timed; 11c. 8 requests on contiguous rows and on the
+     pool with pinned xkv pages (zero memory: the runner takes no image),
+     swap on a pool that runs dry, a prefix cache refused; 11d. as 4e.
 Every serving phase serves its sync windows as CUDA graph replays (the
 runner's default on a card; a key's first window runs eager, its second
 is captured), except runs that carry Python hooks, which run eager
@@ -320,11 +340,14 @@ def check_decode_attention(B, S, label, gen, pos_lo=0, H=12, KH=2, hd=128):
 
 
 def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=12, KH=2,
-                                 hd=128):
+                                 hd=128, trailing=0):
     """The paged kernel over a shuffled block table (pool block 0 is the
     trash block no row owns), per-row pos drawn from [pos_lo, pos_hi):
     against its plain version, and bit for bit against the contiguous
-    kernel on the same keys gathered into a contiguous cache."""
+    kernel on the same keys gathered into a contiguous cache. With
+    ``trailing`` the table carries that many more columns (a cross plan's
+    pinned xkv pages, other keys) and the kernel gets the token columns
+    as the model hands them over: a view with the whole row's stride."""
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         paged_decode_attention,
@@ -333,12 +356,12 @@ def check_paged_decode_attention(B, nb, label, gen, pos_lo, pos_hi, bs=16, H=12,
     from repro_torch.kernels.decode_attention.kernel import decode_launch_info
 
     dt = torch.bfloat16
-    S, P = nb * bs, B * nb + 1
+    S, P = nb * bs, B * (nb + trailing) + 1
     q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
     k_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
     v_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
-    table = perm.reshape(B, nb).to(torch.int32)
+    table = perm.reshape(B, nb + trailing).to(torch.int32)[:, :nb]
     pos = torch.randint(pos_lo, pos_hi, (B,), generator=gen, device="cuda")
     n0 = (paged_decode_attention.launches, decode_attention.launches)
     out = paged_decode_attention(q, k_pool, v_pool, table, pos)
@@ -823,7 +846,8 @@ def _to_pool(model, cache, bs, gen):
 
 
 def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on_kw=None,
-                  prefill_kernel=None, toks=None, T=8, thr=None):
+                  prefill_kernel=None, toks=None, T=8, thr=None, act=(2, 5, 8, 11),
+                  prefill_kw=None):
     """Prefill 128 tokens for 8 rows (each path twice, timed in the order
     off, on, on, off; ``toks`` (B, P) replaces the drawn prompts), then
     ``T`` greedy decode steps (exit thresholds ``thr``, 0.5 by default),
@@ -845,12 +869,18 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
     with bf16's 2^-9 rounding at ~10 points per layer over 28 layers, h
     drifts by ~3% and top logits (~3-4) by ~0.1. The drift adds up layer by
     layer, so a deeper model's cap grows with its depth: 0.25 * L / 28
-    (Mamba2-2.7B's 64 layers: 0.571)."""
+    (Mamba2-2.7B's 64 layers: 0.571); and a drift of h moves the logits in
+    proportion to their size, so where the mean top logit of the prefill's
+    kernels-off final head passes 5 (the other models' 3.5-4.6; d 8192 of
+    Llama-3.2-Vision: ~8) the cap is scaled by it over 5. ``act`` are the
+    active ramp sites, ``prefill_kw`` more arguments of the prefill (a
+    cross plan's ``image_embeds``)."""
     from repro_torch.models import build_model
     from repro_torch.models import layers as LY
 
     off, on = build_model(off_cfg, **(off_kw or {})), build_model(on_cfg, **(on_kw or {}))
-    act = [2, 5, 8, 11]
+    act = list(act)
+    prefill_kw = prefill_kw or {}
     vl = cfg.vocab_size
     if thr is None:
         thr = torch.full((len(act),), 0.5, device="cuda")
@@ -890,7 +920,11 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
     routes = RouteReplay()  # MoE: the on path takes the off path's experts
 
     def check(o_on, o_off, t):
+        nonlocal cap
         lg_on, lg_off = f32_logits(seen_on), f32_logits(seen_off)
+        if t == 0:  # the prefill's top logits set the cap's scale
+            stats["top_logit"] = lg_off[0].max(dim=-1).values.mean().item()
+            cap *= max(1.0, stats["top_logit"] / 5.0)
         names = ["final"] + [f"ramp {i}" for i in act]
         step_eps = 0.0
         for name, a, b, la, lb in zip(names, lg_on, lg_off, labels(o_on), labels(o_off)):
@@ -926,7 +960,7 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         runs[name], pl = counted(lambda m=model: m.prefill(params, toks, cache_len=cache_len,
-                                                            active_sites=act))
+                                                            active_sites=act, **prefill_kw))
         times[f"prefill_{name}_ms"].append(1e3 * (time.perf_counter() - t0))
         for k in PREFILL:
             expect = cfg.n_layers if (k == prefill_kernel and name == "on") else 0
@@ -965,11 +999,12 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
         params, c_on, nxt, pos, active_sites=act, exit_thresholds=thr, block_tables=tables))
     if prefill_kernel is not None:  # one prefill of the on path: its prefill kernel's share
         times["profile_prefill_on"] = profile_step(lambda: on.prefill(
-            params, toks, cache_len=cache_len, active_sites=act))
+            params, toks, cache_len=cache_len, active_sites=act, **prefill_kw))
     print(f"model {cfg.name} kernels off ({off_cfg.decode_attn}, {off_cfg.pallas_head}, "
           f"{off_kw or {}}) vs on ({on_cfg.decode_attn}, {on_cfg.pallas_head}, {on_kw or {}}): "
           f"{stats['labels']} labels, {stats['near_ties']} near-ties, max logit eps "
-          f"{stats['max_eps']:.4f} (cap {cap:.3f}; by step {stats['eps_by_step']}); "
+          f"{stats['max_eps']:.4f} (cap {cap:.3f}, mean top logit {stats['top_logit']:.3f}; "
+          f"by step {stats['eps_by_step']}); "
           f"kernels-on ramp records: {stats['ramp_exits']} of {stats['ramp_records']} exit at "
           f"thresholds {[round(x, 4) for x in thr.tolist()]}, "
           f"{stats['ramp_maxprob_over_half']} with maxprob > 0.5; "
@@ -977,9 +1012,9 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
              f"{routes.routes} token routes of the on path would have taken other experts "
              "(router near-ties); "
              if cfg.moe else "") + json.dumps(times), flush=True)
-    return {**times, **{k: stats[k] for k in ("ramp_exits", "ramp_records",
-                                              "ramp_maxprob_over_half", "near_ties",
-                                              "max_eps")}}
+    return {**times, "eps_cap": cap,
+            **{k: stats[k] for k in ("ramp_exits", "ramp_records", "ramp_maxprob_over_half",
+                                     "near_ties", "max_eps", "top_logit")}}
 
 
 def profile_step(fn, top=6):
@@ -1093,7 +1128,8 @@ def check_prefill_launches(phase, cfg, launches, kernel):
 
 def _final_logits(params, cfg, toks, act=()):
     """f32 logits of the final head at the last position of each row of
-    toks, through the dense path (no kernel, no launch counted); with
+    toks, through the dense path (no kernel, no launch counted; a cross
+    plan's layers over zero memory, as served); with
     ``act`` (site indices), (ramp logits (K, B, V), final logits (B, V))."""
     from repro_torch.models import build_model
     from repro_torch.models import layers as LY
@@ -1107,7 +1143,11 @@ def _final_logits(params, cfg, toks, act=()):
         return orig(params_, h_last, pooled, *a, **kw)
 
     model._head_stats = head_stats
-    model.prefill(params, toks, active_sites=None, with_cache=False)
+    kw = {}
+    if cfg.cross_attn_every:  # the served cross layers attend zero memory
+        kw["image_embeds"] = torch.zeros(toks.shape[0], cfg.n_image_tokens, cfg.d_frontend,
+                                         device=toks.device)
+    model.prefill(params, toks, active_sites=None, with_cache=False, **kw)
     h = LY.apply_norm(cfg, params["final_norm"], seen["h"])[:, 0]
     final = _logits_ref(h, head_weight(params, cfg), cfg.vocab_size)
     if not act:
@@ -1290,8 +1330,8 @@ def _moe_divergences(phase, runs, hidden):
 
 
 def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kernel,
-                              prefill_kernel):
-    """Phases 4b, 5b and 6b: 8 requests, prompt 120, 38 tokens, windows of
+                              prefill_kernel, quick=False):
+    """Phases 4b, 5b, 6b, 10c and 11c: 8 requests, prompt 120, 38 tokens, windows of
     4, served on the contiguous runner and on the paged pool (bs 16,
     paged-kernel) on one schedule. Greedy tokens equal, except a difference
     that begins at a near-tie. Each run launches its attention kernel
@@ -1306,8 +1346,10 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
     routing, both record their final-head inputs) and run eager, so the
     times come from four more runs of each layout without any hook, in the
     order contiguous, paged, paged, contiguous, twice, and one more eager
-    run of each counts the aten ops of a window (``window_ops``). Returns
-    the compared paged run's launch counts."""
+    run of each counts the aten ops of a window (``window_ops``); ``quick``
+    (Qwen3-MoE, whose eager windows take ~0.7 s) runs that order once and
+    counts no ops. Returns the compared contiguous and paged runs' launch
+    counts."""
     import numpy as np
 
     prompts = np.random.default_rng(SEED + 2).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
@@ -1341,21 +1383,24 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
                 lambda: routes(m, call)), graphs=False)
         ties = _moe_divergences(phase, runs, hidden)
         timed = []
-        for name, bs in (layouts + layouts[::-1]) * 2:
+        order = (layouts + layouts[::-1]) * (1 if quick else 2)
+        for name, bs in order:
             gc.collect()  # earlier runs' engine objects sit in reference cycles
             timed.append((name, serve_once(name, bs)))
         hooked = " vs ".join(f"{runs[name][0]['measured']['window_ms_mean']:.3f}"
                              for name, _ in layouts)
-        ops = [window_ops(lambda: serve_once(name, bs, graphs=False))[1]
-               for name, bs in layouts]
         extra = (f"MoE routing replayed from the contiguous run: {routes.flip_count()} of "
                  f"{routes.routes} token routes of the paged run would have taken other "
-                 f"experts; eager ms per window with the hooks {hooked}; eager aten ops per "
-                 f"window {ops[0]['ops_per_window']['eager']:.1f} vs "
-                 f"{ops[1]['ops_per_window']['eager']:.1f}, in LM.decode per step "
-                 f"{ops[0]['decode_ops_per_step']:.1f} vs "
-                 f"{ops[1]['decode_ops_per_step']:.1f}; times below from graphed runs without "
-                 "hooks in the order c, p, p, c, c, p, p, c (median last); ")
+                 f"experts; eager ms per window with the hooks {hooked}; ")
+        if not quick:
+            ops = [window_ops(lambda: serve_once(name, bs, graphs=False))[1]
+                   for name, bs in layouts]
+            extra += (f"eager aten ops per window {ops[0]['ops_per_window']['eager']:.1f} vs "
+                      f"{ops[1]['ops_per_window']['eager']:.1f}, in LM.decode per step "
+                      f"{ops[0]['decode_ops_per_step']:.1f} vs "
+                      f"{ops[1]['decode_ops_per_step']:.1f}; ")
+        extra += ("times below from graphed runs without hooks in the order "
+                  + ", ".join(name[0] for name, _ in order) + " (median last); ")
     else:
         for name, bs in layouts:
             runs[name] = serve_once(name, bs)
@@ -1395,12 +1440,12 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
           f"tokens/s {each('decode_tokens_per_s', '.2f')}; launches {json.dumps(c_l)} vs "
           f"{json.dumps(p_l)}; paged kv {json.dumps(runs['paged'][0]['kv_cache'])}",
           flush=True)
-    return p_l
+    return c_l, p_l
 
 
-def serve_prefix_swap(params, cfg, serve):
-    """Phase 4c: 8 requests drawing on 4 prompts that share a 64-token
-    prefix, each prompt sent twice, with the prefix cache and swap
+def serve_prefix_swap(params, cfg, serve, phase="4c"):
+    """Phases 4c and 10c: 8 requests drawing on 4 prompts that share a
+    64-token prefix, each prompt sent twice, with the prefix cache and swap
     preemption on a 24-block pool (full capacity is 80): it runs dry with
     up to four streams decoding together."""
     import numpy as np
@@ -1409,21 +1454,21 @@ def serve_prefix_swap(params, cfg, serve):
     base[:, :64] = base[0, :64]
     prompts = np.concatenate([base, base])
     (out, resp), launches = counted(lambda: serve(
-        CONFIG, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
+        cfg.name, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
         verbose=False, kv_block_size=16, kv_blocks=24, prefix_cache=True, preempt="swap",
         prompts=prompts, params=params))
-    _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, "4c")
+    _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, phase)
     kv = out["kv_cache"]
     for key in ("prefix_hits", "cow_copies", "swap_outs"):
         if kv[key] <= 0:
-            fail(f"4c: {key} is {kv[key]}; the run must share, copy on write and swap")
+            fail(f"{phase}: {key} is {kv[key]}; the run must share, copy on write and swap")
     if kv["swap_ins"] != kv["swap_outs"]:
-        fail(f"4c: {kv['swap_outs']} swaps out but {kv['swap_ins']} back in")
+        fail(f"{phase}: {kv['swap_outs']} swaps out but {kv['swap_ins']} back in")
     if launches["paged_decode_attention"] <= 0:
-        fail("4c: the paged kernel was not launched")
-    check_prefill_launches("4c", cfg, launches, "flash_attention")
-    print(f"4c prefix sharing + swap preemption, 24-block pool: {graph_note(out['measured'])}; "
-          f"kv {json.dumps(kv)}; engine "
+        fail(f"{phase}: the paged kernel was not launched")
+    check_prefill_launches(phase, cfg, launches, "flash_attention")
+    print(f"{phase} {cfg.name} prefix sharing + swap preemption, 24-block pool: "
+          f"{graph_note(out['measured'])}; kv {json.dumps(kv)}; engine "
           f"{json.dumps(out['simulated']['engine'], default=float)}; launches "
           f"{json.dumps(launches)}", flush=True)
 
@@ -1472,25 +1517,28 @@ def serve_chunked(params, cfg, serve):
 # phases 5a-5c: DeepSeek-V2-Lite (MLA + MoE) at full width
 
 
-def serve_swap(params, cfg, serve, phase, seed, decode_kernel, prefill_kernel):
-    """Phases 5c and 6c: 8 requests (prompt 120, 38 tokens) with swap
-    preemption on a 24-block pool (full capacity is 80, a stream needs up
-    to 10): the pool runs dry and streams are swapped out and back in. No
-    prefix cache: latent and state pages are not shared. ``decode_kernel``
-    (None: none) runs once a layer a decode step, ``prefill_kernel`` once a
-    layer a prefill."""
+def serve_swap(params, cfg, serve, phase, seed, decode_kernel, prefill_kernel, kv_blocks=24):
+    """Phases 5c, 6c and 11c: 8 requests (prompt 120, 38 tokens) with swap
+    preemption on a ``kv_blocks`` pool (by default 24; full capacity is 80,
+    a stream needs up to 10 blocks and a cross plan's its pinned xkv pages
+    too): the pool runs dry and streams are swapped out and back in, and
+    every block (pins included) is free at the end. No prefix cache:
+    latent, state and xkv pages are not shared. ``decode_kernel`` (None:
+    none) runs once a layer a decode step, ``prefill_kernel`` once a layer
+    a prefill."""
     import numpy as np
 
     prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
     (out, resp), launches = counted(lambda: serve(
         cfg.name, decode_tokens=PAGED_TOKENS, steps_per_sync=4, seed=SEED, device="cuda",
-        verbose=False, kv_block_size=16, kv_blocks=24, preempt="swap", prompts=prompts,
+        verbose=False, kv_block_size=16, kv_blocks=kv_blocks, preempt="swap", prompts=prompts,
         params=params))
     _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, phase)
     kv = out["kv_cache"]
-    if not kv["swap_outs"] > 0 or kv["swap_ins"] != kv["swap_outs"]:
-        fail(f"{phase}: {kv['swap_outs']} swaps out and {kv['swap_ins']} back in; the run "
-             "must swap, and every stream swapped out must come back")
+    if not kv["swap_outs"] > 0 or kv["swap_ins"] != kv["swap_outs"] or kv["live_blocks"]:
+        fail(f"{phase}: {kv['swap_outs']} swaps out and {kv['swap_ins']} back in, "
+             f"{kv['live_blocks']} blocks live at the end; the run must swap, every stream "
+             "swapped out must come back, and every block must be freed")
     steps = launches["decode_steps"]
     for k in ATTENTION:
         expect = cfg.n_layers * steps if k == decode_kernel else 0
@@ -1500,7 +1548,8 @@ def serve_swap(params, cfg, serve, phase, seed, decode_kernel, prefill_kernel):
         if launches[k] <= 0:
             fail(f"{phase}: {k} launched {launches[k]} times")
     check_prefill_launches(phase, cfg, launches, prefill_kernel)
-    print(f"{phase} {cfg.name} swap preemption, 24-block pool: {graph_note(out['measured'])}; "
+    print(f"{phase} {cfg.name} swap preemption, {kv_blocks}-block pool: "
+          f"{graph_note(out['measured'])}; "
           f"kv {json.dumps(kv)}; engine "
           f"{json.dumps(out['simulated']['engine'], default=float)}; launches "
           f"{json.dumps(launches)}", flush=True)
@@ -1530,7 +1579,7 @@ def deepseek_phases(gen, serve):
                   paged_bs=16)
     # 5b: contiguous rows (absorbed plain math, no attention kernel) vs the
     # pool (the paged MLA kernel in every layer)
-    launches = serve_paged_vs_contiguous(params, cfg, serve, "5b", None,
+    _, launches = serve_paged_vs_contiguous(params, cfg, serve, "5b", None,
                                          "paged_mla_decode_attention", None)
     serve_swap(params, cfg, serve, "5c", SEED + 5, "paged_mla_decode_attention", None)
     return launches, rh, graph_vs_eager(params, cfg, serve, "5d", SEED + 8)
@@ -1594,7 +1643,8 @@ def mamba_phases(gen, serve):
                   off_kw={"ssd_impl": "ref"}, on_kw={"ssd_impl": "kernel"},
                   prefill_kernel="ssd_chunked")
     # 6b: contiguous state rows vs state pages (no decode attention kernel)
-    launches = serve_paged_vs_contiguous(params, cfg, serve, "6b", None, None, "ssd_chunked")
+    _, launches = serve_paged_vs_contiguous(params, cfg, serve, "6b", None, None,
+                                            "ssd_chunked")
     serve_swap(params, cfg, serve, "6c", SEED + 6, None, "ssd_chunked")
     return launches, rh, graph_vs_eager(params, cfg, serve, "6d", SEED + 9)
 
@@ -1603,8 +1653,10 @@ def mamba_phases(gen, serve):
 # phases 4e, 5d and 6d: one sync window as one CUDA graph replay
 
 
-def graph_vs_eager(params, cfg, serve, phase, seed, prompt_len=PAGED_PROMPT):
-    """Phases 4e, 5d, 6d and 9d. On each layout, two runners over the same
+def graph_vs_eager(params, cfg, serve, phase, seed, prompt_len=PAGED_PROMPT,
+                   act=(2, 5, 8, 11)):
+    """Phases 4e, 5d, 6d, 9d, 10d and 11d (active sites ``act``). On each
+    layout, two runners over the same
     weights and prompts, one serving its windows as CUDA graphs and one
     eager: the same windows through both (the graphed runner's first runs
     eager, its second is captured, its third replays) must give records,
@@ -1625,7 +1677,7 @@ def graph_vs_eager(params, cfg, serve, phase, seed, prompt_len=PAGED_PROMPT):
     from repro_torch.serving.graphs import kernel_nodes
 
     prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (8, prompt_len))
-    act = [2, 5, 8, 11]
+    act = list(act)
     thr = np.full(len(act), 0.5, np.float32)
     slots = list(range(8))
     fns = counted_wrappers()
@@ -2567,6 +2619,251 @@ def bert_train_phase(serve, random_run):
                       "random_accuracy": random_run["accuracy"], "resume_max_rel": dev,
                       "ramp_set_variants": out["measured"]["ramp_set_variants"]}
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: Qwen3-MoE-30B-A3B whole, and one period of Llama-3.2-Vision,
+# at full width
+
+
+Q3_CONFIG = "qwen3-moe-30b-a3b"
+LV_CONFIG = "llama-3.2-vision-90b"
+LV_ACT = (0, 1, 2, 3)  # one period of 5 layers has 4 ramp sites
+
+
+def _lap(name, t0):
+    """Print a sub-phase's seconds since ``t0`` and the peak of device
+    memory allocated meanwhile (the peak counter restarts here)."""
+    torch.cuda.synchronize()
+    print(f"{name}: {time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def _draw(cfg, what):
+    """The model of ``cfg`` and its seeded weights on the card."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"drew {what} ({n / 1e9:.3f} B params with the ramp heads, {cfg.dtype}; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated) on {card_line()} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model, params
+
+
+def moe_step_floor(params, cfg, model, gen, B=8, n_ramps=4, pos=PAGED_PROMPT + 20):
+    """Phase 10a: what one decode step of B rows at ``pos`` must read at
+    least, two ways: with the dense dispatch the port serves (every expert
+    of every layer) and with only the experts the step's routing touches
+    (the floor of a grouped dispatch). The touched experts are those of one
+    decode step (the dense path, no kernel) after a prefill of B random
+    prompts, its router calls recorded."""
+    ffn = params["blocks"][0]["ffn"]
+    per_expert = sum(ffn[k][0, 0].numel() * ffn[k].element_size()
+                     for k in ("w_gate", "w_up", "w_down"))
+    experts = cfg.n_layers * cfg.n_experts * per_expert
+    toks = torch.randint(1, cfg.vocab_size, (B, pos), generator=gen, device="cuda")
+    cache, outs = model.prefill(params, toks, cache_len=pos + 2, active_sites=None)
+    routes = RouteReplay()
+    routes("record", lambda: model.decode(
+        params, cache, outs["final"]["label"].reshape(-1, 1).long(),
+        torch.full((B,), pos, device="cuda")))
+    touched = sum(int(torch.unique(ids).numel()) for ids in routes.ids)
+    del cache
+    row = {"layers": _nbytes(params["blocks"]), "experts_all": experts,
+           "experts_touched": touched * per_expert, "touched_experts": touched,
+           "expert_slots": cfg.n_layers * cfg.n_experts,
+           "final_head": _nbytes(params["tok"]["lm_head"]),
+           "ramp_heads": n_ramps * params["ramps"]["head"][0].numel() * 2,
+           "caches": B * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * 2 * (pos + 1)}
+    row["dense_total"] = row["layers"] + row["final_head"] + row["ramp_heads"] + row["caches"]
+    row["touched_total"] = row["dense_total"] - experts + row["experts_touched"]
+    row["dense_ms"] = 1e3 * row["dense_total"] / HBM_BW
+    row["touched_ms"] = 1e3 * row["touched_total"] / HBM_BW
+    print(f"10a {cfg.name} decode step byte floor at B {B}, {n_ramps} ramps, pos {pos}: "
+          f"{json.dumps(row)} (bytes; ms at 3.35 TB/s)", flush=True)
+    return row
+
+
+def qwen3_phases(gen, serve):
+    """Phase 10: Qwen3-MoE-30B-A3B whole (48 layers of attention + MoE; d
+    2048, 32 heads on 4 of 128, qk-norm, 128 experts of width 768 with
+    top-8, an untied 151936-token vocab, 12 ramp heads: 68.65 GB of bf16
+    weights), seeded random weights drawn once Gemma3's are freed. 10a: #1
+    and #5 at group 8 (32:4), #4 causal at 8 x 128, #2/#3 at d 2048 x V
+    153600, each against its plain version; the step's byte floor, dense
+    and routed. 10b: a prefill of 8 x 128 through sdpa vs the flash kernel,
+    then 8 decode steps with the kernels off vs on on the off path's
+    routing, one eager step profiled. 10c: 8 requests (prompt 120, 38
+    tokens) on contiguous rows, then on the pool on the contiguous run's
+    routing; prefix sharing, copy-on-write and swap on a 24-block pool.
+    10d: window graphs on both layouts. Returns (its rows, 10c's contiguous
+    and paged launches)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(Q3_CONFIG)
+    model, params = _draw(cfg, f"{Q3_CONFIG} weights, whole: 48 layers of d 2048, 32 heads on "
+                               "4 of 128, qk-norm, 128 experts top-8 of width 768")
+    t = _lap("10 draw", time.perf_counter())
+    rows = {}
+    # -- 10a: the kernels alone at Qwen3-MoE's shapes, and the step's floor
+    rows["decode"] = check_decode_attention(
+        8, 160, "B=8 H=32 KH=4 hd=128 S=160 pos 120..159 bf16", gen, pos_lo=120, H=32, KH=4)
+    rows["paged"] = check_paged_decode_attention(
+        8, 10, "B=8 H=32 KH=4 hd=128 bs=16 nb=10 pos 120..159 shuffled bf16", gen, 120, 160,
+        H=32, KH=4)
+    rows["flash"] = check_flash_attention(8, 32, 4, 128, 128, 128,
+                                          "B=8 H=32 KH=4 hd=128 Sq=Sk=128 causal bf16", gen)
+    rows["ramp"] = check_ramp_head(params, cfg, gen)
+    rows["floor"] = moe_step_floor(params, cfg, model, gen)
+    t = _lap("10a", t)
+    # -- 10b: the model, kernels off vs on
+    rows["paths"] = compare_paths(
+        params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
+        cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
+        on_kw={"prefill_attn": "kernel"}, prefill_kernel="flash_attention")
+    prof, floor = rows["paths"]["profile_on"], rows["floor"]
+    print(f"10b {cfg.name} one eager decode step (B 8, 4 ramps, kernels on) on {card_line()}: "
+          f"device-busy {prof['device_busy_ms']:.3f} ms, wall {prof['wall_ms']:.3f} ms; byte "
+          f"floor {floor['dense_ms']:.3f} ms with the dense dispatch (every expert), "
+          f"{floor['touched_ms']:.3f} ms with the {floor['touched_experts']} of "
+          f"{floor['expert_slots']} experts its routing touched", flush=True)
+    t = _lap("10b", t)
+    # -- 10c: serving on both layouts, then prefix sharing and swap
+    cont, paged = serve_paged_vs_contiguous(params, cfg, serve, "10c", "decode_attention",
+                                            "paged_decode_attention", "flash_attention",
+                                            quick=True)
+    serve_prefix_swap(params, cfg, serve, "10c")
+    t = _lap("10c", t)
+    # -- 10d: window graphs
+    rows["graphs"] = graph_vs_eager(params, cfg, serve, "10d", SEED + 12)
+    _lap("10d", t)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, cont, paged
+
+
+def cross_step_share(params, cfg, gen, img, B=8, P=128):
+    """Phase 11b: a decode step of B rows (kernels on) after a prefill of P
+    tokens with image memory, and the cross layer's branch alone at that
+    step (norm, q projection, sdpa over the M image rows, output
+    projection, gate), device ms each (CUDA events, the L2 flushed); the
+    step's byte floor."""
+    from repro_torch.kernels import counted_wrappers
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    on = build_model(cfg.replace(decode_attn="kernel", pallas_head="kernel"),
+                     prefill_attn="kernel")
+    fns = counted_wrappers()
+    saved = {k: f.launches for k, f in fns.items()}
+    toks = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    cache, outs = on.prefill(params, toks, cache_len=P + 2, active_sites=None,
+                             image_embeds=img)
+    tok, pos = outs["final"]["label"].reshape(-1, 1).long(), torch.full((B,), P, device="cuda")
+    act = list(LV_ACT)
+    thr = torch.full((len(act),), 0.5, device="cuda")
+    lp = tree_map(lambda x: x[0], params["blocks"][-1])
+    lc = tree_map(lambda x: x[0], cache["blocks"][-1])
+    h = torch.randn(B, 1, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    row = {"step_ms": device_ms(lambda: on.decode(params, cache, tok, pos, active_sites=act,
+                                                  exit_thresholds=thr)),
+           "cross_ms": device_ms(lambda: on._cross(lp, h, lc, None, None)),
+           "xkv_bytes_read": 2 * lc["xkv"]["k"].numel() * 2}
+    for k, f in fns.items():  # launches made to time a call do not count
+        f.launches = saved[k]
+    row["cross_share"] = row["cross_ms"] / row["step_ms"]
+    row["floor_bytes"] = (_nbytes(params["blocks"]) + _nbytes(params["tok"]["lm_head"])
+                          + len(act) * params["ramps"]["head"][0].numel() * 2
+                          + B * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * 2 * (P + 1)
+                          + row["xkv_bytes_read"])
+    row["floor_ms"] = 1e3 * row["floor_bytes"] / HBM_BW
+    print(f"11b {cfg.name} decode step (B {B}, 4 ramps, kernels on, pos {P}) and its cross "
+          f"layer on {card_line()}: {json.dumps(row)} (device ms; floor at 3.35 TB/s)",
+          flush=True)
+    return row
+
+
+def llama_phases(gen, serve):
+    """Phase 11: Llama-3.2-Vision-90B at full width and one period's depth
+    (5 layers: 4 self-attention, then one that adds a tanh-gated
+    cross-attention over 1600 image tokens of width 1280; d 8192, 64 heads
+    on 8 of 128, V 128256, 4 ramp heads: 21.56 GB of bf16 weights), seeded
+    random weights, its cross gate set to 1.0 after the draw (zero at init,
+    a branch that changes nothing). 11a: #1 at group 8 (64:8), #5 over a
+    table that carries 100 trailing xkv columns, #4 causal at 8 x 128,
+    #2/#3 at d 8192 x V 129024. 11b: a prefill of 8 x 128 with image memory
+    through sdpa vs the flash kernel, then 8 decode steps on the contiguous
+    cache with the kernels off vs on; a step and its cross layer timed.
+    11c: 8 requests x 38 tokens on contiguous rows and on the pool with
+    pinned xkv pages (the runner takes no image: its cross layers attend
+    zero memory, as the reference's), then swap on a pool that runs dry;
+    a prefix cache refused. 11d: window graphs on both layouts. Returns
+    (its rows, 11c's contiguous and paged launches)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LV_CONFIG).replace(n_layers=5)
+    model, params = _draw(cfg, f"{LV_CONFIG} weights, one period at full width: 5 layers "
+                               "(4 self, 1 cross) of d 8192, 64 heads on 8 of 128")
+    params["blocks"][-1]["xattn"]["gate"].fill_(1.0)
+    print("11: the cross layer's gate set to 1.0 (tanh 0.762) after the draw, so that its "
+          "branch changes the output", flush=True)
+    del model
+    t = _lap("11 draw", time.perf_counter())
+    rows = {}
+    nbx = -(-cfg.n_image_tokens // 16)
+    # -- 11a: the kernels alone at Llama-3.2-Vision's shapes
+    rows["decode"] = check_decode_attention(
+        8, 160, "B=8 H=64 KH=8 hd=128 S=160 pos 120..159 bf16", gen, pos_lo=120, H=64, KH=8)
+    rows["paged"] = check_paged_decode_attention(
+        8, 10, f"B=8 H=64 KH=8 hd=128 bs=16 nb=10 (+{nbx} trailing xkv columns) pos 120..159 "
+        "shuffled bf16", gen, 120, 160, H=64, KH=8, trailing=nbx)
+    rows["flash"] = check_flash_attention(8, 64, 8, 128, 128, 128,
+                                          "B=8 H=64 KH=8 hd=128 Sq=Sk=128 causal bf16", gen)
+    rows["ramp"] = check_ramp_head(params, cfg, gen)
+    t = _lap("11a", t)
+    # -- 11b: the model with image memory, kernels off vs on
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 15)
+    img = torch.randn(8, cfg.n_image_tokens, cfg.d_frontend, generator=g,
+                      device="cuda").to(torch.bfloat16)
+    rows["paths"] = compare_paths(
+        params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
+        cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
+        on_kw={"prefill_attn": "kernel"}, prefill_kernel="flash_attention", act=LV_ACT,
+        prefill_kw={"image_embeds": img})
+    rows["step"] = cross_step_share(params, cfg, gen, img)
+    t = _lap("11b", t)
+    # -- 11c: serving on both layouts, then swap of token and xkv pages
+    with _Config(cfg):
+        cont, paged = serve_paged_vs_contiguous(params, cfg, serve, "11c", "decode_attention",
+                                                "paged_decode_attention", "flash_attention")
+        # three admissions (8 token blocks and the pinned xkv pages each) and
+        # 4 blocks more: the streams' appends run the pool dry
+        serve_swap(params, cfg, serve, "11c swap", SEED + 14, "paged_decode_attention",
+                   "flash_attention", kv_blocks=3 * (8 + nbx) + 4)
+        try:
+            serve(cfg.name, 2, decode_tokens=2, prompt_len=16, seed=SEED, device="cuda",
+                  verbose=False, kv_block_size=16, prefix_cache=True, params=params)
+            fail("11c: a prefix cache over pinned xkv pages was not refused")
+        except ValueError as e:
+            print(f"11c: prefix cache refused: {e}", flush=True)
+        t = _lap("11c", t)
+        # -- 11d: window graphs
+        rows["graphs"] = graph_vs_eager(params, cfg, serve, "11d", SEED + 13, act=LV_ACT)
+    _lap("11d", t)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, cont, paged
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2671,7 +2968,7 @@ def main() -> None:
           f"{json.dumps(launches)}", flush=True)
     print("engine summary (SIMULATED from the analytic H100 profile, not timed): "
           + json.dumps(out["simulated"]["apparate"], default=float), flush=True)
-    paged_launches = serve_paged_vs_contiguous(params, cfg, serve_generative, "4b",
+    _, paged_launches = serve_paged_vs_contiguous(params, cfg, serve_generative, "4b",
                                                "decode_attention", "paged_decode_attention",
                                                "flash_attention")
     serve_prefix_swap(params, cfg, serve_generative)
@@ -2717,6 +3014,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     gm, gm_full, gm_paged = gemma_phases(gen, serve_generative)
     graphs[GM_CONFIG] = gm["graphs"]
+    print(f"Gemma3-4B phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
+
+    # -- phase 10: Qwen3-MoE-30B-A3B whole, once Gemma3's weights are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    q3, q3_cont, q3_paged = qwen3_phases(gen, serve_generative)
+    graphs[Q3_CONFIG] = q3["graphs"]
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 11: one period of Llama-3.2-Vision, once Qwen3-MoE's are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lv, lv_cont, lv_paged = llama_phases(gen, serve_generative)
+    graphs[LV_CONFIG] = lv["graphs"]
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -2765,6 +3079,14 @@ def main() -> None:
                ("ramp_head_stats", gm["ramp"]["ramp_head_stats"], gm_full,
                 f"{GM_CONFIG} 9c full"),
                ("ramp_head_exit", gm["ramp"]["ramp_head_exit"], gm_full, f"{GM_CONFIG} 9c full")]
+    for run, rows, cont, paged in ((f"{Q3_CONFIG} 10c", q3, q3_cont, q3_paged),
+                                   (f"{LV_CONFIG} (one period) 11c", lv, lv_cont, lv_paged)):
+        entries += [("decode_attention", rows["decode"], cont, f"{run} contiguous"),
+                    ("paged_decode_attention", rows["paged"], paged, f"{run} paged"),
+                    ("flash_attention", rows["flash"], cont, f"{run} contiguous"),
+                    ("ramp_head_stats", rows["ramp"]["ramp_head_stats"], cont,
+                     f"{run} contiguous"),
+                    ("ramp_head_exit", rows["ramp"]["ramp_head_exit"], cont, f"{run} contiguous")]
     if lm_launches["ramp_head_exit"]:
         entries.append(("ramp_head_exit", rh["ramp_head_exit"], lm_launches, f"{CONFIG} 4f"))
     kernels = []
@@ -2776,7 +3098,7 @@ def main() -> None:
             "library_ms": r["library_ms"], "path": path, "shape": r["shape"],
             **{k: r[k] for k in ("device_ms", "host_us") if k in r},
         })
-    print("window graphs (4e, 5d, 6d, 9d): " + json.dumps(
+    print("window graphs (4e, 5d, 6d, 9d, 10d, 11d): " + json.dumps(
         {name: {"host_ms_per_replayed_window": {lay: v[lay]["host_ms_per_replayed_window"]
                                                 for lay in ("contiguous", "paged")},
                 "host_ms_per_eager_window": {lay: v[lay]["host_ms_per_eager_window"]

@@ -38,7 +38,10 @@
 //   * each warp streams its tiles through its own ring of three 4 KB
 //     stages (16-byte cp.async copies, zeros past d and past its columns),
 //     two stages in flight while it multiplies the third; the first stages
-//     are started before h is staged. A stage is 32 rows of one 128-byte
+//     are started before h is staged. Where 8 rows of h are too wide for
+//     that (d over ~7.6 k: Llama-3.2-Vision's and Jamba's 8192), the ring
+//     has two stages, one in flight while the warp multiplies the other,
+//     and a pass takes 8 rows. A stage is 32 rows of one 128-byte
 //     line: 32 k rows of 64 columns of a V-major head[site], or 32 column
 //     rows of 64 k of the d-major embed^T, whose copies also ask the L2 for
 //     the next 128 bytes of the row (the next stage's);
@@ -434,6 +437,7 @@ int launch(const void* h, long long h_sb, const void* w, long long w_sk, long lo
 using bf16 = __nv_bfloat16;
 constexpr int MBW = 16;            // columns of an m16 block: the unit of work
 constexpr int NS = 3;              // stages in a warp's ring: two in flight
+constexpr int NS_WIDE = 2;         // the ring where h's rows leave no room for NS
 constexpr int RNW = 8;             // warps per CTA
 constexpr int RNT = RNW * 32;
 constexpr int MAXG = 4;            // n8 row groups a pass: up to 32 rows of h
@@ -559,10 +563,10 @@ __device__ void stage_h_bf16(const bf16* __restrict__ h, long long h_sb, int rb0
 // Pass 1, bf16. The live columns are cut into m16 blocks (16 columns); CTA
 // c of G takes the blocks [M c / G, M (c + 1) / G), and its warps share
 // them out as below, every warp the same number to within one block. A warp
-// streams its tiles (up to Tile::MB blocks each) through its own ring of NS
+// streams its tiles (up to Tile::MB blocks each) through its own ring of NR
 // stages and keeps, per row of h, the running (m, s, t, argmax) of its
 // columns. Writes one partial a row a CTA: partial[row * G + c].
-template <int NG, bool VMAJ>
+template <int NG, bool VMAJ, int NR>
 __global__ void __launch_bounds__(RNT, 1)
 ramp_tiles_bf16(const bf16* __restrict__ h, long long h_sb, const bf16* __restrict__ w,
                 long long ws, int B, int d, int hsd, int V, int v_limit, int n_blk,
@@ -574,7 +578,7 @@ ramp_tiles_bf16(const bf16* __restrict__ h, long long h_sb, const bf16* __restri
   __shared__ Stat red[RNW][RP];
   bf16* hs = reinterpret_cast<bf16*>(smraw);                // [RP][hsd + 8]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* ring = hs + RP * (hsd + 8) + warp * NS * STAGE;      // this warp's [NS][STAGE]
+  bf16* ring = hs + RP * (hsd + 8) + warp * NR * STAGE;      // this warp's [NR][STAGE]
   const int G = gridDim.x, cta = blockIdx.x;
   const int r0 = (int)((long long)n_blk * cta / G), r1 = (int)((long long)n_blk * (cta + 1) / G);
   // rounds of RNW x MB blocks, warp w taking the w-th tile of each (the warps
@@ -601,7 +605,7 @@ ramp_tiles_bf16(const bf16* __restrict__ h, long long h_sb, const bf16* __restri
     if (s < total) {
       int col0, ce;
       tile_cols(s / nk, col0, ce);
-      fetch_stage<VMAJ>(ring + (s % NS) * STAGE, w, ws, col0, ce, (s % nk) * KC, d, lane);
+      fetch_stage<VMAJ>(ring + (s % NR) * STAGE, w, ws, col0, ce, (s % nk) * KC, d, lane);
     }
     cp_async_commit();  // empty past the end: the group count stays uniform
   };
@@ -609,7 +613,7 @@ ramp_tiles_bf16(const bf16* __restrict__ h, long long h_sb, const bf16* __restri
   for (int rb0 = 0; rb0 < B; rb0 += RP) {
     const int nb = min(RP, B - rb0);
 #pragma unroll
-    for (int s = 0; s < NS - 1; ++s) fetch(s);  // w streams while h is staged
+    for (int s = 0; s < NR - 1; ++s) fetch(s);  // w streams while h is staged
     stage_h_bf16(h, h_sb, rb0, nb, d, hsd, RP, hs);
     __syncthreads();
 
@@ -625,10 +629,10 @@ ramp_tiles_bf16(const bf16* __restrict__ h, long long h_sb, const bf16* __restri
     }
 
     for (int s = 0; s < total; ++s) {
-      cp_async_wait<NS - 2>();  // stage s landed (this lane's copies) ...
+      cp_async_wait<NR - 2>();  // stage s landed (this lane's copies) ...
       __syncwarp();             // ... and every lane's; stage s - 1 is read
-      fetch(s + NS - 1);
-      const bf16* st = ring + (s % NS) * STAGE;
+      fetch(s + NR - 1);
+      const bf16* st = ring + (s % NR) * STAGE;
       const int kc = (s % nk) * KC;
 #pragma unroll
       for (int ks = 0; ks < KC / 16; ++ks) {
@@ -741,41 +745,52 @@ int sm_count() {
   return n;
 }
 
-// The bf16 launch's shape: row groups a pass, dynamic shared memory, CTAs.
+// The bf16 launch's shape: row groups a pass, ring stages, dynamic shared
+// memory, CTAs.
 struct Plan {
-  int ng, hsd, n_blk, grid;
+  int ng, ns, hsd, n_blk, grid;
   size_t smem;
   const void* fn;
 };
 
-template <int NG, bool VMAJ>
+template <int NG, bool VMAJ, int NR>
 const void* kernel_of() {
-  return reinterpret_cast<const void*>(&ramp_tiles_bf16<NG, VMAJ>);
+  return reinterpret_cast<const void*>(&ramp_tiles_bf16<NG, VMAJ, NR>);
 }
 
+// The most row groups (up to MAXG, no more than B needs) whose rows of h
+// fit beside a ring of NS stages; else one group beside a ring of NS_WIDE,
+// the only shape instantiated with it (where one group fits beside NS_WIDE
+// stages but not beside NS, two do not fit beside NS_WIDE).
 int plan_bf16(int B, int d, int V, int v_limit, bool vmaj, Plan* p) {
   const int kc = vmaj ? Tile<true>::KC : Tile<false>::KC;
   p->hsd = (d + kc - 1) / kc * kc;
   const int vl = v_limit < V ? v_limit : V;
   p->n_blk = vl > 0 ? (vl + MBW - 1) / MBW : 0;
-  const size_t ring =
-      (size_t)RNW * NS * (vmaj ? Tile<true>::STAGE : Tile<false>::STAGE) * sizeof(bf16);
-  const size_t stat = (size_t)RNW * MAXG * 8 * sizeof(Stat);  // the static red[][]
+  const size_t stage = (size_t)(vmaj ? Tile<true>::STAGE : Tile<false>::STAGE) * sizeof(bf16);
+  // the static red[][] of NG groups, and the dynamic rows of h and the rings
+  auto stat = [&](int n) { return (size_t)RNW * n * 8 * sizeof(Stat); };
+  auto smem = [&](int n, int ns) {
+    return (size_t)n * 8 * (p->hsd + 8) * sizeof(bf16) + (size_t)RNW * ns * stage;
+  };
   int ng = (B + 7) / 8 < MAXG ? (B + 7) / 8 : MAXG;
   if (ng < 1) ng = 1;
-  auto smem = [&](int n) { return (size_t)n * 8 * (p->hsd + 8) * sizeof(bf16) + ring; };
-  while (ng > 1 && smem(ng) + stat > MAX_SMEM) --ng;
-  if (smem(ng) + stat > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  while (ng > 1 && smem(ng, NS) + stat(ng) > MAX_SMEM) --ng;
   p->ng = ng;
-  p->smem = smem(ng);
-  static const void* fns[2][MAXG] = {
-      {kernel_of<1, false>(), kernel_of<2, false>(), kernel_of<3, false>(), kernel_of<4, false>()},
-      {kernel_of<1, true>(), kernel_of<2, true>(), kernel_of<3, true>(), kernel_of<4, true>()}};
-  p->fn = fns[vmaj][ng - 1];
+  p->ns = smem(ng, NS) + stat(ng) <= MAX_SMEM ? NS : NS_WIDE;
+  if (smem(ng, p->ns) + stat(ng) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  p->smem = smem(ng, p->ns);
+  static const void* fns[2][MAXG + 1] = {
+      {kernel_of<1, false, NS>(), kernel_of<2, false, NS>(), kernel_of<3, false, NS>(),
+       kernel_of<4, false, NS>(), kernel_of<1, false, NS_WIDE>()},
+      {kernel_of<1, true, NS>(), kernel_of<2, true, NS>(), kernel_of<3, true, NS>(),
+       kernel_of<4, true, NS>(), kernel_of<1, true, NS_WIDE>()}};
+  const int k = p->ns == NS ? ng - 1 : MAXG;
+  p->fn = fns[vmaj][k];
   // occupancy, once per (kernel, shared memory size)
-  static size_t seen_smem[2][MAXG] = {};
-  static int seen_occ[2][MAXG] = {};
-  if (seen_smem[vmaj][ng - 1] != p->smem) {
+  static size_t seen_smem[2][MAXG + 1] = {};
+  static int seen_occ[2][MAXG + 1] = {};
+  if (seen_smem[vmaj][k] != p->smem) {
     cudaError_t e = cudaFuncSetAttribute(p->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)p->smem);
     if (e != cudaSuccess) return (int)e;
@@ -783,11 +798,11 @@ int plan_bf16(int B, int d, int V, int v_limit, bool vmaj, Plan* p) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, p->fn, RNT, p->smem);
     if (e != cudaSuccess) return (int)e;
     if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-    seen_smem[vmaj][ng - 1] = p->smem;
-    seen_occ[vmaj][ng - 1] = occ;
+    seen_smem[vmaj][k] = p->smem;
+    seen_occ[vmaj][k] = occ;
   }
   // one wave: a CTA per SM slot, but no CTA without a block
-  const int slots = sm_count() * seen_occ[vmaj][ng - 1];
+  const int slots = sm_count() * seen_occ[vmaj][k];
   p->grid = p->n_blk < slots ? (p->n_blk > 0 ? p->n_blk : 1) : slots;
   return 0;
 }
@@ -807,19 +822,21 @@ int launch_bf16(const void* h, long long h_sb, const void* w, long long w_sk, lo
   const bf16* wp = static_cast<const bf16*>(w);
   const long long ws = vmaj ? w_sk : w_sv;
 #define RAMP_ARGS hp, h_sb, wp, ws, B, d, p.hsd, V, v_limit, p.n_blk, pm, ps, pt, part_i
-#define RAMP_CASE(NG)                                                               \
-  case NG:                                                                          \
-    if (vmaj)                                                                       \
-      ramp_tiles_bf16<NG, true><<<p.grid, RNT, p.smem, stream>>>(RAMP_ARGS);        \
-    else                                                                            \
-      ramp_tiles_bf16<NG, false><<<p.grid, RNT, p.smem, stream>>>(RAMP_ARGS);       \
-    break;
-  switch (p.ng) {
-    RAMP_CASE(1)
-    RAMP_CASE(2)
-    RAMP_CASE(3)
-    RAMP_CASE(4)
-    default: return (int)cudaErrorInvalidValue;
+#define RAMP_CASE(NG, NR)                                                           \
+  if (vmaj)                                                                         \
+    ramp_tiles_bf16<NG, true, NR><<<p.grid, RNT, p.smem, stream>>>(RAMP_ARGS);      \
+  else                                                                              \
+    ramp_tiles_bf16<NG, false, NR><<<p.grid, RNT, p.smem, stream>>>(RAMP_ARGS);
+  if (p.ns == NS_WIDE) {
+    RAMP_CASE(1, NS_WIDE)
+  } else {
+    switch (p.ng) {
+      case 1: RAMP_CASE(1, NS) break;
+      case 2: RAMP_CASE(2, NS) break;
+      case 3: RAMP_CASE(3, NS) break;
+      case 4: RAMP_CASE(4, NS) break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 #undef RAMP_CASE
 #undef RAMP_ARGS

@@ -18,6 +18,12 @@ own Apparate controller, vanilla against Apparate.
   # pool (no prefix cache: state pages are not shared)
   PYTHONPATH=src python -m repro_torch.launch.serve --config mamba2-2.7b \\
       --kv-block-size 16
+  # Qwen3-MoE-30B-A3B (128 experts, the prefix cache allowed), or
+  # Llama-3.2-Vision (its cross layers on pinned xkv pages; the runner takes
+  # no image, so they attend zero memory) and Jamba (attention and state
+  # pages in one pool), both refusing a prefix cache; --tiny on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --config qwen3-moe-30b-a3b \\
+      --kv-block-size 16 --prefix-cache
   # classification: ResNet-50 at 224 px (f32), BERT-base (its attention on
   # the flash-attention kernel) or qwen2-1.5b's next token
   PYTHONPATH=src python -m repro_torch.launch.serve --mode classification \\
@@ -500,8 +506,9 @@ def main(argv=None):
     ap.add_argument("--mode", default="generative", choices=["generative", "classification"])
     ap.add_argument("--config", default=None,
                     choices=["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b",
-                             "mamba2-2.7b", "gemma3-4b", "resnet18", "resnet50",
-                             "bert-base"],
+                             "mamba2-2.7b", "gemma3-4b", "qwen3-moe-30b-a3b",
+                             "llama-3.2-vision-90b", "jamba-1.5-large-398b", "qwen1.5-32b",
+                             "deepseek-67b", "resnet18", "resnet50", "bert-base"],
                     help="default: qwen2-1.5b (generative), resnet50 (classification); "
                          "classification also serves an LM's next token")
     ap.add_argument("--tiny", action="store_true", help="the config's TINY variant")

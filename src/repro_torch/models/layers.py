@@ -8,8 +8,9 @@ walks a per-row block table), MLA (DeepSeek-V2's latent attention) on
 both layouts, and the embedding. Params are nested dicts of tensors under
 the reference's leaf paths; compute happens in the config's dtype with f32
 softmax and norms. Local sliding-window layers (Gemma3) run on a full
-cache, on a W-row ring cache or as ring pages on the pool. Cross-attention
-and tensor-parallel branches are not ported yet.
+cache, on a W-row ring cache or as ring pages on the pool. The gated
+cross-attention of Llama-3.2-Vision attends image memory, or its k/v as
+a cache holds them. Tensor-parallel branches are not ported.
 """
 from __future__ import annotations
 
@@ -463,6 +464,45 @@ def mla_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
         out = sdpa(qq, k, v, mask, scale=scale)
     out = out.reshape(B, S, H * dv)
     return out @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (Llama-3.2-Vision's image layers)
+
+
+def cross_attn_schema(cfg, L=None) -> dict:
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = torch_dtype(cfg.dtype)
+    pre = () if L is None else (L,)
+    sc = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    return {
+        "wq": ParamInfo(pre + (d, H * hd), dt, "normal:0.02"),
+        "wk": ParamInfo(pre + (d, K * hd), dt, "normal:0.02"),
+        "wv": ParamInfo(pre + (d, K * hd), dt, "normal:0.02"),
+        "wo": ParamInfo(pre + (H * hd, d), dt, f"normal:{sc}"),
+        "gate": ParamInfo(pre, torch.float32, "zeros"),
+    }
+
+
+def cross_attn_apply(cfg, p, x, memory=None, kv_cache=None):
+    """x: (B, S, d); memory (B, M, d), whose k/v are projected here, or
+    k/v (B, M, KH, hd) taken as they are from ``kv_cache``. Unmasked
+    ``sdpa`` over the M memory tokens (the reference calls its plain sdpa
+    here, no kernel), then the tanh-gated residual branch of Llama-vision
+    (an f32 gate, zero at init). Returns (out, {"k", "v"})."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    if memory is not None:
+        M = memory.shape[1]
+        k = (memory @ p["wk"]).reshape(B, M, K, hd)
+        v = (memory @ p["wv"]).reshape(B, M, K, hd)
+    elif kv_cache is not None:
+        k, v = kv_cache["k"], kv_cache["v"]
+    else:
+        raise ValueError("cross-attention needs image memory or a cache holding its k/v")
+    out = sdpa(q, k, v, None).reshape(B, S, H * hd) @ p["wo"]
+    return torch.tanh(p["gate"].float()).to(out.dtype) * out, {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,10 @@
-"""Decoder-only LM for the generative main path: attention + dense-FFN
-stacks, MLA + MoE stacks with leading dense layers (DeepSeek-V2), and
-attention-free Mamba2 (SSD) stacks.
+"""Decoder-only LM: every plan of the JAX package's ``build_plan``.
+Attention + dense-FFN stacks (qwen2, qwen1.5, DeepSeek-67B), attention +
+MoE (Qwen3-MoE), MLA + MoE with leading dense layers (DeepSeek-V2),
+attention-free Mamba2 (SSD) stacks, Gemma3's local/global periods, the
+Jamba hybrid (one attention layer a period among mamba layers, MoE every
+other layer, no positional encoding) and Llama-3.2-Vision's periods that
+end in a gated cross-attention layer over image memory.
 
 The port's counterpart of the JAX package's ``models/transformer.py``. The
 layer stack follows the same *plan* (a period of slots repeated
@@ -19,13 +23,27 @@ of a 472 MB gather); the KV cache is updated in place; ``decode_multi``'s
 switched off on device, so the host reads nothing inside a window and the
 runner can capture the window as one CUDA graph. Decode
 runs on a contiguous cache or on a paged block pool (full attention, MLA
-latents, or one mamba state page a slot). Serving runs MoE on the dense
-dispatch (the reference's ``moe_impl='dense'``, what its serving runner
-passes); ``loss`` takes ``moe_impl`` 'ep' (the default, as in the
-reference) or 'dense'. Gemma3's local sliding-window slots run on a
-full cache, on W-row ring caches (``windowed_cache``) or as ring pages on
-the pool, with the reference's unrolled ``suffix`` of local layers after
-the periods. Hybrid (jamba) and cross-attention slots are not ported.
+latents, or one mamba state page a slot; a hybrid's attention pages and
+state pages share one pool). Serving runs MoE on the dense dispatch (the
+reference's ``moe_impl='dense'``, what its serving runner passes);
+``loss`` takes ``moe_impl`` 'ep' (the default, as in the reference) or
+'dense'. Gemma3's local sliding-window slots run on a full cache, on W-row
+ring caches (``windowed_cache``) or as ring pages on the pool, with the
+reference's unrolled ``suffix`` of local layers after the periods.
+
+A cross slot's image memory (``image_embeds @ frontend.proj``) enters
+through ``prefill(image_embeds=)`` and ``loss``. Its k/v live in the slot's
+``xkv`` cache leaves: ``(B, M, KH, hd)`` rows, or on the pool M rows of
+pinned pages whose ids ride in the trailing ``paged_xkv_blocks`` columns of
+every table; decode reads them and never writes them. A deliberate
+difference from the reference: its ``prefill`` with a cache attends the
+zero ``xkv`` of ``init_cache`` whatever ``image_embeds`` holds (its
+``cross_attn_apply`` prefers the cache to the memory), so image memory
+there reaches only the cacheless prefill and the loss; here a cached
+prefill projects the memory, writes its k/v into ``xkv`` and attends them
+(ROADMAP.md, Queue 3). Without ``image_embeds`` (the serving runner's
+prefill, which takes no image, as the reference's takes none) both
+attend the zeros.
 
 ``loss`` is the training objective. Like the reference's, it reaches no
 kernel: attention through ``sdpa``, the mamba scan through ``ssd_ref``,
@@ -131,6 +149,9 @@ def build_plan(cfg) -> Plan:
 def _slot_schema(cfg, slot: SlotSpec, L=None) -> dict:
     mixers = {"attn": LY.gqa_schema, "mla": LY.mla_schema, "mamba": MB.mamba_schema}
     sch = {"ln1": LY.norm_schema(cfg, L), "mixer": mixers[slot.mixer](cfg, L)}
+    if slot.cross:
+        sch["lnx"] = LY.norm_schema(cfg, L)
+        sch["xattn"] = LY.cross_attn_schema(cfg, L)
     if slot.ffn != "none":
         sch["ln2"] = LY.norm_schema(cfg, L)
         sch["ffn"] = (MOE.moe_schema(cfg, L) if slot.ffn == "moe"
@@ -138,26 +159,31 @@ def _slot_schema(cfg, slot: SlotSpec, L=None) -> dict:
     return sch
 
 
-def _slot_cache_schema(cfg, slot: SlotSpec, rows: tuple, L=None) -> dict:
+def _slot_cache_schema(cfg, slot: SlotSpec, rows: tuple, xrows: tuple, L=None) -> dict:
     """One slot's cache leaves over ``rows``: (B, S) for the contiguous
     cache, (P, bs) for the paged pool. Attention keeps per-head k/v
     ``rows + (KH, hd)``; MLA one shared latent stream ``c`` ``rows + (r,)``
     and rope key ``k_pe`` ``rows + (dr,)``; mamba one recurrent state per
     row (contiguous) or per pool block (paged: a slot's state page is its
-    first table entry), ``conv`` and ``ssm``, whatever the tokens."""
+    first table entry), ``conv`` and ``ssm``, whatever the tokens. A cross
+    slot adds the image memory's k/v, ``xkv`` over ``xrows``: (B, M)
+    contiguous, (P, bs) pinned pages on the pool."""
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
     if slot.mixer == "mamba":
-        return MB.mamba_cache_schema(cfg, rows[0], L)
-    if slot.mixer == "mla":
-        return {"c": ParamInfo(pre + rows + (cfg.kv_lora_rank,), dt, "zeros"),
-                "k_pe": ParamInfo(pre + rows + (cfg.qk_rope_dim,), dt, "zeros")}
-    shp = pre + rows + (cfg.n_kv_heads, cfg.hd)
-    return {"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
+        sch = MB.mamba_cache_schema(cfg, rows[0], L)
+    elif slot.mixer == "mla":
+        sch = {"c": ParamInfo(pre + rows + (cfg.kv_lora_rank,), dt, "zeros"),
+               "k_pe": ParamInfo(pre + rows + (cfg.qk_rope_dim,), dt, "zeros")}
+    else:
+        shp = pre + rows + (cfg.n_kv_heads, cfg.hd)
+        sch = {"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
+    if slot.cross:
+        shp = pre + xrows + (cfg.n_kv_heads, cfg.hd)
+        sch["xkv"] = {"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
+    return sch
 
 
-_PORTED_SLOTS = (SlotSpec("attn", "dense"), SlotSpec("attn", "dense", is_local=True),
-                 SlotSpec("mla", "dense"), SlotSpec("mla", "moe"), SlotSpec("mamba", "none"))
 ROPE_THETA_LOCAL = 10_000.0  # the RoPE base of local slots (the reference's rope_theta_local)
 
 
@@ -216,20 +242,14 @@ def _layer(tree, l: int):
 
 
 class LM:
-    """Functional decoder LM (attention + dense-FFN, MLA + MoE or mamba
-    slots, a prefix of leading slots; 'fc', 'mlp' or 'tied' ramps).
-    ``prefill_attn`` and ``ssd_impl`` pick the prefill's kernels (module
-    docstring)."""
+    """Functional decoder LM over the slots of ``build_plan`` ('fc', 'mlp'
+    or 'tied' ramps). ``prefill_attn`` and ``ssd_impl`` pick the
+    prefill's kernels (module docstring)."""
 
     def __init__(self, cfg, *, prefill_attn: str = "sdpa", ssd_impl: str = "kernel"):
         self.cfg = cfg
         self.plan = build_plan(cfg)
         self.sites = ramp_sites(cfg)
-        plan = self.plan
-        if any(s not in _PORTED_SLOTS for s in plan.layer_specs()):
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs attention + dense-FFN (local or global), "
-                "MLA + MoE and mamba stacks only")
         if prefill_attn not in ("sdpa", "kernel"):
             raise ValueError(f"prefill_attn={prefill_attn!r}: the port takes 'sdpa' | 'kernel'")
         if ssd_impl not in ("ref", "kernel"):
@@ -258,6 +278,9 @@ class LM:
             sch["suffix"] = [_slot_schema(cfg, s) for s in plan.suffix]
         sch["final_norm"] = LY.norm_schema(cfg)
         sch["ramps"] = ramp_schema(cfg)
+        if cfg.cross_attn_every:
+            sch["frontend"] = {"proj": ParamInfo((cfg.d_frontend, cfg.d_model),
+                                                 torch_dtype(cfg.dtype), "normal:0.02")}
         return sch
 
     def init(self, seed: int = 0, device="cuda") -> dict:
@@ -286,7 +309,7 @@ class LM:
         cfg = self.cfg
         ring = min(cfg.window, S) if cfg.windowed_cache and cfg.window else S
         return self._slot_tree(lambda s, L: _slot_cache_schema(
-            cfg, s, (B, ring if s.is_local else S), L))
+            cfg, s, (B, ring if s.is_local else S), (B, cfg.n_image_tokens), L))
 
     def init_cache(self, B: int, S: int, device="cuda") -> dict:
         return zeros_from_schema(self.cache_schema(B, S), device)
@@ -300,9 +323,11 @@ class LM:
         Mamba state pages ``(L, P, d_conv-1, conv_dim)`` and ``(L, P, H, hp,
         N)`` hold a slot's state at its first table entry. A local slot's
         k/v pages hold its window as a ring: virtual row ``pos % W`` of the
-        row's first ``ceil(W / bs)`` table entries."""
-        return self._slot_tree(lambda s, L: _slot_cache_schema(
-            self.cfg, s, (n_blocks, block_size), L))
+        row's first ``ceil(W / bs)`` table entries. A cross slot's ``xkv``
+        pages ``(L, P, bs, KH, hd)`` hold its M image rows in the pinned
+        blocks of the trailing ``paged_xkv_blocks`` table columns."""
+        rows = (n_blocks, block_size)
+        return self._slot_tree(lambda s, L: _slot_cache_schema(self.cfg, s, rows, rows, L))
 
     def init_paged_cache(self, n_blocks: int, block_size: int, device="cuda") -> dict:
         return zeros_from_schema(self.paged_cache_schema(n_blocks, block_size), device)
@@ -313,13 +338,32 @@ class LM:
         prompt tokens at virtual rows ``t % W``, where the paged ring decode
         reads them."""
         def slot_kinds(s, L):
-            sub = _slot_cache_schema(self.cfg, s, (n_blocks, block_size), L)
+            rows = (n_blocks, block_size)
+            sub = _slot_cache_schema(self.cfg, s, rows, rows, L)
             ring = s.is_local and self.cfg.window
             kinds = iter(["ring" if ring and k == "tokens" else k
                           for k in paged_leaf_kinds(sub)])
             return tree_map(lambda _: next(kinds), sub)
 
         return tree_leaves(self._slot_tree(slot_kinds))
+
+    def paged_xkv_blocks(self, block_size: int) -> int:
+        """The trailing table columns that hold a slot's pinned xkv pages,
+        ``ceil(M / bs)`` (0 for a plan without cross slots): the serving
+        runner widens every table it ships by them."""
+        if not any(s.cross for s in self.plan.layer_specs()):
+            return 0
+        return -(-self.cfg.n_image_tokens // block_size)
+
+    def _split_tables(self, cache, block_tables):
+        """(the token columns, the trailing xkv columns or None) of a paged
+        table: attention walks only its token pages."""
+        for part in ("prefix", "blocks", "suffix"):
+            for blk in cache.get(part, []):
+                if "xkv" in blk:
+                    nbx = self.paged_xkv_blocks(blk["xkv"]["k"].shape[-3])
+                    return block_tables[:, :-nbx], block_tables[:, -nbx:]
+        return block_tables, None
 
     @property
     def paged_sharing_ok(self) -> bool:
@@ -332,14 +376,15 @@ class LM:
     # -- forward ------------------------------------------------------------
 
     def _block(self, slot: SlotSpec, p, h, *, positions, mask, mask_local, cache,
-               cache_index, write_gate=None, block_tables=None, moe_impl="dense",
-               plain=False):
+               cache_index, write_gate=None, block_tables=None, xkv_tables=None,
+               memory=None, moe_impl="dense", plain=False):
         """One layer. ``plain`` (the loss) runs attention through ``sdpa``
         and the mamba scan through ``ssd_ref``. A local slot reads
         ``mask_local`` and RoPE base ``ROPE_THETA_LOCAL``, and runs as a ring
         (``windowed_cache``, or any paged local layer: the pool always
         ring-pages local windows) or as a window over a full contiguous
-        cache. Returns (h, the MoE aux loss or None)."""
+        cache. A cross slot adds its gated cross-attention after the mixer
+        (``_cross``). Returns (h, the MoE aux loss or None)."""
         cfg = self.cfg
         x = LY.apply_norm(cfg, p["ln1"], h)
         kw = dict(positions=positions, mask=mask, cache=cache, cache_index=cache_index,
@@ -364,6 +409,8 @@ class LM:
             out, _ = LY.attn_apply(cfg, p["mixer"], x,
                                    prefill_attn="sdpa" if plain else self.prefill_attn, **kw)
         h = h + out
+        if slot.cross:
+            h = h + self._cross(p, h, cache, memory, xkv_tables)
         if slot.ffn == "none":
             return h, None
         x = LY.apply_norm(cfg, p["ln2"], h)
@@ -371,6 +418,26 @@ class LM:
             out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl)
             return h + out, aux
         return h + LY.ffn_apply(cfg, p["ffn"], x), None
+
+    def _cross(self, p, h, cache, memory, xkv_tables):
+        """A cross slot's gated cross-attention: over ``memory`` (its k/v
+        projected, and written into the slot's contiguous ``xkv`` rows when
+        there is a cache), else over the k/v the cache holds: the ``xkv``
+        rows, or on the pool the M rows of the pinned pages at
+        ``xkv_tables`` (the table's trailing columns), read and never
+        written."""
+        cfg = self.cfg
+        x = LY.apply_norm(cfg, p["lnx"], h)
+        kvc = cache["xkv"] if cache is not None else None
+        if memory is None and xkv_tables is not None:
+            tab = xkv_tables.long()
+            kvc = {k: pool[tab].flatten(1, 2)[:, :cfg.n_image_tokens]
+                   for k, pool in kvc.items()}
+        out, kv = LY.cross_attn_apply(cfg, p["xattn"], x, memory=memory, kv_cache=kvc)
+        if memory is not None and kvc is not None:
+            for k in ("k", "v"):
+                kvc[k].copy_(kv[k])
+        return out
 
     def _mamba(self, p, x, cache, write_gate, block_tables, ssd_impl):
         """The mamba mixer. With a cache, the new state is stored in place:
@@ -400,8 +467,8 @@ class LM:
         return out
 
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
-               mask_local=None, write_gate=None, block_tables=None, moe_impl="dense",
-               plain=False, remat=False):
+               mask_local=None, write_gate=None, block_tables=None, xkv_tables=None,
+               memory=None, moe_impl="dense", plain=False, remat=False):
         """Run the prefix slots, the periods layer by layer, then the suffix
         slots; caches are updated in place. ``pool_idx`` is a slice of positions (serving: a
         view, so no index tensor crosses to the device) or an index tensor
@@ -412,9 +479,8 @@ class LM:
         reference assembles them, so ramp sites keep their layer numbers."""
         plan = self.plan
         kw = dict(positions=positions, mask=mask, mask_local=mask_local,
-                  cache_index=cache_index,
-                  write_gate=write_gate, block_tables=block_tables, moe_impl=moe_impl,
-                  plain=plain)
+                  cache_index=cache_index, write_gate=write_gate, block_tables=block_tables,
+                  xkv_tables=xkv_tables, memory=memory, moe_impl=moe_impl, plain=plain)
         pooled, aux = [], None
 
         def run(slot, p, hh, c):
@@ -495,7 +561,8 @@ class LM:
 
     def loss(self, params, batch, *, moe_impl="ep", remat=False, ramp_positions=16,
              train_mode="full"):
-        """batch: {'tokens': (B,S) int, 'labels': (B,S) int (-1 = pad)}.
+        """batch: {'tokens': (B,S) int, 'labels': (B,S) int (-1 = pad)}; a
+        cross plan also reads 'image_embeds' (B, M, d_frontend).
         Returns (loss, metrics). Ramp losses use stop-grad features at
         ``ramp_positions`` positions spread over the sequence (the paper:
         backbone frozen w.r.t. ramps; ramps trained on every input).
@@ -514,9 +581,12 @@ class LM:
         # the reference's f32 linspace truncated to int, formed on the host
         pool_idx = torch.linspace(S // npos - 1, S - 1, npos,
                                   dtype=torch.float32).to(torch.int64).to(dev)
+        memory = (self._memory(params, batch["image_embeds"]) if cfg.cross_attn_every
+                  else None)
         h, pooled, aux = self._stack(
             params, h, positions=positions, mask=mask, mask_local=mask_local, caches=None,
-            cache_index=None, pool_idx=pool_idx, moe_impl=moe_impl, plain=True, remat=remat)
+            cache_index=None, pool_idx=pool_idx, memory=memory, moe_impl=moe_impl,
+            plain=True, remat=remat)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=dev)
         h = LY.apply_norm(cfg, params["final_norm"], h)
@@ -535,15 +605,23 @@ class LM:
             loss = lm + rloss + 0.01 * aux
         return loss, {"lm_loss": lm, "ramp_loss": rloss, "moe_aux": aux}
 
+    def _memory(self, params, image_embeds):
+        """A cross plan's image memory: ``image_embeds @ frontend.proj`` in
+        the config's dtype."""
+        proj = params["frontend"]["proj"]
+        return image_embeds.to(proj.dtype) @ proj
+
     def prefill(self, params, tokens, *, cache_len=None, active_sites=None,
-                with_cache=True):
+                with_cache=True, image_embeds=None):
         """tokens: (B,S). Returns (cache|None, outs) where outs carries final
         + per-active-ramp stats for the LAST position (the generated token).
         Attention attends the S prompt queries to the ``cache_len`` keys
         under the causal mask from query 0: through ``sdpa``, or with
         ``prefill_attn='kernel'`` through the flash-attention kernel. A
         local layer attends the S in-flight keys under the window mask,
-        whatever its cache holds (full rows or a ring)."""
+        whatever its cache holds (full rows or a ring). A cross plan's
+        ``image_embeds`` (B, M, d_frontend) give the cross layers their
+        memory, whose k/v the cache keeps (module docstring)."""
         cfg = self.cfg
         B, S = tokens.shape
         dev = tokens.device
@@ -553,9 +631,11 @@ class LM:
         mask = LY.causal_mask(S, cache_len if with_cache else S, 0, device=dev)
         mask_local = LY.window_mask(S, S, 0, cfg.window, device=dev) if cfg.window else mask
         caches = self.init_cache(B, cache_len, device=dev) if with_cache else None
+        memory = (self._memory(params, image_embeds)
+                  if cfg.cross_attn_every and image_embeds is not None else None)
         h, pooled, _ = self._stack(params, h, positions=positions, mask=mask,
                                    mask_local=mask_local, caches=caches, cache_index=0,
-                                   pool_idx=slice(S - 1, S))
+                                   pool_idx=slice(S - 1, S), memory=memory)
         outs = self._head_stats(params, h[:, -1:], pooled, active_sites)
         return caches, outs
 
@@ -571,6 +651,8 @@ class LM:
         ``(block_tables[b, pos[b] // bs], pos[b] % bs)`` and attention walks
         the table (``cfg.decode_attn`` must be 'paged' or 'paged-kernel');
         the paged attention masks by position itself, so no mask is built.
+        A cross plan's tables end in the pinned xkv columns, which attention
+        does not walk (``_split_tables``).
         A local layer builds its own window mask over the W rows it
         gathers, so none is built for it either. Returns (cache, outs)."""
         cfg = self.cfg
@@ -581,14 +663,16 @@ class LM:
         pos = pos.to(torch.int64).reshape(-1)
         pc = pos[:, None]
         h = LY.embed_apply(cfg, params["tok"], tokens, pc)
-        mask = None
+        mask = xkv_tables = None
+        if block_tables is not None:
+            block_tables, xkv_tables = self._split_tables(cache, block_tables)
         Sc = _cache_len(cache) if block_tables is None else None
         if Sc is not None:  # a mamba-only cache has no sequence to mask
             mask = (torch.arange(Sc, device=tokens.device)[None, :] <= pc)[:, None, None, :]
         h, pooled, _ = self._stack(
             params, h, positions=pc, mask=mask, caches=cache, cache_index=pos,
             pool_idx=slice(0, 1), write_gate=write_gate,
-            block_tables=block_tables,
+            block_tables=block_tables, xkv_tables=xkv_tables,
         )
         outs = self._head_stats(params, h, pooled, active_sites,
                                 exit_thresholds=exit_thresholds)
@@ -728,7 +812,9 @@ def _cache_len(cache) -> Optional[int]:
     """Sequence length of a contiguous cache: the LONGEST attention leaf, k
     ``(.., B, S, KH, hd)`` or MLA's c ``(.., B, S, r)``, stacked, prefix or
     suffix, so a W-row ring leaf never sets the global mask (the
-    reference's max over leaves). None when the plan has no attention: a
+    reference's max over leaves); a cross slot's nested ``xkv`` rows (M
+    image tokens, attended unmasked) are not looked at, as the reference
+    skips them. None when the plan has no attention: a
     mamba-only cache holds one recurrent state a row and no sequence (the
     reference skips the mask)."""
     found = []

@@ -520,6 +520,12 @@ class DecodeRunner:
     blocks between slots (refcounted, copy-on-write); ``swap_out`` /
     ``swap_in`` move a preempted slot's blocks to the host and back;
     ``prefill_begin`` / ``prefill_resume`` prefill a prompt in chunks.
+    A model with cross-attention layers pins ``paged_xkv_blocks`` pages a
+    slot for its image memory's k/v (claimed before its prefill, written
+    once, never appended, released with the slot, swapped with it), whose
+    ids ride in the trailing columns of every table shipped. The runner
+    takes no image: its prefill writes the zeros a cache starts from, as
+    the reference's does.
 
     Records are replay-complete: the full model and the active ramp heads
     run for every token, because the controller needs agreement labels to
@@ -577,12 +583,16 @@ class DecodeRunner:
         self._max_blocks = -(-self._cache_len // self._bs_blk) if self.paged else 0
         self._alloc: Optional[BlockAllocator] = None
         self._pool_axes: Optional[Tuple[int, ...]] = None  # per-leaf pool axis
-        # per-leaf page kinds steering the prefill scatter: 'tokens', or
-        # 'state' (a mamba slot's recurrent state, one page at its first
-        # table entry)
+        # per-leaf page kinds steering the prefill scatter and the swaps:
+        # 'tokens', 'ring', 'state' (a mamba slot's recurrent state, one
+        # page at its first table entry) or 'xkv' (a cross layer's pinned
+        # image pages); then the trailing xkv table columns and each slot's
+        # pinned ids (0: none claimed)
         self._kinds: Optional[Tuple[str, ...]] = (
             tuple(model.paged_cache_kinds(2, self._bs_blk)) if self.paged else None
         )
+        self._nbx = model.paged_xkv_blocks(self._bs_blk) if self.paged else 0
+        self._xkv_tab = np.zeros((0, self._nbx), np.int32)
         self._want_prefix = bool(prefix_cache)
         self._prefix: Optional[PrefixCache] = None  # built with the allocator
         self.cow_copies = 0
@@ -666,7 +676,8 @@ class DecodeRunner:
         axis."""
         bs = self._bs_blk
         rows = _bucket(max(n, self._rows, 1))
-        nblk = self._kv_blocks if self._kv_blocks is not None else rows * self._max_blocks
+        nblk = (self._kv_blocks if self._kv_blocks is not None
+                else rows * (self._max_blocks + self._nbx))
         if self._alloc is None:
             if self._pool_axes is None:
                 self._pool_axes = self._diff_axes(
@@ -683,6 +694,9 @@ class DecodeRunner:
                 self._grow_leaves(new, self._cache, self._pool_axes)
                 self._set_cache(new)
                 self._alloc.grow_pool(nblk)
+        if self._xkv_tab.shape[0] < rows:
+            self._xkv_tab = np.concatenate(
+                [self._xkv_tab, np.zeros((rows - self._xkv_tab.shape[0], self._nbx), np.int32)])
         self._grow_rows(rows)
 
     def cache_bytes(self) -> int:
@@ -716,11 +730,12 @@ class DecodeRunner:
                 )
         return out
 
-    def _prefill_paged(self, toks: torch.Tensor, blk_ids: Sequence[int]):
+    def _prefill_paged(self, toks: torch.Tensor, blk_ids: Sequence[int], slot: int):
         """Prefill ``toks`` (1, n) contiguously, then scatter the first
         ``len(blk_ids) * bs`` tokens' KV into pool blocks ``blk_ids`` (zero
         padded past the cache). Ids of shared blocks arrive as the trash
-        block 0, so only the slot's own blocks are written. A "state" leaf
+        block 0, so only the slot's own blocks are written. An "xkv" leaf
+        writes the M image rows into ``slot``'s pinned pages. A "state" leaf
         (mamba) writes batch row 0's whole recurrent state into the slot's
         FIRST block, the id token leaves use for tokens 0..bs-1: distinct
         leaves, so the double use never collides. A "ring" leaf (a local
@@ -732,20 +747,20 @@ class DecodeRunner:
         the prefill's final-label tensor."""
         cache, outs = self.model.prefill(self.params, toks, cache_len=self._cache_len,
                                          active_sites=None, with_cache=True)
-        bs, nb = self._bs_blk, len(blk_ids)
+        bs = self._bs_blk
         ids = self._to_dev(np.asarray(blk_ids, np.int64))
+        xids = self._xkv_ids(slot)
         n, cfg = toks.shape[1], self.model.cfg
         for pool, cont, ax, kind in zip(tree_leaves(self._cache), tree_leaves(cache),
                                         self._pool_axes, self._kinds):
             if kind == "state":
                 pool.select(ax, int(blk_ids[0])).copy_(cont.select(ax, 0))
                 continue
-            if kind not in ("tokens", "ring"):
-                raise NotImplementedError(f"paged prefill of {kind!r} pages is not ported")
             # cont: batch (size 1) at ax, tokens at ax + 1; pool: P at ax,
             # then bs. Regroup the first nb*bs tokens into blocks.
             t = cont.select(ax, 0)
-            need = nb * bs
+            tgt = xids if kind == "xkv" else ids
+            need = tgt.shape[0] * bs
             if kind == "ring":
                 # virtual row j holds the newest prompt token t = j (mod W):
                 # the prefill's row t of a full cache, its row j of a ring
@@ -760,8 +775,8 @@ class DecodeRunner:
                 pad[ax] = need - t.shape[ax]
                 t = torch.cat([t, t.new_zeros(pad)], dim=ax)
             t = t.narrow(ax, 0, need)
-            t = t.reshape(t.shape[:ax] + (nb, bs) + t.shape[ax + 1:])
-            pool.index_copy_(ax, ids, t.to(pool.dtype))
+            t = t.reshape(t.shape[:ax] + (tgt.shape[0], bs) + t.shape[ax + 1:])
+            pool.index_copy_(ax, tgt, t.to(pool.dtype))
         return outs["final"]["label"]
 
     def _copy_block(self, src: int, dst: int) -> None:
@@ -817,12 +832,35 @@ class DecodeRunner:
             self._copy_block(old, new)
             self.cow_copies += 1
 
+    def _free_slot_blocks(self, slot: int) -> None:
+        """Release every block reference ``slot`` holds: its table row and
+        its pinned xkv pages."""
+        self._alloc.free_slot(slot)
+        if self._nbx and self._xkv_tab[slot, 0]:
+            for b in self._xkv_tab[slot]:
+                self._alloc.unpin(int(b))
+            self._xkv_tab[slot] = 0
+
+    def _claim_xkv(self, slot: int) -> None:
+        """Claim ``slot``'s pinned xkv pages, once an admission; raises
+        ``PoolExhausted`` before any change."""
+        if not self._nbx or self._xkv_tab[slot, 0]:
+            return
+        self._reserve(self._nbx)
+        self._xkv_tab[slot] = self._alloc.alloc_pinned(self._nbx)
+
+    def _xkv_ids(self, slot: int) -> torch.Tensor:
+        ids = self._xkv_tab[slot] if self._nbx else np.zeros(0, np.int32)
+        return self._to_dev(ids.astype(np.int64))
+
     def _tables(self, rows: np.ndarray, zero_lo: int, zero_hi: int) -> np.ndarray:
-        """Host block tables for ``rows``. Rows in ``[zero_lo, zero_hi)``,
-        the FREE bucket-padding rows whose stale entries may reference
-        blocks live slots now own, are redirected wholesale to the reserved
-        trash block 0."""
+        """Host block tables for ``rows``, widened by the trailing pinned xkv
+        columns. Rows in ``[zero_lo, zero_hi)``, the FREE bucket-padding
+        rows whose stale entries may reference blocks live slots now own,
+        are redirected wholesale to the reserved trash block 0."""
         t = self._alloc.table[rows].copy()
+        if self._nbx:
+            t = np.concatenate([t, self._xkv_tab[rows]], axis=1)
         t[zero_lo:zero_hi] = 0
         return t
 
@@ -869,17 +907,20 @@ class DecodeRunner:
             raise KeyError(f"slot {slot} is mid-prefill (cannot swap)")
         ids = self._alloc.owned_ids(slot)
         idx = self._to_dev(np.asarray(ids, np.int64))
+        xidx = self._xkv_ids(slot)
         # owned ids cover the "state" leaves too: a mamba slot's state page IS
         # its first table entry's block, and swap_in scatters in table order,
-        # so the state rides along at position 0 of the ids.
+        # so the state rides along at position 0 of the ids. Pinned xkv pages
+        # are not owned: they come from the slot's xkv row.
         # the copy to the host IS swap-out's job, so its sync is sanctioned
-        bufs = [l.index_select(ax, idx).cpu()
-                for l, ax in zip(tree_leaves(self._cache), self._pool_axes)]
-        self._alloc.free_slot(slot)
+        bufs = [l.index_select(ax, xidx if kind == "xkv" else idx).cpu()
+                for l, ax, kind in zip(tree_leaves(self._cache), self._pool_axes, self._kinds)]
+        n_xkv = self._nbx if self._nbx and self._xkv_tab[slot, 0] else 0
+        self._free_slot_blocks(slot)
         self._live.discard(slot)
         self.swap_outs += 1
-        self.swapped_blocks += len(ids)
-        return {"bufs": bufs, "n_blocks": len(ids),
+        self.swapped_blocks += len(ids) + n_xkv
+        return {"bufs": bufs, "n_blocks": len(ids), "n_xkv": n_xkv,
                 "pos": int(self._pos[slot]), "tok": int(self._tok[slot])}
 
     def swap_in(self, slot: int, handle: dict) -> None:
@@ -891,13 +932,17 @@ class DecodeRunner:
             raise ValueError("swap_in requires a paged KV cache")
         self._ensure_rows(slot + 1)
         if slot in self._live:  # engine frees before reuse; be defensive
-            self._alloc.free_slot(slot)
-        n = int(handle["n_blocks"])
-        self._reserve(n)
+            self._free_slot_blocks(slot)
+        n, nx = int(handle["n_blocks"]), int(handle["n_xkv"])
+        self._reserve(n + nx)
         ids = self._alloc.alloc(slot, n)
+        if nx:
+            self._xkv_tab[slot] = self._alloc.alloc_pinned(nx)
         idx = self._to_dev(np.asarray(ids, np.int64))
-        for l, b, ax in zip(tree_leaves(self._cache), handle["bufs"], self._pool_axes):
-            l.index_copy_(ax, idx, b.to(self.device, non_blocking=True))
+        xidx = self._xkv_ids(slot)
+        for l, b, ax, kind in zip(tree_leaves(self._cache), handle["bufs"], self._pool_axes,
+                                  self._kinds):
+            l.index_copy_(ax, xidx if kind == "xkv" else idx, b.to(self.device, non_blocking=True))
         self._live.add(slot)
         self._pos[slot] = handle["pos"]
         self._tok[slot] = handle["tok"]
@@ -921,7 +966,7 @@ class DecodeRunner:
         toks = self._to_dev(self.prompts[item][None, :].astype(np.int64))
         if self.paged:
             if slot in self._live:  # engine frees before reuse; be defensive
-                self._alloc.free_slot(slot)
+                self._free_slot_blocks(slot)
             S = self.prompts.shape[1]
             nb_pf = -(-S // self._bs_blk)
             shared, covered, first = ([], 0, None)
@@ -943,10 +988,11 @@ class DecodeRunner:
                     if n_new:
                         self._reserve(n_new)
                     blks = self._alloc.alloc(slot, n_new) if n_new else []
+                    self._claim_xkv(slot)
                 except PoolExhausted:
-                    self._alloc.free_slot(slot)  # unwind the shares: retry-safe
+                    self._free_slot_blocks(slot)  # unwind the shares: retry-safe
                     raise
-                lab = self._prefill_paged(toks, [0] * len(shared) + blks)
+                lab = self._prefill_paged(toks, [0] * len(shared) + blks, slot)
                 # the sanctioned first-token read: admission needs the label
                 tok = int(lab.reshape(-1)[0])
             if self._prefix is not None:
@@ -983,7 +1029,7 @@ class DecodeRunner:
         toks = self._to_dev(self.prompts[item][None, :n].astype(np.int64))
         if self.paged:
             if slot in self._live:  # engine frees before reuse; be defensive
-                self._alloc.free_slot(slot)
+                self._free_slot_blocks(slot)
             shared, covered = [], 0
             if self._prefix is not None:
                 # cached FULL chunks inside the first chunk are shared, not
@@ -1005,10 +1051,11 @@ class DecodeRunner:
                 if self._prefix is not None:
                     self._reserve(n_new)
                 blks = self._alloc.alloc(slot, n_new)
+                self._claim_xkv(slot)
             except PoolExhausted:
-                self._alloc.free_slot(slot)  # unwind the shares: retry-safe
+                self._free_slot_blocks(slot)  # unwind the shares: retry-safe
                 raise
-            self._prefill_paged(toks, [0] * len(shared) + blks)
+            self._prefill_paged(toks, [0] * len(shared) + blks, slot)
         else:
             cache, _ = self.model.prefill(self.params, toks, cache_len=self._cache_len,
                                           active_sites=None, with_cache=True)
@@ -1247,6 +1294,6 @@ class DecodeRunner:
 
     def free(self, slot: int) -> None:
         if self.paged and self._alloc is not None and slot in self._live:
-            self._alloc.free_slot(slot)
+            self._free_slot_blocks(slot)
         self._live.discard(slot)
         self._pf_progress.pop(slot, None)

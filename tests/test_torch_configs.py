@@ -12,7 +12,8 @@ from repro.configs import get_tiny as ref_tiny  # noqa: E402
 from repro_torch.configs import get_config, get_tiny  # noqa: E402  # repro: allow[tier1-deps] — the port under test; torch-only, skipped above without torch
 
 ARCHS = ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b", "mamba2-2.7b", "resnet18",
-         "resnet50", "bert-base", "gemma3-4b"]
+         "resnet50", "bert-base", "gemma3-4b", "qwen3-moe-30b-a3b", "llama-3.2-vision-90b",
+         "jamba-1.5-large-398b", "qwen1.5-32b", "deepseek-67b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -126,6 +127,46 @@ def test_gemma3_full_width_schema_equals_reference():
     assert round(2 * n / 1e9, 1) == 23.9
 
 
+FULL_WIDTH_GB = [  # (arch, layers kept, ramp sites, GB: embed + head, blocks, ramps, total)
+    ("qwen3-moe-30b-a3b", 48, 12, (1.26, 59.85, 7.55, 68.65)),
+    ("llama-3.2-vision-90b", 5, 4, (4.23, 8.86, 8.46, 21.56)),  # one period: 4 self + 1 cross
+    ("jamba-1.5-large-398b", 8, 7, (2.15, 88.14, 7.52, 97.81)),  # one period
+    ("qwen1.5-32b", 64, 12, (3.15, 67.28, 18.87, 89.30)),
+    ("deepseek-67b", 95, 12, (3.36, 131.50, 20.13, 154.99)),
+]
+
+
+@pytest.mark.parametrize("arch,L,n_sites,gb", FULL_WIDTH_GB)
+def test_new_configs_full_width_schema_equals_reference(arch, L, n_sites, gb):
+    """The five configs at full width (Llama-3.2-Vision and Jamba cut to one
+    period) from the schemas alone, nothing allocated: the reference's leaf
+    shapes and dtypes, and the bytes of their parameters (GB of 1e9 B),
+    which say what fits one 80 GB card: Qwen3-MoE whole (68.65 GB) and one
+    period of Llama-3.2-Vision (21.56 GB), not one period of Jamba nor
+    qwen1.5-32b or DeepSeek-67B whole."""
+    import jax
+
+    from repro.models import build_model as ref_build
+    from repro.models.common import is_info
+    from repro_torch.models import build_model  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.common import tree_leaves  # repro: allow[tier1-deps] — the port under test
+
+    ref = jax.tree.leaves(ref_build(ref_config(arch).replace(n_layers=L)).schema(),
+                          is_leaf=is_info)
+    model = build_model(get_config(arch).replace(n_layers=L))
+    sch = model.schema()
+    port = tree_leaves(sch)
+    assert [tuple(i.shape) for i in ref] == [tuple(i.shape) for i in port]
+    assert [np.dtype(i.dtype).name for i in ref] == [str(i.dtype)[6:] for i in port]
+    assert len(model.sites) == n_sites
+
+    def gbytes(tree):
+        return sum(math.prod(i.shape) * i.dtype.itemsize for i in tree_leaves(tree)) / 1e9
+
+    assert [round(gbytes(sch[k]), 2) for k in ("tok", "blocks", "ramps")] == list(gb[:3])
+    assert round(gbytes(sch), 2) == gb[3]
+
+
 def test_unknown_arch_raises():
     with pytest.raises(KeyError):
-        get_config("qwen3-moe-30b-a3b")  # not ported yet
+        get_config("seamless-m4t-large-v2")  # the encoder-decoder is not ported yet

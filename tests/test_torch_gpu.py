@@ -1,9 +1,12 @@
 """On a CUDA card: each CUDA kernel against its plain PyTorch version (the
 paged decode kernel also bit for bit against the contiguous one; the
 attention kernels also at Gemma3-4B's head width 256 and the ramp-head
-kernels at its d 2560 and V 262144), the
+kernels at its d 2560 and V 262144; the decode kernels at GQA group 8 and
+over a cross plan's tables, whose pinned xkv columns trail the token
+columns; the ramp-head kernels at d 8192), the
 tiny models with the kernels on against the plain path (tiny mamba2 and
-qwen2 prefills through the SSD and flash-attention kernels too), the
+qwen2 prefills through the SSD and flash-attention kernels too; tiny
+Qwen3-MoE, Llama-3.2-Vision and Jamba on both layouts), the
 runner's CUDA-graph sync windows against its eager ones, the
 classifier runners (ResNet, BERT) against their CPU forward, and training:
 a ramps_only step on the card against the CPU, the kernel dispatchers'
@@ -1115,3 +1118,170 @@ def test_bf16_checkpoint_round_trip_on_card(gen, tmp_path):
         back = mgr.restore(s, device="cuda")
         for a, b in zip(tree_leaves(back), tree_leaves(state)):
             assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# -- the last decoder plans: Qwen3-MoE, Llama-3.2-Vision, Jamba --------------------------
+
+
+def _kv(gen, B, S, KH, hd, dt):
+    return (torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt),
+            torch.randn(B, S, KH, hd, generator=gen, device="cuda").to(dt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KH", [(32, 4), (64, 8)])  # Qwen3-MoE's and Llama-3.2-Vision's heads
+def test_decode_kernels_group8_match_plain(gen, dtype, H, KH):
+    """#1 and #5 at GQA group 8 (the kernels' limit, H = 8 * KH) and hd 128,
+    at the served load of phases 10 and 11 (B 8, S 160, pos 120..159): each
+    against its plain version, the paged kernel (a shuffled table of
+    16-key blocks) bit for bit the contiguous kernel's result."""
+    dt = getattr(torch, dtype)
+    B, S, hd, bs = 8, 160, 128, 16
+    pos = torch.randint(120, S, (B,), generator=gen, device="cuda")
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    kc, vc = _kv(gen, B, S, KH, hd, dt)
+    cont = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
+    ref = decode_attention_ref(q, kc.transpose(1, 2), vc.transpose(1, 2), pos)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(cont.float(), ref.float(), rtol=tol, atol=tol)
+    nb = S // bs
+    table = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).reshape(B, nb)
+    k_pool = torch.zeros(1 + B * nb, bs, KH, hd, device="cuda", dtype=dt)
+    v_pool = torch.zeros_like(k_pool)
+    k_pool[table.reshape(-1)] = kc.reshape(B * nb, bs, KH, hd)
+    v_pool[table.reshape(-1)] = vc.reshape(B * nb, bs, KH, hd)
+    table = table.to(torch.int32)
+    out = paged_decode_attention(q, k_pool, v_pool, table, pos)
+    torch.testing.assert_close(out.float(),
+                               paged_decode_attention_ref(q, k_pool, v_pool, table, pos).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(out, cont)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_walks_the_token_columns_of_a_cross_table(gen, dtype):
+    """A cross plan's table ends in ceil(1600 / 16) = 100 pinned xkv columns
+    (pages that hold other keys). The model hands #5 the token columns as a
+    view with the whole table's row stride: bit for bit the contiguous
+    kernel's result on the same keys. Over the whole table the walk,
+    bounded by pos, still meets the plain version."""
+    dt = getattr(torch, dtype)
+    B, S, H, KH, hd, bs, nbx = 8, 160, 64, 8, 128, 16, 100
+    pos = torch.randint(120, S, (B,), generator=gen, device="cuda")
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+    kc, vc = _kv(gen, B, S, KH, hd, dt)
+    nb = S // bs
+    P = 1 + B * (nb + nbx)
+    ids = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    table = ids.reshape(B, nb + nbx).to(torch.int32)
+    k_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)  # xkv pages too
+    v_pool = torch.randn(P, bs, KH, hd, generator=gen, device="cuda").to(dt)
+    k_pool[table[:, :nb].reshape(-1).long()] = kc.reshape(B * nb, bs, KH, hd)
+    v_pool[table[:, :nb].reshape(-1).long()] = vc.reshape(B * nb, bs, KH, hd)
+    tokens = table[:, :nb]
+    assert tokens.stride() == (nb + nbx, 1)
+    out = paged_decode_attention(q, k_pool, v_pool, tokens, pos)
+    assert torch.equal(out, decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), pos))
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(paged_decode_attention(q, k_pool, v_pool, table, pos).float(),
+                               paged_decode_attention_ref(q, k_pool, v_pool, table, pos).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["d_by_V", "embed_T"])
+def test_ramp_kernels_d8192_match_plain(gen, layout):
+    """#2/#3 in bf16 at Llama-3.2-Vision's d 8192 (3.2x the widest d before)
+    and V 128256 (padded to 129024): the head along V and a tied layout
+    contiguous along d."""
+    d, V, Vp = 8192, 128256, 129024
+    h = torch.randn(8, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = _w(gen, layout, d, Vp, torch.bfloat16)
+    thr = torch.rand(8, generator=gen, device="cuda")
+    got = ramp_head_exit(h, w, thr, v_limit=V)
+    ref = ramp_head_exit_ref(h, w, thr, V)
+    for x, y, z in zip(got[:3], ref[:3], ramp_head_stats(h, w, v_limit=V)[:3]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4 * float(y.abs().max()))
+        torch.testing.assert_close(x, z, rtol=0, atol=0)
+    top2 = (h.float() @ w.float())[:, :V].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3  # labels exact unless a near-tie
+    assert torch.equal(got[3][clear], ref[3][clear])
+    far = (1.0 - 1.0 / ref[1] - thr).abs() > 1e-6
+    assert torch.equal(got[4][far], ref[4][far])
+
+
+def _as_pages(model, cache, table, xtable, bs):
+    """A contiguous cache laid out as the pool's pages: token leaves under
+    ``table``, a mamba slot's state at its row's first entry, a cross slot's
+    xkv rows under ``xtable``."""
+    B, nb = table.shape
+    P = 1 + table.numel() + (xtable.numel() if xtable is not None else 0)
+    pool = model.init_paged_cache(P, bs, device="cuda")
+    for pl, cl, kind in zip(tree_leaves(pool), tree_leaves(cache),
+                            model.paged_cache_kinds(1, bs)):
+        ax = 1  # every leaf here is stacked over the periods
+        if kind == "state":
+            pl.index_copy_(ax, table[:, 0].long(), cl)
+            continue
+        tab = xtable if kind == "xkv" else table
+        n = tab.shape[1] * bs
+        cl = torch.nn.functional.pad(cl, (0, 0, 0, 0, 0, n - cl.shape[2]))
+        blocks = cl.reshape(cl.shape[:1] + (tab.numel(), bs) + cl.shape[-2:])
+        pl.index_copy_(ax, tab.reshape(-1).long(), blocks)
+    return pool
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama-3.2-vision-90b",
+                                  "jamba-1.5-large-398b"])
+def test_tiny_new_plans_kernels_match_plain_path(gen, arch, paged):
+    """Tiny Qwen3-MoE (8 heads on 1 of 64: group 8), Llama-3.2-Vision (hd
+    64, its cross gate at 0.5, image memory through the prefill) and Jamba
+    (hd 64), f32: a 70-token prefill through the flash kernel (and Jamba's
+    mamba layers through the SSD kernel: two chunks, a ragged tail) vs
+    sdpa and the plain scan, then four decode steps with the decode kernels
+    on vs the plain path, on contiguous rows or on pages: token pages,
+    state pages and pinned xkv pages in one pool, the xkv columns trailing
+    each table. Each kernel runs once a layer it serves."""
+    cfg = get_tiny(arch).replace(head_dim=64, pallas_head="kernel")
+    if arch.startswith("qwen3"):
+        cfg = cfg.replace(n_heads=8, n_kv_heads=1)
+    on = build_model(cfg.replace(decode_attn="paged-kernel" if paged else "kernel"),
+                     prefill_attn="kernel", ssd_impl="kernel")
+    off = build_model(cfg.replace(decode_attn="paged" if paged else "dense"), ssd_impl="ref")
+    params = on.init(0, device="cuda")
+    kw = {}
+    if cfg.cross_attn_every:
+        params["blocks"][-1]["xattn"]["gate"].fill_(0.5)
+        kw["image_embeds"] = torch.randn(3, cfg.n_image_tokens, cfg.d_frontend, generator=gen,
+                                         device="cuda")
+    specs = on.plan.layer_specs()
+    n_attn = sum(s.mixer == "attn" for s in specs)
+    n_mamba = sum(s.mixer == "mamba" for s in specs)
+    B, P, bs = 3, 70, 16
+    toks = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    act = list(range(len(on.sites)))
+    n0 = flash_attention.launches, ssd_chunked.launches
+    (c_on, o_on), (c_off, o_off) = (m.prefill(params, toks, cache_len=80, active_sites=act,
+                                              **kw) for m in (on, off))
+    assert (flash_attention.launches - n0[0], ssd_chunked.launches - n0[1]) == (n_attn, n_mamba)
+    tabs = {}
+    if paged:
+        nb, nbx = 5, on.paged_xkv_blocks(bs)
+        ids = torch.randperm(B * (nb + nbx), generator=gen, device="cuda") + 1
+        table = ids[:B * nb].reshape(B, nb).to(torch.int32)
+        xtable = ids[B * nb:].reshape(B, nbx).to(torch.int32) if nbx else None
+        c_on = _as_pages(on, c_on, table, xtable, bs)
+        c_off = _as_pages(on, c_off, table, xtable, bs)
+        tabs = {"block_tables": table if xtable is None else torch.cat([table, xtable], 1)}
+    kernel = paged_decode_attention if paged else decode_attention
+    n0 = kernel.launches
+    pos = torch.full((B,), P, device="cuda")
+    for _ in range(4):
+        for a, b in ((o_on["final"], o_off["final"]), (o_on["ramps"], o_off["ramps"])):
+            assert torch.equal(a["label"], b["label"])
+            torch.testing.assert_close(a["maxprob"], b["maxprob"], rtol=1e-4, atol=1e-6)
+        tok = o_off["final"]["label"].reshape(-1, 1).long()
+        _, o_on = on.decode(params, c_on, tok, pos, active_sites=act, **tabs)
+        _, o_off = off.decode(params, c_off, tok, pos, active_sites=act, **tabs)
+        pos = pos + 1
+    assert kernel.launches - n0 == 4 * n_attn
