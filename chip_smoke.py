@@ -847,7 +847,7 @@ def _to_pool(model, cache, bs, gen):
 
 def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on_kw=None,
                   prefill_kernel=None, toks=None, T=8, thr=None, act=(2, 5, 8, 11),
-                  prefill_kw=None):
+                  prefill_kw=None, cache_len=None):
     """Prefill 128 tokens for 8 rows (each path twice, timed in the order
     off, on, on, off; ``toks`` (B, P) replaces the drawn prompts), then
     ``T`` greedy decode steps (exit thresholds ``thr``, 0.5 by default),
@@ -874,7 +874,9 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
     kernels-off final head passes 5 (the other models' 3.5-4.6; d 8192 of
     Llama-3.2-Vision: ~8) the cap is scaled by it over 5. ``act`` are the
     active ramp sites, ``prefill_kw`` more arguments of the prefill (a
-    cross plan's ``image_embeds``)."""
+    cross plan's ``image_embeds``, the enc-dec model's ``frames``; the
+    prompt goes as ``tokens=``), ``cache_len`` the cache's rows (default
+    P + T + 1)."""
     from repro_torch.models import build_model
     from repro_torch.models import layers as LY
 
@@ -948,7 +950,7 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
             stats["ramp_records"] += o_on["ramps"]["exit"].numel()
             stats["ramp_maxprob_over_half"] += int((o_on["ramps"]["maxprob"] > 0.5).sum())
 
-    cache_len = P + T + 1
+    cache_len = cache_len or P + T + 1
     if paged_bs:
         cache_len = -(-cache_len // paged_bs) * paged_bs
     times = {"prefill_off_ms": [], "prefill_on_ms": []}
@@ -959,7 +961,8 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
         model = off if name == "off" else on
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runs[name], pl = counted(lambda m=model: m.prefill(params, toks, cache_len=cache_len,
+        runs[name], pl = counted(lambda m=model: m.prefill(params, tokens=toks,
+                                                            cache_len=cache_len,
                                                             active_sites=act, **prefill_kw))
         times[f"prefill_{name}_ms"].append(1e3 * (time.perf_counter() - t0))
         for k in PREFILL:
@@ -999,7 +1002,7 @@ def compare_paths(params, cfg, off_cfg, on_cfg, gen, paged_bs=0, off_kw=None, on
         params, c_on, nxt, pos, active_sites=act, exit_thresholds=thr, block_tables=tables))
     if prefill_kernel is not None:  # one prefill of the on path: its prefill kernel's share
         times["profile_prefill_on"] = profile_step(lambda: on.prefill(
-            params, toks, cache_len=cache_len, active_sites=act, **prefill_kw))
+            params, tokens=toks, cache_len=cache_len, active_sites=act, **prefill_kw))
     print(f"model {cfg.name} kernels off ({off_cfg.decode_attn}, {off_cfg.pallas_head}, "
           f"{off_kw or {}}) vs on ({on_cfg.decode_attn}, {on_cfg.pallas_head}, {on_kw or {}}): "
           f"{stats['labels']} labels, {stats['near_ties']} near-ties, max logit eps "
@@ -1077,14 +1080,15 @@ def _tracked_runners():
 
 def counted(fn):
     """Run fn() with every kernel's launch count set to 0 just before and
-    read just after, and count the model's prefills (``LM.prefill`` calls),
+    read just after, and count the model's prefills (``LM.prefill`` and
+    ``EncDecLM.prefill`` calls),
     the classifiers' forwards (``EncoderClassifier.forward`` and
     ``ResNet.forward`` calls) and the decode steps of every runner fn
     builds (``decode_steps``: a replayed window graph runs its steps without
     calling ``LM.decode``). Returns (fn's result, {kernel: launches,
     "prefills": n, "forwards": n, "decode_steps": n})."""
     from repro_torch.kernels import counted_wrappers
-    from repro_torch.models.encdec import EncoderClassifier
+    from repro_torch.models.encdec import EncDecLM, EncoderClassifier
     from repro_torch.models.resnet import ResNet
     from repro_torch.models.transformer import LM
 
@@ -1092,8 +1096,8 @@ def counted(fn):
     for f in fns.values():
         f.launches = 0
     calls = {"prefills": 0, "forwards": 0}
-    hooked = [(LM, "prefill", "prefills"), (EncoderClassifier, "forward", "forwards"),
-              (ResNet, "forward", "forwards")]
+    hooked = [(LM, "prefill", "prefills"), (EncDecLM, "prefill", "prefills"),
+              (EncoderClassifier, "forward", "forwards"), (ResNet, "forward", "forwards")]
     origs = [getattr(cls, name) for cls, name, _ in hooked]
 
     def counting(orig, key):
@@ -2183,6 +2187,71 @@ def lm_token_phase(params, cfg, gen, serve):
     return launches
 
 
+def loop_runner_phase(params, cfg, T=8):
+    """Phase 4g: the per-slot ``LoopDecodeRunner`` (one B = 1 prefill a
+    start, one B = 1 decode a slot a step) and the batched ``DecodeRunner``
+    (one B = 8 decode a step), kernels on, over the same 8 prompts of 128
+    tokens for ``T`` steps with 4 active ramps: greedy tokens equal except
+    a difference that begins at a near-tie (the two run other batch shapes,
+    so other GEMM and key-range roundings), 8 dispatches a step against 1,
+    the host ms a step of each (``step`` reads its records, so it ends
+    synced). Returns the loop run's launches."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.serving import DecodeRunner, LoopDecodeRunner
+
+    model = build_model(cfg.replace(decode_attn="kernel", pallas_head="kernel"),
+                        prefill_attn="kernel")
+    prompts = np.random.default_rng(SEED + 16).integers(1, cfg.vocab_size, (8, 128))
+    act, slots = [2, 5, 8, 11], list(range(8))
+    runs = {}
+    for name, cls, kw in (("loop", LoopDecodeRunner, {}),
+                          ("batched", DecodeRunner, {"n_slots": 8, "graphs": False})):
+        def run(cls=cls, kw=kw):
+            r = cls(model, params, prompts, max_new_tokens=T, max_slots=4, **kw)
+            toks, ms = [[r.start(s, s) for s in slots]], []
+            for _ in range(T):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _, fin = r.step(slots, act)
+                ms.append(1e3 * (time.perf_counter() - t0))
+                toks.append(fin.tolist())
+            return r, toks, ms
+
+        (r, toks, ms), launches = counted(run)
+        runs[name] = (r.dispatches, [list(x) for x in zip(*toks)], ms, launches)
+    if (runs["loop"][0], runs["batched"][0]) != (8 * T, T):
+        fail(f"4g: dispatches {runs['loop'][0]} (loop) and {runs['batched'][0]} (batched); "
+             f"expected {8 * T} and {T}")
+    lp = runs["loop"][3]
+    for k, want in (("decode_attention", cfg.n_layers * 8 * T),
+                    ("flash_attention", cfg.n_layers * 8)):
+        if lp[k] != want:
+            fail(f"4g: the loop runner launched {k} {lp[k]} times; expected {want}")
+    if lp["ramp_head_stats"] <= 0:
+        fail("4g: the loop runner launched no ramp-head kernel")
+    ties = []
+    for b in slots:
+        t, gap = _divergence_gap(params, cfg, prompts[b], runs["loop"][1][b],
+                                 runs["batched"][1][b])
+        if t is not None:
+            print(f"4g row {b}: loop and batched tokens differ from token {t}, logit gap "
+                  f"{gap:.4f}", flush=True)
+            if gap >= NEAR_TIE:
+                fail(f"4g row {b}: a difference that begins at no near-tie")
+            ties.append(b)
+    ms = {name: runs[name][2] for name in runs}
+    print(f"4g {cfg.name} LoopDecodeRunner vs DecodeRunner on {card_line()}, 8 rows x {T} "
+          f"steps, 4 ramps, kernels on: {8 - len(ties)} of 8 rows token-identical (near-tie "
+          f"divergences {ties}); dispatches a step {runs['loop'][0] / T:g} vs "
+          f"{runs['batched'][0] / T:g}; host ms a step mean "
+          f"{statistics.mean(ms['loop']):.3f} vs {statistics.mean(ms['batched']):.3f}, median "
+          f"{statistics.median(ms['loop']):.3f} vs {statistics.median(ms['batched']):.3f} "
+          f"(loop vs batched); loop launches {json.dumps(lp)}", flush=True)
+    return lp
+
+
 def resnet_flops(cfg) -> float:
     """2 x the multiply-adds of one image's forward at ``cfg.img_size``, from
     the convolutions' shapes (stem, each block's convolutions and
@@ -2864,6 +2933,365 @@ def llama_phases(gen, serve):
     return rows, cont, paged
 
 
+# ---------------------------------------------------------------------------
+# phase 12: SeamlessM4T-large-v2's encoder-decoder, whole, at full width
+
+
+SM_CONFIG = "seamless-m4t-large-v2"
+SM_ACT = (0, 7, 14, 21)  # 4 of the 23 decoder ramp sites
+SM_PROMPT, SM_STEPS, SM_CACHE, SM_BS = 64, 32, 104, 16  # 104 rows = 7 blocks of 16
+
+
+def encdec_pool(model, cache, bs):
+    """Lay a prefill's contiguous enc-dec cache out on a pool as the serving
+    runner's paged prefill scatter does (``DecodeRunner.start``): for each
+    row in turn, its token blocks, then its pinned xkv pages, claimed from
+    a ``BlockAllocator``; each table its token columns, then its trailing
+    xkv columns; the self k/v scattered into the token pages, the memory's
+    k/v into the pinned pages (a partly filled last page zero-padded).
+    Returns (pool, tables (B, nb + nbx) int32 on the card)."""
+    import numpy as np
+
+    from repro_torch.serving.runner import BlockAllocator
+
+    B, S = cache["k"].shape[1:3]
+    nb, nbx = -(-S // bs), model.paged_xkv_blocks(bs)
+    al = BlockAllocator(B * (nb + nbx), nb, B)
+    xtab = []
+    for b in range(B):
+        al.alloc(b, nb)
+        xtab.append(al.alloc_pinned(nbx))
+    tables = torch.from_numpy(np.concatenate([al.table[:B, :nb], np.asarray(xtab)], 1)
+                              .astype(np.int64)).cuda()
+    pool = model.init_paged_cache(1 + al.n_blocks, bs, device="cuda")
+
+    def scatter(dst, src, ids):
+        rows = ids.shape[1] * bs
+        src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, rows - src.shape[2]))
+        dst.index_copy_(1, ids.reshape(-1), src.reshape((src.shape[0], -1, bs) + src.shape[3:]))
+
+    for k in ("k", "v"):
+        scatter(pool[k], cache[k], tables[:, :nb])
+        scatter(pool["xkv"][k], cache["xkv"][k], tables[:, nb:])
+    return pool, tables.to(torch.int32)
+
+
+def encdec_step_floor(params, cfg, B=8, pos=SM_PROMPT + SM_STEPS // 2):
+    """What one decode step of B rows must read at least: the decoder's
+    weights, the untied final head, 4 ramp heads, every layer's memory k/v
+    (M rows a row) and its self k/v up to ``pos``."""
+    L, kv = cfg.n_dec_layers, cfg.n_kv_heads * cfg.hd * 2  # bf16 bytes a row of k (or v)
+    row = {"decoder": _nbytes(params["dec"]), "final_head": _nbytes(params["tok"]["lm_head"]),
+           "ramp_heads": len(SM_ACT) * params["ramps"]["head"][0].numel() * 2,
+           "xkv": B * L * 2 * cfg.n_image_tokens * kv, "self_kv": B * L * 2 * (pos + 1) * kv}
+    row["total"] = sum(row.values())
+    row["ms"] = 1e3 * row["total"] / HBM_BW
+    return row
+
+
+def encdec_layouts(params, cfg, frames, toks, act):
+    """Phases 12b (its timings) and 12c: one prefill through the flash
+    kernel, then ``SM_STEPS`` decode steps with every kernel on, on
+    contiguous rows (#1) and on the pool (#5 over the token columns; the
+    cross layers gather their M rows from the pinned pages), counted as
+    one run: the main path. Both layouts are fed the contiguous run's
+    greedy tokens; their labels (final and ramps) must be equal except
+    where the contiguous run's f32 logits put the two labels within
+    NEAR_TIE. Then, outside the count: the device ms of the encoder and of
+    one layer's cross branch (and, on the pool, of its gather alone), each
+    timed alone (CUDA events, the L2 flushed), a step on each layout under
+    the profiler (its device-busy ms: an eager step of ~2 k launches
+    outruns the launch queue, so events around it read the host), and the
+    share of that device-busy time the 24 cross layers take. Returns
+    (launches, timings)."""
+    from repro_torch.kernels import counted_wrappers
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as LY
+    from repro_torch.models.common import tree_map
+
+    cont = build_model(cfg.replace(decode_attn="kernel", pallas_head="kernel"),
+                       prefill_attn="kernel")
+    paged = build_model(cfg.replace(decode_attn="paged-kernel", pallas_head="kernel"),
+                        prefill_attn="kernel")
+    B = toks.shape[0]
+    seen = {}
+    orig = cont._head_stats
+
+    def head_stats(params_, h_last, pooled, active_sites, exit_thresholds=None):
+        seen["h"], seen["pooled"] = h_last, pooled
+        return orig(params_, h_last, pooled, active_sites, exit_thresholds)
+
+    thr = torch.full((len(act),), 0.5, device="cuda")
+    stats = {"labels": 0, "near_ties": 0}
+
+    def run():
+        c_cont, o = cont.prefill(params, frames, toks, cache_len=SM_CACHE, active_sites=act)
+        pool, tables = encdec_pool(paged, c_cont, SM_BS)
+        pos = torch.full((B,), SM_PROMPT, device="cuda")
+        for t in range(SM_STEPS):
+            nxt = o["final"]["label"].reshape(-1, 1).long()
+            _, o = cont.decode(params, c_cont, nxt, pos, active_sites=act, exit_thresholds=thr)
+            _, op = paged.decode(params, pool, nxt, pos, active_sites=act, exit_thresholds=thr,
+                                 block_tables=tables)
+            h = LY.apply_norm(cfg, params["final_norm"], seen["h"])[:, 0]
+            hs = cont._ramp_hidden(params, seen["pooled"], act)[:, :, 0]
+            logits = [_logits_ref(h, params["tok"]["lm_head"], cfg.vocab_size)]
+            logits += [_logits_ref(hs[j], params["ramps"]["head"][i], cfg.vocab_size)
+                       for j, i in enumerate(act)]
+            la = [o["final"]["label"]] + list(o["ramps"]["label"])
+            lb = [op["final"]["label"]] + list(op["ramps"]["label"])
+            for lg, x, y in zip(logits, la, lb):
+                for r in (x != y).nonzero().flatten().tolist():
+                    gap = (lg[r, int(x[r])] - lg[r, int(y[r])]).abs().item()
+                    if gap >= NEAR_TIE:
+                        fail(f"12c step {t} row {r}: paged label {int(y[r])} vs contiguous "
+                             f"{int(x[r])}, logit gap {gap}")
+                    stats["near_ties"] += 1
+                stats["labels"] += B
+            pos = pos + 1
+        return c_cont, pool, tables, o, pos
+
+    cont._head_stats = head_stats  # what the contiguous decode steps' heads read
+    try:
+        (c_cont, pool, tables, o, pos), launches = counted(run)
+    finally:
+        cont._head_stats = orig
+    want = {"decode_attention": cfg.n_dec_layers * SM_STEPS,
+            "paged_decode_attention": cfg.n_dec_layers * SM_STEPS,
+            "flash_attention": cfg.n_enc_layers + cfg.n_dec_layers}
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"12c launched {k} {launches[k]} times; expected {n}")
+    for k in ("ramp_head_stats", "ramp_head_exit"):
+        if launches[k] <= 0:
+            fail(f"12c launched {k} {launches[k]} times")
+    # -- timings, outside the count: a step at the last position again
+    nxt = o["final"]["label"].reshape(-1, 1).long()
+    pos = pos - 1
+    nb = tables.shape[1] - paged.paged_xkv_blocks(SM_BS)
+    lp = tree_map(lambda x: x[0], params["dec"])
+    lc = tree_map(lambda x: x[0], c_cont)
+    lpool = tree_map(lambda x: x[0], pool)
+    xtab = tables[:, nb:]
+    h = torch.randn(B, 1, cfg.d_model, device="cuda").to(params["frontend_proj"].dtype)
+    M = cfg.n_image_tokens
+
+    def gather():
+        t = xtab.long()
+        return [lpool["xkv"][k][t].flatten(1, 2)[:, :M] for k in ("k", "v")]
+
+    fns = {
+        "encoder_ms": lambda: cont.encode(params, frames),
+        "cross_layer_contiguous_ms": lambda: cont._cross(lp, h, lc, None, None),
+        "cross_layer_paged_ms": lambda: paged._cross(lp, h, lpool, None, xtab),
+        "gather_layer_paged_ms": gather,
+    }
+    wrappers = counted_wrappers()
+    saved = {k: f.launches for k, f in wrappers.items()}
+    row = {k: device_ms(f, iters=10) for k, f in fns.items()}
+    row["profile_contiguous"] = profile_step(lambda: cont.decode(
+        params, c_cont, nxt, pos, active_sites=act, exit_thresholds=thr))
+    row["profile_paged"] = profile_step(lambda: paged.decode(
+        params, pool, nxt, pos, active_sites=act, exit_thresholds=thr, block_tables=tables))
+    for k, f in wrappers.items():  # launches made to time a call do not count
+        f.launches = saved[k]
+    L = cfg.n_dec_layers
+    busy = {lay: row[f"profile_{lay}"]["device_busy_ms"] for lay in ("contiguous", "paged")}
+    row["cross_share_contiguous"] = L * row["cross_layer_contiguous_ms"] / busy["contiguous"]
+    row["cross_share_paged"] = L * row["cross_layer_paged_ms"] / busy["paged"]
+    row["gather_share_paged"] = L * row["gather_layer_paged_ms"] / busy["paged"]
+    row["gather_bytes_layer"] = 2 * 2 * B * M * cfg.n_kv_heads * cfg.hd * 2  # read + write
+    row.update(stats)
+    del c_cont, pool
+    return launches, row
+
+
+def encdec_window(params, cfg, frames, toks, act):
+    """Phase 12d: ``decode_multi`` windows of 4 against 4 single ``decode``
+    calls (the window's exit decision taken on the host from their exit
+    bits), from one prefill's cache: thresholds at each ramp's median
+    uncertainty of the first step (some rows exit, some stay) and at 1.0
+    (every row exits at once: ``n_done`` 1). Records, ``n_done`` and the
+    caches after must be equal bit for bit."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    on = build_model(cfg.replace(decode_attn="kernel", pallas_head="kernel"),
+                     prefill_attn="kernel")
+    cache, o = on.prefill(params, frames, toks, cache_len=SM_CACHE, active_sites=None)
+    B, K = toks.shape[0], len(act)
+    tok = o["final"]["label"].reshape(-1, 1).long()
+    pos = torch.full((B,), SM_PROMPT, device="cuda")
+    _, probe = on.decode(params, tree_map(torch.clone, cache), tok, pos, active_sites=act)
+    unc = 1.0 - probe["ramps"]["maxprob"].float()
+    out = {}
+    for name, thr in (("median", unc.median(dim=1).values), ("one", torch.ones(K, device="cuda"))):
+        a, b = tree_map(torch.clone, cache), tree_map(torch.clone, cache)
+        _, (rl, rm, fl, ex, nd) = on.decode_multi(params, a, tok, pos, 4, n_max=4,
+                                                  active_sites=act, thresholds=thr)
+        nd = int(nd)
+        t, p, n, exits = tok, pos, 0, 0
+        for i in range(4):
+            _, s1 = on.decode(params, b, t, p, active_sites=act, exit_thresholds=thr)
+            m = s1["ramps"]["exit"].bool()
+            site = torch.where(m.any(0), torch.tensor(act, device="cuda")[m.int().argmax(0)], -1)
+            if i < nd and not (torch.equal(rl[i], s1["ramps"]["label"].int())
+                               and torch.equal(rm[i], s1["ramps"]["maxprob"].float())
+                               and torch.equal(fl[i], s1["final"]["label"].reshape(-1).int())
+                               and torch.equal(ex[i], site.int())):
+                fail(f"12d {name}: window step {i} differs from a single decode call")
+            n += 1
+            exits += int(m.any(0).sum())
+            if bool((site >= 0).all()):
+                break
+            t, p = s1["final"]["label"].reshape(-1, 1).long(), p + 1
+        if n != nd:
+            fail(f"12d {name}: n_done {nd}, single calls ran {n} steps")
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            if not torch.equal(x, y):
+                fail(f"12d {name}: the window's cache differs from the single calls'")
+        out[name] = {"n_done": nd, "row_exits": exits}
+    if not (out["one"]["n_done"] == 1 and out["median"]["row_exits"] > 0):
+        fail(f"12d: windows {out}; expected exits at the median and n_done 1 at 1.0")
+    print(f"12d {cfg.name} decode_multi windows of 4 vs 4 single decode calls on "
+          f"{card_line()}: records, n_done and caches bit for bit; {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def encdec_loss(model, params, cfg, gen, B=2, S=SM_PROMPT):
+    """Phase 12e: one ``loss`` and its backward at B 2, 64 tokens and 1600
+    frames, every parameter's gradient (the plain paths: sdpa, dense ramp
+    logits; no kernel): finite loss, finite gradients, the cross gates', the
+    frontend's and the ramp heads' nonzero; ms and peak memory."""
+    from repro_torch.models.common import tree_leaves
+
+    fr = torch.randn(B, cfg.n_image_tokens, cfg.d_frontend, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    toks = torch.randint(1, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+    batch = {"frames": fr, "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves = tree_leaves(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        loss, met = model.loss(params, batch)
+        grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves, allow_unused=True)))
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    bad = [i for i, g in enumerate(grads.values()) if g is None or not torch.isfinite(g).all()]
+    if not torch.isfinite(loss) or bad:
+        fail(f"12e: loss {loss.item()}, leaves without a finite gradient {bad}")
+    for what, leaf in (("cross gates", params["dec"]["xattn"]["gate"]),
+                       ("frontend_proj", params["frontend_proj"]),
+                       ("ramp heads", params["ramps"]["head"])):
+        if not grads[id(leaf)].abs().max().item() > 0:
+            fail(f"12e: the {what} have no gradient")
+    row = {"loss": loss.item(), **{k: v.item() for k, v in met.items()}, "ms": ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del grads, loss
+    print(f"12e {cfg.name} loss + backward at B {B}, {S} tokens, {cfg.n_image_tokens} frames on "
+          f"{card_line()}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def seamless_phases(gen):
+    """Phase 12: SeamlessM4T-large-v2 whole (24 encoder + 24 decoder layers,
+    d 1024, 16 heads of 64, d_ff 8192, an untied 256206-token vocab padded
+    to 258048, 23 ramp heads: 8.12 B parameters, 16.23 GB of bf16), seeded
+    random weights, its cross gates set to 1.0 after the draw (zero at
+    init). B 8 rows of 1600 frames (d_frontend 1024) and 64 prompt tokens,
+    4 active ramps. 12a: #4 at the encoder's shape (no mask, 1600 x 1600)
+    and the decoder's (causal, 64 x 104), #1 and #5 at group 1, hd 64 (#5
+    over tables with 100 trailing xkv columns), #2/#3 at d 1024 x V 258048,
+    each against its plain version. 12b: prefills through sdpa vs the flash
+    kernel, then 32 decode steps on contiguous rows with the kernels off vs
+    on; the encoder's device ms, a step's device-busy ms against its byte
+    floor, the cross layers' share. 12c: the same rows on the pool (bs 16,
+    7 token blocks and 100 pinned xkv blocks a row) against the contiguous
+    rows; the pinned pages' gather's share. 12d: sync windows against
+    single steps. 12e: the loss and its backward. Returns (its rows, 12c's
+    launches)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SM_CONFIG)
+    model, params = _draw(cfg, f"{SM_CONFIG} weights, whole: 24 encoder + 24 decoder layers "
+                               "of d 1024, 16 heads of 64, 23 ramp heads")
+    params["dec"]["xattn"]["gate"].fill_(1.0)
+    print("12: the cross gates set to 1.0 (tanh 0.762) after the draw, so that the memory "
+          "changes the output", flush=True)
+    t = _lap("12 draw", time.perf_counter())
+    rows = {}
+    nbx = -(-cfg.n_image_tokens // SM_BS)
+    nb = -(-SM_CACHE // SM_BS)
+    # -- 12a: the kernels alone at SeamlessM4T's shapes
+    rows["flash_enc"] = check_flash_attention(
+        8, 16, 16, cfg.n_image_tokens, cfg.n_image_tokens, 64,
+        f"B=8 H=KH=16 hd=64 Sq=Sk={cfg.n_image_tokens} no mask bf16 (encoder)", gen,
+        causal=False)
+    rows["flash_dec"] = check_flash_attention(
+        8, 16, 16, SM_PROMPT, SM_CACHE, 64, "B=8 H=KH=16 hd=64 Sq=64 Sk=104 causal bf16 (decoder)",
+        gen)
+    rows["decode"] = check_decode_attention(
+        8, SM_CACHE, "B=8 H=KH=16 hd=64 S=104 pos 64..103 bf16", gen, pos_lo=SM_PROMPT, H=16,
+        KH=16, hd=64)
+    rows["paged"] = check_paged_decode_attention(
+        8, nb, f"B=8 H=KH=16 hd=64 bs=16 nb={nb} (+{nbx} trailing xkv columns) pos 64..103 "
+        "shuffled bf16", gen, SM_PROMPT, SM_CACHE, H=16, KH=16, hd=64, trailing=nbx)
+    rows["ramp"] = check_ramp_head(params, cfg, gen)
+    t = _lap("12a", t)
+    # -- 12b: the model, kernels off vs on, on contiguous rows
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 17)
+    frames = torch.randn(8, cfg.n_image_tokens, cfg.d_frontend, generator=g,
+                         device="cuda").to(torch.bfloat16)
+    toks = torch.randint(1, cfg.vocab_size, (8, SM_PROMPT), generator=g, device="cuda")
+    act = list(SM_ACT)
+    rows["paths"] = compare_paths(
+        params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
+        cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
+        on_kw={"prefill_attn": "kernel"}, prefill_kernel="flash_attention", toks=toks,
+        T=SM_STEPS, act=act, prefill_kw={"frames": frames}, cache_len=SM_CACHE)
+    t = _lap("12b", t)
+    # -- 12c: contiguous rows vs the pool, counted: the main path
+    launches, step = encdec_layouts(params, cfg, frames, toks, act)
+    rows["step"] = step
+    floor = rows["floor"] = encdec_step_floor(params, cfg)
+    prof = step["profile_contiguous"]
+    print(f"12b {cfg.name} on {card_line()}: the encoder (8 x {cfg.n_image_tokens} frames, flash kernel) "
+          f"{step['encoder_ms']:.3f} ms device; one eager decode step (B 8, 4 ramps, kernels "
+          f"on, contiguous) device-busy {prof['device_busy_ms']:.3f} ms, wall "
+          f"{prof['wall_ms']:.3f} ms, against a byte floor of {floor['ms']:.3f} ms "
+          f"({json.dumps(floor)}); the 24 cross layers (each timed alone) "
+          f"{100 * step['cross_share_contiguous']:.1f}% of the step's device-busy time",
+          flush=True)
+    print(f"12c {cfg.name} paged vs contiguous on {card_line()}: {step['labels']} labels, "
+          f"{step['near_ties']} near-ties; a paged step device-busy "
+          f"{step['profile_paged']['device_busy_ms']:.3f} ms, wall "
+          f"{step['profile_paged']['wall_ms']:.3f} ms, the 24 cross layers "
+          f"{100 * step['cross_share_paged']:.1f}% of it, their gather of the pinned pages "
+          f"{100 * step['gather_share_paged']:.1f}% ({step['gather_layer_paged_ms']:.4f} ms a "
+          f"layer); timings {json.dumps(step)}; launches of the counted run (a prefill, "
+          f"{SM_STEPS} steps on each layout) {json.dumps(launches)}", flush=True)
+    t = _lap("12c", t)
+    # -- 12d: sync windows; 12e: the loss
+    rows["window"] = encdec_window(params, cfg, frames, toks, act)
+    t = _lap("12d", t)
+    del frames, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["loss"] = encdec_loss(model, params, cfg, gen)
+    _lap("12e", t)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launches
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2975,6 +3403,7 @@ def main() -> None:
     serve_chunked(params, cfg, serve_generative)
     graphs = {CONFIG: graph_vs_eager(params, cfg, serve_generative, "4e", SEED + 7)}
     lm_launches = lm_token_phase(params, cfg, gen, serve)
+    loop_runner_phase(params, cfg)
     print(f"qwen2-1.5b phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # -- phase 5: DeepSeek-V2-Lite, once qwen2-1.5b's weights are freed (the
@@ -3031,6 +3460,13 @@ def main() -> None:
     lv, lv_cont, lv_paged = llama_phases(gen, serve_generative)
     graphs[LV_CONFIG] = lv["graphs"]
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 12: SeamlessM4T-large-v2 whole, once Llama-3.2-Vision's are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sm, sm_launches = seamless_phases(gen)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3087,6 +3523,15 @@ def main() -> None:
                     ("ramp_head_stats", rows["ramp"]["ramp_head_stats"], cont,
                      f"{run} contiguous"),
                     ("ramp_head_exit", rows["ramp"]["ramp_head_exit"], cont, f"{run} contiguous")]
+    run = f"{SM_CONFIG} 12c (one prefill, {SM_STEPS} steps on each layout)"
+    entries += [("flash_attention", sm["flash_enc"], sm_launches,
+                 f"{run}: 24 of a prefill's 48 launches, the encoder"),
+                ("flash_attention", sm["flash_dec"], sm_launches,
+                 f"{run}: 24 of a prefill's 48 launches, the decoder"),
+                ("decode_attention", sm["decode"], sm_launches, f"{run} contiguous"),
+                ("paged_decode_attention", sm["paged"], sm_launches, f"{run} paged"),
+                ("ramp_head_stats", sm["ramp"]["ramp_head_stats"], sm_launches, run),
+                ("ramp_head_exit", sm["ramp"]["ramp_head_exit"], sm_launches, run)]
     if lm_launches["ramp_head_exit"]:
         entries.append(("ramp_head_exit", rh["ramp_head_exit"], lm_launches, f"{CONFIG} 4f"))
     kernels = []

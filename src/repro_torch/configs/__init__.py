@@ -1,14 +1,14 @@
 """Architecture config registry (the port's copy).
 
 A field-for-field copy of the JAX package's ``ArchConfig``, so every port
-config pairs with its reference config. The port registers every decoder
-LM of the reference (dense: qwen2-1.5b, GPT-2 medium, qwen1.5-32b,
-DeepSeek-67B; MLA + MoE DeepSeek-V2-Lite; attention + MoE
+config pairs with its reference config. The port registers all 14 of the
+reference's configs: every decoder LM (dense: qwen2-1.5b, GPT-2 medium,
+qwen1.5-32b, DeepSeek-67B; MLA + MoE DeepSeek-V2-Lite; attention + MoE
 Qwen3-MoE-30B-A3B; the attention-free SSD stack Mamba2-2.7B; Gemma3-4B's
 5 local : 1 global sliding-window stack; the Jamba hybrid; the
-cross-attention Llama-3.2-Vision) and the paper's classifiers
-(ResNet-18/50, BERT-base); the encoder-decoder seamless-m4t is not
-ported. ``CONFIG`` is the published shape,
+cross-attention Llama-3.2-Vision), the encoder-decoder
+SeamlessM4T-large-v2 and the paper's classifiers (ResNet-18/50,
+BERT-base). ``CONFIG`` is the published shape,
 ``TINY`` a reduced same-family config for CPU tests, and ``get_bench``
 the reference's paper-shape, tiny-width benchmark stand-ins.
 """
@@ -128,6 +128,7 @@ _MODULES = {
     "mamba2-2.7b": "mamba2_2_7b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "llama-3.2-vision-90b": "llama3_2_vision_90b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "gpt2-medium": "gpt2_medium",
     "bert-base": "bert_base",
     "resnet50": "resnet50",

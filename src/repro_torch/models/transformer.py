@@ -241,7 +241,85 @@ def _layer(tree, l: int):
     return tree_map(lambda t: t[l], tree)
 
 
-class LM:
+class MultiStepDecodeMixin:
+    """The sync window, shared by every model class with a ``decode(params,
+    cache, tokens, pos, *, active_sites, exit_thresholds, write_gate,
+    block_tables)`` step: the decoder-only ``LM`` and the enc-dec
+    decoder (``models/encdec.py``), as in the reference. Every row advances
+    ``n_done`` steps together, so recurrent state, ring wraparound and
+    read-only cross caches stay consistent across an early end."""
+
+    def decode_multi(self, params, cache, tokens, pos, n_steps: int, *, n_max: int,
+                     active_sites=None, thresholds=None, row_valid=None,
+                     block_tables=None):
+        """Up to ``n_steps`` greedy decode steps with the exit decision taken
+        ON DEVICE from a resident threshold vector: the host reads nothing
+        until the window returns.
+
+        tokens: (B, 1) int; pos: int tensor (B,) per-row write indices.
+        ``thresholds`` is the (K,) f32 device threshold vector aligned with
+        ``active_sites`` (strict ``<``). ``row_valid`` (B,) bool masks
+        bucket-padding rows out of the all-exited test. ``block_tables``
+        runs every step on the paged pool (see ``decode``); the window's
+        blocks are claimed before it starts, so one table serves all steps.
+
+        The reference's ``lax.while_loop`` stops after the first step where
+        every valid row exited. Here the loop runs ``n_steps`` times and a
+        device flag ``running`` switches off each later step's cache write,
+        so the cache ends as the reference leaves it; ``n_done`` counts the
+        steps that ran with ``running`` set. The serving runner captures
+        the whole window in one CUDA graph (``serving/graphs.py``), so steps
+        past ``n_done`` still run there, gated; a conditional while-node
+        could skip them, which would be the reference's early stop.
+
+        Returns ``(cache, (ramp_label (n_max,K,B), ramp_maxprob (n_max,K,B),
+        final_label (n_max,B), exit_site (n_max,B), n_done))``; entries past
+        ``n_done`` are garbage the caller slices off."""
+        B = tokens.shape[0]
+        dev = tokens.device
+        if not torch.is_tensor(pos) or pos.dim() < 1:
+            raise ValueError("decode_multi requires per-row pos: int[B]")
+        act = list(active_sites) if active_sites is not None else []
+        K = len(act)
+        if K and thresholds is None:
+            raise ValueError("decode_multi with active ramps needs thresholds")
+        if row_valid is None:
+            row_valid = torch.ones(B, dtype=torch.bool, device=dev)
+        thr = thresholds[:K].float() if K else None
+        # act[j] for each ramp row j, built on device (no host->device copy)
+        site_of = (torch.stack([torch.full((), i, dtype=torch.int32, device=dev) for i in act])
+                   if K else None)
+        rl = torch.zeros((n_max, K, B), dtype=torch.int32, device=dev)
+        rm = torch.zeros((n_max, K, B), dtype=torch.float32, device=dev)
+        fl = torch.zeros((n_max, B), dtype=torch.int32, device=dev)
+        ex = torch.full((n_max, B), -1, dtype=torch.int32, device=dev)
+        running = torch.ones((), dtype=torch.bool, device=dev)
+        n_done = torch.zeros((), dtype=torch.int32, device=dev)
+        tok, p = tokens, pos
+        for i in range(int(n_steps)):
+            cache, outs = self.decode(params, cache, tok, p, active_sites=act or None,
+                                      exit_thresholds=thr, write_gate=running,
+                                      block_tables=block_tables)
+            f = outs["final"]["label"].reshape(-1).to(torch.int32)
+            if K:
+                mask = outs["ramps"]["exit"].to(torch.bool)  # (K, B)
+                anyx = mask.any(dim=0)
+                first = torch.argmax(mask.to(torch.int32), dim=0)  # shallowest firing
+                site = torch.where(anyx, site_of[first], -1).to(torch.int32)
+                rl[i] = outs["ramps"]["label"].to(torch.int32)
+                rm[i] = outs["ramps"]["maxprob"].float()
+            else:
+                site = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            fl[i] = f
+            ex[i] = site
+            all_ex = torch.all(torch.logical_or(~row_valid, site >= 0))
+            n_done += running.to(torch.int32)
+            running = running & ~all_ex
+            tok, p = f.reshape(-1, 1).to(tokens.dtype), p + 1
+        return cache, (rl, rm, fl, ex, n_done)
+
+
+class LM(MultiStepDecodeMixin):
     """Functional decoder LM over the slots of ``build_plan`` ('fc', 'mlp'
     or 'tied' ramps). ``prefill_attn`` and ``ssd_impl`` pick the
     prefill's kernels (module docstring)."""
@@ -677,75 +755,6 @@ class LM:
         outs = self._head_stats(params, h, pooled, active_sites,
                                 exit_thresholds=exit_thresholds)
         return cache, outs
-
-    def decode_multi(self, params, cache, tokens, pos, n_steps: int, *, n_max: int,
-                     active_sites=None, thresholds=None, row_valid=None,
-                     block_tables=None):
-        """Up to ``n_steps`` greedy decode steps with the exit decision taken
-        ON DEVICE from a resident threshold vector: the host reads nothing
-        until the window returns.
-
-        tokens: (B, 1) int; pos: int tensor (B,) per-row write indices.
-        ``thresholds`` is the (K,) f32 device threshold vector aligned with
-        ``active_sites`` (strict ``<``). ``row_valid`` (B,) bool masks
-        bucket-padding rows out of the all-exited test. ``block_tables``
-        runs every step on the paged pool (see ``decode``); the window's
-        blocks are claimed before it starts, so one table serves all steps.
-
-        The reference's ``lax.while_loop`` stops after the first step where
-        every valid row exited. Here the loop runs ``n_steps`` times and a
-        device flag ``running`` switches off each later step's cache write,
-        so the cache ends as the reference leaves it; ``n_done`` counts the
-        steps that ran with ``running`` set. The serving runner captures
-        the whole window in one CUDA graph (``serving/graphs.py``), so steps
-        past ``n_done`` still run there, gated; a conditional while-node
-        could skip them, which would be the reference's early stop.
-
-        Returns ``(cache, (ramp_label (n_max,K,B), ramp_maxprob (n_max,K,B),
-        final_label (n_max,B), exit_site (n_max,B), n_done))``; entries past
-        ``n_done`` are garbage the caller slices off."""
-        B = tokens.shape[0]
-        dev = tokens.device
-        if not torch.is_tensor(pos) or pos.dim() < 1:
-            raise ValueError("decode_multi requires per-row pos: int[B]")
-        act = list(active_sites) if active_sites is not None else []
-        K = len(act)
-        if K and thresholds is None:
-            raise ValueError("decode_multi with active ramps needs thresholds")
-        if row_valid is None:
-            row_valid = torch.ones(B, dtype=torch.bool, device=dev)
-        thr = thresholds[:K].float() if K else None
-        # act[j] for each ramp row j, built on device (no host->device copy)
-        site_of = (torch.stack([torch.full((), i, dtype=torch.int32, device=dev) for i in act])
-                   if K else None)
-        rl = torch.zeros((n_max, K, B), dtype=torch.int32, device=dev)
-        rm = torch.zeros((n_max, K, B), dtype=torch.float32, device=dev)
-        fl = torch.zeros((n_max, B), dtype=torch.int32, device=dev)
-        ex = torch.full((n_max, B), -1, dtype=torch.int32, device=dev)
-        running = torch.ones((), dtype=torch.bool, device=dev)
-        n_done = torch.zeros((), dtype=torch.int32, device=dev)
-        tok, p = tokens, pos
-        for i in range(int(n_steps)):
-            cache, outs = self.decode(params, cache, tok, p, active_sites=act or None,
-                                      exit_thresholds=thr, write_gate=running,
-                                      block_tables=block_tables)
-            f = outs["final"]["label"].reshape(-1).to(torch.int32)
-            if K:
-                mask = outs["ramps"]["exit"].to(torch.bool)  # (K, B)
-                anyx = mask.any(dim=0)
-                first = torch.argmax(mask.to(torch.int32), dim=0)  # shallowest firing
-                site = torch.where(anyx, site_of[first], -1).to(torch.int32)
-                rl[i] = outs["ramps"]["label"].to(torch.int32)
-                rm[i] = outs["ramps"]["maxprob"].float()
-            else:
-                site = torch.full((B,), -1, dtype=torch.int32, device=dev)
-            fl[i] = f
-            ex[i] = site
-            all_ex = torch.all(torch.logical_or(~row_valid, site >= 0))
-            n_done += running.to(torch.int32)
-            running = running & ~all_ex
-            tok, p = f.reshape(-1, 1).to(tokens.dtype), p + 1
-        return cache, (rl, rm, fl, ex, n_done)
 
     # -- head statistics ------------------------------------------------------
 

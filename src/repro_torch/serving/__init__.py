@@ -1,5 +1,6 @@
 """Serving: the engine and its numpy modules copied from the JAX package
-(imports rewritten), and the port's model runners."""
+(imports rewritten), the frozen pre-refactor loops (``reference``, a copy
+too), and the port's model runners."""
 from repro_torch.serving.arrivals import maf_trace, video_trace
 from repro_torch.serving.cluster import (
     ClusterConfig,
@@ -28,6 +29,11 @@ from repro_torch.serving.policies import (
     BatchPolicy,
     get_policy,
 )
+from repro_torch.serving.reference import (
+    ReferenceClusterSimulator,
+    ReferenceGenerativeEngine,
+    ReferenceMixedClusterSimulator,
+)
 from repro_torch.serving.request import (
     GenRequest,
     GenResponse,
@@ -39,7 +45,9 @@ from repro_torch.serving.runner import (
     ClassifierRunner,
     DecodeRunner,
     LMTokenRunner,
+    LoopDecodeRunner,
     PoolExhausted,
+    SyntheticDecodeRunner,
     SyntheticRunner,
 )
 
@@ -69,6 +77,9 @@ __all__ = [
     "AdmissionPolicy",
     "BatchPolicy",
     "get_policy",
+    "ReferenceClusterSimulator",
+    "ReferenceGenerativeEngine",
+    "ReferenceMixedClusterSimulator",
     "GenRequest",
     "GenResponse",
     "Request",
@@ -77,6 +88,8 @@ __all__ = [
     "ClassifierRunner",
     "DecodeRunner",
     "LMTokenRunner",
+    "LoopDecodeRunner",
     "PoolExhausted",
+    "SyntheticDecodeRunner",
     "SyntheticRunner",
 ]

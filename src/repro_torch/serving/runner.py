@@ -6,7 +6,9 @@ classification runners (``ClassifierRunner`` for ResNet and BERT,
 ``LMTokenRunner`` for next-token serving, and the model-free
 ``SyntheticRunner``, a verbatim copy) and the generative ``DecodeRunner``,
 over a contiguous slot cache or a paged block pool with prefix sharing,
-copy-on-write, swap preemption and chunked prefill.
+copy-on-write, swap preemption and chunked prefill; the per-slot
+``LoopDecodeRunner`` it replaces, and the model-free
+``SyntheticDecodeRunner``, a verbatim copy.
 Only ~KB record arrays (top-1 label, max-prob per ramp, the final label)
 travel to the host, never logits. ``BlockAllocator`` and ``PrefixCache``
 are host numpy, copied verbatim from the JAX package (a test pins each copy
@@ -1297,3 +1299,129 @@ class DecodeRunner:
             self._free_slot_blocks(slot)
         self._live.discard(slot)
         self._pf_progress.pop(slot, None)
+
+
+class LoopDecodeRunner:
+    """Per-slot loop runner: the JAX package's pre-batched implementation,
+    kept for the batched-vs-loop equivalence checks and the dispatch count.
+    Slots are independent B = 1 caches; ``start`` runs one B = 1 prefill
+    and every ``step`` one B = 1 ``model.decode`` PER SLOT (B dispatches
+    and B small cache trees a step: the serialized hot path
+    ``DecodeRunner`` replaces), through the kernels the model's config
+    selects, as the batched runner's. Records are laid out as
+    ``DecodeRunner.step`` lays them out."""
+
+    def __init__(self, model, params, prompts: np.ndarray, *, max_new_tokens: int = 64,
+                 max_slots: int = 8):
+        self.model = model
+        self.params = params
+        self.device = params["tok"]["embed"].device
+        self.prompts = np.asarray(prompts, np.int32)  # (N, S)
+        self.max_new = max_new_tokens
+        self.max_slots = max_slots
+        self.n_sites = len(model.sites)
+        self.dispatches = 0  # decode calls (B per step)
+        self._slots = {}
+
+    def start(self, slot: int, item: int) -> int:
+        S = self.prompts.shape[1]
+        toks = _to_device(self.prompts[item][None, :].astype(np.int64), self.device)
+        cache, outs = self.model.prefill(self.params, toks, cache_len=S + self.max_new,
+                                         active_sites=None, with_cache=True)
+        # the sanctioned first-token read (the per-slot loop oracle)
+        tok = int(outs["final"]["label"].reshape(-1)[0])
+        self._slots[slot] = {"cache": cache, "pos": S, "tok": tok}
+        return tok
+
+    def step(self, slots: Sequence[int], active: Sequence[int]):
+        """One decode step for every slot in ``slots``: one B = 1 dispatch a
+        slot. Row/column order matches ``DecodeRunner.step``."""
+        act = sorted(int(a) for a in active)
+        if len(act) > self.max_slots:
+            # refuse, never silently truncate (matches DecodeRunner.step)
+            raise ValueError(
+                f"active ramp set has {len(act)} sites, max_slots={self.max_slots}"
+            )
+        k = len(act)
+        labels = np.zeros((max(k, 1), len(slots)), np.int64)
+        unc = np.full((max(k, 1), len(slots)), 1.0, np.float32)
+        final = np.zeros(len(slots), np.int64)
+        for b, s in enumerate(slots):
+            st = self._slots[s]
+            tok = torch.full((1, 1), st["tok"], dtype=torch.int64, device=self.device)
+            pos = torch.full((1,), st["pos"], dtype=torch.int64, device=self.device)
+            st["cache"], outs = self.model.decode(self.params, st["cache"], tok, pos,
+                                                  active_sites=act if k else None)
+            self.dispatches += 1
+            # the sanctioned record and token reads (the per-slot loop oracle)
+            if k:
+                labels[:, b] = outs["ramps"]["label"].cpu().numpy()[:, 0]
+                mp = outs["ramps"]["maxprob"].float().cpu().numpy()[:, 0]
+                unc[:, b] = np.float32(1.0) - mp
+            fl = int(outs["final"]["label"].reshape(-1)[0])
+            final[b] = fl
+            st["pos"] += 1
+            st["tok"] = fl  # vanilla greedy trajectory (agreement baseline)
+        if k == 0:
+            return labels[:0], unc[:0], final
+        return labels[:k], unc[:k], final
+
+    def free(self, slot: int) -> None:
+        self._slots.pop(slot, None)
+
+
+class SyntheticDecodeRunner:
+    """Profile-only generative runner — the decode analogue of
+    ``SyntheticRunner``: deterministic per-token ramp records without a
+    model. A fixed fraction of tokens is "easy" (confidently predictable
+    from ``exit_site`` onward, ramp label agreeing with the final token);
+    the rest stay uncertain and disagreeing at every ramp, so an
+    over-opened threshold costs accuracy exactly as with a trained LM.
+    Used by the generative benchmarks/sweeps where training an LM per
+    configuration would dominate runtime."""
+
+    def __init__(self, n_sites: int, exit_site: int, easy_frac: float = 0.7,
+                 vocab: int = 101):
+        self.n_sites = n_sites
+        self.exit_site = exit_site
+        self.easy_frac = easy_frac
+        self.vocab = vocab
+        self._slots = {}
+
+    def _token(self, item: int, t: int) -> int:
+        return (item * 31 + t * 7 + 3) % self.vocab
+
+    def _easy(self, item: int, t: int) -> bool:
+        return ((item * 131 + t * 17) % 100) < self.easy_frac * 100
+
+    def start(self, slot: int, item: int) -> int:
+        self._slots[slot] = {"item": item, "t": 0}
+        return self._token(item, 0)
+
+    def step(self, slots: Sequence[int], active: Sequence[int]):
+        act = sorted(active)
+        k = len(act)
+        B = len(slots)
+        labels = np.zeros((max(k, 1), B), np.int64)
+        unc = np.full((max(k, 1), B), 0.9, np.float32)
+        final = np.zeros(B, np.int64)
+        for b, s in enumerate(slots):
+            st = self._slots[s]
+            st["t"] += 1
+            item, t = st["item"], st["t"]
+            fin = self._token(item, t)
+            final[b] = fin
+            easy = self._easy(item, t)
+            for j, site in enumerate(act):
+                if easy and site >= self.exit_site:
+                    labels[j, b] = fin
+                    unc[j, b] = 0.02
+                else:
+                    labels[j, b] = (fin + 1) % self.vocab
+                    unc[j, b] = 0.9
+        if k == 0:
+            return labels[:0], unc[:0], final
+        return labels[:k], unc[:k], final
+
+    def free(self, slot: int) -> None:
+        self._slots.pop(slot, None)

@@ -13,7 +13,7 @@ from repro_torch.configs import get_config, get_tiny  # noqa: E402  # repro: all
 
 ARCHS = ["qwen2-1.5b", "gpt2-medium", "deepseek-v2-lite-16b", "mamba2-2.7b", "resnet18",
          "resnet50", "bert-base", "gemma3-4b", "qwen3-moe-30b-a3b", "llama-3.2-vision-90b",
-         "jamba-1.5-large-398b", "qwen1.5-32b", "deepseek-67b"]
+         "jamba-1.5-large-398b", "qwen1.5-32b", "deepseek-67b", "seamless-m4t-large-v2"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -167,6 +167,28 @@ def test_new_configs_full_width_schema_equals_reference(arch, L, n_sites, gb):
     assert round(gbytes(sch), 2) == gb[3]
 
 
+def test_seamless_full_width_bytes():
+    """Full-width SeamlessM4T-large-v2 from the schema alone: 24 + 24 layers
+    of d 1024, 16 heads of 64, d_ff 8192, the vocab 256206 padded to
+    258048 with an untied head, ramps on all 23 decoder sites: 8.12 B
+    parameters, 16.23 GB in bf16, 12.16 GB of it the ramp heads. It fits
+    one 80 GB card whole."""
+    from repro_torch.models import build_model  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.common import tree_leaves  # repro: allow[tier1-deps] — the port under test
+
+    cfg = get_config("seamless-m4t-large-v2")
+    assert (cfg.n_enc_layers, cfg.n_dec_layers, cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff,
+            cfg.padded_vocab, cfg.n_image_tokens) == (24, 24, 1024, 16, 64, 8192, 258048, 1600)
+    sch = build_model(cfg).schema()
+
+    def gbytes(tree):
+        return sum(math.prod(i.shape) * i.dtype.itemsize for i in tree_leaves(tree)) / 1e9
+
+    n = sum(math.prod(i.shape) for i in tree_leaves(sch))
+    assert round(n / 1e9, 2) == 8.12
+    assert (round(gbytes(sch), 2), round(gbytes(sch["ramps"]), 2)) == (16.23, 12.16)
+
+
 def test_unknown_arch_raises():
     with pytest.raises(KeyError):
-        get_config("seamless-m4t-large-v2")  # the encoder-decoder is not ported yet
+        get_config("no-such-arch")  # every reference config is registered

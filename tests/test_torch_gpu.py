@@ -3,10 +3,12 @@ paged decode kernel also bit for bit against the contiguous one; the
 attention kernels also at Gemma3-4B's head width 256 and the ramp-head
 kernels at its d 2560 and V 262144; the decode kernels at GQA group 8 and
 over a cross plan's tables, whose pinned xkv columns trail the token
-columns; the ramp-head kernels at d 8192), the
-tiny models with the kernels on against the plain path (tiny mamba2 and
-qwen2 prefills through the SSD and flash-attention kernels too; tiny
-Qwen3-MoE, Llama-3.2-Vision and Jamba on both layouts), the
+columns; the ramp-head kernels at d 8192; the flash kernel with no mask
+at SeamlessM4T's 1600 frames and the ramp-head kernels at its d 1024 x V
+258048), the tiny models with the kernels on against the plain path
+(tiny mamba2 and qwen2 prefills through the SSD and flash-attention
+kernels too; tiny Qwen3-MoE, Llama-3.2-Vision, Jamba and SeamlessM4T on
+both layouts), the
 runner's CUDA-graph sync windows against its eager ones, the
 classifier runners (ResNet, BERT) against their CPU forward, and training:
 a ramps_only step on the card against the CPU, the kernel dispatchers'
@@ -1285,3 +1287,93 @@ def test_tiny_new_plans_kernels_match_plain_path(gen, arch, paged):
         _, o_off = off.decode(params, c_off, tok, pos, active_sites=act, **tabs)
         pos = pos + 1
     assert kernel.launches - n0 == 4 * n_attn
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_noncausal_seamless_encoder_matches_plain(gen, dtype):
+    """SeamlessM4T's encoder attention: no mask, H = KH = 16, hd 64, 1600
+    frames a row at B 8 (25 key tiles; earlier no-mask runs reached 512
+    rows), q/k/v the (B, H, S, 64) views of (B, S, 1024) projections."""
+    dt = getattr(torch, dtype)
+    B, H, hd, S = 8, 16, 64, 1600
+    q, k, v = (torch.randn(B, S, H * hd, generator=gen, device="cuda").to(dt)
+               .reshape(B, S, H, hd).transpose(1, 2) for _ in range(3))
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    ref = attention_ref(q, k, v, causal=False)
+    assert flash_attention.launches == n0 + 1
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["d_by_V", "embed_T"])
+def test_ramp_kernels_seamless_width_match_plain(gen, layout):
+    """#2/#3 in bf16 at SeamlessM4T's d 1024 and V 256206 (padded to
+    258048), between qwen2's d 1536 and Gemma3's V 262144: the untied
+    lm_head and the ramp heads along V, and a layout contiguous along d."""
+    d, V, Vp = 1024, 256206, 258048
+    h = torch.randn(8, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = _w(gen, layout, d, Vp, torch.bfloat16)
+    thr = torch.rand(8, generator=gen, device="cuda")
+    got = ramp_head_exit(h, w, thr, v_limit=V)
+    ref = ramp_head_exit_ref(h, w, thr, V)
+    for x, y, z in zip(got[:3], ref[:3], ramp_head_stats(h, w, v_limit=V)[:3]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4 * float(y.abs().max()))
+        torch.testing.assert_close(x, z, rtol=0, atol=0)
+    top2 = (h.float() @ w.float())[:, :V].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3  # labels exact unless a near-tie
+    assert torch.equal(got[3][clear], ref[3][clear])
+    far = (1.0 - 1.0 / ref[1] - thr).abs() > 1e-6
+    assert torch.equal(got[4][far], ref[4][far])
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_tiny_encdec_kernels_match_plain_path(gen, paged):
+    """Tiny SeamlessM4T (2 + 2 layers, hd 64, 20 frames: a partly filled
+    last pinned page at bs 16), its cross gates at 0.7, f32: a 40-token
+    prefill whose encoder (no mask) and decoder (causal) attention run
+    through the flash kernel vs sdpa, then four decode steps with exit
+    bits, the decode kernels and the ramp-head kernels on vs the plain
+    path, on contiguous rows or on pages (token pages and pinned xkv pages,
+    the xkv columns trailing each table). Each kernel runs once a layer it
+    serves."""
+    cfg = get_tiny("seamless-m4t-large-v2").replace(head_dim=64, n_image_tokens=20)
+    on = build_model(cfg.replace(decode_attn="paged-kernel" if paged else "kernel",
+                                 pallas_head="kernel"), prefill_attn="kernel")
+    off = build_model(cfg.replace(decode_attn="paged" if paged else "dense"))
+    params = on.init(0, device="cuda")
+    params["dec"]["xattn"]["gate"].fill_(0.7)
+    B, P, bs = 3, 40, 16
+    frames = torch.randn(B, cfg.n_image_tokens, cfg.d_frontend, generator=gen, device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    act = list(on.sites)
+    n0 = flash_attention.launches
+    (c_on, o_on), (c_off, o_off) = (m.prefill(params, frames, toks, cache_len=48,
+                                              active_sites=act) for m in (on, off))
+    assert flash_attention.launches - n0 == cfg.n_enc_layers + cfg.n_dec_layers
+    tabs = {}
+    if paged:
+        nb, nbx = 3, on.paged_xkv_blocks(bs)
+        ids = torch.randperm(B * (nb + nbx), generator=gen, device="cuda") + 1
+        table = ids[:B * nb].reshape(B, nb).to(torch.int32)
+        xtable = ids[B * nb:].reshape(B, nbx).to(torch.int32)
+        c_on = _as_pages(on, c_on, table, xtable, bs)
+        c_off = _as_pages(on, c_off, table, xtable, bs)
+        tabs = {"block_tables": torch.cat([table, xtable], 1)}
+    kernel = paged_decode_attention if paged else decode_attention
+    n0 = kernel.launches, ramp_head_exit.launches
+    pos = torch.full((B,), P, device="cuda")
+    thr = torch.full((len(act),), 0.999, device="cuda")
+    for _ in range(4):
+        for a, b in ((o_on["final"], o_off["final"]), (o_on["ramps"], o_off["ramps"])):
+            assert torch.equal(a["label"], b["label"])
+            torch.testing.assert_close(a["maxprob"], b["maxprob"], rtol=1e-4, atol=1e-6)
+        tok = o_off["final"]["label"].reshape(-1, 1).long()
+        _, o_on = on.decode(params, c_on, tok, pos, active_sites=act, exit_thresholds=thr,
+                            **tabs)
+        _, o_off = off.decode(params, c_off, tok, pos, active_sites=act, exit_thresholds=thr,
+                              **tabs)
+        assert torch.equal(o_on["ramps"]["exit"], o_off["ramps"]["exit"])
+        pos = pos + 1
+    assert kernel.launches - n0[0] == 4 * cfg.n_dec_layers
+    assert ramp_head_exit.launches - n0[1] == 4 * len(act)

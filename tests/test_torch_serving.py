@@ -131,6 +131,115 @@ def test_engine_end_to_end_agrees():
     assert RS.summarize_generative(rr) == TS.summarize_generative(tr)
 
 
+# -- the per-slot loop runner ----------------------------------------------------
+
+
+def _loop_schedule(a, b, compare, rng):
+    """Seeded admits, steps with 0-2 active ramps over live slots, frees and
+    re-admits through two runners ``a`` and ``b``; ``compare(x, y)`` holds
+    each step's records. Returns the steps run."""
+    n_sites = a.n_sites
+    for s, item in ((0, 0), (2, 1), (1, 2)):
+        assert a.start(s, item) == b.start(s, item)
+    live, item, steps = [0, 1, 2], 3, 0
+    for i in range(8):
+        if i == 4:
+            a.free(live[1])
+            b.free(live[1])
+            assert a.start(live[1], item) == b.start(live[1], item)
+            item += 1
+        slots = sorted(rng.choice(live, int(rng.integers(1, 4)), replace=False).tolist())
+        act = sorted(rng.choice(n_sites, int(rng.integers(0, 3)), replace=False).tolist())
+        compare(a.step(slots, act), b.step(slots, act))
+        steps += 1
+    return steps
+
+
+def test_loop_runner_matches_reference():
+    """The port's ``LoopDecodeRunner`` against the reference's on tiny qwen2
+    (the port's kernels on, their plain versions here): one B = 1 prefill a
+    start and one B = 1 decode a slot a step, records within 1e-4, tokens
+    and ``dispatches`` exact; both refuse an active set over ``max_slots``
+    with the same error."""
+    rm, rp, tm, tp, prompts = _models(3)
+    kw = dict(max_new_tokens=MAX_NEW, max_slots=2)
+    ref = RS.LoopDecodeRunner(rm, rp, prompts, **kw)
+    port = TS.LoopDecodeRunner(tm, tp, prompts, **kw)
+    _loop_schedule(port, ref, _same_records, np.random.default_rng(4))
+    assert port.dispatches == ref.dispatches > 8
+    errs = []
+    for S, model, params in ((RS, rm, rp), (TS, tm, tp)):
+        r = S.LoopDecodeRunner(model, params, prompts, max_new_tokens=4, max_slots=1)
+        r.start(0, 0)
+        with pytest.raises(ValueError) as e:
+            r.step([0], [0, 1])
+        errs.append(str(e.value))
+    assert errs[0] == errs[1]
+
+
+def test_batched_runner_matches_loop_runner():
+    """The port's batched ``DecodeRunner`` (one dispatch a step, rows padded
+    to a bucket) against its own per-slot ``LoopDecodeRunner`` on one
+    schedule: unc within 1e-4, labels and tokens exact (no near-tie on
+    these draws), one dispatch a step against one a slot."""
+    _, _, tm, tp, prompts = _models(5)
+    loop = TS.LoopDecodeRunner(tm, tp, prompts, max_new_tokens=MAX_NEW, max_slots=2)
+    batched = TS.DecodeRunner(tm, tp, prompts, max_new_tokens=MAX_NEW, max_slots=2, n_slots=4)
+    rows = []
+
+    def compare(x, y):
+        _same_records(x, y)
+        rows.append(len(x[2]))
+
+    steps = _loop_schedule(batched, loop, compare, np.random.default_rng(6))
+    assert batched.dispatches == steps and loop.dispatches == sum(rows) > steps
+
+
+@pytest.mark.parametrize("kind", ["cluster", "generative"])
+def test_frozen_reference_loops_match_engine(kind):
+    """The copied frozen loops (``serving/reference.py``) against the port's
+    engine facades on a seeded schedule, with the model-free runners and one
+    ``ApparateController`` a worker: identical response records, makespan
+    and stats."""
+    prof = TC.build_profile(port_config("gpt2-medium"), mode="decode", chips=1,
+                            charge_kv=True)
+    ns = len(prof.sites)
+    ccfg = TC.ControllerConfig(max_slots=2, ramp_budget_frac=0.5, acc_constraint=0.5,
+                               adjust_every=32, tune_window=64, min_samples_to_tune=16)
+    out = []
+    for eng_cls in ((TS.ClusterSimulator, TS.ReferenceClusterSimulator) if kind == "cluster"
+                    else (TS.GenerativeEngine, TS.ReferenceGenerativeEngine)):
+        ctl = TC.ApparateController(ns, prof, ccfg)
+        if kind == "cluster":
+            arr = TS.maf_trace(160, mean_qps=2000.0 / prof.vanilla_time(8), seed=8)
+            pf = TS.PlatformConfig(policy="tfserve", max_batch_size=8,
+                                   batch_timeout_ms=prof.vanilla_time(1))
+            ctls = [ctl, TC.ApparateController(ns, prof, ccfg)]
+            sim = eng_cls(prof, TS.ClusterConfig(n_workers=2, dispatch="jsq", platform=pf),
+                          runner=TS.SyntheticRunner(ns, exit_site=ns // 3), controllers=ctls)
+            resp = sim.run(TS.make_requests(arr, slo_ms=2 * prof.vanilla_time(1)))
+            out.append(([(r.rid, r.release_ms, r.label, r.exit_site, r.latency_ms,
+                          r.batch_size, r.dropped, r.worker) for r in resp],
+                        sim.makespan_ms, sim.worker_stats()))
+        else:
+            qps = TS.offered_decode_qps(prof, max_batch_size=4, tokens_per_request=10,
+                                        load=1.2)
+            reqs = TS.make_gen_requests(TS.maf_trace(30, mean_qps=qps, seed=9), n_tokens=10,
+                                        prompt_len=32, slo_ms=3 * prof.vanilla_time(1))
+            eng = eng_cls(prof, TS.GenerativeConfig(max_batch_size=4),
+                          TS.SyntheticDecodeRunner(ns, exit_site=ns // 3), ctl)
+            resp = eng.run(reqs)
+            out.append(([(r.rid, tuple(r.release_ms), tuple(r.exit_sites), tuple(r.tokens),
+                          tuple(r.final_tokens)) for r in resp],
+                        eng.makespan_ms, (eng.busy_ms, eng.n_steps, eng.n_tokens)))
+    assert out[0] == out[1]
+    recs = out[0][0]
+    if kind == "cluster":
+        assert len(recs) == 160 and sum(r[3] >= 0 for r in recs) > 0  # exits
+    else:
+        assert len(recs) == 30 and sum(e >= 0 for r in recs for e in r[2]) > 0
+
+
 # -- classification: the cluster engine over the real model --------------------
 
 # (workers, dispatch, admission): one and two replicas under each dispatcher,
@@ -229,7 +338,8 @@ COPIES = ["core/exits.py", "core/threshold_tuning.py", "core/ramp_adjust.py",
           "core/controller.py", "core/ramps.py", "serving/request.py",
           "serving/arrivals.py", "serving/engine.py", "serving/generative.py",
           "serving/metrics.py", "serving/policies.py", "serving/cluster.py",
-          "serving/platform.py", "data/synthetic.py", "data/__init__.py"]
+          "serving/platform.py", "serving/reference.py", "data/synthetic.py",
+          "data/__init__.py"]
 
 
 def _rewrite(src):
@@ -241,6 +351,19 @@ def test_numpy_module_is_a_verbatim_copy(rel):
     ref = (SRC / "repro" / rel).read_text()
     port = (SRC / "repro_torch" / rel).read_text()
     assert port == _rewrite(ref)
+
+
+def _class_source(path, name):
+    text = path.read_text()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.ClassDef) and n.name == name)
+    return ast.get_source_segment(text, node)
+
+
+def test_synthetic_decode_runner_is_a_verbatim_copy():
+    rel = "serving/runner.py"
+    assert (_class_source(SRC / "repro_torch" / rel, "SyntheticDecodeRunner")
+            == _class_source(SRC / "repro" / rel, "SyntheticDecodeRunner"))
 
 
 def test_synthetic_runner_is_a_verbatim_copy():
