@@ -117,6 +117,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
      its cross layer timed; 11c. 8 requests on contiguous rows and on the
      pool with pinned xkv pages (zero memory: the runner takes no image),
      swap on a pool that runs dry, a prefix cache refused; 11d. as 4e.
+  12. full-width SeamlessM4T-large-v2 whole (24 + 24 layers, 16.23 GB)
+     with seeded random weights, once Llama-3.2-Vision's are freed: 12a.
+     its kernels' shapes against their plain versions; 12b. kernels off vs
+     on over 32 decode steps; 12c. the pool vs contiguous rows (the
+     counted main path); 12d. windows vs single steps bit for bit; 12e.
+     the loss's backward.
+  13. the port's analysis layer against the card, once SeamlessM4T's
+     weights are freed: 13a. full-width qwen2-1.5b's params drawn against
+     ``param_bytes`` of its schema (the memory_allocated rise), one B 8
+     decode step (kernels off) counted by the dry run's FLOP and byte
+     counters on meta tensors and on the card's (equal), the dry run's
+     served-shape byte floor beside ``step_bytes``; 13b. each of the seven
+     kernels' ``*_meta`` contract against its launch at a served shape
+     (output shapes, dtypes, strides), the ramp head's shared-memory fit
+     against the library's launch plan; 13c. the serve launcher with
+     ``--runtime-preset serve`` and ``bench`` in subprocesses (8 requests,
+     window graphs captured and replayed).
 Every serving phase serves its sync windows as CUDA graph replays (the
 runner's default on a card; a key's first window runs eager, its second
 is captured), except runs that carry Python hooks, which run eager
@@ -131,6 +148,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1925,7 +1943,8 @@ def step_bytes(params, cfg, model, B, n_ramps, pos):
     ramp = params["ramps"]["head"][0].numel() * params["ramps"]["head"].element_size()
     kv_row = 2 * cfg.n_kv_heads * cfg.hd * 2
     n_local = sum(1 for sl in model.plan.layer_specs() if sl.is_local)
-    caches = B * kv_row * ((cfg.n_layers - n_local) * (pos + 1) + n_local * cfg.window)
+    caches = B * kv_row * ((cfg.n_layers - n_local) * (pos + 1)
+                           + (n_local * cfg.window if n_local else 0))
     return {"layers": layers, "final_head": head, "ramp_heads": n_ramps * ramp,
             "caches": caches, "total": layers + head + n_ramps * ramp + caches}
 
@@ -3293,6 +3312,244 @@ def seamless_phases(gen):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run's counts against the card, the kernels' meta
+# contracts against their launches, the runtime presets
+
+
+P13_B, P13_POS, P13_CACHE = 8, PAGED_PROMPT + 20, PAGED_PROMPT + PAGED_TOKENS + 2
+
+
+def _op_names(fn):
+    """Each aten op's count in ``fn()`` (for the report when counts differ)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Names(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[str(func)] = self.n.get(str(func), 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    mode = Names()
+    with mode:
+        fn()
+    return mode.n
+
+
+def dryrun_counts_phase(gen):
+    """Phase 13a: qwen2-1.5b at full width. The bytes drawing its params asks
+    of the caching allocator against ``param_bytes(schema)`` (equal), and
+    the allocated rise beside them (512-byte blocks, a large block keeping
+    up to 1 MiB of its segment's remainder); one B 8 decode step at pos
+    140, kernels off, counted by the dry run's two counters on meta tensors
+    and on the card's tensors, which must be equal; the dry run's
+    served-shape ``floor_bytes`` beside ``step_bytes``' total."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import count, run_cell
+    from repro_torch.models import build_model
+    from repro_torch.models.common import param_bytes, tree_leaves
+
+    cfg = get_config(CONFIG)
+    model = build_model(cfg)  # the plain path: dense decode, dense heads
+    sch = model.schema()
+    want = param_bytes(sch)
+    rounded = sum(-(-(math.prod(i.shape) * i.dtype.itemsize) // 512) * 512
+                  for i in tree_leaves(sch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    # bytes asked of the caching allocator (requested), and the blocks it
+    # gave (allocated: a large block may keep its segment's remainder)
+    stats = ("requested_bytes.all.current", "allocated_bytes.all.current")
+    before = [torch.cuda.memory_stats()[k] for k in stats]
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    req, rise = (torch.cuda.memory_stats()[k] - b for k, b in zip(stats, before))
+    row = {"param_bytes": want, "param_bytes_rounded_512": rounded, "requested_rise": req,
+           "allocated_rise": rise}
+    if req != want or not rounded <= rise <= rounded + len(tree_leaves(sch)) * (1 << 20):
+        fail(f"13a: drawing {CONFIG}'s params asked the allocator for {req} B and raised "
+             f"allocated memory by {rise} B; the schema reckons {want} B ({rounded} B in "
+             "512-byte blocks, each block keeping at most 1 MiB of its segment)")
+    B, pos, S = P13_B, P13_POS, P13_CACHE
+
+    def step_on(dev):
+        if dev == "meta":
+            p, cache = model.abstract(), model.cache_abstract(B, S)
+            toks = torch.empty((B, 1), dtype=torch.int64, device="meta")
+            pp = torch.empty((B,), dtype=torch.int64, device="meta")
+        else:
+            p, cache = params, model.init_cache(B, S, device="cuda")
+            toks = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
+            pp = torch.full((B,), pos, dtype=torch.int64, device="cuda")
+        act = list(range(4))
+        return lambda: model.decode(p, cache, toks, pp, active_sites=act)
+
+    with torch.no_grad():
+        meta_fn, card_fn = step_on("meta"), step_on("cuda")
+        _, mf, mb, mo = count(meta_fn)
+        _, cf, cb, co = count(card_fn)
+        torch.cuda.synchronize()
+        row.update({"meta": {"flops": mf, "bytes": mb, "ops": mo},
+                    "card": {"flops": cf, "bytes": cb, "ops": co}})
+        if (mf, mb, mo) != (cf, cb, co):
+            mn, cn = _op_names(meta_fn), _op_names(card_fn)
+            diff = {k: (mn.get(k, 0), cn.get(k, 0)) for k in sorted(set(mn) | set(cn))
+                    if mn.get(k, 0) != cn.get(k, 0)}
+            fail(f"13a: the decode step counts {mf} FLOPs, {mb} B in {mo} ops on meta and "
+                 f"{cf} FLOPs, {cb} B in {co} ops on the card; ops (meta, card): {diff}")
+    served = dict(kind="decode", seq_len=S, global_batch=B, pos=pos, active=4)
+    rec = run_cell(CONFIG, served, tag="served", write=False)
+    if not rec["ok"]:
+        fail(f"13a: the dry run's served cell failed: {rec.get('error')}")
+    hand = step_bytes(params, cfg, model, B, 4, pos)
+    row.update({"floor_bytes": rec["floor_bytes"], "floor": rec["floor"],
+                "step_bytes_total": hand["total"], "floor_ms": 1e3 * rec["t_floor_s"],
+                "dryrun_flops": rec["flops"], "dryrun_bytes": rec["bytes"]})
+    if abs(rec["floor_bytes"] - hand["total"]) > 0.01 * hand["total"]:
+        fail(f"13a: the dry run's floor {rec['floor_bytes']} B and step_bytes' "
+             f"{hand['total']} B differ by more than 1%")
+    print(f"13a {CONFIG} on {card_line()}: params {want} B reckoned, {req} B requested of "
+          f"the allocator, allocated memory rose {rise} B; a B {B} decode step at pos {pos} "
+          f"(kernels off) counts {cf} FLOPs and {cb} B in {co} aten ops on the card, equal "
+          f"on meta; the dry run's floor {rec['floor_bytes']} B ({row['floor_ms']:.3f} ms at "
+          f"3.35 TB/s) beside step_bytes' {hand['total']} B: {json.dumps(row)}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _meta_like(t):
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta")
+
+
+def meta_contracts_phase(gen):
+    """Phase 13b: each of #1-#7 at one served shape (qwen2-1.5b's #1/#5/#4
+    and heads, DeepSeek-V2-Lite's #6, Mamba2-2.7B's #7): the ``*_meta``
+    twin's outputs on meta copies of the operands (the same strides) have
+    the shapes, dtypes and strides of the kernel's outputs on the card.
+    Then the ramp-head kernel's shared-memory fit as the meta contract
+    reckons it (``smem_fits``) against the library's launch plan
+    (``ramp_head_parts`` >= 1) over widths d, rows B and both layouts."""
+    from repro_torch.kernels.decode_attention import kernel as DA
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.ramp_head import kernel as RH
+    from repro_torch.kernels.ssd import kernel as SK
+
+    bf, dev = torch.bfloat16, "cuda"
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    B, H, KH, hd, S = 8, 12, 2, 128, 160
+    cache = rnd(B, S, KH, hd)
+    pos = torch.randint(120, S, (B,), generator=gen, device=dev)
+    table = torch.randperm(80, generator=gen, device=dev)[:B * 10].reshape(B, 10).to(torch.int32)
+    pool = rnd(80, 16, KH, hd)
+    c_pool, kpe = rnd(80, 16, 512), rnd(80, 16, 64)
+    qf, kf = rnd(1, 128, 12, hd), rnd(1, S, KH, hd)
+    xs = rnd(1, 128, 80, 64)
+    dt = torch.rand(1, 128, 80, generator=gen, device=dev)
+    A = -torch.rand(80, generator=gen, device=dev)
+    bc = rnd(1, 128, 128)
+    embed = rnd(151936, 1536)
+    head = rnd(1536, 151936)
+    h, thr = rnd(B, 1536), torch.full((B,), 0.5, device=dev)
+    cases = {
+        "decode_attention": (DA.decode_attention, DA.decode_attention_meta,
+                             (rnd(B, H, hd), cache.transpose(1, 2), cache.transpose(1, 2), pos),
+                             {}),
+        "paged_decode_attention": (DA.paged_decode_attention, DA.paged_decode_attention_meta,
+                                   (rnd(B, H, hd), pool, pool, table, pos), {}),
+        "paged_mla_decode_attention": (
+            DA.paged_mla_decode_attention, DA.paged_mla_decode_attention_meta,
+            (rnd(B, 16, 512), rnd(B, 16, 64), c_pool, kpe, table, pos),
+            {"scale": 1 / math.sqrt(192)}),
+        "flash_attention": (FA.flash_attention, FA.flash_attention_meta,
+                            (qf.transpose(1, 2), kf.transpose(1, 2), kf.transpose(1, 2)),
+                            {"causal": True}),
+        "ssd_chunked": (SK.ssd_chunked, SK.ssd_chunked_meta,
+                        (xs.transpose(1, 2), dt.transpose(1, 2), A, bc, bc), {}),
+        "ramp_head_stats": (RH.ramp_head_stats, RH.ramp_head_stats_meta,
+                            (h, embed.T), {"v_limit": 151936}),
+        "ramp_head_exit": (RH.ramp_head_exit, RH.ramp_head_exit_meta, (h, head, thr),
+                           {"v_limit": 151936}),
+    }
+    rows = {}
+    for name, (card_fn, meta_fn, args, kw) in cases.items():
+        outs = card_fn(*args, **kw)
+        metas = meta_fn(*[_meta_like(a) if torch.is_tensor(a) else a for a in args], **kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        metas = metas if isinstance(metas, tuple) else (metas,)
+        got = [(tuple(t.shape), str(t.dtype), t.stride()) for t in outs]
+        want = [(tuple(t.shape), str(t.dtype), t.stride()) for t in metas]
+        if got != want or any(t.device.type != "meta" for t in metas):
+            fail(f"13b {name}: the card's outputs {got}, the meta contract's {want}")
+        rows[name] = got
+    torch.cuda.synchronize()
+    lib = RH._lib()
+    sweep = []
+    for d in (512, 1024, 2048, 4096, 5120, 6144, 7168, 8192, 9216, 10240, 12288, 16384):
+        for Bh in (1, 8, 32):
+            for vmaj in (True, False):
+                sk, sv = (151936, 1) if vmaj else (1, d)
+                lib_fits = lib.ramp_head_parts(Bh, d, 151936, 151936, sk, sv, 1) >= 1
+                if lib_fits != RH.smem_fits(Bh, d, vmaj, bf):
+                    fail(f"13b ramp head: at d {d}, B {Bh}, {'V' if vmaj else 'd'}-major the "
+                         f"library {'fits' if lib_fits else 'does not fit'} a launch shape; "
+                         "smem_fits says otherwise")
+                sweep.append(lib_fits)
+    print(f"13b the seven kernels' meta contracts on {card_line()}: outputs (shape, dtype, "
+          f"strides) equal the card's at each served shape {json.dumps(rows)}; the ramp "
+          f"head's shared-memory fit agrees with the library at {len(sweep)} (d, B, layout) "
+          f"points ({sum(sweep)} fit)", flush=True)
+    return rows
+
+
+PRESET_ARGS = ["--config", CONFIG, "--n", "8"]
+
+
+def presets_phase():
+    """Phase 13c: the launcher with ``--runtime-preset serve`` and then
+    ``bench`` in subprocesses (qwen2-1.5b, 8 requests, window graphs on):
+    each exits 0; print the variables the preset wrote, the windows
+    captured and replayed, and decode tokens/s."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    rows = {}
+    for preset in ("serve", "bench"):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                              "--runtime-preset", preset, *PRESET_ARGS], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"13c: the launcher with --runtime-preset {preset} exited "
+                 f"{out.returncode}: {out.stderr[-2000:]}")
+        lines = out.stdout.splitlines()
+        wrote = [ln for ln in lines if ln.startswith(f"runtime preset {preset}: wrote ")]
+        start = next((i for i, ln in enumerate(lines) if ln == "{"), None)
+        if not wrote or start is None:
+            fail(f"13c: the launcher with --runtime-preset {preset} printed no preset line "
+                 f"or summary: {out.stdout[-2000:]}")
+        m = json.loads("\n".join(lines[start:]))["measured"]
+        if not m["graphs"] or not m["graphs"]["captures"] or not m["graphs"]["replays"]:
+            fail(f"13c: --runtime-preset {preset} captured or replayed no window graph: "
+                 f"{json.dumps(m['graphs'])}")
+        rows[preset] = {"wrote": json.loads(wrote[0].split(" wrote ", 1)[1]),
+                        "graphs": m["graphs"], "decode_tokens_per_s": m["decode_tokens_per_s"],
+                        "window_ms_mean": m["window_ms_mean"],
+                        "wall_s": time.perf_counter() - t0}
+        print(f"13c launcher --runtime-preset {preset} on {card_line()}: wrote "
+              f"{json.dumps(rows[preset]['wrote'])}; {m['decode_tokens_per_s']:.1f} decode "
+              f"tokens/s, graphs {json.dumps(m['graphs'])}, "
+              f"{rows[preset]['wall_s']:.1f} s", flush=True)
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
@@ -3467,6 +3724,18 @@ def main() -> None:
     t0 = time.perf_counter()
     sm, sm_launches = seamless_phases(gen)
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 13: the dry run's counts and the kernels' meta contracts on the
+    # card, then the runtime presets through the launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun_counts_phase(gen)
+    meta_contracts_phase(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    presets_phase()
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -10,7 +10,9 @@ cross-attention Llama-3.2-Vision), the encoder-decoder
 SeamlessM4T-large-v2 and the paper's classifiers (ResNet-18/50,
 BERT-base). ``CONFIG`` is the published shape,
 ``TINY`` a reduced same-family config for CPU tests, and ``get_bench``
-the reference's paper-shape, tiny-width benchmark stand-ins.
+the reference's paper-shape, tiny-width benchmark stand-ins. ``ARCH_IDS``,
+``PAPER_IDS`` and the ``SHAPES`` grid (``cell_is_runnable``, ``all_cells``)
+are the reference's, verbatim: the audit and the dry run walk them.
 """
 from __future__ import annotations
 
@@ -118,6 +120,21 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+ARCH_IDS = [
+    "deepseek-v2-lite-16b",
+    "qwen3-moe-30b-a3b",
+    "qwen1.5-32b",
+    "qwen2-1.5b",
+    "deepseek-67b",
+    "gemma3-4b",
+    "seamless-m4t-large-v2",
+    "mamba2-2.7b",
+    "jamba-1.5-large-398b",
+    "llama-3.2-vision-90b",
+]
+
+PAPER_IDS = ["gpt2-medium", "bert-base", "resnet50", "resnet18"]
+
 _MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
@@ -171,3 +188,29 @@ def get_bench(name: str) -> ArchConfig:
     if repl is None:
         raise KeyError(f"no bench variant for {name}")
     return base.replace(name=f"bench-{name}", **repl)
+
+
+# --- input shape cells -----------------------------------------------------
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+# long_500k requires sub-quadratic attention: run only for SSM / hybrid /
+# mostly-windowed archs (see DESIGN.md §4).
+LONG_OK = {"mamba2-2.7b", "jamba-1.5-large-398b", "gemma3-4b"}
+
+
+def cell_is_runnable(arch: str, shape: str) -> bool:
+    if shape == "long_500k" and arch not in LONG_OK:
+        return False
+    return True
+
+
+def all_cells():
+    for a in ARCH_IDS:
+        for s in SHAPES:
+            yield a, s, cell_is_runnable(a, s)

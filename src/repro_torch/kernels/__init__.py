@@ -1,7 +1,25 @@
-"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+Each kernel's wrapper checks its operands against the kernel's contract
+(shapes, dtypes, head widths, groups, ranks, table widths, what fits in
+shared memory) before it launches; its ``*_meta`` twin runs the same
+checks on ``meta`` tensors and returns empty ``meta`` outputs of the
+kernel's shapes and dtypes, so a full-width model traced on ``meta``
+(``analysis/abstract.py``) meets every kernel's contract without a card.
+"""
 from __future__ import annotations
 
 import torch
+
+# the SMs of the H100 SXM that the sm_90a build targets: a meta contract
+# reckons its split counts for it, since no card is there to ask
+H100_SMS = 132
+
+
+class KernelShapeError(ValueError, NotImplementedError):
+    """A shape the kernel does not take (a head width, a group, a rank, a
+    width that does not fit its shared memory): a documented gap, so the
+    support audit records it as ``rejected`` with these words."""
 
 
 def refuse_autograd(what: str, *tensors) -> None:

@@ -11,7 +11,8 @@ KH, hd) pools. In bfloat16 both cut each row's key axis into
 replaces the Pallas ``paged_mla_decode_attention``: absorbed MLA decode over
 paged latent pools, one CTA per row and key range (``mla_splits``) serving
 all heads, a second kernel merging the ranges. All launch on PyTorch's
-current stream and never sync.
+current stream and never sync. Each has a ``*_meta`` twin that runs its
+checks and the C entry point's on meta tensors (package docstring).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import H100_SMS, KernelShapeError
 from repro_torch.kernels.build import check_launch, load
 
 _P = ctypes.c_void_p
@@ -133,6 +135,25 @@ def _workspace(dev, stream, groups, floats):
     return w[0].data_ptr(), w[1].data_ptr()
 
 
+def _refuse(what, q, k, v, hd, H, KH, on_card=True):
+    """Raise the reason q, k and v are refused, if any: not on one card (or,
+    ``on_card`` false, not all on meta), dtypes apart or not float32/bfloat16,
+    a strided last dim, heads the kernel does not take."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if on_card and (not t.is_cuda or t.get_device() != q.get_device()):
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
+        if not on_card and t.device.type != "meta":
+            raise ValueError(f"{what}: {name} must be a meta tensor, beside q")
+        if t.dtype != q.dtype or q.dtype not in _DTYPES:
+            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
+                             "float32/bfloat16, alike for q, k, v")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last dim")
+    if hd not in _SCALE or KH == 0 or H % KH or H > 8 * KH:
+        raise KernelShapeError(f"{what}: needs hd in (64, 128, 256) and H/KH <= 8, "
+                               f"got hd={hd} H={H} KH={KH}")
+
+
 def _operands(what, q, k, v, hd, H, KH):
     """q's device index, once q, k and v are on one card in one dtype with a
     contiguous last dim and heads the kernel takes (alignment is the C entry
@@ -141,17 +162,47 @@ def _operands(what, q, k, v, hd, H, KH):
     if (dev < 0 or k.get_device() != dev or v.get_device() != dev or k.dtype != dt
             or v.dtype != dt or dt not in _DTYPES or q.stride(-1) != 1 or k.stride(-1) != 1
             or v.stride(-1) != 1 or hd not in _SCALE or KH == 0 or H % KH or H > 8 * KH):
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if not t.is_cuda or t.get_device() != dev:
-                raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
-            if t.dtype != dt or dt not in _DTYPES:
-                raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
-                                 "float32/bfloat16, alike for q, k, v")
-            if t.stride(-1) != 1:
-                raise ValueError(f"{what}: {name} needs a contiguous last dim")
-        raise ValueError(f"{what}: needs hd in (64, 128, 256) and H/KH <= 8, "
-                         f"got hd={hd} H={H} KH={KH}")
+        _refuse(what, q, k, v, hd, H, KH)
     return dev
+
+
+def _aligned(t, dims, esize, to=16):
+    """The C entry points' alignment test from strides alone (a meta tensor
+    has no address): each stride of ``dims`` whose size exceeds 1 (a size-1
+    dim is read at index 0 only) a multiple of ``to`` bytes."""
+    return all(t.shape[i] == 1 or (t.stride(i) * esize) % to == 0 for i in dims)
+
+
+def _meta_pos(pos, B, what):
+    if isinstance(pos, torch.Tensor):
+        if pos.device.type != "meta":
+            raise ValueError(f"{what}: pos must be a meta tensor, beside q")
+        n = pos.reshape(-1).shape[0]
+        if n != B and n != 1:
+            raise ValueError(f"{what}: pos has {n} values for {B} rows")
+
+
+def _decode_meta(what, q, k, v, pos, H, KH, keys, hd, stride_dims):
+    """The flash-decode contract on meta tensors: the wrapper's checks, then
+    the C entry point's (cache slots, alignment from strides, the key
+    ranges on an H100). Returns the (B, H, hd) output."""
+    _refuse(what, q, k, v, hd, H, KH, on_card=False)
+    B = q.shape[0]
+    _meta_pos(pos, B, what)
+    if B == 0:  # the wrapper returns before the C entry point
+        return q.new_empty((B, H, hd))
+    if keys < 1:
+        raise ValueError(f"{what}: needs at least one key slot, got {keys}")
+    es = q.element_size()
+    if (not all(_aligned(t, stride_dims, es) for t in (k, v))
+            or (q.dtype == torch.bfloat16 and not _aligned(q, (0, 1), es, 4))):
+        raise ValueError(f"{what}: {_DECODE_ALIGN}, got strides "
+                         + ", ".join(str(t.stride()) for t in (q, k, v)))
+    if q.dtype == torch.bfloat16:
+        splits = decode_splits(H100_SMS, B, KH, keys, hd)
+        if not 1 <= splits <= min(DECODE_MAX_SPLITS, -(-keys // DECODE_TILE)):
+            raise KernelShapeError(f"{what}: {splits} key ranges over {keys} slots")
+    return q.new_empty((B, H, hd))
 
 
 def _pos_args(pos, B, dev, what):
@@ -210,6 +261,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> 
 decode_attention.launches = 0
 
 
+def decode_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos):
+    """``decode_attention``'s contract on meta tensors: its checks, its (B,
+    H, hd) output in q's dtype, no launch."""
+    what = "decode_attention"
+    B, H, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    KH, S = k.shape[1], k.shape[2]
+    return _decode_meta(what, q, k, v, pos, H, KH, S, hd, (0, 1, 2))
+
+
 # the bf16 kernel keeps its range's table entries in shared memory, the f32
 # kernel its row's (at most 227 KB)
 MAX_TABLE_BLOCKS = 16384
@@ -237,7 +300,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     if table.get_device() != dev:
         raise ValueError(f"{what}: block_table must be on {q.device}")
     if not 1 <= nb <= MAX_TABLE_BLOCKS or P < 1:
-        raise ValueError(f"{what}: needs 1 <= nb <= {MAX_TABLE_BLOCKS} "
+        raise KernelShapeError(f"{what}: needs 1 <= nb <= {MAX_TABLE_BLOCKS} "
                          f"and a non-empty pool, got nb={nb} P={P}")
     if table.dtype != torch.int32 or table.stride(1) != 1:
         table = table.to(torch.int32).contiguous()
@@ -262,6 +325,27 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_meta(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                block_table: torch.Tensor, pos):
+    """``paged_decode_attention``'s contract on meta tensors: its checks, its
+    (B, H, hd) output in q's dtype, no launch."""
+    what = "paged_decode_attention"
+    B, H, hd = q.shape
+    if (k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != hd
+            or block_table.dim() != 2 or block_table.shape[0] != B):
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
+                         f"pools {tuple(k_pool.shape)} {tuple(v_pool.shape)} "
+                         f"table {tuple(block_table.shape)}")
+    P, bs, KH, _ = k_pool.shape
+    nb = block_table.shape[1]
+    if block_table.device.type != "meta":
+        raise ValueError(f"{what}: block_table must be a meta tensor, beside q")
+    if not 1 <= nb <= MAX_TABLE_BLOCKS or P < 1:
+        raise KernelShapeError(f"{what}: needs 1 <= nb <= {MAX_TABLE_BLOCKS} "
+                               f"and a non-empty pool, got nb={nb} P={P}")
+    return _decode_meta(what, q, k_pool, v_pool, pos, H, KH, nb * bs, hd, (0, 1, 2))
 
 
 def decode_launch_info(dtype, B, H, KH, keys, hd=128, *, paged=False, bs=1, device=0):
@@ -310,13 +394,17 @@ def _mla_splits(dev, dtype, B, keys):
     return s
 
 
-def _mla_refuse(what, q_lat, q_pe, c_pool, kpe_pool, block_table, H, r, dr, nb, P, bs):
-    """Raise the reason the MLA operands are refused (the slow path)."""
+def _mla_refuse(what, q_lat, q_pe, c_pool, kpe_pool, block_table, H, r, dr, nb, P, bs,
+                on_card=True):
+    """Raise the reason the MLA operands are refused, if any (on the card,
+    the slow path; ``on_card`` false: every operand on meta)."""
     dev = q_lat.device
     for name, t in (("q_lat", q_lat), ("q_pe", q_pe), ("c_pool", c_pool),
                     ("kpe_pool", kpe_pool)):
-        if t.device.type != "cuda" or t.device != dev:
+        if on_card and (t.device.type != "cuda" or t.device != dev):
             raise ValueError(f"{what}: {name} must be a CUDA tensor on {dev}")
+        if not on_card and t.device.type != "meta":
+            raise ValueError(f"{what}: {name} must be a meta tensor, beside q_lat")
         if t.dtype != q_lat.dtype or t.dtype not in _DTYPES:
             raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
                              "float32/bfloat16, alike for all four")
@@ -326,11 +414,12 @@ def _mla_refuse(what, q_lat, q_pe, c_pool, kpe_pool, block_table, H, r, dr, nb, 
         raise ValueError(f"{what}: block_table must be on {dev}")
     if not (1 <= H <= MLA_MAX_HEADS and 8 <= r <= MLA_MAX_RANK and r % 8 == 0
             and dr >= 8 and dr % 8 == 0 and r + dr <= MLA_MAX_WIDTH):
-        raise ValueError(f"{what}: needs H <= {MLA_MAX_HEADS}, r <= {MLA_MAX_RANK}, r and dr "
-                         f"multiples of 8 and r + dr <= {MLA_MAX_WIDTH}, "
-                         f"got H={H} r={r} dr={dr}")
-    raise ValueError(f"{what}: needs 1 <= nb <= {MAX_TABLE_BLOCKS} and a non-empty "
-                     f"pool, got nb={nb} P={P} bs={bs}")
+        raise KernelShapeError(f"{what}: needs H <= {MLA_MAX_HEADS}, r <= {MLA_MAX_RANK}, r "
+                               f"and dr multiples of 8 and r + dr <= {MLA_MAX_WIDTH}, "
+                               f"got H={H} r={r} dr={dr}")
+    if not 1 <= nb <= MAX_TABLE_BLOCKS or P < 1 or bs < 1:
+        raise KernelShapeError(f"{what}: needs 1 <= nb <= {MAX_TABLE_BLOCKS} and a non-empty "
+                               f"pool, got nb={nb} P={P} bs={bs}")
 
 
 def paged_mla_decode_attention(q_lat: torch.Tensor, q_pe: torch.Tensor, c_pool: torch.Tensor,
@@ -389,6 +478,40 @@ def paged_mla_decode_attention(q_lat: torch.Tensor, q_pe: torch.Tensor, c_pool: 
 
 
 paged_mla_decode_attention.launches = 0
+
+
+def paged_mla_decode_attention_meta(q_lat: torch.Tensor, q_pe: torch.Tensor,
+                                    c_pool: torch.Tensor, kpe_pool: torch.Tensor,
+                                    block_table: torch.Tensor, pos, *, scale: float):
+    """``paged_mla_decode_attention``'s contract on meta tensors: its checks,
+    the C entry point's (alignment from strides, the key ranges on an
+    H100), its (B, H, r) output in q_lat's dtype, no launch."""
+    what = "paged_mla_decode_attention"
+    B, H, r = q_lat.shape
+    if (q_pe.dim() != 3 or q_pe.shape[:2] != (B, H) or c_pool.dim() != 3
+            or c_pool.shape[2] != r or kpe_pool.dim() != 3
+            or kpe_pool.shape[:2] != c_pool.shape[:2] or kpe_pool.shape[2] != q_pe.shape[2]
+            or block_table.dim() != 2 or block_table.shape[0] != B):
+        raise ValueError(f"{what}: bad shapes q_lat {tuple(q_lat.shape)} "
+                         f"q_pe {tuple(q_pe.shape)} c_pool {tuple(c_pool.shape)} "
+                         f"kpe_pool {tuple(kpe_pool.shape)} table {tuple(block_table.shape)}")
+    P, bs, _ = c_pool.shape
+    dr, nb = q_pe.shape[2], block_table.shape[1]
+    _mla_refuse(what, q_lat, q_pe, c_pool, kpe_pool, block_table, H, r, dr, nb, P, bs,
+                on_card=False)
+    _meta_pos(pos, B, what)
+    if B == 0:  # the wrapper returns before the C entry point
+        return q_lat.new_empty((B, H, r))
+    es = q_lat.element_size()
+    qa = 16 if q_lat.dtype == torch.bfloat16 else 4  # bf16 q rows go by TMA
+    if (not all(_aligned(t, (0, 1), es) for t in (c_pool, kpe_pool))
+            or not all(_aligned(t, (0, 1), es, qa) for t in (q_lat, q_pe))):
+        raise ValueError(f"{what}: {_MLA_ALIGN}, got strides "
+                         + ", ".join(str(t.stride()) for t in (q_lat, q_pe, c_pool, kpe_pool)))
+    splits = mla_splits(H100_SMS, B, nb * bs, MLA_CTAS_PER_SM[q_lat.dtype])
+    if not 1 <= splits <= min(MLA_MAX_SPLITS, -(-(nb * bs) // MLA_TILE)):
+        raise KernelShapeError(f"{what}: {splits} key ranges over {nb * bs} slots")
+    return q_lat.new_empty((B, H, r))
 
 
 def mla_launch_info(dtype, B, H, r, dr, bs, nb, device=0):

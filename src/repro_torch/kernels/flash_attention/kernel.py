@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels.build import check_launch, load
 
 _P = ctypes.c_void_p
@@ -39,6 +40,28 @@ def _launcher():
     return _fn
 
 
+def _check(what, q, k, v, H, KH, hd, window, on_card=True):
+    """Raise the reason q, k and v are refused, if any: not on one card (or,
+    ``on_card`` false, not all on meta), dtypes, a strided last dim, a head
+    width or grouping the kernel does not take, a window under 1."""
+    dev = q.get_device()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if on_card and (not t.is_cuda or t.get_device() != dev):
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
+        if not on_card and t.device.type != "meta":
+            raise ValueError(f"{what}: {name} must be a meta tensor, beside q")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
+                             "float32/bfloat16, alike for q, k, v")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last dim")
+    if not (1 <= hd <= MAX_HD and KH >= 1 and H % KH == 0):
+        raise KernelShapeError(f"{what}: needs hd <= {MAX_HD} and H a multiple of KH, "
+                               f"got hd={hd} H={H} KH={KH}")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"{what}: window must be >= 1, got {window}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window=None) -> torch.Tensor:
     """q (B, H, Sq, hd); k, v (B, KH, Sk, hd), views with a contiguous last
@@ -58,19 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     B, H, Sq, hd = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     dev = q.get_device()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.get_device() != dev:
-            raise ValueError(f"{what}: {name} must be a CUDA tensor on {q.device}")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
-            raise ValueError(f"{what}: {name} dtype {t.dtype}; needs one of "
-                             "float32/bfloat16, alike for q, k, v")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{what}: {name} needs a contiguous last dim")
-    if not (1 <= hd <= MAX_HD and KH >= 1 and H % KH == 0):
-        raise ValueError(f"{what}: needs hd <= {MAX_HD} and H a multiple of KH, "
-                         f"got hd={hd} H={H} KH={KH}")
-    if window is not None and int(window) < 1:
-        raise ValueError(f"{what}: window must be >= 1, got {window}")
+    _check(what, q, k, v, H, KH, hd, window)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     if B == 0 or Sq == 0 or H == 0:
         return out
@@ -93,3 +104,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window=None) -> torch.Tensor:
+    """``flash_attention``'s contract on meta tensors: its checks, the C
+    entry point's (bfloat16 strides 16-byte multiples, from strides alone),
+    its (B, H, Sq, hd) output view of (B, Sq, H, hd) storage, no launch."""
+    what = "flash_attention"
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    _check(what, q, k, v, H, KH, hd, window, on_card=False)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device="meta").transpose(1, 2)
+    if B == 0 or Sq == 0 or H == 0:
+        return out
+    if Sk == 0:
+        raise ValueError(f"{what}: no keys to attend to")
+    if B > 65535 or H > 65535:
+        raise KernelShapeError(f"{what}: needs B and H <= 65535, got B={B} H={H}")
+    if q.dtype == torch.bfloat16 and not all(
+            t.shape[i] == 1 or (t.stride(i) * 2) % 16 == 0 for t in (q, k, v) for i in range(3)):
+        raise ValueError(f"{what}: bfloat16 q, k and v need 16-byte aligned bases and "
+                         f"strides of multiples of 8 elements, got {q.stride()}, "
+                         f"{k.stride()}, {v.stride()}")
+    return out

@@ -8,7 +8,7 @@ and (B, H, S) views of its (B, S, H, hp) and (B, S, H) activations and its
 (B, S, N) slices of the conv output cost no copy, and it writes y into
 (B, S, H, hp) storage, returned as a (B, H, S, hp) view. Any S >= 1: the
 kernel masks a ragged last chunk. Launches on PyTorch's current stream,
-never syncs.
+never syncs. ``ssd_chunked_meta`` runs the same checks on meta tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels.build import check_launch, load
 
 _P = ctypes.c_void_p
@@ -46,11 +47,14 @@ def ssd_slices(hp: int) -> int:
     return -(-hp // SSD_SLICE)
 
 
-def _refuse(what, x, dt, A, Bm, Cm, hp, N):
-    """Raise the reason the operands are refused (the slow path)."""
+def _refuse(what, x, dt, A, Bm, Cm, hp, N, on_card=True):
+    """Raise the reason the operands are refused, if any (on the card, the
+    slow path; ``on_card`` false: every operand on meta)."""
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
-        if t.device.type != "cuda" or t.device != x.device:
+        if on_card and (t.device.type != "cuda" or t.device != x.device):
             raise ValueError(f"{what}: {name} must be a CUDA tensor on {x.device}")
+        if not on_card and t.device.type != "meta":
+            raise ValueError(f"{what}: {name} must be a meta tensor, beside x")
     for name, t in (("Bm", Bm), ("Cm", Cm)):
         if t.dtype != x.dtype:
             raise ValueError(f"{what}: {name} dtype {t.dtype} differs from x's {x.dtype}")
@@ -59,7 +63,24 @@ def _refuse(what, x, dt, A, Bm, Cm, hp, N):
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
         if t.stride(-1) != 1:
             raise ValueError(f"{what}: {name} needs a contiguous last dim")
-    raise ValueError(f"{what}: needs hp <= {MAX_HP} and N <= {MAX_N}, got hp={hp} N={N}")
+    if not (1 <= hp <= MAX_HP and 1 <= N <= MAX_N):
+        raise KernelShapeError(f"{what}: needs hp <= {MAX_HP} and N <= {MAX_N}, "
+                               f"got hp={hp} N={N}")
+
+
+def _shapes(what, x, dt, A, Bm, Cm, chunk):
+    """(B, H, S, hp, N) once the shapes agree and ``chunk`` is the kernel's."""
+    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3 or Bm.shape != Cm.shape:
+        raise ValueError(f"{what}: bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+                         f"Bm {tuple(Bm.shape)} Cm {tuple(Cm.shape)}")
+    B, H, S, hp = x.shape
+    N = Bm.shape[2]
+    if dt.shape != (B, H, S) or Bm.shape[:2] != (B, S) or A.shape != (H,):
+        raise ValueError(f"{what}: bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+                         f"A {tuple(A.shape)} Bm {tuple(Bm.shape)}")
+    if chunk != CHUNK:
+        raise KernelShapeError(f"{what}: the kernel chunks by {CHUNK}, got chunk={chunk}")
+    return B, H, S, hp, N
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -70,16 +91,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     hp <= 64, N <= 128; ``chunk`` must be the kernel's 64. Returns
     (y (B, H, S, hp) f32, final_state (B, H, hp, N) f32)."""
     what = "ssd_chunked"
-    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 3 or Bm.shape != Cm.shape:
-        raise ValueError(f"{what}: bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
-                         f"Bm {tuple(Bm.shape)} Cm {tuple(Cm.shape)}")
-    B, H, S, hp = x.shape
-    N = Bm.shape[2]
-    if dt.shape != (B, H, S) or Bm.shape[:2] != (B, S) or A.shape != (H,):
-        raise ValueError(f"{what}: bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
-                         f"A {tuple(A.shape)} Bm {tuple(Bm.shape)}")
-    if chunk != CHUNK:
-        raise ValueError(f"{what}: the kernel chunks by {CHUNK}, got chunk={chunk}")
+    B, H, S, hp, N = _shapes(what, x, dt, A, Bm, Cm, chunk)
     dev, xt = x.get_device(), x.dtype
     if (dev < 0 or dt.get_device() != dev or A.get_device() != dev or Bm.get_device() != dev
             or Cm.get_device() != dev or Bm.dtype != xt or Cm.dtype != xt or xt not in _DTYPES
@@ -107,6 +119,22 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
 
 
 ssd_chunked.launches = 0
+
+
+def ssd_chunked_meta(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                     Cm: torch.Tensor, *, chunk: int = CHUNK):
+    """``ssd_chunked``'s contract on meta tensors: its checks, its outputs (y
+    (B, H, S, hp) f32 as a view of (B, S, H, hp) storage, final_state (B, H,
+    hp, N) f32), no launch."""
+    what = "ssd_chunked"
+    B, H, S, hp, N = _shapes(what, x, dt, A, Bm, Cm, chunk)
+    _refuse(what, x, dt, A, Bm, Cm, hp, N, on_card=False)
+    if S < 1:
+        raise ValueError(f"{what}: needs S >= 1 steps")
+    if B > 65535:
+        raise KernelShapeError(f"{what}: needs B <= 65535, got B={B}")
+    y = x.new_empty((B, S, H, hp), dtype=torch.float32).transpose(1, 2)
+    return y, x.new_empty((B, H, hp, N), dtype=torch.float32)
 
 
 def ssd_launch_info(dtype, B, H, hp, N=MAX_N):

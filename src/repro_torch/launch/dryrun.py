@@ -1,0 +1,461 @@
+"""One-card dry run: every runnable (arch × shape) cell of the ``SHAPES``
+grid traced once at full width and depth on the ``meta`` device, and the
+roofline terms of one H100 read off the trace.
+
+The port's counterpart of the reference's multi-pod dry run, which lowers
+and compiles each cell for 512 TPU chips and reads XLA's cost analysis.
+Here a cell runs eagerly on meta tensors (nothing is allocated or
+computed), on the plain path (kernels off: ``sdpa``, the plain SSD scan,
+dense ramp heads; MoE on the dense dispatch the port serves, and in a
+train step on the capacity-dropping one the loss takes, as the
+reference's), so a step's work is counted the same way whatever later
+implements it:
+
+* ``flops``: ``torch.utils.flop_counter.FlopCounterMode``;
+* ``bytes``: ``ByteCounter``, every non-view aten op's operands and
+  results (each distinct tensor once an op), the counterpart of XLA's
+  "bytes accessed";
+* ``floor_bytes``: the least a step must move (``step_floor``): the
+  params it reads, the cache rows it reads once, what it writes;
+* ``model_flops_ref``, ``params_total``, ``params_active``: the
+  reference's ``model_flops`` formula (6·N·D train, 2·N·D serve, N
+  without ramp heads, MoE counting the active experts);
+* ``t_compute_s`` / ``t_memory_s`` (``flops`` over ``PEAK_FLOPS``,
+  ``bytes`` over ``HBM_BW``: ``core/profiles.py``'s published H100
+  peaks), ``bottleneck``, ``useful_flops_ratio``;
+* ``fits``: the resident bytes (``resident``: params; train adds grads
+  and AdamW's f32 moments; serving adds the cache) against the card's
+  80 GB.
+
+Eager tracing counts every layer, so no two-depth extrapolation is
+needed. ``--mesh single`` (one H100) is the only mesh: ``multi`` waits for
+the multi-device port (ROADMAP Queue 1 item 5). Each cell's record goes to
+``build/dryrun/<arch>__<shape>__single.json`` at the repo root. The card
+is named from its published peaks; measured card numbers come only from
+``chip_smoke.py``.
+
+Usage (runs on the CPU, no CUDA):
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --table   # the records, as markdown
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import ARCH_IDS, SHAPES, all_cells, get_config
+from repro_torch.core.profiles import HBM_BW, PEAK_FLOPS
+from repro_torch.models import build_model
+from repro_torch.models.common import param_bytes, param_count
+
+ART_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "..", "build",
+                       "dryrun")
+CARD = "NVIDIA H100 80GB HBM3, 700 W (published peaks)"
+CARD_BYTES = 80e9  # the H100's HBM
+
+_aten = torch.ops.aten
+# ops that move no bytes: results that alias their input without a view
+# schema, and allocations that write nothing
+_NO_BYTES = {_aten._unsafe_view.default, _aten.detach.default, _aten.lift_fresh.default,
+             _aten.empty.memory_format, _aten.empty_strided.default, _aten.empty_like.default,
+             _aten.new_empty.default, _aten.new_empty_strided.default}
+
+
+_COPIES = (_aten._to_copy.default, _aten.copy_.default)
+
+
+def _moves_bytes(func, tensors) -> bool:
+    """False for views, allocations and copies between devices (a host
+    index sent to the card crosses the bus, not the card's memory)."""
+    if func.is_view or func in _NO_BYTES:
+        return False
+    return func not in _COPIES or len({t.device for t in tensors}) == 1
+
+
+class ByteCounter(TorchDispatchMode):
+    """Sums, over every aten op that moves the device's bytes
+    (``_moves_bytes``), the bytes of each distinct tensor among its
+    operands and results (an in-place op's result is its operand, counted
+    once)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        seen = {id(t): t for t in tree_flatten((args, kwargs, out))[0]
+                if isinstance(t, torch.Tensor)}
+        if _moves_bytes(func, seen.values()):
+            self.bytes += sum(t.numel() * t.element_size() for t in seen.values())
+            self.ops += 1
+        return out
+
+
+def count(fn):
+    """Run ``fn()`` under both counters. Returns (its result, flops, bytes,
+    aten ops counted)."""
+    flops, nbytes = FlopCounterMode(display=False), ByteCounter()
+    with flops, nbytes:
+        out = fn()
+    return out, flops.get_total_flops(), nbytes.bytes, nbytes.ops
+
+
+def model_flops(cfg, shape_info):
+    """Reference useful FLOPs: 6·N_active·D (train) / 2·N_active·D (serve);
+    N excludes ramp heads (the technique's overhead is reported separately)."""
+    schema = build_model(cfg).schema()
+    n_total = param_count(schema)
+    n_ramps = param_count(schema.get("ramps", {})) if isinstance(schema, dict) else 0
+    n_backbone = n_total - n_ramps
+    n_active = n_backbone
+    if cfg.moe:
+        e_tot, e_act = cfg.n_experts, cfg.top_k
+        expert_params = 3 * cfg.d_model * cfg.moe_d_ff
+        n_moe_layers = sum(
+            1 for i in range(cfg.n_layers)
+            if (not cfg.hybrid_period or i % cfg.moe_every == 1) and i >= cfg.first_k_dense
+        )
+        n_active = n_backbone - n_moe_layers * (e_tot - e_act) * expert_params
+    D = shape_info["global_batch"] * (shape_info["seq_len"] if shape_info["kind"] != "decode"
+                                      else 1)
+    mult = 6.0 if shape_info["kind"] == "train" else 2.0
+    return mult * n_active * D, n_total, n_active
+
+
+# -- what a step must move, and what it keeps ---------------------------------
+
+
+def _itemsize(cfg):
+    return torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+
+
+def _active(model, shape_info):
+    return min(shape_info.get("active", model.cfg.ramp_budget_slots), len(model.sites))
+
+
+def step_params_bytes(model, B, n_active, *, decode, touched_experts=None):
+    """Bytes of the params one step reads: all of them but the ramp heads
+    not active, an untied embedding's unread rows (B·S of them are read),
+    and, in a decode step, the encoder and the image/frame projections
+    (they run in the prefill). ``touched_experts`` counts only that many
+    (layer, expert) slots of the MoE experts, the floor of a routed
+    dispatch."""
+    cfg = model.cfg
+    sch = model.schema()
+    total = param_bytes(sch)
+    ramps = sch.get("ramps", {})
+    if ramps and cfg.ramp_style != "tied":  # every ramp leaf has a leading site axis
+        S = len(model.sites)
+        total -= param_bytes(ramps) * (S - n_active) // S
+    tok = sch.get("tok", {})
+    if "lm_head" in tok and "embed" in tok:  # untied: the lookup reads B rows
+        total -= param_bytes(tok["embed"]) - B * cfg.d_model * tok["embed"].dtype.itemsize
+    if decode:
+        for key in ("enc", "enc_norm", "frontend_proj", "frontend"):
+            total -= param_bytes(sch.get(key, {}))
+    if touched_experts is not None:
+        per_expert = 3 * cfg.d_model * cfg.moe_d_ff * _itemsize(cfg)
+        n_moe = sum(1 for s in model.plan.layer_specs() if s.ffn == "moe")
+        total -= (n_moe * cfg.n_experts - touched_experts) * per_expert
+    return total
+
+
+def decode_cache_bytes(model, B, pos, memory):
+    """(read, written) bytes of the cache in one decode step of B rows at
+    ``pos``: each global attention layer's k and v up to pos, a local
+    layer's last min(W, pos + 1) rows, MLA's latent and rope key up to pos,
+    a mamba layer's state (read and written), a cross layer's (or the
+    enc-dec decoder's) ``xkv`` memory of ``memory`` rows; the new row of
+    each attention and MLA layer written."""
+    cfg = model.cfg
+    it = _itemsize(cfg)
+    # a k and a v row (an attention-free config has no head width)
+    kv_row = 2 * cfg.n_kv_heads * cfg.hd * it if cfg.n_heads else 0
+    rows, M = pos + 1, memory
+    if cfg.family == "encdec":
+        L = cfg.n_dec_layers
+        return B * L * (kv_row * rows + kv_row * M), B * L * kv_row
+    read = written = 0
+    for s in model.plan.layer_specs():
+        if s.mixer == "mamba":
+            di, N, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
+            conv_dim = di + 2 * cfg.ssm_ngroups * N
+            state = (cfg.d_conv - 1) * conv_dim * it + (di // hp) * hp * N * 4
+            read, written = read + B * state, written + B * state
+        elif s.mixer == "mla":
+            lat = (cfg.kv_lora_rank + cfg.qk_rope_dim) * it
+            read, written = read + B * lat * rows, written + B * lat
+        else:
+            live = min(cfg.window, rows) if (s.is_local and cfg.window) else rows
+            read, written = read + B * kv_row * live, written + B * kv_row
+        if s.cross:
+            read += B * kv_row * M
+    return read, written
+
+
+ENCDEC_SELF_ROWS = 4096  # an enc-dec decode cell's self-attention slots (the reference's)
+ENCDEC_PROMPT = 64  # an enc-dec prefill cell's decoder tokens (the reference's)
+
+
+def decode_geometry(cfg, info):
+    """(cache slots a row, pos, memory rows) of a decode cell: a ``SHAPES``
+    cell decodes at the cache's last slot (an enc-dec one over 4096 self
+    slots and ``seq_len`` memory rows, the reference's cell); a served
+    shape at its ``pos`` (its ``memory``, default the config's
+    ``n_image_tokens``)."""
+    S = info["seq_len"]
+    if "pos" in info:
+        return S, info["pos"], info.get("memory", cfg.n_image_tokens)
+    if cfg.family == "encdec":
+        return ENCDEC_SELF_ROWS, ENCDEC_SELF_ROWS - 1, S
+    return S, S - 1, cfg.n_image_tokens
+
+
+def cache_bytes(model, B, S, memory):
+    """Bytes of the contiguous cache of B rows of S slots (with ``memory``
+    rows of xkv for the enc-dec decoder)."""
+    if model.cfg.family == "encdec":
+        return param_bytes(model.cache_schema(B, S, memory))
+    return param_bytes(model.cache_schema(B, S))
+
+
+def step_floor(model, shape_info, *, touched_experts=None):
+    """The least one step of the cell must move, in bytes, by part (each
+    input read once, each output written once):
+    * decode: the params it reads (``step_params_bytes``), the cache rows
+      it reads and writes (``decode_cache_bytes``; ``pos`` defaults to the
+      cache's last slot);
+    * prefill: the params it reads, its image or frame inputs, the cache
+      it writes;
+    * train: the params read and written, AdamW's f32 moments read and
+      written, the batch.
+    """
+    cfg = model.cfg
+    kind, GB, S = shape_info["kind"], shape_info["global_batch"], shape_info["seq_len"]
+    K = _active(model, shape_info)
+    if kind == "train":
+        p = param_bytes(model.schema())
+        n = param_count(model.schema())
+        parts = {"params": 2 * p, "moments": 2 * 2 * 4 * n, "batch": 2 * GB * S * 4}
+    elif kind == "prefill":
+        encdec = cfg.family == "encdec"
+        parts = {"params": step_params_bytes(model, GB * S, K, decode=False,
+                                             touched_experts=touched_experts),
+                 "cache_written": cache_bytes(model, GB, ENCDEC_PROMPT if encdec else S, S)}
+        if cfg.cross_attn_every or encdec:
+            M = S if encdec else cfg.n_image_tokens
+            parts["memory_inputs"] = GB * M * cfg.d_frontend * _itemsize(cfg)
+    else:
+        _, pos, memory = decode_geometry(cfg, shape_info)
+        read, written = decode_cache_bytes(model, GB, pos, memory)
+        parts = {"params": step_params_bytes(model, GB, K, decode=True,
+                                             touched_experts=touched_experts),
+                 "cache_read": read, "cache_written": written}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def resident(model, shape_info):
+    """Bytes the cell keeps on the card: the params; train adds their
+    gradients (the params' dtype) and AdamW's f32 mu and nu; serving adds
+    the contiguous cache. Activations are not counted."""
+    sch = model.schema()
+    out = {"params": param_bytes(sch)}
+    GB, S = shape_info["global_batch"], shape_info["seq_len"]
+    if shape_info["kind"] == "train":
+        out["grads"] = param_bytes(sch)
+        out["adamw_moments"] = 2 * 4 * param_count(sch)
+    elif shape_info["kind"] == "decode":
+        rows, _, memory = decode_geometry(model.cfg, shape_info)
+        out["cache"] = cache_bytes(model, GB, rows, memory)
+    else:
+        encdec = model.cfg.family == "encdec"
+        out["cache"] = cache_bytes(model, GB, ENCDEC_PROMPT if encdec else S, S)
+    out["total"] = sum(out.values())
+    return out
+
+
+# -- the cells ---------------------------------------------------------------
+
+
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def build_cell(arch: str, shape, *, moe_impl="ep", overrides=None):
+    """(model, shape_info, fn): ``fn()`` runs one step of the cell on meta
+    tensors, on the plain path. ``shape`` is a ``SHAPES`` name or a dict
+    with kind, seq_len and global_batch (and for a served decode: ``pos``,
+    the rows' position, and ``active``, the ramp count; an enc-dec cell's
+    ``memory``, its frames)."""
+    cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    info = SHAPES[shape] if isinstance(shape, str) else dict(shape)
+    model = build_model(cfg, **({"ssd_impl": "ref"} if cfg.family == "lm" else {}))
+    kind, GB, S = info["kind"], info["global_batch"], info["seq_len"]
+    act = list(range(_active(model, info)))
+    params = model.abstract()
+    dt = getattr(torch, cfg.dtype)
+
+    if kind == "train":
+        from repro_torch.training.train_loop import TrainConfig, make_train_step
+        from repro_torch.training.optim import AdamWConfig, adamw_init
+
+        step_fn, opt_cfg = make_train_step(
+            model, TrainConfig(moe_impl=moe_impl, remat=cfg.train_remat), AdamWConfig())
+        n_tok = S if cfg.family != "encdec" else S // 8
+        batch = {"tokens": _meta((GB, n_tok), torch.int32),
+                 "labels": _meta((GB, n_tok), torch.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = _meta((GB, S, cfg.d_frontend), dt)
+        if cfg.cross_attn_every:
+            batch["image_embeds"] = _meta((GB, cfg.n_image_tokens, cfg.d_frontend), dt)
+        state = {"params": params, "opt": adamw_init(params, opt_cfg),
+                 "step": _meta((), torch.int32)}
+        return model, info, lambda: step_fn(state, batch)
+
+    if kind == "prefill":
+        if cfg.family == "encdec":
+            frames = _meta((GB, S, cfg.d_frontend), dt)
+            toks = _meta((GB, ENCDEC_PROMPT), torch.int32)
+            return model, info, lambda: model.prefill(params, frames, toks, active_sites=act)
+        kw = {}
+        if cfg.cross_attn_every:
+            kw["image_embeds"] = _meta((GB, cfg.n_image_tokens, cfg.d_frontend), dt)
+        toks = _meta((GB, S), torch.int32)
+        return model, info, lambda: model.prefill(params, toks, active_sites=act, **kw)
+
+    # decode: one token a row against the cache of ``decode_geometry``
+    rows, _, memory = decode_geometry(cfg, info)
+    cache = (model.cache_abstract(GB, rows, memory) if cfg.family == "encdec"
+             else model.cache_abstract(GB, rows))
+    toks, pos = _meta((GB, 1), torch.int32), _meta((GB,), torch.int32)
+    return model, info, lambda: model.decode(params, cache, toks, pos, active_sites=act)
+
+
+def run_cell(arch: str, shape, mesh_kind: str = "single", *, tag="", write=True,
+             touched_experts=None, overrides=None):
+    """Trace one cell on meta and write its record. ``shape`` is a
+    ``SHAPES`` name or a dict (``build_cell``); a dict cell is named by
+    ``tag``."""
+    if mesh_kind != "single":
+        raise NotImplementedError(f"--mesh {mesh_kind}: not ported (ROADMAP Queue 1 item 5); "
+                                  "the port's dry run reckons one H100")
+    name = shape if isinstance(shape, str) else (tag or "served")
+    rec = {"arch": arch, "shape": name, "mesh": mesh_kind, "chips": 1, "card": CARD,
+           "tag": tag, "ok": False}
+    t0 = time.perf_counter()
+    try:
+        model, info, fn = build_cell(arch, shape, overrides=overrides)
+        rec.update({k: info[k] for k in ("kind", "seq_len", "global_batch")},
+                   **{k: info[k] for k in ("pos", "active", "memory") if k in info})
+        with torch.no_grad() if info["kind"] != "train" else torch.enable_grad():
+            _, flops, nbytes, ops = count(fn)
+        mf, n_tot, n_act = model_flops(model.cfg, info)
+        floor = step_floor(model, info, touched_experts=touched_experts)
+        res = resident(model, info)
+        rec.update({
+            "flops": float(flops), "bytes": float(nbytes), "aten_ops": ops,
+            "floor_bytes": float(floor["total"]), "floor": floor,
+            "model_flops_ref": mf, "params_total": n_tot, "params_active": n_act,
+            "t_compute_s": flops / PEAK_FLOPS, "t_memory_s": nbytes / HBM_BW,
+            "t_floor_s": floor["total"] / HBM_BW,
+            "useful_flops_ratio": mf / max(float(flops), 1.0),
+            "resident": res, "fits": res["total"] <= CARD_BYTES,
+        })
+        rec["bottleneck"] = "compute" if rec["t_compute_s"] > rec["t_memory_s"] else "memory"
+        rec["ok"] = True
+    except Exception as e:  # noqa: BLE001 — the record carries the failure
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+    rec["total_s"] = time.perf_counter() - t0
+    if write:
+        os.makedirs(ART_DIR, exist_ok=True)
+        path = os.path.join(ART_DIR, f"{arch}__{name}__{mesh_kind}.json")
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+        status = "OK" if rec["ok"] else f"FAIL ({rec.get('error', '')[:120]})"
+        print(f"[{arch} × {name} × {mesh_kind}] {status}  {rec['total_s']:.1f}s  "
+              f"bottleneck={rec.get('bottleneck', '-')}", flush=True)
+    return rec
+
+
+def cells():
+    return [(a, s) for a, s, runnable in all_cells() if runnable]
+
+
+def table(records) -> str:
+    """A markdown table of cell records, an arch a row and a shape a column:
+    FLOPs, bytes, the byte floor (the reckoned terms), the bottleneck and
+    whether it fits one card."""
+    by = {(r["arch"], r["shape"]): r for r in records}
+    shapes = [s for s in SHAPES if any((a, s) in by for a in ARCH_IDS)]
+    lines = ["| arch | " + " | ".join(shapes) + " |", "|---" * (len(shapes) + 1) + "|"]
+    for a in ARCH_IDS:
+        row = []
+        for s in shapes:
+            r = by.get((a, s))
+            if r is None or not r.get("ok"):
+                row.append("—" if r is None else "FAIL")
+                continue
+            row.append(f"{r['flops']:.3g} F, {r['bytes']:.3g} B, floor {r['floor_bytes']:.3g}, "
+                       f"{r['bottleneck'][:3]}, {'fits' if r['fits'] else 'no fit'}")
+        if any(c != "—" for c in row):
+            lines.append(f"| {a} | " + " | ".join(row) + " |")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=sorted(SHAPES))
+    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true", help="every runnable cell of SHAPES")
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--table", action="store_true",
+                    help="print the written records as a markdown table and exit")
+    args = ap.parse_args(argv)
+    if args.table:
+        recs = []
+        for a, s in cells():
+            path = os.path.join(ART_DIR, f"{a}__{s}__single.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    recs.append(json.load(f))
+        print(table(recs))
+        return 0
+    if args.mesh != "single":
+        ap.error("--mesh multi is not ported (ROADMAP Queue 1 item 5); one H100 is 'single'")
+    if args.all:
+        todo = cells()
+    elif args.arch and args.shape:
+        todo = [(args.arch, args.shape)]
+    else:
+        ap.error("give --arch and --shape, or --all")
+    n_ok = 0
+    for a, s in todo:
+        path = os.path.join(ART_DIR, f"{a}__{s}__single.json")
+        if args.skip_existing and os.path.exists(path):
+            with open(path) as f:
+                if json.load(f).get("ok"):
+                    n_ok += 1
+                    continue
+        n_ok += bool(run_cell(a, s)["ok"])
+    print(f"dryrun: {n_ok}/{len(todo)} cells OK", flush=True)
+    return 0 if n_ok == len(todo) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -31,6 +31,10 @@ own Apparate controller, vanilla against Apparate.
   # train on the bootstrap split first (the reference launcher's recipe)
   PYTHONPATH=src python -m repro_torch.launch.serve --mode classification \\
       --config bert-base --n 600 --train
+  # the controller's budget and constraint, the offered load, and an
+  # allocator preset applied before CUDA starts (launch/tuning.py)
+  PYTHONPATH=src python -m repro_torch.launch.serve --budget 0.4 --acc 0.98 \\
+      --load 0.7 --runtime-preset serve
 
 Prefills run the port's prefill kernels: flash attention for the attention
 models' whole prompts, the SSD chunk scan for Mamba2's.
@@ -58,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_tiny
+from repro_torch.launch.tuning import PRESETS, apply_preset
 from repro_torch.core import ApparateController, ControllerConfig, build_profile
 from repro_torch.data import make_decode_stream, make_image_stream, make_token_stream
 from repro_torch.models import build_model
@@ -183,7 +188,8 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
                      steps_per_sync=4, seed=0, tiny=False, device="cuda", verbose=True,
                      kv_block_size=0, kv_blocks=None, prefix_cache=False, preempt="none",
                      prefill_chunk=0, prompts=None, params=None, graphs=None,
-                     admission=False, admission_slack=1.0, train=False):
+                     admission=False, admission_slack=1.0, train=False, budget=BUDGET,
+                     acc=ACC, load=LOAD):
     """Vanilla (no-EE, simulated only) vs Apparate per-token exits served on
     the real model at the same accuracy constraint. ``tiny`` serves the
     config's TINY variant (CPU tests). Returns (summary, responses).
@@ -205,7 +211,11 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     the model (from the TrainConfig's seed 0, as the reference launcher
     does) for 300 steps at lr 3e-3 on 32 rows a step of a decode stream
     whose rows carry the prompts, then serves those prompts with the
-    trained weights; ``report["train"]`` holds the losses."""
+    trained weights; ``report["train"]`` holds the losses. ``budget`` (the
+    controller's ramp-overhead budget, a fraction of a vanilla step),
+    ``acc`` (its agreement constraint) and ``load`` (the offered load, a
+    fraction of one replica's decode capacity) default to the port's
+    ``BUDGET``, ``ACC`` and ``LOAD``."""
     if prefix_cache and not kv_block_size:
         raise ValueError("--prefix-cache requires --kv-block-size > 0 (paged KV)")
     if preempt != "none" and not kv_block_size:
@@ -230,7 +240,7 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     n, prompt_len = np.shape(prompts)
     prof = build_profile(cfg, mode="decode", chips=1, sites=model.sites, charge_kv=True)
     qps = offered_decode_qps(prof, max_batch_size=BATCH, tokens_per_request=decode_tokens,
-                             load=LOAD)
+                             load=load)
     reqs = make_gen_requests(maf_trace(n, mean_qps=qps, seed=seed), n_tokens=decode_tokens,
                              prompt_len=prompt_len, slo_ms=3 * prof.vanilla_time(1))
     gcfg = GenerativeConfig(max_batch_size=BATCH, steps_per_sync=steps_per_sync,
@@ -238,7 +248,7 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     base_eng = GenerativeEngine(prof, gcfg, admission=_admission(admission, admission_slack))
     mb = summarize_generative(base_eng.run(reqs), horizon_ms=base_eng.makespan_ms)
     ctl = ApparateController(len(model.sites), prof, ControllerConfig(
-        max_slots=SLOTS, ramp_budget_frac=BUDGET, acc_constraint=ACC))
+        max_slots=SLOTS, ramp_budget_frac=budget, acc_constraint=acc))
     rkw = {}
     if kv_block_size:
         rkw = dict(kv_block_size=kv_block_size, kv_blocks=kv_blocks, prefix_cache=prefix_cache)
@@ -261,7 +271,7 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
         "prompt_len": prompt_len, "steps_per_sync": steps_per_sync,
         "decode_attn": cfg.decode_attn, "kv_block_size": kv_block_size,
         "kv_blocks": kv_blocks, "prefix_cache": prefix_cache, "preempt": preempt,
-        "prefill_chunk": prefill_chunk,
+        "prefill_chunk": prefill_chunk, "budget": budget, "acc": acc, "load": load,
         "simulated": {
             "note": "engine latencies from the analytic H100 latency profile, not timed",
             "vanilla": mb, "apparate": mo,
@@ -549,9 +559,23 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true",
                     help="train first (the reference launcher's recipe; classification "
                          "serves the items past the bootstrap split)")
+    ap.add_argument("--budget", type=float, default=None,
+                    help="the controller's ramp-overhead budget, a fraction of a vanilla "
+                         f"step (default: {BUDGET} generative, 0.02 classification)")
+    ap.add_argument("--acc", type=float, default=ACC, help="agreement constraint")
+    ap.add_argument("--load", type=float, default=LOAD,
+                    help="offered load, a fraction of one replica's capacity")
+    ap.add_argument("--runtime-preset", default="none", choices=["none"] + sorted(PRESETS),
+                    help="apply an allocator/device env preset before CUDA starts (see "
+                         "repro_torch.launch.tuning; variables already exported win)")
     a = ap.parse_args(argv)
+    # env presets must land before anything in the run touches CUDA
+    wrote = apply_preset(a.runtime_preset)
+    if a.runtime_preset != "none":
+        print(f"runtime preset {a.runtime_preset}: wrote {json.dumps(wrote)}", flush=True)
     if a.mode == "classification":
         serve(a.config or "resnet50", 600 if a.n is None else a.n, policy=a.policy,
+              budget=0.02 if a.budget is None else a.budget, acc=a.acc, load=a.load,
               seed=2 if a.seed is None else a.seed, workers=a.workers, dispatch=a.dispatch,
               admission=a.admission, admission_slack=a.admission_slack, tiny=a.tiny,
               device=a.device, train=a.train)
@@ -562,7 +586,8 @@ def main(argv=None):
                      tiny=a.tiny, device=a.device, kv_block_size=a.kv_block_size,
                      kv_blocks=a.kv_blocks, prefix_cache=a.prefix_cache, preempt=a.preempt,
                      prefill_chunk=a.prefill_chunk, admission=a.admission,
-                     admission_slack=a.admission_slack, train=a.train)
+                     admission_slack=a.admission_slack, train=a.train,
+                     budget=BUDGET if a.budget is None else a.budget, acc=a.acc, load=a.load)
 
 
 if __name__ == "__main__":

@@ -86,5 +86,22 @@ def zeros_from_schema(schema: Tree, device) -> Tree:
     return tree_map(lambda i: torch.zeros(i.shape, dtype=i.dtype, device=device), schema)
 
 
+def meta_from_schema(schema: Tree) -> Tree:
+    """The schema's leaves as ``meta`` tensors: shapes and dtypes, no
+    storage (the counterpart of the reference's ``abstract_from_schema``).
+    A model traced on them computes nothing and allocates nothing."""
+    return tree_map(lambda i: torch.empty(i.shape, dtype=i.dtype, device="meta"), schema)
+
+
+def param_count(schema_or_params: Tree) -> int:
+    """Elements of every leaf: ``ParamInfo`` shapes or tensors."""
+    return sum(math.prod(x.shape) for x in tree_leaves(schema_or_params))
+
+
+def param_bytes(schema: Tree) -> int:
+    """Bytes of every leaf at its dtype."""
+    return sum(math.prod(i.shape) * i.dtype.itemsize for i in tree_leaves(schema))
+
+
 def pad_vocab(v: int, multiple: int = 2048) -> int:
     return ((v + multiple - 1) // multiple) * multiple

@@ -43,7 +43,13 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as LY
-from repro_torch.models.common import ParamInfo, init_from_schema, torch_dtype, zeros_from_schema
+from repro_torch.models.common import (
+    ParamInfo,
+    init_from_schema,
+    meta_from_schema,
+    torch_dtype,
+    zeros_from_schema,
+)
 from repro_torch.models.transformer import (
     LM,
     MultiStepDecodeMixin,
@@ -101,6 +107,7 @@ class EncDecLM(MultiStepDecodeMixin):
     _head_stats = LM._head_stats
     _head_stats_kernel = LM._head_stats_kernel
     _cross = LM._cross
+    abstract = LM.abstract
 
     def __init__(self, cfg, *, prefill_attn: str = "sdpa"):
         if prefill_attn not in ("sdpa", "kernel"):
@@ -155,6 +162,9 @@ class EncDecLM(MultiStepDecodeMixin):
 
     def init_cache(self, B: int, S: int, M: int, device="cuda") -> dict:
         return zeros_from_schema(self.cache_schema(B, S, M), device)
+
+    def cache_abstract(self, B: int, S: int, M: int) -> dict:
+        return meta_from_schema(self.cache_schema(B, S, M))
 
     def paged_cache_schema(self, n_blocks: int, block_size: int) -> dict:
         """The paged layout: self-attention k/v token pools and read-only
@@ -355,6 +365,8 @@ class EncoderClassifier:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return init_from_schema(self.schema(), gen, device)
+
+    abstract = LM.abstract
 
     def forward(self, params, tokens, *, active_sites=None, prefill_attn=None):
         """tokens: (B, S). Returns {'final': stats, 'final_logits'} over

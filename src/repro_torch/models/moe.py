@@ -61,7 +61,10 @@ def _aux_loss(cfg, probs, idx):
     """Switch-style load-balance loss."""
     E = cfg.n_experts
     me = torch.mean(probs, dim=0)  # mean router prob per expert
-    ce = torch.mean(torch.sum(F.one_hot(idx, E).float(), dim=1), dim=0) / cfg.top_k
+    # one-hot by comparison: F.one_hot checks its range with a host read on
+    # the CPU and builds its result by device-specific ops
+    hot = (idx[..., None] == torch.arange(E, device=idx.device)).float()
+    ce = torch.mean(torch.sum(hot, dim=1), dim=0) / cfg.top_k
     return E * torch.sum(me * ce)
 
 

@@ -73,6 +73,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.common import (
     ParamInfo,
     init_from_schema,
+    meta_from_schema,
     torch_dtype,
     tree_leaves,
     tree_map,
@@ -366,6 +367,11 @@ class LM(MultiStepDecodeMixin):
         gen.manual_seed(seed)
         return init_from_schema(self.schema(), gen, device)
 
+    def abstract(self) -> dict:
+        """The params as meta tensors (``meta_from_schema``): the support
+        audit and the dry run trace the full-width model on them."""
+        return meta_from_schema(self.schema())
+
     # -- cache --------------------------------------------------------------
 
     def _slot_tree(self, fn) -> dict:
@@ -391,6 +397,9 @@ class LM(MultiStepDecodeMixin):
 
     def init_cache(self, B: int, S: int, device="cuda") -> dict:
         return zeros_from_schema(self.cache_schema(B, S), device)
+
+    def cache_abstract(self, B: int, S: int) -> dict:
+        return meta_from_schema(self.cache_schema(B, S))
 
     def paged_cache_schema(self, n_blocks: int, block_size: int) -> dict:
         """The paged layout: the same tree as ``cache_schema``, but every

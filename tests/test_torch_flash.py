@@ -80,11 +80,14 @@ def test_plain_flash_matches_pallas_interpret(case):
 
 
 def test_kernel_wrapper_never_takes_cpu_tensors():
+    from test_torch_kernels import other_device  # repro: allow[tier1-deps] — the shared stand-in for a device with no path
+
     q, k, v = (_t(a) for a in _qkv(1, 2, 1, 4, 4, 8, 0))
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
     with pytest.raises(ValueError):
-        attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        attention(other_device(q), other_device(k), other_device(v))
+    assert attention(q.to("meta"), k.to("meta"), v.to("meta")).is_meta  # the contract
     before = flash_attention.launches
     attention(q, k, v)  # CPU: the plain version, no launch counted
     assert flash_attention.launches == before

@@ -1377,3 +1377,69 @@ def test_tiny_encdec_kernels_match_plain_path(gen, paged):
         pos = pos + 1
     assert kernel.launches - n0[0] == 4 * cfg.n_dec_layers
     assert ramp_head_exit.launches - n0[1] == 4 * len(act)
+
+
+def _refusal(fn, *args, **kw):
+    try:
+        fn(*args, **kw)
+    except ValueError as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def test_meta_contracts_reject_what_the_wrappers_reject(gen):
+    """Each kernel's meta contract refuses the shapes its wrapper refuses on
+    the card (head widths, groups, ranks, table widths, widths past shared
+    memory, misaligned strides), with the same exception and words: the two
+    share their checks, and the meta one reckons the C entry point's from
+    strides alone."""
+    from repro_torch.kernels.decode_attention import kernel as DA  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.kernels.flash_attention import kernel as FA  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.kernels.ramp_head import kernel as RH  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.kernels.ssd import kernel as SK  # repro: allow[tier1-deps] — the port under test
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def t(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    i32 = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
+    wide = torch.zeros(2, DA.MAX_TABLE_BLOCKS + 1, dtype=torch.int32, device="cuda")
+    k136 = t(2, 16, 2, 68)[..., :64].transpose(1, 2)
+    q60, kv60 = t(1, 8, 4, 60).transpose(1, 2), t(1, 8, 2, 60).transpose(1, 2)
+    cases = [
+        (DA.decode_attention, DA.decode_attention_meta,
+         (t(2, 8, 96), t(2, 2, 16, 96), t(2, 2, 16, 96), 3), {}),
+        (DA.decode_attention, DA.decode_attention_meta,
+         (t(2, 32, 64), t(2, 2, 16, 64), t(2, 2, 16, 64), 3), {}),
+        (DA.decode_attention, DA.decode_attention_meta, (t(2, 8, 64), k136, k136, 3), {}),
+        (DA.paged_decode_attention, DA.paged_decode_attention_meta,
+         (t(2, 8, 64), t(6, 4, 2, 64), t(6, 4, 2, 64), wide, 3), {}),
+        (DA.paged_mla_decode_attention, DA.paged_mla_decode_attention_meta,
+         (t(2, 32, 512), t(2, 32, 64), t(6, 4, 512), t(6, 4, 64), i32, 3), {"scale": 0.1}),
+        (DA.paged_mla_decode_attention, DA.paged_mla_decode_attention_meta,
+         (t(2, 16, 512), t(2, 16, 64), t(6, 4, 516)[..., :512], t(6, 4, 64), i32, 3),
+         {"scale": 0.1}),
+        (FA.flash_attention, FA.flash_attention_meta,
+         (t(1, 4, 8, 320), t(1, 2, 8, 320), t(1, 2, 8, 320)), {}),
+        (FA.flash_attention, FA.flash_attention_meta,
+         (t(1, 3, 8, 64), t(1, 2, 8, 64), t(1, 2, 8, 64)), {}),
+        (FA.flash_attention, FA.flash_attention_meta, (q60, kv60, kv60), {}),
+        (SK.ssd_chunked, SK.ssd_chunked_meta,
+         (t(1, 4, 16, 128), t(1, 4, 16, dtype=f32), t(4, dtype=f32), t(1, 16, 64),
+          t(1, 16, 64)), {}),
+        (SK.ssd_chunked, SK.ssd_chunked_meta,
+         (t(1, 4, 16, 64), t(1, 4, 16, dtype=f32), t(4, dtype=f32), t(1, 16, 64),
+          t(1, 16, 64)), {"chunk": 32}),
+        (RH.ramp_head_stats, RH.ramp_head_stats_meta, (t(8, 16384), t(16384, 1000)), {}),
+        (RH.ramp_head_stats, RH.ramp_head_stats_meta,
+         (t(8, 8192, dtype=f32), t(8192, 1000, dtype=f32)), {}),
+        (RH.ramp_head_exit, RH.ramp_head_exit_meta,
+         (t(8, 512), t(512, 1000)[:, ::2], torch.zeros(8, device="cuda")), {}),
+    ]
+    for card_fn, meta_fn, args, kw in cases:
+        metas = [torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device="meta")
+                 if torch.is_tensor(a) else a for a in args]
+        on_card = _refusal(card_fn, *args, **kw)
+        assert on_card is not None, card_fn.__name__
+        assert _refusal(meta_fn, *metas, **kw) == on_card

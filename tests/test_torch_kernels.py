@@ -218,13 +218,28 @@ def test_mla_splits_whole_tiles_fill_the_card(n_sm, B, keys, ctas_per_sm):
 # -- dispatch rules -------------------------------------------------------------
 
 
+def other_device(t):
+    """``t``, reporting a device the dispatchers have no path for (they know
+    the CPU, CUDA and meta, where a kernel's contract runs)."""
+    class Other(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("xpu")
+
+    return t.as_subclass(Other)
+
+
 def test_no_kernel_for_other_devices_and_no_silent_fallback():
-    q, k, v = (torch.zeros(2, 4, 64, device="meta"), torch.zeros(2, 2, 8, 64, device="meta"),
-               torch.zeros(2, 2, 8, 64, device="meta"))
+    q, k, v = (other_device(torch.zeros(2, 4, 64)), other_device(torch.zeros(2, 2, 8, 64)),
+               other_device(torch.zeros(2, 2, 8, 64)))
     with pytest.raises(ValueError):
         attend_decode(q, k, v, 3)
     with pytest.raises(ValueError):
-        ramp_confidence(torch.zeros(2, 8, device="meta"), torch.zeros(8, 16, device="meta"))
+        ramp_confidence(other_device(torch.zeros(2, 8)), other_device(torch.zeros(8, 16)))
+    # meta runs the kernel's contract and computes nothing
+    assert attend_decode(*(t.to("meta") for t in (torch.zeros(2, 4, 64),
+                                                  torch.zeros(2, 2, 8, 64),
+                                                  torch.zeros(2, 2, 8, 64))), 3).is_meta
     # the kernel wrappers take CUDA tensors only
     with pytest.raises(ValueError):
         decode_attention(torch.zeros(2, 4, 64), torch.zeros(2, 2, 8, 64),

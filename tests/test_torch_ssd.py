@@ -205,14 +205,16 @@ def test_bf16_kernel_precision_scheme_holds_1e4(S):
 
 def test_kernel_wrapper_never_takes_cpu_tensors():
     """The CUDA wrapper raises on CPU tensors (the dispatcher, not the
-    wrapper, picks the plain version); other devices raise in the
-    dispatcher."""
+    wrapper, picks the plain version); meta runs the kernel's contract;
+    other devices raise in the dispatcher."""
+    from test_torch_kernels import other_device  # repro: allow[tier1-deps] — the shared stand-in for a device with no path
+
     args = [_t(a) for a in _inputs(1, 2, 8, 8, 8, 0)]
     with pytest.raises(ValueError):
         ssd_chunked(*args)
-    meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError):
-        ssd(*meta)
+        ssd(*[other_device(a) for a in args])
+    assert all(t.is_meta for t in ssd(*[a.to("meta") for a in args]))
     before = ssd_chunked.launches
     ssd(*args, use_kernel=True)  # CPU: the plain version, no launch counted
     assert ssd_chunked.launches == before
