@@ -134,6 +134,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
      against the library's launch plan; 13c. the serve launcher with
      ``--runtime-preset serve`` and ``bench`` in subprocesses (8 requests,
      window graphs captured and replayed).
+  14. multi-rank serving on one card, once phase 13 is done: the kernels
+     at the ranks' shapes against their plain versions (#1/#5 on qwen2's
+     6:1 heads a tp-2 rank, #1 on Qwen3-MoE's 16:2 and qwen1.5-32b's
+     20:20, #4 on 20 heads, #2/#3 at qwen1.5-32b's d 5120 x V 152064),
+     then 2 ranks as processes on cuda:0 over gloo (the collectives stage
+     through host memory; eager windows): 14a. full-width qwen2-1.5b at tp
+     2: a replicated prefill (#4), 8 decode_sharded steps (#1, #2/#3, 4
+     ramps) against the single rank's decode fed the same tokens (labels
+     equal except near-ties, records alike on both ranks), a window of 4
+     bit for bit against single sharded steps, a rank's cache half the
+     single rank's, the pool (#5) the same way; 14b. ShardedDecodeRunner
+     through the engine and controller, 8 requests (prompt 120, 38 tokens)
+     on rows and on the pool against a single-rank DecodeRunner (tokens
+     equal except from a near-tie; both ranks' allocator digests equal);
+     14c. Qwen3-MoE at full width, 8 of 48 layers, capacity 16:
+     expert-parallel decode_sharded against the single rank's dense
+     dispatch; 14d. qwen1.5-32b at full width, 8 of 64 layers: its first
+     full-width shapes on the card, a TP prefill and 8 steps against the
+     single rank; 14e. pipeline_decode_window, qwen2-1.5b at 16 layers over
+     2 stages: thresholds off against the greedy loop, 0.9999 at the
+     boundary ramp (rows exit, the later stage works less); 14f. one NCCL
+     rank runs 14a's step through decode_sharded at tp 1, bit for bit with
+     decode. Times are labelled as 2 ranks sharing one card: no
+     tensor-parallel speed-up.
 Every serving phase serves its sync windows as CUDA graph replays (the
 runner's default on a card; a key's first window runs eager, its second
 is captured), except runs that carry Python hooks, which run eager
@@ -3550,6 +3574,702 @@ def presets_phase():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-rank serving, two ranks sharing one card over gloo
+
+MR_RANKS = 2  # processes on cuda:0; their collectives stage through host memory (gloo)
+MR_LABEL = "2 ranks sharing one card"
+MR_PROMPT, MR_STEPS = 128, 8
+MR_THR = 0.5  # exit thresholds of the compared steps (random weights: nothing exits)
+# sharded records against the single rank's: |log maxprob| apart by at most
+# this, about twice the largest sound reading (0.090, qwen1.5-32b at tp 2);
+# 14a's planted fault (a rank reading the other rank's kv-head block) must
+# exceed it
+MR_LOGP_TOL = 0.2
+Q3_DEPTH, Q32_DEPTH, PIPE_DEPTH = 8, 8, 16
+Q32_CONFIG = "qwen1.5-32b"
+
+
+def _mr_recs(outs):
+    """One step's records on the host: final and ramp labels, maxprob, exit."""
+    recs = {"final_label": outs["final"]["label"].reshape(-1).cpu(),
+            "final_maxprob": outs["final"]["maxprob"].float().reshape(-1).cpu()}
+    if "ramps" in outs:
+        recs.update(ramp_label=outs["ramps"]["label"].cpu(),
+                    ramp_maxprob=outs["ramps"]["maxprob"].float().cpu(),
+                    exit=outs["ramps"]["exit"].cpu())
+    return recs
+
+
+class _HeadSpy:
+    """Records the (h_last, pooled) of each ``_head_stats`` call of ``model``
+    inside the block; ``logits(params, act)`` turns them into the f32 dense
+    logits of the final head and the active ramps (the near-tie rule's
+    judge), on the host."""
+
+    def __init__(self, model):
+        self.model, self.seen = model, []
+
+    def __enter__(self):
+        orig = type(self.model)._head_stats
+
+        def spy(params_, h_last, pooled, *a, **kw):
+            self.seen.append((h_last, pooled))
+            return orig(self.model, params_, h_last, pooled, *a, **kw)
+
+        self.model._head_stats = spy
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._head_stats
+
+    def logits(self, params, act=()):
+        from repro_torch.models import layers as LY
+
+        model, cfg, out = self.model, self.model.cfg, []
+        for h_last, pooled in self.seen:
+            hn = LY.apply_norm(cfg, params["final_norm"], h_last)[:, -1]
+            fin = _logits_ref(hn, head_weight(params, cfg), cfg.vocab_size).cpu()
+            ramps = None
+            if act:
+                hs = model._ramp_hidden(params, pooled, list(act))[:, :, -1]
+                ramps = torch.stack([_logits_ref(hs[j], model.ramp_head(params, i),
+                                                 cfg.vocab_size) for j, i in enumerate(act)])
+                ramps = ramps.cpu()
+            out.append((fin, ramps))
+        self.seen = []
+        return out
+
+
+def _mr_steps(step, tok, pos, n, feeds=None):
+    """n decode steps through ``step(tok, pos) -> outs``, each fed ``feeds[i]``
+    or the previous step's own greedy label. Returns (records, tokens fed,
+    host ms of each step with the device synced around it)."""
+    recs, fed, ms = [], [], []
+    for i in range(n):
+        tok = feeds[i].to(pos.device) if feeds is not None else tok
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = step(tok, pos)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        recs.append(_mr_recs(outs))
+        fed.append(tok.cpu())
+        tok, pos = outs["final"]["label"].reshape(-1, 1).long(), pos + 1
+    return recs, fed, ms
+
+
+def _mr_apart(a, b):
+    """The largest |log maxprob| difference of two steps' records (the
+    final head's and every ramp's)."""
+    return max((a[k].log() - b[k].log()).abs().max().item()
+               for k in ("final_maxprob", "ramp_maxprob"))
+
+
+def _mr_compare(what, recs, ref, logits):
+    """Sharded records against the single rank's on the same tokens: labels
+    equal except near-ties of the single rank's f32 logits (NEAR_TIE), log
+    maxprob within MR_LOGP_TOL, exit masks equal. Returns (near ties, the
+    largest |log maxprob| difference)."""
+    ties, dmax = 0, 0.0
+    for i, (a, b) in enumerate(zip(recs, ref)):
+        fin, ramps = logits[i]
+        ties += _near_tie_labels(a["final_label"], b["final_label"], fin, NEAR_TIE,
+                                 f"{what} step {i} final")
+        for j in range(a["ramp_label"].shape[0]):
+            ties += _near_tie_labels(a["ramp_label"][j], b["ramp_label"][j], ramps[j],
+                                     NEAR_TIE, f"{what} step {i} ramp {j}")
+        d = _mr_apart(a, b)
+        dmax = max(dmax, d)
+        if not d <= MR_LOGP_TOL:
+            fail(f"{what} step {i}: log maxprob apart by {d}, limit {MR_LOGP_TOL}")
+        if not torch.equal(a["exit"], b["exit"]):
+            fail(f"{what} step {i}: exit masks differ")
+    return ties, dmax
+
+
+def _mr_bytes(tree):
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _mr_clone(tree, fn=torch.clone):
+    from repro_torch.models.common import tree_map
+
+    return tree_map(fn, tree)
+
+
+def _mr_bcast(obj):
+    """Rank 0's ``obj`` on every rank (a pickled host object, over gloo)."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _mr_pool(model, cache, bs, gen):
+    """An attention cache of B rows x nb*bs tokens as a paged pool of 1 +
+    B*nb blocks of bs under a shuffled block table (block 0 the trash
+    block). Returns (pool, table)."""
+    from repro_torch.models.common import tree_leaves
+
+    leaves = tree_leaves(cache)
+    B, S = leaves[0].shape[-4], leaves[0].shape[-3]  # any leaf: (.., B, S, KH, hd)
+    nb = S // bs
+    table = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).reshape(B, nb)
+    pool = model.init_paged_cache(1 + B * nb, bs, device="cuda")
+    for pl, cl in zip(tree_leaves(pool), leaves):
+        ax = pl.dim() - 4  # the pool axis: 0 for prefix leaves, 1 for stacked ones
+        pl.index_copy_(ax, table.reshape(-1), cl.reshape(cl.shape[:ax] + (B * nb, bs)
+                                                         + cl.shape[-2:]))
+    return pool, table.to(torch.int32)
+
+
+def _mr_reset():
+    from repro_torch.kernels import counted_wrappers
+
+    fns = counted_wrappers()
+    for f in fns.values():
+        f.launches = 0
+    return lambda: {k: f.launches for k, f in fns.items()}
+
+
+def _mr_qwen2(mesh, rank):
+    """14a: qwen2-1.5b whole at tp 2: the replicated prefill (#4), 8 steps
+    through ``decode_sharded`` (#1 on 6:1 heads a rank, #2/#3) against the
+    single rank's ``decode`` fed the same tokens, windows of 4 bit for bit
+    against single sharded steps, the cache bytes a rank holds, and the
+    paged pool (#5) the same way. Returns (results, model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(CONFIG).replace(decode_attn="kernel", pallas_head="kernel")
+    model = build_model(cfg, prefill_attn="kernel")
+    paged = build_model(cfg.replace(decode_attn="paged-kernel"), prefill_attn="kernel")
+    params = model.init(SEED, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 14)
+    act = _spread(len(model.sites), 4)
+    thr = torch.full((len(act),), MR_THR, device="cuda")
+    B, P = 8, MR_PROMPT
+    toks = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    read = _mr_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, outs = model.prefill(params, toks, cache_len=P + 16)
+    torch.cuda.synchronize()
+    res = {"prefill_ms": 1e3 * (time.perf_counter() - t0), "prefill_launches": read()}
+    tok0, pos0 = outs["final"]["label"].reshape(B, 1).long(), torch.full((B,), P, device="cuda")
+    mi, m = mesh.model_rank, mesh.tp
+    shard = model.tp_shard_params(params, mi, m)
+    pool, table = _mr_pool(paged, cache, 16, gen)
+    layouts = (("rows", model, cache, {}), ("pages", paged, pool, {"block_tables": table}))
+    single = {}
+    if rank == 0:
+        for name, mdl, c, kw in layouts:
+            c = _mr_clone(c)
+            with _HeadSpy(mdl) as spy:
+                recs, fed, ms = _mr_steps(lambda t, p: mdl.decode(
+                    params, c, t, p, active_sites=act, exit_thresholds=thr, **kw)[1],
+                    tok0, pos0, MR_STEPS)
+            single[name] = (recs, fed, ms, spy.logits(params, act), _mr_bytes(c))
+    feeds = _mr_bcast({k: v[1] for k, v in single.items()})
+    for name, mdl, c, kw in layouts:
+        cs = model.tp_shard_cache(c, mi, m)
+        read = _mr_reset()
+        recs, _, ms = _mr_steps(lambda t, p: mdl.decode_sharded(
+            shard, cs, t, p, mesh=mesh, active_sites=act, exit_thresholds=thr, **kw)[1],
+            tok0, pos0, MR_STEPS, feeds[name])
+        res[name] = {"recs": recs, "ms": ms, "launches": read(), "cache_bytes": _mr_bytes(cs)}
+        if rank == 0:
+            ties, dmax = _mr_compare(f"14a {name}", recs, single[name][0], single[name][3])
+            res[name].update(single_ms=single[name][2], near_ties=ties, log_maxprob_apart=dmax,
+                             single_cache_bytes=single[name][4])
+            if m * res[name]["cache_bytes"] != single[name][4]:
+                fail(f"14a {name}: a rank holds {res[name]['cache_bytes']} B of the single "
+                     f"rank's {single[name][4]}")
+    # the planted fault: each rank decodes on the other rank's kv-head block
+    # of the same cache; the log maxprob limit must catch it
+    cs = model.tp_shard_cache(cache, (mi + 1) % m, m)
+    bad, _, _ = _mr_steps(lambda t, p: model.decode_sharded(
+        shard, cs, t, p, mesh=mesh, active_sites=act, exit_thresholds=thr)[1],
+        tok0, pos0, MR_STEPS, feeds["rows"])
+    if rank == 0:
+        res["fault_apart"] = max(_mr_apart(a, b) for a, b in zip(bad, single["rows"][0]))
+        res["fault_labels"] = sum(int((a[k] != b[k]).sum()) for a, b in zip(bad, single["rows"][0])
+                                  for k in ("final_label", "ramp_label"))
+        if not res["fault_apart"] > MR_LOGP_TOL:
+            fail(f"14a: a rank on the other rank's kv-head block moves log maxprob only "
+                 f"{res['fault_apart']}, within the limit {MR_LOGP_TOL}")
+    # a window of 4 against 4 single sharded steps, each fed its own label
+    cs = model.tp_shard_cache(cache, mi, m)
+    steps, _, _ = _mr_steps(lambda t, p: model.decode_sharded(
+        shard, cs, t, p, mesh=mesh, active_sites=act, exit_thresholds=thr)[1], tok0, pos0, 4)
+    cs = model.tp_shard_cache(cache, mi, m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs, (rl, rm, fl, ex, nd) = model.decode_sharded_multi(
+        shard, cs, tok0, pos0, 4, mesh=mesh, n_max=4, active_sites=act, thresholds=thr)
+    torch.cuda.synchronize()
+    res["window_ms"] = 1e3 * (time.perf_counter() - t0)
+    if int(nd) != 4:
+        fail(f"14a: a window of 4 ran {int(nd)} steps at thresholds {MR_THR}")
+    for i, s in enumerate(steps):
+        if not (torch.equal(rl[i].cpu(), s["ramp_label"].to(torch.int32))
+                and torch.equal(rm[i].cpu(), s["ramp_maxprob"])
+                and torch.equal(fl[i].cpu(), s["final_label"].to(torch.int32))):
+            fail(f"14a: window step {i} differs from the single sharded step")
+    return res, model, params
+
+
+def _mr_serve(mesh, rank, model, params):
+    """14b: ``ShardedDecodeRunner`` through the port's engine and
+    controller, 8 requests (prompt 120, 38 tokens) on contiguous rows and
+    on the pool, eager windows, each rank on its shard of the weights (its
+    prefill tensor-parallel, #4 on 6:1 heads), against a single-rank
+    ``DecodeRunner`` on the same schedule: tokens equal except from a
+    near-tie, and how many tokens each request matched before it parted."""
+    import hashlib
+
+    from repro_torch.launch.serve import serve_generative
+
+    cfg = model.cfg
+    prompts = np.random.default_rng(SEED + 7).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
+    kw = dict(decode_tokens=PAGED_TOKENS, prompt_len=PAGED_PROMPT, steps_per_sync=4,
+              seed=SEED, device="cuda", verbose=False, prompts=prompts, graphs=False)
+    shard = model.tp_shard_params(params, mesh.model_rank, mesh.tp)
+    res = {}
+    for layout, lk in (("rows", {}), ("pages", {"kv_block_size": 16})):
+        if rank == 0:
+            ref_out, ref = serve_generative(CONFIG, 8, **kw, **lk, params=params)
+            ref_toks = {r.rid: list(r.final_tokens) for r in ref}
+        runners, undo = _tracked_runners()
+        read = _mr_reset()
+        try:
+            out, resp = serve_generative(CONFIG, 8, **kw, **lk, params=shard, mesh=mesh)
+        finally:
+            undo()
+        launches = read()
+        _complete(resp, 8, PAGED_TOKENS, cfg.vocab_size, f"14b {layout}")
+        r = runners[0]
+        state = [r._pos, r._tok] + ([r._alloc.table, r._alloc.owned, r._alloc.refcount]
+                                    if r._alloc is not None else [])
+        toks = {x.rid: list(x.final_tokens) for x in resp}
+        meas = out["measured"]
+        res[layout] = {"digest": hashlib.sha256(b"".join(np.asarray(a).tobytes()
+                                                         for a in state)).hexdigest(),
+                       "tokens": toks, "launches": launches, "kv": out["kv_cache"],
+                       "window_ms": meas["window_ms_mean"], "prefill_ms": meas["prefill_ms_mean"],
+                       "tokens_per_s": meas["decode_tokens_per_s"]}
+        if rank == 0:
+            # a request is compared up to its first divergence: t tokens
+            gaps, compared, total = [], 0, 0
+            for rid, want in ref_toks.items():
+                t, gap = _divergence_gap(params, cfg, prompts[rid], want, toks[rid])
+                compared += len(want) if t is None else t
+                total += len(want)
+                if t is not None:
+                    if gap >= NEAR_TIE:
+                        fail(f"14b {layout} request {rid}: tokens differ from token {t}, "
+                             f"logit gap {gap:.4f}")
+                    gaps.append((rid, t, round(gap, 4)))
+            res[layout].update(
+                divergences=gaps, compared=(compared, total),
+                single_window_ms=ref_out["measured"]["window_ms_mean"],
+                single_tokens_per_s=ref_out["measured"]["decode_tokens_per_s"],
+                single_cache_bytes=ref_out["kv_cache"]["cache_bytes"])
+    return res
+
+
+def _mr_wide(mesh, rank, what, cfg, moe_ep):
+    """14c/14d: a wide config at reduced depth. Rank 0 draws it whole and
+    runs its prefill and 8 decode steps (MoE on the dense dispatch); then
+    every rank draws only its shard (``init_sharded``) and decodes 8 steps
+    at tp 2 fed the same tokens: Qwen3-MoE from the single rank's prefill
+    cache, expert-parallel (``moe_impl='ep'``, 64 experts a rank);
+    qwen1.5-32b after its own tensor-parallel prefill (``prefill_sharded``,
+    #4 on 20 heads a rank), whose labels are held against the single
+    rank's."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, prefill_attn="kernel")
+    act = _spread(len(model.sites), 4)
+    thr = torch.full((len(act),), MR_THR, device="cuda")
+    B, P = 8, (32 if moe_ep else MR_PROMPT)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    toks = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    pos0 = torch.full((B,), P, device="cuda")
+    ref = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        params = model.init(SEED, device="cuda")
+        torch.cuda.synchronize()
+        ref = {"draw_s": time.perf_counter() - t0, "bytes": _mr_bytes(params)}
+        with _HeadSpy(model) as spy:
+            cache, outs = model.prefill(params, toks, cache_len=P + 16)
+            ref["pf_logits"] = spy.logits(params)[0][0]
+        ref["tok0"] = outs["final"]["label"].reshape(B, 1).long().cpu()
+        ref["cache"] = _mr_clone(cache, lambda t: t.cpu()) if moe_ep else None
+        with _HeadSpy(model) as spy:
+            ref["recs"], ref["fed"], ref["ms"] = _mr_steps(lambda t, p: model.decode(
+                params, cache, t, p, active_sites=act, exit_thresholds=thr)[1],
+                ref["tok0"].cuda(), pos0, MR_STEPS)
+            ref["logits"] = spy.logits(params, act)
+        del params, cache, outs, spy
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = _mr_bcast(None if ref is None else {k: ref[k] for k in ("fed", "tok0", "cache")})
+    mi, m = mesh.model_rank, mesh.tp
+    t0 = time.perf_counter()
+    shard = model.init_sharded(SEED, mi, m, device="cuda", moe_ep=moe_ep)
+    torch.cuda.synchronize()
+    res = {"draw_s": time.perf_counter() - t0, "shard_bytes": _mr_bytes(shard)}
+    read = _mr_reset()
+    if moe_ep:
+        cs = model.tp_shard_cache(_mr_clone(got["cache"], lambda t: t.cuda()), mi, m)
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs, outs = model.prefill_sharded(shard, toks, mesh=mesh, cache_len=P + 16)
+        torch.cuda.synchronize()
+        res["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        if rank == 0:
+            res["prefill_near_ties"] = _near_tie_labels(
+                outs["final"]["label"].reshape(-1).cpu(), ref["tok0"].reshape(-1),
+                ref["pf_logits"], NEAR_TIE, f"{what} prefill")
+    recs, _, ms = _mr_steps(lambda t, p: model.decode_sharded(
+        shard, cs, t, p, mesh=mesh, active_sites=act, exit_thresholds=thr,
+        moe_impl="ep" if moe_ep else "dense")[1], got["tok0"].cuda(), pos0, MR_STEPS,
+        got["fed"])
+    res.update(recs=recs, ms=ms, launches=read())
+    if rank == 0:
+        ties, dmax = _mr_compare(what, recs, ref["recs"], ref["logits"])
+        res.update(single_ms=ref["ms"], single_draw_s=ref["draw_s"], near_ties=ties,
+                   log_maxprob_apart=dmax, single_bytes=ref["bytes"])
+    del shard, cs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mr_pipeline(mesh, rank):
+    """14e: ``pipeline_decode_window`` on qwen2-1.5b at full width over 2
+    stages, at 16 layers so the stage boundary (layer 7) carries ramp site
+    6 (at 28 layers it falls between sites): thresholds off against the
+    single rank's greedy loop (tokens equal except from a near-tie), then
+    0.9999 at the boundary ramp (rows exit, the later stage works less)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_decode_window, stage_shard
+    from repro_torch.models import build_model
+
+    cfg = get_config(CONFIG).replace(n_layers=PIPE_DEPTH, decode_attn="kernel",
+                                        pallas_head="off")
+    model = build_model(cfg, prefill_attn="kernel")
+    params = model.init(SEED, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 16)
+    B, P, n = 8, MR_PROMPT, MR_STEPS
+    toks = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    cache, outs = model.prefill(params, toks, cache_len=P + n + 1)
+    tok0, pos0 = outs["final"]["label"].reshape(B, 1).long(), torch.full((B,), P, device="cuda")
+    res = {}
+    if rank == 0:
+        c = _mr_clone(cache)
+        with _HeadSpy(model) as spy:
+            recs, _, res["loop_ms"] = _mr_steps(lambda t, p: model.decode(params, c, t, p)[1],
+                                                tok0, pos0, n)
+            logits = [lg for lg, _ in spy.logits(params)]
+        loop = torch.stack([r["final_label"] for r in recs])
+    S = mesh.pp
+    p_st, c_st = stage_shard(params, mesh.stage, S), stage_shard(cache, mesh.stage, S)
+    site = list(model.sites).index(PIPE_DEPTH // S - 1)
+    for kind, kw in (("off", {}), ("on", {"active_sites": [site], "thresholds": [0.9999]})):
+        c = _mr_clone(c_st)
+        read = _mr_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, tok_rec, exit_rec, alive, steps = pipeline_decode_window(
+            model, p_st, c, tok0, pos0, n, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        res[kind] = {"ms": 1e3 * (time.perf_counter() - t0), "tok": tok_rec.cpu(),
+                     "exit": exit_rec.cpu(), "alive": alive.cpu(),
+                     "steps": steps.cpu().tolist(), "launches": read()}
+    if rank == 0:
+        got, ties = res["off"]["tok"].to(torch.int64), 0
+        for b in range(B):
+            t = next((i for i in range(n) if got[i, b] != loop[i, b]), None)
+            if t is not None:
+                gap = (logits[t][b].max() - logits[t][b, int(got[t, b])]).item()
+                if gap >= NEAR_TIE:
+                    fail(f"14e row {b}: the window's token {t} differs from the loop's, "
+                         f"logit gap {gap}")
+                ties += 1
+        on = res["on"]
+        res["near_ties"], res["exits"] = ties, int((on["exit"] >= 0).sum())
+        if not (on["steps"][1] < on["steps"][0] and res["exits"] > 0):
+            fail(f"14e: at 0.9999 stage_steps {on['steps']}, {res['exits']} exits")
+    del params, cache, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def multirank_rank(rank, world):
+    """Phase 14 inside one rank (``launch.mesh.spawn``): 14a, 14b, 14c,
+    14d and 14e in turn, each sub-phase's weights freed before the next is
+    drawn. Returns the rank's results and the seconds of each sub-phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serving_mesh(tp=world, device="cuda")
+    pipe = make_serving_mesh(pp=world, device="cuda")
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    out["14a"], model, params = _mr_qwen2(mesh, rank)
+    secs["14a"] = time.perf_counter() - t0
+    out["14b"] = _mr_serve(mesh, rank, model, params)
+    secs["14b"] = time.perf_counter() - t0 - sum(secs.values())
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["14c"] = _mr_wide(mesh, rank, "14c qwen3-moe", get_config(Q3_CONFIG).replace(
+        n_layers=Q3_DEPTH, capacity_factor=16.0, decode_attn="kernel", pallas_head="kernel"),
+        True)
+    secs["14c"] = time.perf_counter() - t0 - sum(secs.values())
+    out["14d"] = _mr_wide(mesh, rank, "14d qwen1.5-32b", get_config(Q32_CONFIG).replace(
+        n_layers=Q32_DEPTH, decode_attn="kernel", pallas_head="kernel"), False)
+    secs["14d"] = time.perf_counter() - t0 - sum(secs.values())
+    out["14e"] = _mr_pipeline(pipe, rank)
+    secs["14e"] = time.perf_counter() - t0 - sum(secs.values())
+    out["secs"] = secs
+    return out
+
+
+def _mr_same(results, path, what):
+    """A record tree equal bit for bit on every rank."""
+    def get(r):
+        for k in path:
+            r = r[k]
+        return r
+
+    a = get(results[0])
+    for other in results[1:]:
+        b = get(other)
+        ok = (all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+              if isinstance(a, list) else a == b)
+        if not ok:
+            fail(f"{what}: the ranks' records differ")
+
+
+def nccl_phase(card):
+    """14f: one NCCL rank (world size 1) runs 14a's step through
+    ``decode_sharded`` at tp 1: the TP branch with its all-gathers through
+    NCCL, which at tp 1 concatenate one slice, so the step equals
+    ``decode``'s bit for bit. Returns the all-gathers launched a step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_dist, make_serving_mesh
+    from repro_torch.models import build_model
+
+    cfg = get_config(CONFIG).replace(decode_attn="kernel", pallas_head="kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_dist(0, 1, backend="nccl", init_method="file://" + os.path.join(tmp, "store"))
+        try:
+            mesh = make_serving_mesh(tp=1, device="cuda")
+            model = build_model(cfg, prefill_attn="kernel")
+            params = model.init(SEED, device="cuda")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED + 14)
+            toks = torch.randint(1, cfg.vocab_size, (8, MR_PROMPT), generator=gen, device="cuda")
+            cache, outs = model.prefill(params, toks, cache_len=MR_PROMPT + 16)
+            tok = outs["final"]["label"].reshape(-1, 1).long()
+            pos = torch.full((8,), MR_PROMPT, device="cuda")
+            act = _spread(len(model.sites), 4)
+            thr = torch.full((len(act),), MR_THR, device="cuda")
+            shard = model.tp_shard_params(params, 0, 1)
+            gathers = []
+            orig = dist.all_gather
+
+            def counting(*a, **kw):
+                gathers.append(1)
+                return orig(*a, **kw)
+
+            runs = {}
+            for name, call in (("decode", lambda c: model.decode(
+                    params, c, tok, pos, active_sites=act, exit_thresholds=thr)),
+                               ("decode_sharded", lambda c: model.decode_sharded(
+                    shard, c, tok, pos, mesh=mesh, active_sites=act, exit_thresholds=thr))):
+                c = _mr_clone(cache)
+                dist.all_gather = counting
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    c, o = call(c)
+                    torch.cuda.synchronize()
+                finally:
+                    dist.all_gather = orig
+                runs[name] = (c, o, 1e3 * (time.perf_counter() - t0))
+            (c1, o1, ms1), (c2, o2, ms2) = runs["decode"], runs["decode_sharded"]
+            from repro_torch.models.common import tree_leaves
+
+            same = all(torch.equal(a, b) for a, b in zip(tree_leaves(o1), tree_leaves(o2)))
+            same = same and all(torch.equal(a, b) for a, b in zip(tree_leaves(c1),
+                                                                  tree_leaves(c2)))
+            if not same:
+                fail("14f: decode_sharded at tp 1 under NCCL differs from decode")
+            if len(gathers) != 4 * cfg.n_layers:
+                fail(f"14f: {len(gathers)} NCCL all-gathers in a step, expected "
+                     f"{4 * cfg.n_layers}")
+            print(f"14f (one NCCL rank, world size 1) on {card}: decode_sharded at tp 1 equals "
+                  f"decode bit for bit (records and cache), {len(gathers)} NCCL all-gathers; "
+                  f"first step {ms2:.3f} ms vs decode {ms1:.3f} ms (host, synced)", flush=True)
+        finally:
+            dist.destroy_process_group()
+    del params, cache, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def multirank_phases(gen):
+    """Phase 14: multi-rank serving on one card. The kernels at the ranks'
+    shapes against their plain versions here, then 14a-14e in 2 spawned
+    ranks over gloo (``multirank_rank``), then 14f here under NCCL.
+    Returns (kernel rows, the launches counted in rank 0 by sub-phase)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+
+    card = card_line()
+    rows = {
+        "da_q2": check_decode_attention(
+            8, 144, "B=8 H=6 KH=1 hd=128 S=144 pos 128..143 bf16 (qwen2-1.5b, a tp-2 rank)",
+            gen, pos_lo=128, H=6, KH=1),
+        "pda_q2": check_paged_decode_attention(
+            8, 9, "B=8 H=6 KH=1 hd=128 bs=16 nb=9 pos 128..143 shuffled bf16 (qwen2-1.5b, a "
+            "tp-2 rank)", gen, 128, 144, H=6, KH=1),
+        "fa_q2": check_flash_attention(8, 12, 2, 128, 144, 128, "B=8 H=12 KH=2 hd=128 Sq=128 "
+                                       "Sk=144 causal bf16 (14a's replicated prefill)", gen),
+        "da_pipe": check_decode_attention(
+            4, 137, "B=4 H=12 KH=2 hd=128 S=137 pos 128..136 bf16 (a 14e microbatch)", gen,
+            pos_lo=128),
+        "da_q3": check_decode_attention(
+            8, 48, "B=8 H=16 KH=2 hd=128 S=48 pos 32..47 bf16 (Qwen3-MoE, a tp-2 rank)", gen,
+            pos_lo=32, H=16, KH=2),
+        "da_q32": check_decode_attention(
+            8, 144, "B=8 H=20 KH=20 hd=128 S=144 pos 128..143 bf16 (qwen1.5-32b, a tp-2 rank)",
+            gen, pos_lo=128, H=20, KH=20),
+        "fa_q2r": check_flash_attention(1, 6, 1, PAGED_PROMPT, PAGED_PROMPT + PAGED_TOKENS + 2,
+                                        128, "B=1 H=6 KH=1 hd=128 Sq=120 Sk=160 causal bf16 "
+                                        "(14b: a tp-2 rank's runner prefill)", gen),
+        "fa_q32": check_flash_attention(8, 20, 20, 128, 144, 128, "B=8 H=KH=20 hd=128 Sq=128 "
+                                        "Sk=144 causal bf16 (qwen1.5-32b, a tp-2 rank's "
+                                        "prefill)", gen),
+    }
+    c32 = get_config(Q32_CONFIG)
+    w = torch.empty(c32.d_model, c32.padded_vocab, dtype=torch.bfloat16, device="cuda")
+    heads = {"tok": {"lm_head": w.normal_(0.0, 0.02, generator=gen)},
+             "ramps": {"head": torch.empty(1, c32.d_model, c32.padded_vocab,
+                                           dtype=torch.bfloat16, device="cuda")
+                       .normal_(0.0, 0.02, generator=gen)}}
+    rows["rh_q32"] = check_ramp_head(heads, c32, gen)
+    del heads, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(multirank_rank, MR_RANKS, "gloo", device="cuda")
+    launches = _mr_report(res, card, time.perf_counter() - t0)
+    nccl_phase(card)
+    for k in ("decode_attention", "ramp_head_stats", "ramp_head_exit"):
+        if min(launches["14a"][k], launches["14c"][k], launches["14d"][k]) <= 0:
+            fail(f"phase 14: kernel {k} was not launched on a sharded path")
+    if min(launches["14a pages"]["paged_decode_attention"],
+           launches["14b pages"]["paged_decode_attention"],
+           launches["14a prefill"]["flash_attention"], launches["14d"]["flash_attention"],
+           launches["14b rows"]["flash_attention"], launches["14b pages"]["flash_attention"],
+           launches["14e"]["decode_attention"]) <= 0:
+        fail("phase 14: kernel #5 or #4 was not launched on a sharded path")
+    return rows, launches
+
+
+def _mr_report(res, card, spawn_s):
+    """Phase 14's checks across the ranks and its lines; returns the
+    launches rank 0 counted in each sub-phase."""
+    r0 = res[0]
+    for path, what in ((("14a", "rows", "recs"), "14a rows"), (("14a", "pages", "recs"),
+                                                               "14a pages"),
+                       (("14c", "recs"), "14c"), (("14d", "recs"), "14d")):
+        _mr_same(res, path, what)
+    for layout in ("rows", "pages"):
+        if len({r["14b"][layout]["digest"] for r in res}) != 1 or \
+                len({json.dumps(r["14b"][layout]["tokens"], sort_keys=True) for r in res}) != 1:
+            fail(f"14b {layout}: the ranks' allocator digests or tokens differ")
+    for kind in ("off", "on"):
+        if not all(torch.equal(r["14e"][kind]["tok"], r0["14e"][kind]["tok"])
+                   and r["14e"][kind]["steps"] == r0["14e"][kind]["steps"] for r in res):
+            fail(f"14e {kind}: the ranks' tokens or stage work differ")
+
+    def mean(x):
+        return statistics.mean(x)
+
+    a = r0["14a"]
+    for name in ("rows", "pages"):
+        x = a[name]
+        print(f"14a qwen2-1.5b tp 2 {name} ({MR_LABEL}; {card}): {mean(x['ms']):.3f} ms a "
+              f"decode_sharded step (host, synced) vs {mean(x['single_ms']):.3f} ms a single-rank "
+              f"step; labels equal but {x['near_ties']} near-ties, log maxprob within "
+              f"{x['log_maxprob_apart']:.3g}; records bit for bit across the ranks; a rank's "
+              f"cache {x['cache_bytes']} B of the single rank's {x['single_cache_bytes']} B; "
+              f"launches {json.dumps(x['launches'])}", flush=True)
+    print(f"14a planted fault (each rank on the other rank's kv-head block): log maxprob "
+          f"apart by {a['fault_apart']:.3g} (limit {MR_LOGP_TOL}), {a['fault_labels']} of "
+          f"{MR_STEPS * 8 * 5} labels differ", flush=True)
+    print(f"14a: a window of 4 through decode_sharded_multi {a['window_ms']:.3f} ms, bit for "
+          f"bit with 4 single sharded steps; the replicated prefill (8 x 128) "
+          f"{a['prefill_ms']:.3f} ms, launches {json.dumps(a['prefill_launches'])}", flush=True)
+    for layout in ("rows", "pages"):
+        x = r0["14b"][layout]
+        print(f"14b ShardedDecodeRunner {layout} ({MR_LABEL}; {card}): 8 requests x "
+              f"{PAGED_TOKENS} tokens, {x['window_ms']:.3f} ms a window of up to 4 steps "
+              f"(eager) vs {x['single_window_ms']:.3f} single-rank, {x['tokens_per_s']:.1f} vs "
+              f"{x['single_tokens_per_s']:.1f} decode tokens/s; tokens equal but "
+              f"{len(x['divergences'])} requests from a near-tie (request, tokens equal before "
+              f"it, logit gap) {x['divergences']}, {x['compared'][0]} of {x['compared'][1]} "
+              f"tokens compared before a divergence; both ranks' "
+              f"allocator digests and tokens equal; kv {json.dumps(x['kv'])}; launches "
+              f"{json.dumps(x['launches'])}", flush=True)
+    for key, name in (("14c", f"{Q3_CONFIG} {Q3_DEPTH} of 48 layers, EP 64 experts a rank"),
+                      ("14d", f"{Q32_CONFIG} {Q32_DEPTH} of 64 layers, 20:20 heads a rank")):
+        x = r0[key]
+        pf = (f"; its TP prefill {x['prefill_ms']:.3f} ms, labels equal but "
+              f"{x['prefill_near_ties']} near-ties" if "prefill_ms" in x else "")
+        print(f"{key} {name} tp 2 ({MR_LABEL}; {card}): {mean(x['ms']):.3f} ms a "
+              f"decode_sharded step vs {mean(x['single_ms']):.3f} ms single-rank; labels equal "
+              f"but {x['near_ties']} near-ties, log maxprob within "
+              f"{x['log_maxprob_apart']:.3g}; a rank's shard {x['shard_bytes'] / 1e9:.2f} GB "
+              f"drawn in {x['draw_s']:.1f} s (the whole {x['single_bytes'] / 1e9:.2f} GB in "
+              f"{x['single_draw_s']:.1f} s){pf}; launches {json.dumps(x['launches'])}",
+              flush=True)
+    e = r0["14e"]
+    print(f"14e pipeline_decode_window qwen2-1.5b {PIPE_DEPTH} layers over 2 stages "
+          f"({MR_LABEL}; {card}): a window of {MR_STEPS} steps {e['off']['ms']:.3f} ms "
+          f"(thresholds off) vs {sum(e['loop_ms']):.3f} ms of the single rank's loop; tokens "
+          f"equal but {e['near_ties']} rows from a near-tie; stage_steps off "
+          f"{e['off']['steps']}, at 0.9999 {e['on']['steps']} ({e['exits']} exits, "
+          f"{e['on']['ms']:.3f} ms)", flush=True)
+    print(f"phase 14 ranks: {json.dumps({k: round(v, 1) for k, v in r0['secs'].items()})} s, "
+          f"spawn to end {spawn_s:.1f} s", flush=True)
+    return {"14a": a["rows"]["launches"], "14a pages": a["pages"]["launches"],
+            "14a prefill": a["prefill_launches"], "14b rows": r0["14b"]["rows"]["launches"],
+            "14b pages": r0["14b"]["pages"]["launches"], "14c": r0["14c"]["launches"],
+            "14d": r0["14d"]["launches"], "14e": r0["14e"]["off"]["launches"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
@@ -3736,6 +4456,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     presets_phase()
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 14: multi-rank serving, two ranks sharing the card over gloo,
+    # then one NCCL rank
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mr, mr_launches = multirank_phases(gen)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3801,6 +4529,34 @@ def main() -> None:
                 ("paged_decode_attention", sm["paged"], sm_launches, f"{run} paged"),
                 ("ramp_head_stats", sm["ramp"]["ramp_head_stats"], sm_launches, run),
                 ("ramp_head_exit", sm["ramp"]["ramp_head_exit"], sm_launches, run)]
+    run = f"14, rank 0 of {MR_RANKS} sharing one card (gloo)"
+    entries += [("decode_attention", mr["da_q2"], mr_launches["14a"], f"{CONFIG} 14a tp 2 {run}"),
+                ("paged_decode_attention", mr["pda_q2"], mr_launches["14a pages"],
+                 f"{CONFIG} 14a tp 2 pool {run}"),
+                ("ramp_head_stats", rh["ramp_head_stats"], mr_launches["14a"],
+                 f"{CONFIG} 14a tp 2 {run}"),
+                ("ramp_head_exit", rh["ramp_head_exit"], mr_launches["14a"],
+                 f"{CONFIG} 14a tp 2 {run}"),
+                ("flash_attention", mr["fa_q2"], mr_launches["14a prefill"],
+                 f"{CONFIG} 14a replicated prefill {run}"),
+                ("decode_attention", mr["da_q2"], mr_launches["14b rows"],
+                 f"{CONFIG} 14b ShardedDecodeRunner rows {run}"),
+                ("flash_attention", mr["fa_q2r"], mr_launches["14b rows"],
+                 f"{CONFIG} 14b ShardedDecodeRunner rows, its TP prefill {run}"),
+                ("paged_decode_attention", mr["pda_q2"], mr_launches["14b pages"],
+                 f"{CONFIG} 14b ShardedDecodeRunner pool {run}"),
+                ("decode_attention", mr["da_q3"], mr_launches["14c"],
+                 f"{Q3_CONFIG} {Q3_DEPTH} layers 14c tp 2 EP {run}"),
+                ("decode_attention", mr["da_q32"], mr_launches["14d"],
+                 f"{Q32_CONFIG} {Q32_DEPTH} layers 14d tp 2 {run}"),
+                ("flash_attention", mr["fa_q32"], mr_launches["14d"],
+                 f"{Q32_CONFIG} {Q32_DEPTH} layers 14d TP prefill {run}"),
+                ("ramp_head_stats", mr["rh_q32"]["ramp_head_stats"], mr_launches["14d"],
+                 f"{Q32_CONFIG} {Q32_DEPTH} layers 14d tp 2 {run}"),
+                ("ramp_head_exit", mr["rh_q32"]["ramp_head_exit"], mr_launches["14d"],
+                 f"{Q32_CONFIG} {Q32_DEPTH} layers 14d tp 2 {run}"),
+                ("decode_attention", mr["da_pipe"], mr_launches["14e"],
+                 f"{CONFIG} {PIPE_DEPTH} layers 14e pipeline, 2 stages {run}")]
     if lm_launches["ramp_head_exit"]:
         entries.append(("ramp_head_exit", rh["ramp_head_exit"], lm_launches, f"{CONFIG} 4f"))
     kernels = []

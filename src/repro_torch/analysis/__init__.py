@@ -4,7 +4,7 @@
 width through each serving feature path on the ``meta`` device, the kernel
 switches on, so every kernel's contract meets every full-width shape, and
 classifies each config × path cell as ``supported`` / ``rejected`` /
-``not-ported`` / ``shape-error``. The generated ``support_matrix.json`` +
+``shape-error``. The generated ``support_matrix.json`` +
 ``SUPPORT_MATRIX.md`` sit beside it (the reference's snapshots at the
 repo root belong to the reference's own audit).
 

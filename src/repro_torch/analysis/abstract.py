@@ -16,10 +16,11 @@ branch and runs that kernel's own contract at each full-width shape
   a path that is structurally n/a for the family (classifiers have no
   decode), or a kernel contract that refuses a full-width shape
   (``KernelShapeError``, with the contract's words);
-* ``not-ported``  — the path exists in the reference and waits for the
-  port (tensor-parallel decode: ROADMAP Queue 1 item 5);
 * ``shape-error`` — any *other* exception: a silent support gap or shape
   bug. These fail the audit unconditionally.
+
+``decode_sharded`` traces rank 0's shard at tp 2 (``_lm_decode_sharded``),
+so the kernels' contracts meet the per-rank head counts too.
 
 ``python -m repro_torch.analysis --audit --write`` renders the result to
 ``support_matrix.json`` (the reference's layout) and ``SUPPORT_MATRIX.md``
@@ -52,7 +53,6 @@ MAX_BLOCKS = CACHE_LEN // BLOCK_SIZE  # per-row block-table width
 
 STATUS_SUPPORTED = "supported"
 STATUS_REJECTED = "rejected"
-STATUS_NOT_PORTED = "not-ported"
 STATUS_ERROR = "shape-error"
 
 # (path id, one-line description) — column order of the matrix.
@@ -74,20 +74,11 @@ ALL_CONFIG_IDS = tuple(PAPER_IDS) + tuple(ARCH_IDS)
 # (config, path) -> (the reference's status, the port's, why). Every other
 # cell equals the reference's committed support_matrix.json.
 REFERENCE_DIFFERENCES: Dict[Tuple[str, str], Tuple[str, str, str]] = {
-    **{(c, "decode_sharded"): (
-        STATUS_SUPPORTED, STATUS_NOT_PORTED,
-        "tensor-parallel decode waits for the multi-device port (ROADMAP Queue 1 item 5)")
-       for c in ("gpt2-medium", "qwen3-moe-30b-a3b", "qwen1.5-32b", "qwen2-1.5b",
-                 "deepseek-67b", "gemma3-4b")},
     ("seamless-m4t-large-v2", "decode_kernel"): (
         STATUS_REJECTED, STATUS_SUPPORTED,
         "the port's enc-dec decoder routes cfg.decode_attn through kernel #1 (ROADMAP "
         "Queue 3 item 1); the reference hardwires its dense masked softmax there"),
 }
-
-
-class NotPorted(Exception):
-    """The path exists in the reference and is not ported yet."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,30 +170,22 @@ def _decode_window(model, cache):
         row_valid=_meta((B,), torch.bool))
 
 
-def _sharded_rejection(model) -> None:
-    """The reference's ``tp_check`` rejections at tp 2 (its documented
-    per-mixer gaps, raised verbatim); past them, the path is not ported."""
-    cfg, tp = model.cfg, 2
-    for slot in model.plan.layer_specs():
-        if slot.mixer == "mamba":
-            raise NotImplementedError(
-                "tensor-parallel decode cannot shard the mamba mixer: the SSM recurrence is "
-                "per-row/per-channel with conv and state fused, so no head axis divides "
-                "across devices")
-        if slot.mixer == "mla":
-            raise NotImplementedError(
-                "MLA shares one compressed latent stream across all heads; every head shard "
-                "still needs the full latent cache, so sharding gives no per-device KV "
-                "scaling")
-        if slot.cross:
-            raise NotImplementedError(
-                "cross-attention slots pin per-slot read-only encoder pages that sit outside "
-                "the TP-sharded KV pool")
-    for name in ("n_heads", "n_kv_heads", "d_ff", "d_model"):
-        if getattr(cfg, name) % tp:
-            raise NotImplementedError(f"{name}={getattr(cfg, name)} not divisible by tp={tp}")
-    raise NotPorted("tensor-parallel sharded decode is not ported yet (ROADMAP Queue 1 "
-                    "item 5)")
+def _lm_decode_sharded(cfg, tp: int = 2):
+    """Tensor-parallel decode on rank 0 of a tp-2 model group, on meta
+    (the reference's abstract-mesh probe): ``tp_check`` raises the
+    documented per-mixer rejections, then ``decode`` runs with a ``TpCtx``
+    whose gather is shape-only tiling, over rank 0's shard of the params
+    (``tp_shard_params``) and of the contiguous cache (``tp_shard_cache``),
+    the shapes each rank holds in ``decode_sharded``. #1 and #2 meet their
+    per-rank shapes."""
+    from repro_torch.models.transformer import TpCtx
+
+    model = _model(_kernels_on(cfg, decode_attn="kernel"))
+    model.tp_check(tp, dp=1, paged=False)
+    params = model.tp_shard_params(model.abstract(), 0, tp)
+    cache = model.tp_shard_cache(model.cache_abstract(B, CACHE_LEN), 0, tp)
+    ctx = TpCtx(tp, lambda y: torch.cat([y] * tp, dim=-1))
+    return model.decode(params, cache, _tokens(B, 1), _meta((B,), torch.int32), tp=ctx)
 
 
 def _encdec_prefill(model, *, s, cache_len, active=None):
@@ -235,7 +218,7 @@ def _probe_lm(cfg, path):
     elif path == "decode_fused_exit":
         _decode_window(model, model.cache_abstract(B, CACHE_LEN))
     elif path == "decode_sharded":
-        _sharded_rejection(model)
+        _lm_decode_sharded(cfg)
 
 
 def _probe_encdec(cfg, path):
@@ -311,8 +294,6 @@ def audit_config(name: str, paths: Sequence[str] = PATH_IDS) -> Dict[str, Cell]:
         try:
             with torch.no_grad():
                 probe(cfg, path)
-        except NotPorted as e:
-            out[path] = Cell(name, path, STATUS_NOT_PORTED, _clip(str(e)))
         except NotImplementedError as e:
             out[path] = Cell(name, path, STATUS_REJECTED, _clip(str(e) or "not implemented"))
         except Exception as e:  # noqa: BLE001 — any other failure IS the signal
@@ -397,8 +378,7 @@ def shape_error_cells(matrix: Dict[str, Dict[str, Cell]]) -> List[Cell]:
 
 # -- markdown ----------------------------------------------------------------
 
-_GLYPH = {STATUS_SUPPORTED: "✓", STATUS_REJECTED: "—", STATUS_NOT_PORTED: "·",
-          STATUS_ERROR: "✗ BUG"}
+_GLYPH = {STATUS_SUPPORTED: "✓", STATUS_REJECTED: "—", STATUS_ERROR: "✗ BUG"}
 
 
 def render_markdown(matrix: Dict[str, Dict[str, Cell]]) -> str:
@@ -412,7 +392,7 @@ def render_markdown(matrix: Dict[str, Dict[str, Cell]]) -> str:
         "switches on, so each kernel's contract meets every full-width shape.",
         "`✓` = path traces for this config; `—` = explicit",
         "`NotImplementedError` (documented gap or a kernel contract's refusal);",
-        "`·` = not ported yet; `✗ BUG` = unexpected shape/trace error.",
+        "`✗ BUG` = unexpected shape/trace error.",
         "",
         f"Probe sizes: B={B}, S={S}, chunk={CHUNK}, cache_len={CACHE_LEN}, "
         f"paged pool {N_BLOCKS}×{BLOCK_SIZE} tokens.",
@@ -428,12 +408,10 @@ def render_markdown(matrix: Dict[str, Dict[str, Cell]]) -> str:
     lines += ["", "## Feature paths", ""]
     for pid, desc in FEATURE_PATHS:
         lines.append(f"- **{pid}** — {desc}")
-    for title, status in (("Rejected cells (explicit `NotImplementedError`)", STATUS_REJECTED),
-                          ("Not ported yet", STATUS_NOT_PORTED)):
-        lines += ["", f"## {title}", ""]
-        rows = [f"- `{name}` × `{p}`: {cells[p].detail}" for name, cells in matrix.items()
-                for p in PATH_IDS if cells[p].status == status]
-        lines += rows or ["(none)"]
+    lines += ["", "## Rejected cells (explicit `NotImplementedError`)", ""]
+    rows = [f"- `{name}` × `{p}`: {cells[p].detail}" for name, cells in matrix.items()
+            for p in PATH_IDS if cells[p].status == STATUS_REJECTED]
+    lines += rows or ["(none)"]
     lines += ["", "## Differences from the reference's matrix", ""]
     for (name, p), (ref, port, why) in REFERENCE_DIFFERENCES.items():
         lines.append(f"- `{name}` × `{p}`: reference {ref}, port {port}: {why}")

@@ -35,6 +35,12 @@ own Apparate controller, vanilla against Apparate.
   # allocator preset applied before CUDA starts (launch/tuning.py)
   PYTHONPATH=src python -m repro_torch.launch.serve --budget 0.4 --acc 0.98 \\
       --load 0.7 --runtime-preset serve
+  # tensor-parallel decode on 2 ranks (one card a rank under nccl; ranks that
+  # share a card, or the CPU, under gloo), plus the exit-gated pipeline
+  # window over 2 stage ranks
+  PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --pp 2 --dist-backend nccl
+  PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --pp 2 --tiny --device cpu \\
+      --dist-backend gloo
 
 Prefills run the port's prefill kernels: flash attention for the attention
 models' whole prompts, the SSD chunk scan for Mamba2's.
@@ -77,6 +83,7 @@ from repro_torch.serving import (
     GenerativeEngine,
     LMTokenRunner,
     PlatformConfig,
+    ShardedDecodeRunner,
     make_gen_requests,
     make_requests,
     maf_trace,
@@ -86,11 +93,12 @@ from repro_torch.serving import (
     summarize_generative,
     video_trace,
 )
+from repro_torch.models.common import tree_map
 from repro_torch.serving.runner import _bucket
 
 
-class _TimedRunner(DecodeRunner):
-    """``DecodeRunner`` that records the host wall time of each one-shot
+class _Timed:
+    """A decode runner that records the host wall time of each one-shot
     prefill, each prefill chunk and each sync window, and whether a window
     captured its CUDA graph, replayed it or ran eager. Each call ends in a
     host read of a device result (a chunk that only shares cached blocks
@@ -131,6 +139,14 @@ class _TimedRunner(DecodeRunner):
         """Mean host ms of the windows of one kind (0.0 without any)."""
         ts = [t for t, k in zip(self.window_s, self.window_kind) if k == kind]
         return 1e3 * float(np.mean(ts)) if ts else 0.0
+
+
+class _TimedRunner(_Timed, DecodeRunner):
+    pass
+
+
+class _TimedShardedRunner(_Timed, ShardedDecodeRunner):
+    pass
 
 
 class _TimedInfer:
@@ -189,7 +205,7 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
                      kv_block_size=0, kv_blocks=None, prefix_cache=False, preempt="none",
                      prefill_chunk=0, prompts=None, params=None, graphs=None,
                      admission=False, admission_slack=1.0, train=False, budget=BUDGET,
-                     acc=ACC, load=LOAD):
+                     acc=ACC, load=LOAD, tp=1, dp=1, pp=1, dist_backend=None, mesh=None):
     """Vanilla (no-EE, simulated only) vs Apparate per-token exits served on
     the real model at the same accuracy constraint. ``tiny`` serves the
     config's TINY variant (CPU tests). Returns (summary, responses).
@@ -215,7 +231,39 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     controller's ramp-overhead budget, a fraction of a vanilla step),
     ``acc`` (its agreement constraint) and ``load`` (the offered load, a
     fraction of one replica's decode capacity) default to the port's
-    ``BUDGET``, ``ACC`` and ``LOAD``."""
+    ``BUDGET``, ``ACC`` and ``LOAD``.
+
+    ``tp * dp > 1`` serves through ``ShardedDecodeRunner`` on a ``(data,
+    model)`` mesh: ``tp * dp`` ranks (``launch.mesh.spawn``, backend
+    ``dist_backend``: 'nccl' one card a rank, 'gloo' for ranks that share a
+    card or the CPU) each draw their shard of the weights from ``seed``
+    (``LM.init_sharded``) and run the same engine, controller and runner
+    schedule on it; rank 0's report is returned, with ``mesh: {tp, dp}``. ``pp > 1`` adds
+    ``pipeline_escape_demo`` over ``pp`` stage ranks. Under gloo the
+    windows run eager. ``mesh`` is the rank's own mesh, inside a rank, where ``params`` is the
+    rank's shard."""
+    if tp * dp > 1 and mesh is None:
+        if dist_backend is None:
+            raise ValueError("tp * dp > 1 needs dist_backend ('nccl' one card a rank, 'gloo')")
+        if params is not None or train:
+            raise ValueError("a multi-rank run draws its weights from seed in every rank")
+        kw = dict(config=config, n=n, decode_tokens=decode_tokens, prompt_len=prompt_len,
+                  steps_per_sync=steps_per_sync, seed=seed, tiny=tiny, device=str(device),
+                  verbose=False, kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+                  prefix_cache=prefix_cache, preempt=preempt, prefill_chunk=prefill_chunk,
+                  prompts=prompts, graphs=graphs, admission=admission,
+                  admission_slack=admission_slack, budget=budget, acc=acc, load=load)
+        from repro_torch.launch.mesh import spawn
+
+        out, resp = spawn(_serve_rank, tp * dp, dist_backend, args=(tp, dp, kw),
+                          device=device)[0]
+        if pp > 1:
+            out["pipeline"] = pipeline_escape_demo(
+                config, pp, dist_backend, tiny=tiny, seed=seed, prompts=prompts,
+                n=n, prompt_len=prompt_len, n_steps=decode_tokens, device=device)
+        if verbose:
+            print(json.dumps(out, indent=1, default=float))
+        return out, resp
     if prefix_cache and not kv_block_size:
         raise ValueError("--prefix-cache requires --kv-block-size > 0 (paged KV)")
     if preempt != "none" and not kv_block_size:
@@ -234,7 +282,9 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
             raise ValueError("train=True draws its own weights and prompts")
         params, prompts, trained = _train_generative(model, n, prompt_len, seed, device)
     if params is None:
-        params = model.init(seed, device=device)
+        # a rank draws only its shard: no rank ever holds the whole model
+        params = (model.init_sharded(seed, mesh.model_rank, mesh.tp, device=device)
+                  if mesh is not None else model.init(seed, device=device))
     if prompts is None:
         prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (n, prompt_len))
     n, prompt_len = np.shape(prompts)
@@ -252,8 +302,11 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     rkw = {}
     if kv_block_size:
         rkw = dict(kv_block_size=kv_block_size, kv_blocks=kv_blocks, prefix_cache=prefix_cache)
-    runner = _TimedRunner(model, params, prompts, max_new_tokens=decode_tokens + 2,
-                          max_slots=SLOTS, n_slots=BATCH, graphs=graphs, **rkw)
+    if mesh is not None:
+        rkw["mesh"] = mesh
+    runner = (_TimedShardedRunner if mesh is not None else _TimedRunner)(
+        model, params, prompts, max_new_tokens=decode_tokens + 2, max_slots=SLOTS,
+        n_slots=BATCH, graphs=graphs, **rkw)
     eng = GenerativeEngine(prof, gcfg, runner, ctl,
                            admission=_admission(admission, admission_slack))
     t0 = time.perf_counter()
@@ -308,9 +361,94 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
                             "apparate": eng.admission.stats()}
     if trained is not None:
         out["train"] = trained
+    if mesh is not None:
+        out["mesh"] = {"tp": mesh.tp, "dp": mesh.dp}
+    if pp > 1:
+        if dist_backend is None:
+            raise ValueError("pp > 1 needs dist_backend ('nccl' one card a rank, 'gloo')")
+        out["pipeline"] = pipeline_escape_demo(
+            config, pp, dist_backend, tiny=tiny, seed=seed, prompts=prompts, n=n,
+            prompt_len=prompt_len, n_steps=decode_tokens, device=device)
     if verbose:
         print(json.dumps(out, indent=1, default=float))
     return out, resp
+
+
+def _serve_rank(rank, world, tp, dp, kw):
+    """One rank of a multi-rank ``serve_generative``: its mesh, then the
+    same run as every other rank on its shard. Returns (report,
+    responses)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    if kw["device"] == "cpu":
+        torch.set_num_threads(1)
+    return serve_generative(**kw, mesh=make_serving_mesh(tp=tp, dp=dp, device=kw["device"]))
+
+
+def pipeline_escape_demo(config, pp, dist_backend, *, tiny=False, seed=0, prompts=None, n=8,
+                         prompt_len=128, n_steps=16, thr=0.6, device="cuda"):
+    """The exit-gated pipeline decode window over ``pp`` stage ranks (the
+    reference launcher's ``pipeline_escape_demo``): the same window with
+    thresholds OFF (every row rides every stage) and ON at ``thr`` (rows
+    under a boundary ramp's uncertainty skip the later stages). Each rank
+    draws the weights from ``seed``, prefills the batch whole and keeps its
+    stage's periods and cache; a TINY config's depth rounds up to whole
+    stages. Returns each stage's work for both, from rank 0."""
+    from repro_torch.launch.mesh import spawn
+
+    return spawn(_pipeline_rank, pp, dist_backend, device=device,
+                 args=(config, tiny, seed, prompts, n, prompt_len, n_steps, thr, str(device)))[0]
+
+
+def _pipeline_rank(rank, world, config, tiny, seed, prompts, n, prompt_len, n_steps, thr,
+                   device):
+    from repro_torch.distributed.pipeline import pipeline_decode_window, stage_shard
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    mesh = make_serving_mesh(pp=world, device=device)
+    device = mesh.device
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    # the pipeline reads the contiguous slot cache through the dense heads
+    cfg = (get_tiny if tiny else get_config)(config).replace(decode_attn="kernel",
+                                                             pallas_head="off")
+    if tiny:  # a TINY stack (3 layers) rounded up to whole stages
+        cfg = cfg.replace(n_layers=-(-cfg.n_layers // world) * world)
+    model = build_model(cfg, prefill_attn="kernel")
+    params = model.init(seed, device=device)
+    if prompts is None:
+        prompts = np.random.default_rng(seed).integers(1, cfg.vocab_size, (n, prompt_len))
+    pp = mesh.pp
+    B = max(pp, (min(8, len(prompts)) // pp) * pp)
+    toks = torch.as_tensor(np.asarray(prompts)[:B], dtype=torch.int64, device=device)
+    S = toks.shape[1]
+    cache, outs = model.prefill(params, toks, cache_len=S + n_steps + 1)
+    # keep the stage's periods only: the rest of the weights and cache go
+    params = stage_shard(params, mesh.stage, pp)
+    params["blocks"] = tree_map(torch.clone, params["blocks"])
+    cache = tree_map(torch.clone, stage_shard(cache, mesh.stage, pp))
+    last = outs["final"]["label"].reshape(B, 1).to(torch.int64)
+    pos = torch.full((B,), S, dtype=torch.int64, device=device)
+    sites, nsl = list(model.sites), len(model.plan.period)
+    bounds = [(s + 1) * (model.plan.n_periods // pp) * nsl - 1 for s in range(pp - 1)]
+    act = [sites.index(b) for b in bounds if b in sites]
+    _, _, _, _, st_off = pipeline_decode_window(model, params, tree_map(torch.clone, cache),
+                                                last, pos, n_steps, mesh=mesh)
+    kw = dict(active_sites=act, thresholds=[thr] * len(act)) if act else {}
+    _, _, exit_rec, alive, st_on = pipeline_decode_window(model, params, cache, last, pos,
+                                                          n_steps, mesh=mesh, **kw)
+    st_off, st_on = st_off.cpu(), st_on.cpu()
+    return {
+        "stages": pp, "n_layers": cfg.n_layers, "batch": B, "n_steps": n_steps, "threshold": thr,
+        "boundary_sites": act,
+        "stage_steps_no_exit": [int(x) for x in st_off],
+        "stage_steps_exit": [int(x) for x in st_on],
+        "rows_exited": int(B - int(alive.sum())),
+        "exits_recorded": int((exit_rec >= 0).sum()),
+        "later_stage_work_saved_pct": (
+            100.0 * (1.0 - float(st_on[1:].sum()) / float(st_off[1:].sum()))
+            if pp > 1 and float(st_off[1:].sum()) else 0.0),
+    }
 
 
 def _train_report(logs, wall_s, steps, lr):
@@ -568,7 +706,31 @@ def main(argv=None):
     ap.add_argument("--runtime-preset", default="none", choices=["none"] + sorted(PRESETS),
                     help="apply an allocator/device env preset before CUDA starts (see "
                          "repro_torch.launch.tuning; variables already exported win)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="generative: tensor-parallel degree: decode through "
+                         "ShardedDecodeRunner on a (data, model) mesh of tp*dp ranks, each "
+                         "holding 1/tp of the KV cache")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="generative: data-parallel degree of the decode mesh (contiguous "
+                         "KV only)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="generative: >1 adds an exit-gated pipeline decode window demo over "
+                         "this many stage ranks (reports per-stage work saved)")
+    ap.add_argument("--mesh-shape", default=None, metavar="DPxTP",
+                    help="generative: '<dp>x<tp>' shorthand that overrides --dp/--tp "
+                         "(e.g. '1x4', '2x2')")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend of a multi-rank run: 'nccl' one card a "
+                         "rank, 'gloo' for ranks that share a card or run on the CPU "
+                         "(required with --tp, --dp or --pp > 1)")
     a = ap.parse_args(argv)
+    if a.mesh_shape:
+        try:
+            a.dp, a.tp = (int(x) for x in a.mesh_shape.lower().split("x"))
+        except ValueError:
+            ap.error("--mesh-shape must look like '<dp>x<tp>', e.g. 1x4")
+    if max(a.tp, a.dp, a.pp) > 1 and a.dist_backend is None:
+        ap.error("--tp/--dp/--pp > 1 need --dist-backend nccl|gloo")
     # env presets must land before anything in the run touches CUDA
     wrote = apply_preset(a.runtime_preset)
     if a.runtime_preset != "none":
@@ -587,7 +749,8 @@ def main(argv=None):
                      kv_blocks=a.kv_blocks, prefix_cache=a.prefix_cache, preempt=a.preempt,
                      prefill_chunk=a.prefill_chunk, admission=a.admission,
                      admission_slack=a.admission_slack, train=a.train,
-                     budget=BUDGET if a.budget is None else a.budget, acc=a.acc, load=a.load)
+                     budget=BUDGET if a.budget is None else a.budget, acc=a.acc, load=a.load,
+                     tp=a.tp, dp=a.dp, pp=a.pp, dist_backend=a.dist_backend)
 
 
 if __name__ == "__main__":

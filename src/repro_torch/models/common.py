@@ -32,23 +32,50 @@ class ParamInfo:
     # 'normal:<scale>' | 'embed:<scale>' | 'zeros' | 'ones' | 'ssm_a' | 'dt_bias'
     init: str = "normal:0.02"
 
-    def initialize(self, gen: torch.Generator, device) -> torch.Tensor:
+    def initialize(self, gen: torch.Generator, device, keep=None) -> torch.Tensor:
+        """The leaf drawn from ``gen``. ``keep=(axis, i, m)`` returns only
+        part ``i`` of ``m`` equal parts along ``axis``, drawing ``gen`` as
+        the whole leaf does, so the part equals the same slice of the
+        whole leaf and ``gen`` ends where the whole draw leaves it
+        (``LM.init_sharded``)."""
         kind, _, arg = self.init.partition(":")
+        shape = tuple(self.shape)
+        if keep is not None:
+            ax, part, m = keep
+            ax %= len(shape)
+            n = shape[ax] // m
+            lo = part * n
+            shape = shape[:ax] + (n,) + shape[ax + 1:]
         if kind == "zeros":
-            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+            return torch.zeros(shape, dtype=self.dtype, device=device)
         if kind == "ones":
-            return torch.ones(self.shape, dtype=self.dtype, device=device)
+            return torch.ones(shape, dtype=self.dtype, device=device)
         if kind in ("normal", "embed"):
             scale = float(arg) if arg else 0.02
-            out = torch.empty(self.shape, dtype=self.dtype, device=device)
+            out = torch.empty(shape, dtype=self.dtype, device=device)
+            full = self.shape
+            last = full[-1] if len(full) > 1 else math.prod(full)
+            n_rows = math.prod(full) // max(last, 1)
+            out2d = out.view(-1, out.shape[-1]) if out.dim() > 1 else out.view(1, -1)
             # draw in f32, then cast; one leading slice at a time so a
             # (12, d, V) ramp-head stack never needs an f32 copy of itself
-            rows = out.view(-1, out.shape[-1]) if out.dim() > 1 else out.view(1, -1)
-            step = max(1, (1 << 26) // max(rows.shape[1], 1))
-            for lo in range(0, rows.shape[0], step):
-                blk = rows[lo:lo + step]
-                x = torch.randn(blk.shape, generator=gen, device=device, dtype=torch.float32)
-                blk.copy_(x * scale)
+            step = max(1, (1 << 26) // max(last, 1))
+            for r0 in range(0, n_rows, step):
+                r1 = min(n_rows, r0 + step)
+                x = torch.randn((r1 - r0, last), generator=gen, device=device,
+                                dtype=torch.float32) * scale
+                if keep is None:
+                    out2d[r0:r1] = x
+                elif ax == len(full) - 1:  # a column slice of every row
+                    out2d[r0:r1] = x[:, lo:lo + n]
+                else:  # rows whose index along ax falls in the part
+                    inner = math.prod(full[ax + 1:-1])
+                    rows = torch.arange(r0, r1, device=device)
+                    ia = (rows // inner) % full[ax]
+                    sel = (ia >= lo) & (ia < lo + n)
+                    dst = (rows // (inner * full[ax])) * (n * inner) + (ia - lo) * inner \
+                        + rows % inner
+                    out2d[dst[sel]] = x[sel].to(out.dtype)
             return out
         if kind in ("ssm_a", "dt_bias"):
             u = torch.rand(self.shape, generator=gen, device=device, dtype=torch.float32)
@@ -57,7 +84,8 @@ class ParamInfo:
             else:  # softplus^-1 of dt in [1e-3, 1e-1]
                 dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
                 x = dt + torch.log(-torch.expm1(-dt))
-            return x.to(self.dtype)
+            x = x.to(self.dtype)
+            return x if keep is None else x.narrow(ax, lo, n).contiguous()
         raise ValueError(f"unknown init {self.init!r}")
 
 

@@ -108,6 +108,21 @@ def ffn_apply(cfg, p, x):
     return h @ p["w_down"]
 
 
+def ffn_apply_tp(cfg, p, x, gather):
+    """Tensor-parallel FFN over column-sliced params (the reference's
+    ``ffn_apply_tp``): ``p`` holds this rank's column slice of
+    ``w_gate``/``w_up`` (d, d_ff/m) and of ``w_down`` along its OUTPUT dim
+    (d_ff, d/m); ``gather(y)`` concatenates the ranks' slices along the last
+    axis (a tiled all-gather over the model group; plain tiling under the
+    meta audit). Each output column of a product is computed on its own, so
+    the composition is ``ffn_apply`` on the full weights column by column,
+    with no sum across ranks (a row split + all-reduce would reassociate
+    the contraction)."""
+    a = act_fn(cfg.act)
+    h = gather(a(x @ p["w_gate"]) * (x @ p["w_up"]))
+    return gather(h @ p["w_down"])
+
+
 # ---------------------------------------------------------------------------
 # attention
 
@@ -219,7 +234,7 @@ def _update_pool(pool, new, blk, off, gate=None):
 def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
                rope_theta=None, ring_window=None, local_window=None,
                decode_impl: str = "dense", write_gate=None, block_table=None,
-               prefill_attn: str = "sdpa", causal: bool = True):
+               prefill_attn: str = "sdpa", causal: bool = True, out_proj: bool = True):
     """GQA attention. If `cache` (dict k,v: (B, S, K, hd)) is given, the new
     k/v are written into it in place at `cache_index` (an int, or a per-row
     int tensor (B,)) and attention runs against the cache. `decode_impl`
@@ -255,9 +270,16 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
     flash-attention kernel (its plain version on CPU tensors), which reads
     `causal` in place of `mask`: True, the causal mask from query 0 that
     ``LM.prefill`` builds; False, no mask, the encoder's (its `mask` is
-    None); a local layer adds its window. Returns (out, cache)."""
+    None); a local layer adds its window. `out_proj=False` returns the
+    concatenated head outputs (B, S, H*hd) without ``wo``: tensor-parallel
+    decode applies ``wo`` after gathering the heads. Returns (out, cache)."""
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def proj(o):
+        o = o.reshape(B, S, H * hd)
+        return o @ p["wo"] if out_proj else o
+
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -298,7 +320,7 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
             sblk = torch.gather(block_table.long(), 1, torch.clamp(slot // bsz, max=nbw - 1))
             out = sdpa(q, cache["k"][sblk, slot % bsz], cache["v"][sblk, slot % bsz],
                        (tpos >= 0)[:, None, None, :])
-            return out.reshape(B, S, H * hd) @ p["wo"], cache
+            return proj(out), cache
         from repro_torch.kernels.decode_attention import attend_decode_paged
 
         blk, off = _paged_slots(block_table, idx, bsz)
@@ -306,7 +328,7 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
         _update_pool(cache["v"], v[:, 0], blk, off, write_gate)
         out = attend_decode_paged(q[:, 0], cache["k"], cache["v"], block_table, idx,
                                   use_kernel=decode_impl == "paged-kernel")[:, None]
-        return out.reshape(B, S, H * hd) @ p["wo"], cache
+        return proj(out), cache
     if cache is not None:
         if ring_window is not None and S > 1:
             # prefill into a ring: slot j holds the newest token t = j (mod
@@ -354,8 +376,7 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
                         causal=causal, window=W).transpose(1, 2)
     else:
         out = sdpa(q, k, v, mask)
-    out = out.reshape(B, S, H * hd)
-    return out @ p["wo"], cache
+    return proj(out), cache
 
 
 # ---------------------------------------------------------------------------

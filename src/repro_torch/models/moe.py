@@ -9,8 +9,13 @@ it, as the reference's serving runner asks for (``moe_impl='dense'``).
 device (``moe_apply_ep`` with ``mesh=None``), which the reference's
 ``LM.loss`` defaults to: assignments sorted by expert id into (E, C)
 slot buffers, overflows past the capacity C dropped. ``moe_apply`` picks
-one by ``impl``. The expert-parallel all-to-all path is multi-device and
-not ported (ROADMAP.md, Queue 1).
+one by ``impl``. ``moe_apply_ep_device`` is the expert-parallel dispatch
+inside tensor-parallel decode: each rank of the model group owns E/m
+experts, dispatches its chunk of the tokens locally, and two tiled
+all-to-alls carry the slot buffers to the experts' owners and back
+(``torch.distributed``). The mesh-level ``moe_apply_ep`` of the
+reference's loss, with tokens sharded over ``data``, is not ported
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -148,6 +153,60 @@ def moe_apply_ep(cfg, p, x):
     y = y.to(x.dtype)
     if cfg.n_shared_experts:
         y = y + _shared_ffn(cfg, p["shared"], x2)
+    return y.reshape(B, S, d), aux
+
+
+def _ep_device_body(cfg, m: int, mi: int, group, x_blk, gates_blk, idx_blk, wg, wu, wd):
+    """One rank's expert-parallel dispatch (the reference's
+    ``_ep_device_body``). ``x_blk``/``gates_blk``/``idx_blk`` are the
+    tokens every rank of the model group holds alike; ``wg/wu/wd`` the
+    rank's (E/m, ...) expert slice; ``mi`` its index in ``group``. The rank
+    takes its chunk of ``Tl = ceil(T / m)`` tokens, dispatches them into
+    (E, C) slots with capacity ``C = max(1, int(cf * Tl * k / E))`` (an
+    assignment past it is dropped), ships each expert's slots to its owner,
+    runs its experts on the (E/m, C*m) slots it received, ships the outputs
+    back, scatter-adds the kept ones in f32 and gathers the chunks of every
+    rank. Returns (T, d) in ``x_blk``'s dtype."""
+    from repro_torch.distributed import all_gather_tiled, all_to_all_tiled
+
+    E = cfg.n_experts
+    T, d = x_blk.shape
+    Tl = max(1, -(-T // m))  # ceil: decode batches can be < m
+    pad = Tl * m - T
+    if pad:
+        x_blk = F.pad(x_blk, (0, 0, 0, pad))
+        gates_blk = F.pad(gates_blk, (0, 0, 0, pad))
+        idx_blk = F.pad(idx_blk, (0, 0, 0, pad))
+    xs, gs, ii = (t[mi * Tl:(mi + 1) * Tl] for t in (x_blk, gates_blk, idx_blk))
+    C = max(1, int(cfg.capacity_factor * Tl * cfg.top_k / E))
+    buf, slot, keep, st, sg = _dispatch_local(cfg, xs, gs, ii, C)
+    # (E, C, d) -> each expert's slots to its owner: (E/m, C*m, d)
+    buf = all_to_all_tiled(buf, group, split_axis=0, concat_axis=1)
+    out = _expert_ffn(cfg, {"w_gate": wg, "w_up": wu, "w_down": wd}, buf)
+    out = all_to_all_tiled(out, group, split_axis=1, concat_axis=0)  # (E, C, d)
+    out = F.pad(out.reshape(E * C, d), (0, 0, 0, 1))  # row E*C: the drop sentinel
+    taken = out[slot] * (sg * keep)[:, None].to(out.dtype)
+    y = torch.zeros((Tl, d), dtype=torch.float32, device=x_blk.device).index_add(
+        0, st, taken.float()).to(x_blk.dtype)
+    y = all_gather_tiled(y, group, 0)
+    return y[:T] if pad else y
+
+
+def moe_apply_ep_device(cfg, p_local, x, m: int, mi: int, group):
+    """Expert-parallel MoE inside tensor-parallel decode (the reference's
+    ``moe_apply_ep_device``): ``p_local`` holds this rank's (E/m, ...)
+    slice of w_gate/w_up/w_down, the router and the shared experts whole;
+    ``x`` (B,S,d) is alike on every rank of the model group (``group``,
+    where this rank is ``mi`` of ``m``). The shared experts run on every
+    rank, as in the reference. Returns (y, aux)."""
+    B, S, d = x.shape
+    x2 = x.reshape(-1, d)
+    gates, idx, probs = _router(cfg, p_local, x2)
+    aux = _aux_loss(cfg, probs, idx)
+    y = _ep_device_body(cfg, m, mi, group, x2, gates, idx,
+                        p_local["w_gate"], p_local["w_up"], p_local["w_down"])
+    if cfg.n_shared_experts:
+        y = y + _shared_ffn(cfg, p_local["shared"], x2)
     return y.reshape(B, S, d), aux
 
 

@@ -53,6 +53,13 @@ trained: the kernel head path applies its residual before the head, as
 the reference's dense path does (the reference's Pallas head path skips
 it; ROADMAP.md, Queue 3).
 
+Tensor-parallel decode (``decode_sharded``, ``decode_sharded_multi``,
+``prefill_sharded``) runs one rank's shard inside a ``torch.distributed``
+job: each rank is a process (the reference's one ``shard_map`` body),
+``TpCtx`` carries its model group's tiled all-gather, and ``_block`` runs
+the rank's heads and hidden units on column slices of the weights
+(``tp_param_specs``) with its kv-head block of the cache.
+
 Two choices of the port that the configs do not carry (so that they stay
 field-for-field the reference's): ``prefill_attn`` ('sdpa' | 'kernel')
 runs a whole-prompt prefill's attention through the flash-attention
@@ -63,7 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,6 +86,36 @@ from repro_torch.models.common import (
     tree_map,
     zeros_from_schema,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class TpCtx:
+    """Tensor-parallel context threaded through ``_block``/``decode`` when a
+    rank runs its shard of ``decode_sharded`` (the reference's ``TpCtx``).
+
+    The decomposition keeps activations whole at sublayer boundaries:
+    wq/wk/wv (and w_gate/w_up) are COLUMN-sliced, so each rank computes a
+    contiguous block of heads (hidden units) as the same columns of the
+    dense product; wo/w_down are column-sliced along their OUTPUT dim, so
+    the final projections are column slices of the dense result too. The
+    combines are tiled all-gathers, pure concatenation with no arithmetic
+    (a row split + all-reduce would reassociate the contraction). Whether
+    a library product rounds a column slice as it rounds the same columns
+    of the whole product is its own affair: the port holds sharded decode
+    to single-rank decode within tolerance, not bit for bit.
+
+    m: ranks of the model group; gather: the tiled all-gather over it
+    (``distributed.tp_gather``; plain tiling under the meta audit);
+    data_group: the data group when rows also shard over ``data``
+    (contiguous caches only), to reduce the window's all-exited test
+    across row shards; group, index: the model group and this rank's place
+    in it, for the expert-parallel all-to-alls."""
+
+    m: int
+    gather: Any
+    data_group: Any = None
+    group: Any = None
+    index: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,7 +289,7 @@ class MultiStepDecodeMixin:
 
     def decode_multi(self, params, cache, tokens, pos, n_steps: int, *, n_max: int,
                      active_sites=None, thresholds=None, row_valid=None,
-                     block_tables=None):
+                     block_tables=None, tp=None, moe_impl="dense"):
         """Up to ``n_steps`` greedy decode steps with the exit decision taken
         ON DEVICE from a resident threshold vector: the host reads nothing
         until the window returns.
@@ -263,6 +300,10 @@ class MultiStepDecodeMixin:
         bucket-padding rows out of the all-exited test. ``block_tables``
         runs every step on the paged pool (see ``decode``); the window's
         blocks are claimed before it starts, so one table serves all steps.
+        ``tp`` (a ``TpCtx``; ``decode_sharded_multi``) runs each step on the
+        rank's shard; with rows sharded over ``data`` the all-exited test is
+        summed over the data group, so every row shard ends together.
+        ``moe_impl`` reaches every step's ``decode``.
 
         The reference's ``lax.while_loop`` stops after the first step where
         every valid row exited. Here the loop runs ``n_steps`` times and a
@@ -296,11 +337,16 @@ class MultiStepDecodeMixin:
         ex = torch.full((n_max, B), -1, dtype=torch.int32, device=dev)
         running = torch.ones((), dtype=torch.bool, device=dev)
         n_done = torch.zeros((), dtype=torch.int32, device=dev)
+        # the enc-dec decoder's decode takes neither: it is given them only
+        # when set, so asking it for a sharded or 'ep' window raises there
+        kw = {"tp": tp} if tp is not None else {}
+        if moe_impl != "dense":
+            kw["moe_impl"] = moe_impl
         tok, p = tokens, pos
         for i in range(int(n_steps)):
             cache, outs = self.decode(params, cache, tok, p, active_sites=act or None,
                                       exit_thresholds=thr, write_gate=running,
-                                      block_tables=block_tables)
+                                      block_tables=block_tables, **kw)
             f = outs["final"]["label"].reshape(-1).to(torch.int32)
             if K:
                 mask = outs["ramps"]["exit"].to(torch.bool)  # (K, B)
@@ -314,6 +360,10 @@ class MultiStepDecodeMixin:
             fl[i] = f
             ex[i] = site
             all_ex = torch.all(torch.logical_or(~row_valid, site >= 0))
+            if tp is not None and tp.data_group is not None:
+                from repro_torch.distributed import sum_over
+
+                all_ex = sum_over((~all_ex).to(torch.int32), tp.data_group) == 0
             n_done += running.to(torch.int32)
             running = running & ~all_ex
             tok, p = f.reshape(-1, 1).to(tokens.dtype), p + 1
@@ -337,6 +387,8 @@ class LM(MultiStepDecodeMixin):
             raise NotImplementedError(f"ssm_ngroups={cfg.ssm_ngroups}: the SSD scan takes "
                                       "one group")
         self.prefill_attn, self.ssd_impl = prefill_attn, ssd_impl
+        self._tp_cfgs, self._tp_models = {}, {}  # per model-group size (_tp_cfg)
+        self._tp_passed = set()  # the mesh shapes tp_check let through (_tp_check_once)
         if cfg.ramp_style not in ("fc", "mlp", "tied"):
             raise NotImplementedError(f"ramp_style={cfg.ramp_style!r}: the port takes 'fc' | "
                                       "'mlp' | 'tied'")
@@ -464,14 +516,18 @@ class LM(MultiStepDecodeMixin):
 
     def _block(self, slot: SlotSpec, p, h, *, positions, mask, mask_local, cache,
                cache_index, write_gate=None, block_tables=None, xkv_tables=None,
-               memory=None, moe_impl="dense", plain=False):
+               memory=None, moe_impl="dense", plain=False, tp=None):
         """One layer. ``plain`` (the loss) runs attention through ``sdpa``
         and the mamba scan through ``ssd_ref``. A local slot reads
         ``mask_local`` and RoPE base ``ROPE_THETA_LOCAL``, and runs as a ring
         (``windowed_cache``, or any paged local layer: the pool always
         ring-pages local windows) or as a window over a full contiguous
         cache. A cross slot adds its gated cross-attention after the mixer
-        (``_cross``). Returns (h, the MoE aux loss or None)."""
+        (``_cross``). With ``tp`` (a ``TpCtx``) ``p`` and ``cache`` are the
+        rank's shards: attention runs the rank's heads (``_tp_cfg``), then
+        ``wo`` on the gathered heads; the FFN is ``ffn_apply_tp``; a MoE slot
+        with ``moe_impl='ep'`` is ``moe_apply_ep_device``. Returns (h, the
+        MoE aux loss or None)."""
         cfg = self.cfg
         x = LY.apply_norm(cfg, p["ln1"], h)
         kw = dict(positions=positions, mask=mask, cache=cache, cache_index=cache_index,
@@ -493,8 +549,14 @@ class LM(MultiStepDecodeMixin):
                     kw["local_window"] = cfg.window
             # prefill_attn applies to a whole-prompt prefill only (S > 1 at
             # cache index 0); a global decode step keeps decode_impl's path
-            out, _ = LY.attn_apply(cfg, p["mixer"], x,
-                                   prefill_attn="sdpa" if plain else self.prefill_attn, **kw)
+            kw["prefill_attn"] = "sdpa" if plain else self.prefill_attn
+            if tp is not None:
+                # the rank's contiguous block of heads; wo after the head
+                # gather, as an output-column slice
+                out, _ = LY.attn_apply(self._tp_cfg(tp.m), p["mixer"], x, out_proj=False, **kw)
+                out = tp.gather(tp.gather(out) @ p["mixer"]["wo"])
+            else:
+                out, _ = LY.attn_apply(cfg, p["mixer"], x, **kw)
         h = h + out
         if slot.cross:
             h = h + self._cross(p, h, cache, memory, xkv_tables)
@@ -502,8 +564,13 @@ class LM(MultiStepDecodeMixin):
             return h, None
         x = LY.apply_norm(cfg, p["ln2"], h)
         if slot.ffn == "moe":
-            out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl)
+            if tp is not None and moe_impl == "ep":
+                out, aux = MOE.moe_apply_ep_device(cfg, p["ffn"], x, tp.m, tp.index, tp.group)
+            else:
+                out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl)
             return h + out, aux
+        if tp is not None:
+            return h + LY.ffn_apply_tp(cfg, p["ffn"], x, tp.gather), None
         return h + LY.ffn_apply(cfg, p["ffn"], x), None
 
     def _cross(self, p, h, cache, memory, xkv_tables):
@@ -555,7 +622,7 @@ class LM(MultiStepDecodeMixin):
 
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
                mask_local=None, write_gate=None, block_tables=None, xkv_tables=None,
-               memory=None, moe_impl="dense", plain=False, remat=False):
+               memory=None, moe_impl="dense", plain=False, remat=False, tp=None):
         """Run the prefix slots, the periods layer by layer, then the suffix
         slots; caches are updated in place. ``pool_idx`` is a slice of positions (serving: a
         view, so no index tensor crosses to the device) or an index tensor
@@ -567,7 +634,7 @@ class LM(MultiStepDecodeMixin):
         plan = self.plan
         kw = dict(positions=positions, mask=mask, mask_local=mask_local,
                   cache_index=cache_index, write_gate=write_gate, block_tables=block_tables,
-                  xkv_tables=xkv_tables, memory=memory, moe_impl=moe_impl, plain=plain)
+                  xkv_tables=xkv_tables, memory=memory, moe_impl=moe_impl, plain=plain, tp=tp)
         pooled, aux = [], None
 
         def run(slot, p, hh, c):
@@ -699,7 +766,7 @@ class LM(MultiStepDecodeMixin):
         return image_embeds.to(proj.dtype) @ proj
 
     def prefill(self, params, tokens, *, cache_len=None, active_sites=None,
-                with_cache=True, image_embeds=None):
+                with_cache=True, image_embeds=None, tp=None, moe_impl="dense"):
         """tokens: (B,S). Returns (cache|None, outs) where outs carries final
         + per-active-ramp stats for the LAST position (the generated token).
         Attention attends the S prompt queries to the ``cache_len`` keys
@@ -708,7 +775,9 @@ class LM(MultiStepDecodeMixin):
         local layer attends the S in-flight keys under the window mask,
         whatever its cache holds (full rows or a ring). A cross plan's
         ``image_embeds`` (B, M, d_frontend) give the cross layers their
-        memory, whose k/v the cache keeps (module docstring)."""
+        memory, whose k/v the cache keeps (module docstring). ``tp`` (a
+        ``TpCtx``; ``prefill_sharded``) runs the rank's shard and returns
+        the rank's cache shard."""
         cfg = self.cfg
         B, S = tokens.shape
         dev = tokens.device
@@ -717,17 +786,20 @@ class LM(MultiStepDecodeMixin):
         h = LY.embed_apply(cfg, params["tok"], tokens, positions)
         mask = LY.causal_mask(S, cache_len if with_cache else S, 0, device=dev)
         mask_local = LY.window_mask(S, S, 0, cfg.window, device=dev) if cfg.window else mask
-        caches = self.init_cache(B, cache_len, device=dev) if with_cache else None
+        shard = self._tp_model(tp.m) if tp is not None else self
+        caches = shard.init_cache(B, cache_len, device=dev) if with_cache else None
         memory = (self._memory(params, image_embeds)
                   if cfg.cross_attn_every and image_embeds is not None else None)
         h, pooled, _ = self._stack(params, h, positions=positions, mask=mask,
                                    mask_local=mask_local, caches=caches, cache_index=0,
-                                   pool_idx=slice(S - 1, S), memory=memory)
+                                   pool_idx=slice(S - 1, S), memory=memory, tp=tp,
+                                   moe_impl=moe_impl)
         outs = self._head_stats(params, h[:, -1:], pooled, active_sites)
         return caches, outs
 
     def decode(self, params, cache, tokens, pos, *, active_sites=None,
-               exit_thresholds=None, write_gate=None, block_tables=None):
+               exit_thresholds=None, write_gate=None, block_tables=None, tp=None,
+               moe_impl="dense"):
         """One decode step. tokens: (B,1); pos: int tensor (B,) of per-row
         write indices (continuous batching leaves every row at its own
         position). The cache is updated in place; ``write_gate`` (bool
@@ -741,7 +813,9 @@ class LM(MultiStepDecodeMixin):
         A cross plan's tables end in the pinned xkv columns, which attention
         does not walk (``_split_tables``).
         A local layer builds its own window mask over the W rows it
-        gathers, so none is built for it either. Returns (cache, outs)."""
+        gathers, so none is built for it either. ``tp`` (a ``TpCtx``;
+        ``decode_sharded``) runs the rank's shard of params and cache.
+        Returns (cache, outs)."""
         cfg = self.cfg
         B, S = tokens.shape
         assert S == 1
@@ -759,11 +833,246 @@ class LM(MultiStepDecodeMixin):
         h, pooled, _ = self._stack(
             params, h, positions=pc, mask=mask, caches=cache, cache_index=pos,
             pool_idx=slice(0, 1), write_gate=write_gate,
-            block_tables=block_tables, xkv_tables=xkv_tables,
+            block_tables=block_tables, xkv_tables=xkv_tables, tp=tp, moe_impl=moe_impl,
         )
         outs = self._head_stats(params, h, pooled, active_sites,
                                 exit_thresholds=exit_thresholds)
         return cache, outs
+
+    # -- sharded (tensor-parallel) decode --------------------------------------
+
+    def tp_check(self, tp: int, *, dp: int = 1, paged: bool = True, batch=None):
+        """Raise ``NotImplementedError`` (with a why-note the support
+        matrix surfaces verbatim) when this plan/config cannot run the
+        tensor-parallel sharded-decode path at the given mesh shape."""
+        cfg = self.cfg
+        if tp <= 1 and dp <= 1:
+            return
+        for slot in self.plan.layer_specs():
+            if slot.mixer == "mamba":
+                raise NotImplementedError(
+                    "tensor-parallel decode cannot shard the mamba mixer: the "
+                    "SSM recurrence is per-row/per-channel with conv and state "
+                    "fused, so no head axis divides across devices"
+                )
+            if slot.mixer == "mla":
+                raise NotImplementedError(
+                    "MLA shares one compressed latent stream across all heads; "
+                    "every head shard still needs the full latent cache, so "
+                    "sharding gives no per-device KV scaling"
+                )
+            if slot.cross:
+                raise NotImplementedError(
+                    "cross-attention slots pin per-slot read-only encoder "
+                    "pages that sit outside the TP-sharded KV pool"
+                )
+        if tp > 1:
+            if cfg.n_heads % tp:
+                raise NotImplementedError(
+                    f"n_heads={cfg.n_heads} not divisible by tp={tp}"
+                )
+            if cfg.n_kv_heads % tp:
+                raise NotImplementedError(
+                    f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={tp} "
+                    "(the KV pool shards by kv head, one contiguous block per "
+                    "device)"
+                )
+            if cfg.d_ff % tp:
+                raise NotImplementedError(
+                    f"d_ff={cfg.d_ff} not divisible by tp={tp}"
+                )
+            if cfg.d_model % tp:
+                raise NotImplementedError(
+                    f"d_model={cfg.d_model} not divisible by tp={tp}"
+                )
+            if cfg.moe and cfg.n_experts % tp:
+                raise NotImplementedError(
+                    f"n_experts={cfg.n_experts} not divisible by tp={tp} "
+                    "(expert-parallel MoE owns E/tp experts per device)"
+                )
+        if dp > 1:
+            if paged:
+                raise NotImplementedError(
+                    "paged pools cannot shard rows over data: per-shard pool "
+                    "scatters would diverge the replicated pool copies; "
+                    "paged sharded decode is tensor-parallel only"
+                )
+            if batch is not None and batch % dp:
+                raise NotImplementedError(
+                    f"decode batch {batch} not divisible by data-parallel "
+                    f"degree {dp}"
+                )
+
+    def _tp_check_once(self, tp: int, *, dp: int, paged: bool, batch=None):
+        """``tp_check``, run once for each shape a sharded step is called
+        at: the checks walk every layer, and a step is host-bound."""
+        key = (tp, dp, paged, batch)
+        if key not in self._tp_passed:
+            self.tp_check(tp, dp=dp, paged=paged, batch=batch)
+            self._tp_passed.add(key)
+
+    def _tp_cfg(self, m: int):
+        """The config of one rank's heads: ``n_heads/m`` on ``n_kv_heads/m``
+        with ``head_dim`` pinned (``hd`` would re-derive it from the sliced
+        heads), so each kv head keeps its group of query heads."""
+        if m not in self._tp_cfgs:
+            c = self.cfg
+            self._tp_cfgs[m] = c.replace(n_heads=c.n_heads // m, n_kv_heads=c.n_kv_heads // m,
+                                         head_dim=c.hd)
+        return self._tp_cfgs[m]
+
+    def _tp_model(self, m: int) -> "LM":
+        """An LM of one rank's heads (``_tp_cfg``): its cache schemas are
+        the rank's cache shard."""
+        if m not in self._tp_models:
+            self._tp_models[m] = LM(self._tp_cfg(m), prefill_attn=self.prefill_attn,
+                                    ssd_impl=self.ssd_impl)
+        return self._tp_models[m]
+
+    def tp_param_specs(self, *, moe_ep: bool = False) -> dict:
+        """For each param leaf, the axis it splits over the model group (a
+        negative index), or None where it is whole on every rank: wq/wk/wv
+        and their biases and w_gate/w_up column-sliced (contiguous head and
+        hidden blocks), wo/w_down column-sliced on their OUTPUT dim, and
+        with ``moe_ep`` the experts' w_gate/w_up/w_down split on the expert
+        axis. Ramp heads, the final head, embeddings, the router, shared
+        experts and every norm stay whole, so exit masks are computed alike
+        on every rank."""
+        specs = tree_map(lambda _: None, self.schema())
+
+        def fix_slot(slot: SlotSpec, sp):
+            if slot.mixer == "attn":
+                for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
+                    if k in sp["mixer"]:
+                        sp["mixer"][k] = -1
+            if slot.ffn == "dense":
+                for k in ("w_gate", "w_up", "w_down"):
+                    sp["ffn"][k] = -1
+            elif slot.ffn == "moe" and moe_ep:
+                for k in ("w_gate", "w_up", "w_down"):
+                    sp["ffn"][k] = -3
+
+        plan = self.plan
+        for part, slots in (("prefix", plan.prefix), ("blocks", plan.period),
+                            ("suffix", plan.suffix)):
+            for i, slot in enumerate(slots):
+                fix_slot(slot, specs[part][i])
+        return specs
+
+    def tp_shard_params(self, params, rank: int, m: int, *, moe_ep: bool = False) -> dict:
+        """Rank ``rank``'s shard of a whole param tree (views: no copy)."""
+        return _map2(lambda x, ax: x if ax is None else
+                     x.narrow(ax, rank * (x.shape[ax] // m), x.shape[ax] // m),
+                     params, self.tp_param_specs(moe_ep=moe_ep))
+
+    def init_sharded(self, seed: int, rank: int, m: int, device="cuda", *,
+                     moe_ep: bool = False) -> dict:
+        """Rank ``rank``'s shard of ``init(seed)`` without the whole tree:
+        leaf by leaf from one generator in ``init``'s order, each split leaf
+        drawn as the whole leaf is drawn and only the rank's part kept
+        (``ParamInfo.initialize``), so the result equals
+        ``tp_shard_params(init(seed), rank, m)``."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return _map2(lambda info, ax: info.initialize(
+            gen, device, None if ax is None else (ax, rank, m)),
+            self.schema(), self.tp_param_specs(moe_ep=moe_ep))
+
+    @staticmethod
+    def tp_cache_specs(cache, *, data_shard: bool = False):
+        """For each cache leaf, the axes it splits: every leaf the TP path
+        takes is an attention k/v (contiguous ``(L?, B, S, KH, hd)`` or paged
+        ``(L?, P, bs, KH, hd)``) with the kv-head axis at ``ndim-2``, split
+        over the model group, so a rank holds ``1/tp`` of the KV bytes; with
+        ``data_shard`` (contiguous only) the batch axis ``ndim-4`` splits
+        over the data group too."""
+        return tree_map(lambda x: (x.dim() - 2,) + ((x.dim() - 4,) if data_shard else ()),
+                        cache)
+
+    def tp_shard_cache(self, cache, rank: int, m: int, *, data_rank: int = 0,
+                       dp: int = 1):
+        """The shard of a whole cache that rank (``data_rank``, ``rank``)
+        holds (``tp_cache_specs``): its kv-head block, and with ``dp > 1``
+        its rows (copies)."""
+        def leaf(x, axes):
+            for ax, i, n in zip(axes, (rank, data_rank), (m, dp)):
+                x = x.narrow(ax, i * (x.shape[ax] // n), x.shape[ax] // n)
+            return x.contiguous()
+
+        return _map2(leaf, cache, self.tp_cache_specs(cache, data_shard=dp > 1))
+
+    def _rank_rows(self, B: int, mesh):
+        """The rows of a B-row batch this rank decodes: all of them, or its
+        data shard's."""
+        n = B // mesh.dp
+        return slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
+
+    def prefill_sharded(self, params, tokens, *, mesh, cache_len=None, active_sites=None,
+                        moe_impl="dense"):
+        """``prefill`` on the rank's shard of params (``tp_shard_params`` or
+        ``init_sharded``): attention on the rank's heads (kernel #4 at the
+        per-rank head count with ``prefill_attn='kernel'``), the combines
+        as in ``decode_sharded``. Returns (the rank's cache shard, outs
+        alike on every rank). Rows do not shard: a data rank takes its rows
+        of the cache (``tp_shard_cache``)."""
+        self._tp_check_once(mesh.tp, dp=1, paged=False)
+        return self.prefill(params, tokens, cache_len=cache_len, active_sites=active_sites,
+                            tp=mesh.tp_ctx, moe_impl=moe_impl)
+
+    def decode_sharded(self, params, cache, tokens, pos, *, mesh, active_sites=None,
+                       moe_impl="dense", block_tables=None, exit_thresholds=None):
+        """One decode step of this rank (the reference's ``decode_sharded``,
+        one ``shard_map`` body a rank): tensor-parallel attention and MLP on
+        the rank's shard of params (``tp_param_specs``) with its shard of
+        the cache (the contiguous rows or the paged pool, split by kv head:
+        ``tp_shard_cache``). ``tokens``, ``pos`` and ``block_tables`` are
+        the whole batch's, alike on every rank; with ``mesh.dp > 1``
+        (contiguous rows only) the rank decodes its data shard's rows and
+        the records are gathered over the data group. The ramp heads, the
+        final head and the exit decision run on whole params, so every rank
+        returns the same records and exit masks never leave the device.
+        ``moe_impl='ep'`` runs MoE slots expert-parallel (params from
+        ``moe_ep=True``). Returns (the rank's cache shard, outs)."""
+        B = tokens.shape[0]
+        self._tp_check_once(mesh.tp, dp=mesh.dp, paged=block_tables is not None, batch=B)
+        rows = self._rank_rows(B, mesh)
+        cache, outs = self.decode(params, cache, tokens[rows], pos.reshape(-1)[rows],
+                                  active_sites=active_sites, exit_thresholds=exit_thresholds,
+                                  block_tables=block_tables, tp=mesh.tp_ctx,
+                                  moe_impl=moe_impl)
+        if mesh.dp > 1:
+            from repro_torch.distributed import all_gather_tiled
+
+            g = mesh.groups["data"]
+            outs = {part: {k: all_gather_tiled(v, g, v.dim() - 1) for k, v in st.items()}
+                    for part, st in outs.items()}
+        return cache, outs
+
+    def decode_sharded_multi(self, params, cache, tokens, pos, n_steps: int, *, mesh,
+                             n_max: int, active_sites=None, thresholds=None, row_valid=None,
+                             moe_impl="dense", block_tables=None):
+        """``decode_multi`` on this rank's shard (the reference's
+        ``decode_sharded_multi``): the whole window runs in the rank, the
+        exit masks on whole ramp heads alike on every rank, so the one host
+        read per window stays at its end. With ``mesh.dp > 1`` the
+        all-exited test sums over the data group each step and the records
+        are gathered over it. Returns (the rank's cache shard, (rl, rm, fl,
+        ex, n_done)) as ``decode_multi``."""
+        B = tokens.shape[0]
+        self._tp_check_once(mesh.tp, dp=mesh.dp, paged=block_tables is not None, batch=B)
+        rows = self._rank_rows(B, mesh)
+        if row_valid is None:
+            row_valid = torch.ones(B, dtype=torch.bool, device=tokens.device)
+        cache, (rl, rm, fl, ex, nd) = self.decode_multi(
+            params, cache, tokens[rows], pos.reshape(-1)[rows], n_steps, n_max=n_max,
+            active_sites=active_sites, thresholds=thresholds, row_valid=row_valid[rows],
+            block_tables=block_tables, tp=mesh.tp_ctx, moe_impl=moe_impl)
+        if mesh.dp > 1:
+            from repro_torch.distributed import all_gather_tiled
+
+            g = mesh.groups["data"]
+            rl, rm, fl, ex = (all_gather_tiled(t, g, t.dim() - 1) for t in (rl, rm, fl, ex))
+        return cache, (rl, rm, fl, ex, nd)
 
     # -- head statistics ------------------------------------------------------
 
@@ -824,6 +1133,16 @@ class LM(MultiStepDecodeMixin):
                 per.append(stats_of(hs[kk], self.ramp_head(params, i), thr))
             outs["ramps"] = {key: torch.stack([p[key] for p in per]) for key in per[0]}
         return outs
+
+
+def _map2(fn, a, b):
+    """``fn(x, y)`` over the leaves of two trees of one structure, in
+    ``tree_map``'s order (sorted dict keys)."""
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], b[k]) for k in sorted(a)}
+    if isinstance(a, (list, tuple)):
+        return [_map2(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
 
 
 def _cache_len(cache) -> Optional[int]:

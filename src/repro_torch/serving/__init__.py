@@ -46,6 +46,7 @@ from repro_torch.serving.runner import (
     DecodeRunner,
     LMTokenRunner,
     LoopDecodeRunner,
+    ShardedDecodeRunner,
     PoolExhausted,
     SyntheticDecodeRunner,
     SyntheticRunner,
@@ -89,6 +90,7 @@ __all__ = [
     "DecodeRunner",
     "LMTokenRunner",
     "LoopDecodeRunner",
+    "ShardedDecodeRunner",
     "PoolExhausted",
     "SyntheticDecodeRunner",
     "SyntheticRunner",

@@ -6,7 +6,8 @@ classification runners (``ClassifierRunner`` for ResNet and BERT,
 ``LMTokenRunner`` for next-token serving, and the model-free
 ``SyntheticRunner``, a verbatim copy) and the generative ``DecodeRunner``,
 over a contiguous slot cache or a paged block pool with prefix sharing,
-copy-on-write, swap preemption and chunked prefill; the per-slot
+copy-on-write, swap preemption and chunked prefill, and its
+tensor-parallel ``ShardedDecodeRunner`` on one rank of a mesh; the per-slot
 ``LoopDecodeRunner`` it replaces, and the model-free
 ``SyntheticDecodeRunner``, a verbatim copy.
 Only ~KB record arrays (top-1 label, max-prob per ramp, the final label)
@@ -1132,6 +1133,10 @@ class DecodeRunner:
                 raise KeyError(f"slot {s} is mid-prefill (resume its chunks first)")
         return slots
 
+    def _bucket_rows(self, B: int) -> int:
+        """The padded batch of ``B`` stepped rows: the next power of two."""
+        return _bucket(B)
+
     def _batch_rows(self, slots: List[int]) -> Tuple[np.ndarray, int]:
         """Stepped slots, then FREE rows (their state is garbage a future
         start() overwrites wholesale), then duplicates of stepped slots
@@ -1139,7 +1144,7 @@ class DecodeRunner:
         values) up to the bucket. NEVER a live-but-unstepped row. Returns
         the rows and the number of FREE rows."""
         B = len(slots)
-        bucket = min(_bucket(B), self._rows)
+        bucket = min(self._bucket_rows(B), self._rows)
         free = [r for r in range(self._rows) if r not in self._live][: bucket - B]
         dup = [slots[i % B] for i in range(bucket - B - len(free))]
         return np.asarray(slots + free + dup, np.int64), len(free)
@@ -1299,6 +1304,138 @@ class DecodeRunner:
             self._free_slot_blocks(slot)
         self._live.discard(slot)
         self._pf_progress.pop(slot, None)
+
+
+class _ShardedModel:
+    """The model as ``ShardedDecodeRunner``'s inherited host logic calls it,
+    on one rank of a ``(data, model)`` mesh, with the rank's shard of the
+    params: cache schemas are the rank's shard (``n_kv_heads / tp`` heads
+    a leaf); ``prefill``, ``decode`` and ``decode_multi`` are
+    ``prefill_sharded``, ``decode_sharded`` and ``decode_sharded_multi``.
+    With ``dp > 1`` the runner hands ``decode`` every stepped row: the rank
+    decodes its data shard's rows and gathers the others' back, so the
+    slot cache stays whole over ``data``. Everything else is the model's."""
+
+    def __init__(self, model, mesh):
+        self._model, self.mesh = model, mesh
+        self._local = model._tp_model(mesh.tp)
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def cache_schema(self, B, S):
+        return self._local.cache_schema(B, S)
+
+    def init_cache(self, B, S, device="cuda"):
+        return self._local.init_cache(B, S, device=device)
+
+    def paged_cache_schema(self, n_blocks, block_size):
+        return self._local.paged_cache_schema(n_blocks, block_size)
+
+    def init_paged_cache(self, n_blocks, block_size, device="cuda"):
+        return self._local.init_paged_cache(n_blocks, block_size, device=device)
+
+    def prefill(self, params, tokens, *, with_cache=True, **kw):
+        assert with_cache  # the runner's prefills always fill its cache
+        return self._model.prefill_sharded(params, tokens, mesh=self.mesh, **kw)
+
+    def _rows(self, cache):
+        """This data rank's rows of a contiguous cache (its batch axis is
+        ``ndim - 4`` on every leaf the TP path takes)."""
+        d, dp = self.mesh.data_rank, self.mesh.dp
+        return tree_map(lambda x: x.narrow(x.dim() - 4, d * (x.shape[x.dim() - 4] // dp),
+                                           x.shape[x.dim() - 4] // dp), cache)
+
+    def _gathered(self, cache):
+        from repro_torch.distributed import all_gather_tiled
+
+        g = self.mesh.groups["data"]
+        return tree_map(lambda x: all_gather_tiled(x, g, x.dim() - 4), cache)
+
+    def decode(self, params, cache, tokens, pos, **kw):
+        if self.mesh.dp == 1:
+            return self._model.decode_sharded(params, cache, tokens, pos, mesh=self.mesh, **kw)
+        sub, outs = self._model.decode_sharded(params, self._rows(cache), tokens, pos,
+                                               mesh=self.mesh, **kw)
+        return self._gathered(sub), outs
+
+    def decode_multi(self, params, cache, tokens, pos, n_steps, **kw):
+        if self.mesh.dp == 1:
+            return self._model.decode_sharded_multi(params, cache, tokens, pos, n_steps,
+                                                    mesh=self.mesh, **kw)
+        sub, recs = self._model.decode_sharded_multi(params, self._rows(cache), tokens, pos,
+                                                     n_steps, mesh=self.mesh, **kw)
+        return self._gathered(sub), recs
+
+
+class ShardedDecodeRunner(DecodeRunner):
+    """``DecodeRunner`` on one rank of a ``(data, model)`` mesh
+    (``launch.mesh.make_serving_mesh``; the reference's
+    ``ShardedDecodeRunner``): every decode step and window runs
+    ``decode_sharded`` / ``decode_sharded_multi``: attention heads and FFN
+    hidden units split over ``model`` (a MoE slot keeps the dense dispatch
+    on whole experts, as the reference's runner asks for), the KV cache
+    (contiguous rows or the paged pool) split by kv head, so a rank holds
+    ``1/tp`` of its bytes.
+
+    Every piece of host logic is INHERITED unchanged: the one global
+    ``BlockAllocator`` (page ids are global; only page bytes split), block
+    tables, prefix sharing, CoW, swap, claim order, bucket padding, the
+    window pre-claim and unwind. Each rank of the mesh runs this same
+    runner under the same engine and controller on the same records (the
+    ramp and final heads run on whole params, alike on every rank), so
+    their allocator states and tokens stay equal; only rank 0 needs to
+    report. ``params`` is the rank's shard (``LM.init_sharded``, or
+    ``tp_shard_params`` of a whole tree), so no rank holds the whole
+    model: the prefill runs tensor-parallel on it (``prefill_sharded``)
+    and fills the rank's kv-head block of the cache, and decode runs on it.
+    A whole tree is refused.
+
+    ``dp > 1`` (contiguous rows only: a data-split paged pool would diverge
+    the pool's copies) also splits decode rows over ``data``; the bucket
+    floor rises to ``dp`` so every bucket divides the data axis.
+
+    ``tp_check`` runs at construction. Under gloo every collective stages
+    through host memory, so a window cannot be captured: ``graphs=True``
+    raises and windows run eager; under NCCL the runner captures as
+    ``DecodeRunner`` does."""
+
+    def __init__(self, model, params, prompts, *, mesh, graphs: Optional[bool] = None, **kw):
+        paged = str(model.cfg.decode_attn).startswith("paged")
+        # fail at construction, not at the first step: the support matrix
+        # carries the same why-note for the rejected cell
+        model.tp_check(mesh.tp, dp=mesh.dp, paged=paged)
+        if mesh.backend == "gloo":
+            if graphs:
+                raise ValueError(
+                    "graphs=True with backend 'gloo': gloo collectives stage through host "
+                    "memory, so a window cannot be captured as a CUDA graph; run eager "
+                    "windows (graphs=False) or one card a rank under 'nccl'")
+            graphs = False
+        want = model.tp_shard_params(model.abstract(), mesh.model_rank, mesh.tp)
+        if [t.shape for t in tree_leaves(params)] != [t.shape for t in tree_leaves(want)]:
+            raise ValueError("ShardedDecodeRunner takes the rank's shard of the params "
+                             "(LM.init_sharded or tp_shard_params), not the whole tree")
+        self.mesh, self.tp, self.dp = mesh, mesh.tp, mesh.dp
+        super().__init__(_ShardedModel(model, mesh), params, prompts, graphs=graphs, **kw)
+
+    def _bucket_rows(self, B: int) -> int:
+        return max(_bucket(B), self.dp)
+
+    def _ensure_rows(self, n: int) -> None:
+        # a data-split step needs >= dp rows
+        super()._ensure_rows(max(n, self.dp))
+
+    def kv_stats(self) -> dict:
+        """``DecodeRunner.kv_stats`` of the whole cache (``cache_bytes``: the
+        ranks' kv-head shards together, as the reference counts its global
+        arrays), with ``tp``, ``dp`` and ``per_device_cache_bytes``, the
+        bytes this rank holds."""
+        out = super().kv_stats()
+        mine = float(self.cache_bytes())
+        out.update(cache_bytes=mine * self.tp, tp=self.tp, dp=self.dp,
+                   per_device_cache_bytes=mine)
+        return out
 
 
 class LoopDecodeRunner:

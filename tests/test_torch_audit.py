@@ -36,14 +36,9 @@ REFERENCE = json.loads((ROOT / "support_matrix.json").read_text())
 PORT = json.loads((ROOT / "src" / "repro_torch" / "analysis" / "support_matrix.json").read_text())
 
 # the cells where the port's matrix differs from the reference's, and why:
-# (a) tensor-parallel decode is not ported (ROADMAP Queue 1 item 5), so every
-#     cell the reference supports is not-ported; (b) the enc-dec decoder's
-#     decode_kernel is a deliberate difference (ROADMAP Queue 3 item 1);
-#     (c) none further
+# the enc-dec decoder's decode_kernel is a deliberate difference (ROADMAP
+# Queue 3 item 1); none further (decode_sharded is decided at full width)
 EXPECTED_DIFFERENCES = {
-    **{(c, "decode_sharded"): ("supported", "not-ported")
-       for c, cells in REFERENCE["configs"].items()
-       if cells["decode_sharded"]["status"] == "supported"},
     ("seamless-m4t-large-v2", "decode_kernel"): ("rejected", "supported"),
 }
 
@@ -92,7 +87,7 @@ def test_snapshot_diff_and_markdown():
     cells = {n: {p: AB.Cell(n, p, c["status"], c.get("detail", "")) for p, c in v.items()}
              for n, v in PORT["configs"].items()}
     md = AB.render_markdown(cells)
-    assert "| qwen2-1.5b | ✓ | ✓ | ✓ | ✓ | ✓ | ✓ | ✓ | ✓ | · |" in md
+    assert "| qwen2-1.5b | ✓ | ✓ | ✓ | ✓ | ✓ | ✓ | ✓ | ✓ | ✓ |" in md
     assert "Shape errors" not in md
 
 

@@ -12,7 +12,11 @@ both layouts), the
 runner's CUDA-graph sync windows against its eager ones, the
 classifier runners (ResNet, BERT) against their CPU forward, and training:
 a ramps_only step on the card against the CPU, the kernel dispatchers'
-refusal under autograd, a bf16 checkpoint round trip. Every test is
+refusal under autograd, a bf16 checkpoint round trip; and multi-rank
+decode: two gloo ranks sharing the card run one tensor-parallel step
+through #1, #5 and #2/#3 at a rank's head count against the single rank,
+``graphs=True`` refused under gloo, NCCL refused for two ranks on one
+card. Every test is
 marked `gpu` and skips without a card; the file imports no jax, so it runs
 on a machine that has only PyTorch:
 
@@ -1443,3 +1447,40 @@ def test_meta_contracts_reject_what_the_wrappers_reject(gen):
         on_card = _refusal(card_fn, *args, **kw)
         assert on_card is not None, card_fn.__name__
         assert _refusal(meta_fn, *metas, **kw) == on_card
+
+
+def test_tp_decode_two_gloo_ranks_share_one_card(built):
+    """Two gloo ranks as processes on cuda:0 (the collectives stage through
+    host memory): one decode_sharded step of tiny qwen2 at tp 2 on rows
+    (#1 on 2 heads on 1) and on the pool (#5), the ramp heads on #2/#3,
+    against the single-rank step: labels and exit masks equal, maxprob
+    within 1e-4 (f32), records alike on both ranks; graphs=True refused."""
+    import torch_dist_ranks as R  # repro: allow[tier1-deps] — the rank bodies beside this file (torch + the port)
+
+    from repro_torch.launch.mesh import spawn  # repro: allow[tier1-deps] — the port under test
+
+    res = spawn(R.job_card_tp, 2, "gloo", device="cuda")
+    for r in res:
+        assert r["graphs_refused"]
+        for name, kernel in (("rows", "decode_attention"), ("pages", "paged_decode_attention")):
+            got, want = r[name]["sharded"], r[name]["single"]
+            for part in ("final", "ramps"):
+                for k in ("label", "exit"):
+                    if k in want[part]:
+                        np.testing.assert_array_equal(got[part][k], want[part][k])
+                np.testing.assert_allclose(got[part]["maxprob"], want[part]["maxprob"],
+                                           rtol=1e-4, atol=1e-6)
+                np.testing.assert_array_equal(got[part]["label"],
+                                              res[0][name]["sharded"][part]["label"])
+            launches = r[name]["launches"]
+            assert launches[kernel] == 3  # one a layer
+            assert launches["ramp_head_stats"] == 1 and launches["ramp_head_exit"] == 2
+
+
+def test_nccl_refuses_two_ranks_on_one_card(built):
+    from repro_torch.launch.mesh import spawn  # repro: allow[tier1-deps] — the port under test
+
+    import torch_dist_ranks as R  # repro: allow[tier1-deps] — the rank bodies beside this file (torch + the port)
+
+    with pytest.raises(ValueError, match="NCCL refuses two ranks on one device"):
+        spawn(R.job_raise, torch.cuda.device_count() + 1, "nccl", device="cuda")
