@@ -50,16 +50,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
   5. full-width DeepSeek-V2-Lite (MLA + MoE, absorbed MLA) with seeded
      random weights, once qwen2-1.5b's are freed: the ramp-head kernels at
      its d 2048 and V 102400; 5a. prefill + 8 decode steps on the paged
-     pool with the kernels off and on; 5b. contiguous rows vs the paged pool
-     on one schedule (the paged MLA kernel in all 27 layers of every decode
-     step), the paged run on the contiguous run's MoE routing, then both
+     pool with the kernels off and on; 5b-5d on its first 13 of 27 layers
+     (``SERVE_DEPTH``): 5b. contiguous rows vs the paged pool on one
+     schedule (the paged MLA kernel in every layer of every decode step),
+     the paged run on the contiguous run's MoE routing, then both
      layouts' aten ops a window counted (eager) and their times taken
      without hooks; 5c. swap preemption on a pool that runs dry; 5d. as 4e;
   6. full-width Mamba2-2.7B with seeded random weights, once DeepSeek's are
      freed: the ramp-head kernels at its d 2560 and V 51200, one layer's
      plain recurrent state update timed; 6a. prefill (the SSD kernel) + 8
-     decode steps with the kernels off and on; 6b.
-     contiguous state rows vs state pages on one schedule; 6c. swap of state
+     decode steps with the kernels off and on; 6b-6d on its first 13 of 64
+     layers: 6b. contiguous state rows vs state pages on one schedule; 6c. swap of state
      pages on a pool that runs dry; 6d. as 4e.
   7. the paper's classifiers, once Mamba2-2.7B's weights are freed, with
      seeded random weights: 7a. ResNet-50 at 224 px in f32 (TF32 off): the
@@ -105,9 +106,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the dense dispatch and with only the experts its routing touched;
      10b. a prefill through sdpa vs the flash kernel, then 8 decode steps
      with the kernels off vs on (MoE routing replayed), one eager step
-     profiled; 10c. 8 requests on contiguous rows and on the pool (its run
-     on the contiguous run's routing), then prefix sharing, copy-on-write
-     and swap on a 24-block pool; 10d. as 4e.
+     profiled; 10c-10d on its first 13 layers: 10c. 8 requests on
+     contiguous rows and on the pool (its run on the contiguous run's
+     routing), then prefix sharing, copy-on-write and swap on a 24-block
+     pool; 10d. as 4e.
   11. full-width Llama-3.2-Vision-90B at one period's depth (5 layers, the
      last with a gated cross-attention over 1600 image tokens; d 8192, 64
      heads on 8 of 128; 21.56 GB), its cross gate set to 1.0: 11a. #1/#5
@@ -156,8 +158,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
      2 stages: thresholds off against the greedy loop, 0.9999 at the
      boundary ramp (rows exit, the later stage works less); 14f. one NCCL
      rank runs 14a's step through decode_sharded at tp 1, bit for bit with
-     decode. Times are labelled as 2 ranks sharing one card: no
+     decode, then ShardedDecodeRunner at tp 1 under NCCL with window graphs
+     on: its eager, captured and replayed windows bit for bit with an eager
+     runner's. Times are labelled as 2 ranks sharing one card: no
      tensor-parallel speed-up.
+  15. multi-rank training on one card, once phase 14 is done: Qwen3-MoE-
+     30B-A3B at full width cut to 2 of 48 layers (one ramp site), bf16, a
+     global batch of 8 x 128 TokenPipeline tokens with -1 labels planted
+     unevenly. The single rank's runs first, in this process (its weights
+     freed before any rank starts), then gloo ranks on cuda:0: 15a. (data
+     2, model 2), 4 ranks: ``LM.loss(mesh=)`` and its backward at capacity
+     16 (nothing drops) against the single rank's loss, grad norm and the
+     gradients of the router, layer 0's experts, wq and the ramp head;
+     replicated gradients bit for bit across each model group; again at the
+     config's capacity 1.25 (the share of assignments dropped); 15b. the
+     int8 error-feedback all-reduce of 15a's router and attention gradients
+     over the data group against the plain sum (relative error, bytes sent;
+     two calls with feedback closer than without); 15c. (data 1, model 2):
+     three AdamW steps of ``make_train_step(mesh=)``, clipping active,
+     against the single rank's; 15d. 15c's step-2 state, saved from both
+     ranks in the reference's format, restored whole onto one rank (its
+     step 3 against 15c's) and as rank 1 of (data 1, model 4) (a quarter of
+     each expert leaf read); 15e. ``pipeline_apply`` of qwen2-1.5b's 28
+     blocks over 2 stages, 4 microbatches of 2 x 128, against the single
+     rank's forward. Times and bytes are labelled as ranks sharing one
+     card. The loss reaches no kernel.
 Every serving phase serves its sync windows as CUDA graph replays (the
 runner's default on a card; a key's first window runs eager, its second
 is captured), except runs that carry Python hooks, which run eager
@@ -192,6 +217,11 @@ PEAK_F32 = 67e12  # f32 FLOP/s outside the tensor cores, H100 SXM
 CONFIG = "qwen2-1.5b"
 DS_CONFIG = "deepseek-v2-lite-16b"
 MB_CONFIG = "mamba2-2.7b"
+# DeepSeek-V2-Lite, Mamba2-2.7B and Qwen3-MoE serve (5b-5d, 6b-6d, 10c-10d)
+# on their first 13 layers at full width (12 ramp sites, 4 of them active in
+# the window graphs), so the script ends near half its time limit; 5a, 6a
+# and 10a-10b run the whole model
+SERVE_DEPTH = 13
 SEED = 0
 
 
@@ -1601,6 +1631,26 @@ def serve_swap(params, cfg, serve, phase, seed, decode_kernel, prefill_kernel, k
           f"{json.dumps(launches)}", flush=True)
 
 
+def _cut_depth(params, cfg, serve):
+    """The first ``SERVE_DEPTH`` layers of a whole model: its config, views
+    of its params (each layer-stacked leaf's first layers, the first ramp
+    sites' heads) and ``serve`` at that depth."""
+    import functools
+
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import _map2
+
+    def first(x, want):
+        y = x[:want.shape[0]]
+        if y.shape != want.shape:
+            fail(f"a leaf of {tuple(x.shape)} does not cut to {tuple(want.shape)}")
+        return y
+
+    cut = cfg.replace(n_layers=SERVE_DEPTH)
+    part = _map2(first, params, build_model(cut).abstract())
+    return part, cut, functools.partial(serve, n_layers=SERVE_DEPTH)
+
+
 def deepseek_phases(gen, serve):
     """Phases 5a-5d on full-width DeepSeek-V2-Lite with seeded random
     weights. Returns (phase 5b's paged serving run's launches, the
@@ -1624,7 +1674,8 @@ def deepseek_phases(gen, serve):
                   cfg.replace(decode_attn="paged-kernel", pallas_head="kernel"), gen,
                   paged_bs=16)
     # 5b: contiguous rows (absorbed plain math, no attention kernel) vs the
-    # pool (the paged MLA kernel in every layer)
+    # pool (the paged MLA kernel in every layer), at SERVE_DEPTH
+    params, cfg, serve = _cut_depth(params, cfg, serve)
     _, launches = serve_paged_vs_contiguous(params, cfg, serve, "5b", None,
                                          "paged_mla_decode_attention", None)
     serve_swap(params, cfg, serve, "5c", SEED + 5, "paged_mla_decode_attention", None)
@@ -1688,7 +1739,9 @@ def mamba_phases(gen, serve):
                   cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
                   off_kw={"ssd_impl": "ref"}, on_kw={"ssd_impl": "kernel"},
                   prefill_kernel="ssd_chunked")
-    # 6b: contiguous state rows vs state pages (no decode attention kernel)
+    # 6b: contiguous state rows vs state pages (no decode attention kernel),
+    # at SERVE_DEPTH
+    params, cfg, serve = _cut_depth(params, cfg, serve)
     _, launches = serve_paged_vs_contiguous(params, cfg, serve, "6b", None, None,
                                             "ssd_chunked")
     serve_swap(params, cfg, serve, "6c", SEED + 6, None, "ssd_chunked")
@@ -2811,9 +2864,10 @@ def qwen3_phases(gen, serve):
     153600, each against its plain version; the step's byte floor, dense
     and routed. 10b: a prefill of 8 x 128 through sdpa vs the flash kernel,
     then 8 decode steps with the kernels off vs on on the off path's
-    routing, one eager step profiled. 10c: 8 requests (prompt 120, 38
-    tokens) on contiguous rows, then on the pool on the contiguous run's
-    routing; prefix sharing, copy-on-write and swap on a 24-block pool.
+    routing, one eager step profiled. 10c-10d on the first 13 layers
+    (``SERVE_DEPTH``). 10c: 8 requests (prompt 120, 38 tokens) on
+    contiguous rows, then on the pool on the contiguous run's routing;
+    prefix sharing, copy-on-write and swap on a 24-block pool.
     10d: window graphs on both layouts. Returns (its rows, 10c's contiguous
     and paged launches)."""
     from repro_torch.configs import get_config
@@ -2846,7 +2900,9 @@ def qwen3_phases(gen, serve):
           f"{floor['touched_ms']:.3f} ms with the {floor['touched_experts']} of "
           f"{floor['expert_slots']} experts its routing touched", flush=True)
     t = _lap("10b", t)
-    # -- 10c: serving on both layouts, then prefix sharing and swap
+    # -- 10c: serving on both layouts, then prefix sharing and swap, at
+    # SERVE_DEPTH
+    params, cfg, serve = _cut_depth(params, cfg, serve)
     cont, paged = serve_paged_vs_contiguous(params, cfg, serve, "10c", "decode_attention",
                                             "paged_decode_attention", "flash_attention",
                                             quick=True)
@@ -4069,7 +4125,8 @@ def nccl_phase(card):
     """14f: one NCCL rank (world size 1) runs 14a's step through
     ``decode_sharded`` at tp 1: the TP branch with its all-gathers through
     NCCL, which at tp 1 concatenate one slice, so the step equals
-    ``decode``'s bit for bit. Returns the all-gathers launched a step."""
+    ``decode``'s bit for bit. Then ``ShardedDecodeRunner`` at tp 1 with
+    window graphs on (``nccl_graphs``)."""
     import tempfile
 
     import torch.distributed as dist
@@ -4130,11 +4187,54 @@ def nccl_phase(card):
             print(f"14f (one NCCL rank, world size 1) on {card}: decode_sharded at tp 1 equals "
                   f"decode bit for bit (records and cache), {len(gathers)} NCCL all-gathers; "
                   f"first step {ms2:.3f} ms vs decode {ms1:.3f} ms (host, synced)", flush=True)
+            del c1, c2, o1, o2, runs
+            nccl_graphs(model, shard, mesh, cfg, card)
         finally:
             dist.destroy_process_group()
     del params, cache, model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def nccl_graphs(model, shard, mesh, cfg, card):
+    """14f's second part: ``ShardedDecodeRunner`` at tp 1 under NCCL with
+    window graphs on, against one with them off, on the same 8 prompts:
+    the graphed runner's first window runs eager, its second is captured,
+    its third replays; each must give records and cache leaves equal bit
+    for bit with the eager runner's same window."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import ShardedDecodeRunner
+
+    prompts = np.random.default_rng(SEED + 141).integers(1, cfg.vocab_size, (8, PAGED_PROMPT))
+    kw = dict(max_new_tokens=PAGED_TOKENS + 2, max_slots=4, n_slots=8)
+    act, slots = [0, 1], list(range(8))
+    thr = np.full(len(act), MR_THR, np.float32)
+    e = ShardedDecodeRunner(model, shard, prompts, mesh=mesh, graphs=False, **kw)
+    g = ShardedDecodeRunner(model, shard, prompts, mesh=mesh, graphs=True, **kw)
+    if g.graphs is None:
+        fail("14f: ShardedDecodeRunner under NCCL built no window graphs")
+    for r in (e, g):
+        for sl in slots:
+            r.start(sl, sl)
+    ms = {}
+    for what in ("eager", "capture", "replay"):
+        ge, t = _sync_ms(lambda: g.step_multi(slots, act, 4, thr))
+        ms[what] = t
+        if _window_kind(g) != what:
+            fail(f"14f: the graphed runner's {what} window was a {_window_kind(g)}")
+        ee, ms[what + " (eager runner)"] = _sync_ms(lambda: e.step_multi(slots, act, 4, thr))
+        for name, a, b in zip(("labels", "unc", "finals", "exits"), ge, ee):
+            if not np.array_equal(a, b):
+                fail(f"14f: the {what} window's {name} differ from the eager runner's")
+        for j, (a, b) in enumerate(zip(tree_leaves(g._cache), tree_leaves(e._cache))):
+            if not torch.equal(a, b):
+                fail(f"14f: cache leaf {j} differs after the {what} window")
+    print(f"14f ShardedDecodeRunner at tp 1 under NCCL, window graphs on ({card}): its eager, "
+          f"captured and replayed windows (4 steps, 8 rows, 2 ramps) equal an eager runner's "
+          f"bit for bit (records and cache); host ms a window "
+          f"{json.dumps({k: round(v, 2) for k, v in ms.items()})}", flush=True)
+    del e, g
+    gc.collect()
 
 
 def multirank_phases(gen):
@@ -4268,6 +4368,619 @@ def _mr_report(res, card, spawn_s):
             "14a prefill": a["prefill_launches"], "14b rows": r0["14b"]["rows"]["launches"],
             "14b pages": r0["14b"]["pages"]["launches"], "14c": r0["14c"]["launches"],
             "14d": r0["14d"]["launches"], "14e": r0["14e"]["off"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: multi-rank training, ranks sharing one card over gloo
+
+TR_DEPTH = 2  # of Qwen3-MoE's 48 layers (full width): one ramp site
+TR_B, TR_S = 8, 128  # the global batch: TokenPipeline rows (seed 0)
+TR_CF = 16.0  # the compared runs' capacity factor: C = the chunk, nothing drops
+# phase 15's limits against the single rank, each between its largest sound
+# reading on an H100 and the reading of a fault planted in the same run,
+# which the phase requires to lie beyond it (PERF.md section 6)
+TR_LOSS_TOL = 1e-4  # a loss, relative: sound 1.8e-6, planted 8.3e-4
+TR_NORM_TOL = 7e-4  # a grad norm, relative: sound 1.6e-4, planted 3.0e-3
+# 15a: a gradient leaf's largest difference over its largest magnitude:
+# sound 0.0068, planted 0.42
+TR_GRAD_TOL = 2e-2
+TR_UPD_TOL = 5e-2  # 15c: a leaf's difference over its update's norm: sound 0.0070, planted 0.29
+TR_PIPE_TOL = 1e-3  # 15e: as 15a's leaves, the hidden states: sound 0, planted 1.28
+TR_LR, TR_CLIP = 1e-3, 0.05  # 15c's AdamW; the clipping norm under the grad norm
+TR_LABEL = "ranks sharing one card"
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 2, 4, 2  # 15e: qwen2-1.5b's 28 blocks over 2 stages
+# the leaves whose gradients 15a holds against the single rank (layer 0's
+# experts as the expert block)
+TR_LEAVES = {"router": ("blocks", 0, "ffn", "router"), "w_gate": ("blocks", 0, "ffn", "w_gate"),
+             "wq": ("blocks", 0, "mixer", "wq"), "ramp_head": ("ramps", "head")}
+
+
+def _tr_cfg(cf=TR_CF):
+    from repro_torch.configs import get_config
+
+    return get_config(Q3_CONFIG).replace(n_layers=TR_DEPTH, capacity_factor=cf)
+
+
+def _tr_batch(step):
+    """Step ``step``'s global batch: 8 x 128 TokenPipeline tokens (seed 0)
+    with -1 labels planted unevenly: data rank 0's rows (0-3 under data 2)
+    keep 288 of 512 labels, data rank 1's 448."""
+    from repro_torch.data import TokenPipeline
+
+    b = TokenPipeline(_tr_cfg().vocab_size, TR_S, TR_B, seed=SEED).batch_at(step)
+    lab = b["labels"]
+    lab[0, 10:], lab[2, :100], lab[5, 64:] = -1, -1, -1
+    return b
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b| (f32)."""
+    b = b.float()
+    return float((a.float() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _digest(t, chunk=1 << 25) -> int:
+    """A checksum of ``t``'s bits on its device: the sum, wrapping at 2^64,
+    of each element's bits times an odd weight of its position, so any one
+    element that differs changes it."""
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+    flat = t.detach().contiguous().view(bits).reshape(-1)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for lo in range(0, flat.numel(), chunk):
+        part = flat[lo:lo + chunk].to(torch.int64)
+        w = torch.arange(lo, lo + part.numel(), device=t.device, dtype=torch.int64) * 2 + 1
+        total = total + torch.sum(part * (w * 0x9E3779B1))
+    return int(total)
+
+
+def _upd_rel(got, want, start) -> float:
+    """|got - want| over |want - start| (f32 norms): how far a leaf's update
+    from ``start`` lies from the single rank's."""
+    want = want.float()
+    return float((got.float() - want).norm() / (want - start.float()).norm().clamp(min=1e-30))
+
+
+def _off(got, want, tol) -> bool:
+    """True when ``got`` is beyond ``tol`` of ``want``, relative."""
+    return not abs(got - want) <= tol * abs(want)
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _tr_anchors(tmp):
+    """The single rank's runs, in this process before any rank starts: 15a's
+    loss and gradients on the whole batch, 15c's three AdamW steps, 15e's
+    forward of qwen2-1.5b's 28 blocks on each microbatch (the GEMM shapes of
+    the stages). Written to ``tmp`` for the ranks;
+    every tensor freed before it returns. Returns the summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.optim import AdamWConfig, adamw_init, global_norm
+
+    out = {}
+    cfg = _tr_cfg()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, device="cuda")
+    out["param_bytes"] = _nbytes(params)
+    batch = {k: torch.as_tensor(v, device="cuda").long() for k, v in _tr_batch(0).items()}
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    (loss, met), ms = _sync_ms(lambda: model.loss(params, batch, moe_impl="ep"))
+    grads, bms = _sync_ms(lambda: torch.autograd.grad(loss, leaves))
+    for p in leaves:
+        p.requires_grad_(False)
+    gtree = _tree_like(params, grads)
+    anchor = {k: _get(gtree, path).detach() for k, path in TR_LEAVES.items()}
+    anchor["w_gate"] = anchor["w_gate"][0]  # layer 0's experts
+    anchor.update(loss=float(loss.detach()), grad_norm=float(global_norm(gtree)),
+                  metrics={k: float(v.detach()) for k, v in met.items()})
+    # a planted fault for the loss check: the mean of the two data shards'
+    # own means (rows 0-3 and 4-7), as a mesh loss that reduced nothing gives
+    with torch.no_grad():
+        half = TR_B // 2
+        anchor["planted_loss"] = statistics.mean(float(model.loss(
+            params, {k: v[i:i + half] for k, v in batch.items()}, moe_impl="ep")[0])
+            for i in (0, half))
+    torch.save(anchor, os.path.join(tmp, "anchor_a.pt"))
+    out["a"] = {"loss": anchor["loss"], "grad_norm": anchor["grad_norm"], "fwd_ms": ms,
+                "bwd_ms": bms, "peak": torch.cuda.max_memory_allocated()}
+    del grads, gtree, anchor, loss, met
+    gc.collect()
+
+    # 15c's anchor: three AdamW steps of the whole model on one rank
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = AdamWConfig(lr=TR_LR, clip_norm=TR_CLIP)
+    tcfg = TrainConfig(steps=3, lr=TR_LR, warmup=1, moe_impl="ep")
+    step_fn, _ = make_train_step(model, tcfg, opt_cfg)
+    state = {"params": params, "opt": adamw_init(params, opt_cfg),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    start = {k: _get(params, path).clone() for k, path in TR_LEAVES.items()}
+    start["w_gate"] = start["w_gate"][0]
+    logs, step_ms = [], []
+    for s in range(3):
+        (state, o), ms = _sync_ms(lambda: step_fn(state, _tr_batch(s)))
+        logs.append({k: float(v) for k, v in o.items()})
+        step_ms.append(ms)
+    sample = {k: _get(state["params"], path).clone() for k, path in TR_LEAVES.items()}
+    sample["w_gate"] = sample["w_gate"][0]
+    torch.save({"logs": logs, "sample": sample, "start": start}, os.path.join(tmp, "anchor_c.pt"))
+    out["c"] = {"logs": logs, "ms": step_ms, "peak": torch.cuda.max_memory_allocated()}
+    del state, params, sample, start, step_fn, batch, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15e's anchor: qwen2-1.5b's 28 blocks on one rank, on the microbatches'
+    # embeddings
+    qcfg = get_config(CONFIG)
+    qm = build_model(qcfg)
+    qp = qm.init(SEED, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    toks = torch.randint(1, qcfg.vocab_size, (PIPE_MICRO * PIPE_MB, TR_S), generator=gen,
+                         device="cuda")
+    from repro_torch.models import layers as LY
+
+    pos = torch.arange(TR_S, device="cuda")[None, :]
+    with torch.no_grad():
+        x = LY.embed_apply(qcfg, qp["tok"], toks, pos).reshape(PIPE_MICRO, PIPE_MB, TR_S, -1)
+        # microbatch by microbatch, at the shapes each stage runs
+        h, ms = _sync_ms(lambda: torch.stack([_pipe_stage(qm, qp["blocks"], xm) for xm in x]))
+    torch.save({"x": x, "y": h}, os.path.join(tmp, "anchor_e.pt"))
+    out["e"] = {"ms": ms, "layers": qcfg.n_layers}
+    del qp, x, h, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_stage(model, blocks, h):
+    """The blocks of ``blocks`` (stacked on a leading layer axis) on ``h``
+    (rows, S, d): the plain path (sdpa), no cache."""
+    from repro_torch.models.layers import causal_mask
+    from repro_torch.models.transformer import _layer
+
+    S = h.shape[-2]
+    lead = h.shape[:-2]
+    h = h.reshape(-1, S, h.shape[-1])
+    pos = torch.arange(S, device=h.device)[None, :]
+    mask = causal_mask(S, S, 0, device=h.device)
+    (slot,) = model.plan.period
+    for l in range(next(iter(blocks[0]["ln1"].values())).shape[0]):
+        h, _ = model._block(slot, _layer(blocks[0], l), h, positions=pos, mask=mask,
+                            mask_local=mask, cache=None, cache_index=None, plain=True)
+    return h.reshape(lead + h.shape[-2:])
+
+
+def _rank_rows(batch, mesh):
+    n = TR_B // mesh.data_size
+    return {k: torch.as_tensor(v[mesh.data_rank * n:(mesh.data_rank + 1) * n],
+                               device="cuda").long() for k, v in batch.items()}
+
+
+def _mesh_norm(model, mesh, grads):
+    """The global grad norm of a mesh's gradients (replicated leaves once,
+    expert leaves summed over the model group), as the mesh step reckons
+    it; and, as a planted fault, the norm over the rank's own experts only."""
+    from repro_torch.distributed import sum_over
+    from repro_torch.training.optim import _sq_sum
+    from repro_torch.training.train_loop import expert_leaves
+
+    sq = [torch.zeros((), device="cuda"), torch.zeros((), device="cuda")]
+    for g, e in zip(grads, expert_leaves(model, model.abstract())):
+        sq[e] = sq[e] + _sq_sum(g)
+    return (float(torch.sqrt(sq[0] + sum_over(sq[1], mesh.model_group))),
+            float(torch.sqrt(sq[0] + sq[1])))
+
+
+def train_rank_ab(rank, world, tmp):
+    """15a and 15b in one rank of (data 2, model 2): the mesh loss and its
+    backward at capacity 16 held against the single rank's, then at the
+    config's capacity (drops); the compressed all-reduce of 15a's gradients
+    over the data group."""
+    from repro_torch.distributed import (all_reduce_flat, count_collectives,
+                                         make_compressed_grad_allreduce)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.moe import count_drops
+    from repro_torch.training.train_loop import expert_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_test_mesh(2, 2, device="cuda")
+    out = {"coords": (mesh.data_rank, mesh.model_rank)}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = build_model(_tr_cfg())
+    params = model.init_sharded(SEED, mesh.model_rank, 2, "cuda", specs=model.ep_param_specs())
+    leaves = tree_leaves(params)
+    split = expert_leaves(model, params)
+    out["param_bytes"] = _nbytes(params)
+    batch = _rank_rows(_tr_batch(0), mesh)
+    for cf in (TR_CF, _tr_cfg(1.25).capacity_factor):
+        m = build_model(_tr_cfg(cf))
+        for p in leaves:
+            p.requires_grad_(True)
+        with count_drops() as drops:
+            (loss, met), fms = _sync_ms(lambda: m.loss(params, batch, mesh=mesh, moe_impl="ep"))
+            grads, bms = _sync_ms(lambda: torch.autograd.grad(loss, leaves))
+        for p in leaves:
+            p.requires_grad_(False)
+        r = {"loss": float(loss.detach()), "fwd_ms": fms, "bwd_ms": bms,
+             "digests": [_digest(g) for g, e in zip(grads, split) if not e],
+             "drops": dict(drops), "finite": bool(torch.isfinite(loss.detach()))}
+        if cf == TR_CF:  # held against the single rank: the gradients summed over data
+            keep = {k: v.clone() for k, v in _pick(params, grads, ("router", "wq", "wk", "wv",
+                                                                   "wo")).items()}
+            a = torch.load(os.path.join(tmp, "anchor_a.pt"), map_location="cuda")
+
+            def leaf_errs(gs):
+                errs, gtree = {}, _tree_like(params, gs)
+                for k, path in TR_LEAVES.items():
+                    g, want = _get(gtree, path), a[k]
+                    if k == "w_gate":
+                        n = g.shape[-3]
+                        g, want = g[0], want[mesh.model_rank * n:(mesh.model_rank + 1) * n]
+                    errs[k] = _rel(g, want)
+                return errs
+
+            r["peak"] = torch.cuda.max_memory_allocated() - base
+            # a planted fault: the rank's own gradients, not summed over data
+            r["planted_errs"] = leaf_errs(grads)
+            red, r["reduce_ms"] = _sync_ms(lambda: all_reduce_flat(list(grads),
+                                                                   mesh.data_group))
+            r["grad_norm"], r["planted_grad_norm"] = _mesh_norm(m, mesh, red)
+            r["reckoned"] = 2 * out["param_bytes"]
+            r.update(errs=leaf_errs(red), anchor_loss=a["loss"], anchor_grad_norm=a["grad_norm"],
+                     planted_loss=a["planted_loss"])
+            del a, red
+        out[cf] = r
+        del grads, loss, met
+        gc.collect()
+
+    # 15b: the compressed all-reduce of 15a's gradients over the data group
+    zeros = {k: torch.zeros_like(v) for k, v in keep.items()}
+    with count_collectives() as c_plain:
+        exact, pms = _sync_ms(lambda: all_reduce_flat([v.clone() for v in keep.values()],
+                                                      mesh.data_group))
+    f = make_compressed_grad_allreduce(mesh, "data")
+    with count_collectives() as c_comp:
+        (o1, r1), cms = _sync_ms(lambda: f(keep, zeros))
+    o2, _ = f(keep, r1)
+    ex = torch.cat([e.float().reshape(-1) for e in exact])
+    a1 = torch.cat([o1[k].reshape(-1) for k in keep])
+    a2 = torch.cat([o2[k].reshape(-1) for k in keep])
+    out["b"] = {"elements": int(ex.numel()), "plain_ms": pms, "compressed_ms": cms,
+                "plain_bytes": c_plain["all-reduce"][1], "compressed_bytes": c_comp["all-reduce"][1],
+                "rel_err": float((a1 - ex).norm() / ex.norm()),
+                "fb_err": float((a1 + a2 - 2 * ex).norm() / (2 * ex).norm()),
+                "nofb_err": float((2 * a1 - 2 * ex).norm() / (2 * ex).norm()),
+                "residual_abs": float(torch.cat([v.reshape(-1) for v in tree_leaves(r1)]).abs().sum())}
+    return out
+
+
+def _pick(params, grads, names):
+    """Layer-stacked gradients of block slot 0's router and attention leaves."""
+    g = _tree_like(params, grads)
+    blk = g["blocks"][0]
+    return {k: (blk["ffn"][k] if k == "router" else blk["mixer"][k]).detach() for k in names}
+
+
+def _tree_like(tree, leaves):
+    from repro_torch.models.common import tree_map
+
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def train_rank_c(rank, world, tmp):
+    """15c in one rank of (data 1, model 2): three AdamW steps of
+    ``make_train_step(mesh=)`` in 'full' mode, clipping active, the state
+    after step 2 saved from both ranks in the reference's format; step 3's
+    result and a sample of updated leaves held against the single rank's."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.optim import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import state_sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_test_mesh(1, 2, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = build_model(_tr_cfg())
+    params = model.init_sharded(SEED, mesh.model_rank, 2, "cuda", specs=model.ep_param_specs())
+    opt_cfg = AdamWConfig(lr=TR_LR, clip_norm=TR_CLIP)
+    step_fn, _ = make_train_step(model, TrainConfig(steps=3, lr=TR_LR, warmup=1, moe_impl="ep"),
+                                 opt_cfg, mesh=mesh)
+    state = {"params": params, "opt": adamw_init(params, opt_cfg),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    pb = _nbytes(params)
+    out = {"logs": [], "ms": [], "reckoned": 2 * pb + _nbytes(state["opt"])}
+    for s in range(3):
+        if s == 2:
+            mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+            _, out["save_ms"] = _sync_ms(lambda: mgr.save(
+                state, 2, mesh=mesh, sharding_tree=state_sharding(model, mesh)))
+            # a planted fault: the leaves with step 3's update lost
+            lost = {k: _get(state["params"], path).clone() for k, path in TR_LEAVES.items()}
+        (state, o), ms = _sync_ms(lambda: step_fn(state, _tr_batch(s)))
+        out["logs"].append({k: float(v) for k, v in o.items()})
+        out["ms"].append(ms)
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    c = torch.load(os.path.join(tmp, "anchor_c.pt"), map_location="cuda")
+    errs, planted, maxabs = {}, {}, {}
+    for k, path in TR_LEAVES.items():
+        got, bad, want, start = _get(state["params"], path), lost[k], c["sample"][k], c["start"][k]
+        if k == "w_gate":
+            n = got.shape[-3]
+            lo = mesh.model_rank * n
+            got, bad, want, start = got[0], bad[0], want[lo:lo + n], start[lo:lo + n]
+        errs[k], planted[k] = _upd_rel(got, want, start), _upd_rel(bad, want, start)
+        maxabs[k] = _rel(got, want)
+    out.update(errs=errs, planted_errs=planted, maxabs=maxabs, anchor_logs=c["logs"])
+    return out
+
+
+def pipe_rank(rank, world, tmp):
+    """15e in one stage of 2: ``pipeline_apply`` of qwen2-1.5b's 28 blocks,
+    14 a stage, 4 microbatches of 2 x 128, held against the single rank's
+    forward of the same blocks; ms a call (the second)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import pipeline_apply, ring_shift
+    from repro_torch.distributed.pipeline import stage_shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((PIPE_STAGES,), ("stage",), device="cuda")
+    cfg = get_config(CONFIG)
+    model = build_model(cfg)
+    whole = model.init(SEED, device="cuda")
+    blocks = tree_map(torch.clone, stage_shard(whole, mesh.coords["stage"],
+                                               PIPE_STAGES)["blocks"])
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e = torch.load(os.path.join(tmp, "anchor_e.pt"), map_location="cuda")
+    ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            y, t = _sync_ms(lambda: pipeline_apply(mesh, "stage", lambda p, h: _pipe_stage(
+                model, p, h), blocks, e["x"]))
+            ms.append(t)
+        _, ring = _sync_ms(lambda: ring_shift([e["x"][0]], mesh.groups["stage"]))
+    # a planted fault: the microbatches' outputs one tick out of order
+    return {"err": _rel(y, e["y"]), "planted": _rel(y.roll(1, 0), e["y"]), "ms": ms,
+            "ring_ms": ring, "stage_bytes": _nbytes(blocks),
+            "peak": torch.cuda.max_memory_allocated(), "finite": bool(torch.isfinite(y).all())}
+
+
+def _tr_restore(tmp):
+    """15d in this process, no job: the checkpoint of 15c's step 2 restored
+    whole onto one rank, whose step 3 is held against 15c's step 3; then
+    restored as rank 1 of a (data 1, model 4) layout, which reads a
+    quarter of each expert leaf."""
+    import types
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.train_loop import expert_leaves, state_sharding
+
+    model = build_model(_tr_cfg())
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+    state, rms = _sync_ms(lambda: mgr.restore(2, "cuda"))
+    whole_read = mgr.bytes_read
+    opt_cfg = AdamWConfig(lr=TR_LR, clip_norm=TR_CLIP)
+    step_fn, _ = make_train_step(model, TrainConfig(steps=3, lr=TR_LR, warmup=1, moe_impl="ep"),
+                                 opt_cfg)
+    (state, o), ms = _sync_ms(lambda: step_fn(state, _tr_batch(2)))
+    out = {"restore_ms": rms, "whole_bytes": whole_read, "step_ms": ms,
+           "loss": float(o["loss"]), "grad_norm": float(o["grad_norm"])}
+    del state, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    specs = state_sharding(model, types.SimpleNamespace(model_size=4, model_rank=1))
+    part, pms = _sync_ms(lambda: mgr.restore(2, "cuda", sharding_tree=specs))
+    exp = [x for x, e in zip(tree_leaves(model.abstract()),
+                             expert_leaves(model, model.abstract())) if e]
+    # the expert leaves of params, mu and nu (f32 moments)
+    expert_bytes = sum(x.numel() * (x.element_size() + 8) for x in exp)
+    out.update(part_ms=pms, part_bytes=mgr.bytes_read, expert_bytes=expert_bytes,
+               part_shape=tuple(part["params"]["blocks"][0]["ffn"]["w_gate"].shape))
+    del part
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def multirank_train_phases(card):
+    """Phase 15: multi-rank training on one card. The single rank's anchors
+    here, then 15a/15b in 4 spawned ranks, 15c in 2, 15d here, 15e in 2 (each
+    job's ranks gloo processes on cuda:0; a rank's failure fails the
+    phase). Prints each sub-phase's checks, times and per-rank bytes."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    # the anchors and 15c's ~22 GB checkpoint, under the process's TMPDIR
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        print(f"phase 15: temporary files in {tmp}", flush=True)
+        t0 = time.perf_counter()
+        anchors = _tr_anchors(tmp)
+        secs = {"anchors": time.perf_counter() - t0}
+        res = spawn(train_rank_ab, 4, "gloo", args=(tmp,), device="cuda")
+        secs["15a-b"] = time.perf_counter() - t0 - sum(secs.values())
+        c = spawn(train_rank_c, 2, "gloo", args=(tmp,), device="cuda")
+        secs["15c"] = time.perf_counter() - t0 - sum(secs.values())
+        d = _tr_restore(tmp)
+        secs["15d"] = time.perf_counter() - t0 - sum(secs.values())
+        e = spawn(pipe_rank, PIPE_STAGES, "gloo", args=(tmp,), device="cuda")
+        secs["15e"] = time.perf_counter() - t0 - sum(secs.values())
+    _tr_report(card, anchors, res, c, d, e, secs)
+
+
+def _tr_report(card, anchors, res, c, d, e, secs):
+    cf0, cf1 = TR_CF, _tr_cfg(1.25).capacity_factor
+    a0 = res[0][cf0]
+    # 15a: every rank's loss and norm against the single rank's; replicated
+    # gradients bit for bit across each model group
+    for r in res:
+        x = r[cf0]
+        if _off(x["loss"], x["anchor_loss"], TR_LOSS_TOL):
+            fail(f"15a: rank {r['coords']} loss {x['loss']} vs the single rank's "
+                 f"{x['anchor_loss']}")
+        if _off(x["grad_norm"], x["anchor_grad_norm"], TR_NORM_TOL):
+            fail(f"15a: rank {r['coords']} grad norm {x['grad_norm']} vs "
+                 f"{x['anchor_grad_norm']}")
+        bad = {k: v for k, v in x["errs"].items() if not v <= TR_GRAD_TOL}
+        if bad:
+            fail(f"15a: rank {r['coords']} gradients beyond {TR_GRAD_TOL} of the single "
+                 f"rank's: {bad}")
+        if x["drops"]["dropped"]:
+            fail(f"15a: capacity {cf0} dropped {x['drops']['dropped']} assignments")
+        if not r[cf1]["finite"]:
+            fail(f"15a: the loss at capacity {cf1} is not finite")
+    for cf in (cf0, cf1):
+        for dr in range(2):
+            grp = [r for r in res if r["coords"][0] == dr]
+            if grp[0][cf]["digests"] != grp[1][cf]["digests"]:
+                fail(f"15a: capacity {cf}: replicated gradients differ across model group {dr}")
+    drops = {k: sum(r[cf1]["drops"][k] for r in res) for k in ("assignments", "dropped")}
+    mean = statistics.mean
+    print(f"15a Qwen3-MoE-30B-A3B full width, {TR_DEPTH} of 48 layers, (data 2, model 2), 4 "
+          f"{TR_LABEL} ({card}): capacity {cf0}: loss {a0['loss']:.6f} vs the single rank's "
+          f"{a0['anchor_loss']:.6f}, grad norm {a0['grad_norm']:.6f} vs "
+          f"{a0['anchor_grad_norm']:.6f}; rank 0's reduced gradients within (of the leaf's "
+          f"largest) {json.dumps({k: float(f'{v:.3g}') for k, v in a0['errs'].items()})} "
+          f"(limit {TR_GRAD_TOL}); replicated gradients bit for bit across each model "
+          f"group at both capacities; forward {mean(r[cf0]['fwd_ms'] for r in res):.1f} ms, "
+          f"backward {mean(r[cf0]['bwd_ms'] for r in res):.1f}, gradient all-reduce over data "
+          f"{mean(r[cf0]['reduce_ms'] for r in res):.1f} (one bucket a dtype) vs the single "
+          f"rank's {anchors['a']['fwd_ms']:.1f} / {anchors['a']['bwd_ms']:.1f} ms; capacity "
+          f"{cf1}: loss {res[0][cf1]['loss']:.6f}, {drops['dropped']} of {drops['assignments']} "
+          f"assignments dropped ({100 * drops['dropped'] / drops['assignments']:.2f}%)",
+          flush=True)
+    print(f"15a bytes a rank ({TR_LABEL}): params {res[0]['param_bytes'] / 1e9:.2f} GB, "
+          f"params + grads reckoned {a0['reckoned'] / 1e9:.2f} GB, peak measured "
+          f"{mean(r[cf0]['peak'] for r in res) / 1e9:.2f} GB (max_memory_allocated above the "
+          f"rank's start); the single rank's params {anchors['param_bytes'] / 1e9:.2f} GB, peak "
+          f"{anchors['a']['peak'] / 1e9:.2f} GB", flush=True)
+    b = res[0]["b"]
+    if not b["fb_err"] < b["nofb_err"]:
+        fail(f"15b: two calls with feedback err {b['fb_err']} not below {b['nofb_err']} without")
+    print(f"15b compressed all-reduce over data of 15a's router and attention gradients "
+          f"({b['elements']} elements, {TR_LABEL}; {card}): relative error "
+          f"{b['rel_err']:.3g} against the plain sum; two calls with feedback "
+          f"{b['fb_err']:.3g} vs {b['nofb_err']:.3g} without; bytes sent (ring "
+          f"convention) {b['compressed_bytes']:.0f} compressed (int32 payload + f32 scales) vs "
+          f"{b['plain_bytes']:.0f} plain; {b['compressed_ms']:.1f} ms vs {b['plain_ms']:.1f} ms "
+          f"an all-reduce", flush=True)
+    c0 = c[0]
+    tols = {"loss": TR_LOSS_TOL, "grad_norm": TR_NORM_TOL}
+    for r in c:
+        for got, want in zip(r["logs"], r["anchor_logs"]):
+            for k, tol in tols.items():
+                if _off(got[k], want[k], tol):
+                    fail(f"15c: {k} {got[k]} vs the single rank's {want[k]}")
+            if not want["grad_norm"] > TR_CLIP:
+                fail(f"15c: grad norm {want['grad_norm']} does not clip at {TR_CLIP}")
+        bad = {k: v for k, v in r["errs"].items() if not v <= TR_UPD_TOL}
+        if bad:
+            fail(f"15c: updated leaves beyond {TR_UPD_TOL} of the single rank's update: {bad}")
+    if c[0]["logs"] != c[1]["logs"]:
+        fail("15c: the ranks' losses or grad norms differ")
+    print(f"15c make_train_step(mesh=) (data 1, model 2), 2 {TR_LABEL} ({card}): 3 AdamW steps, "
+          f"clip {TR_CLIP}: losses {[round(x['loss'], 6) for x in c0['logs']]} vs "
+          f"{[round(x['loss'], 6) for x in c0['anchor_logs']]} single, grad norms "
+          f"{[round(x['grad_norm'], 5) for x in c0['logs']]} vs "
+          f"{[round(x['grad_norm'], 5) for x in c0['anchor_logs']]}; updated leaves within "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in c0['errs'].items()})} of their "
+          f"update's norm (limit {TR_UPD_TOL}; largest difference over largest magnitude "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in c0['maxabs'].items()})}); "
+          f"{[round(t, 1) for t in c0['ms']]} ms a step vs {[round(t, 1) for t in anchors['c']['ms']]} "
+          f"single; save of step 2 {c0['save_ms']:.0f} ms; a rank's params + grads + moments "
+          f"reckoned {c0['reckoned'] / 1e9:.2f} GB, peak {c0['peak'] / 1e9:.2f} GB "
+          f"(single rank peak {anchors['c']['peak'] / 1e9:.2f} GB)", flush=True)
+    want = c0["logs"][2]
+    for k, tol in tols.items():
+        if _off(d[k], want[k], tol):
+            fail(f"15d: the restored single rank's step 3 {k} {d[k]} vs 15c's {want[k]}")
+    quarter = d["whole_bytes"] - 3 * d["expert_bytes"] // 4
+    if d["part_bytes"] != quarter:
+        fail(f"15d: rank 1 of (1, 4) read {d['part_bytes']} B, a quarter of the experts is "
+             f"{quarter}")
+    print(f"15d elastic restore ({card}): 15c's step-2 checkpoint whole onto one rank "
+          f"({d['whole_bytes'] / 1e9:.2f} GB read, {d['restore_ms']:.0f} ms): step 3 loss "
+          f"{d['loss']:.6f} / grad norm {d['grad_norm']:.5f} vs 15c's {want['loss']:.6f} / "
+          f"{want['grad_norm']:.5f}; as rank 1 of (data 1, model 4): "
+          f"{d['part_bytes'] / 1e9:.2f} GB read ({d['part_ms']:.0f} ms), expert leaves "
+          f"{d['part_shape']}", flush=True)
+    for r in e:
+        if not (r["finite"] and r["err"] <= TR_PIPE_TOL):
+            fail(f"15e: pipeline_apply output {r['err']} of the single rank's (limit "
+                 f"{TR_PIPE_TOL})")
+    print(f"15e pipeline_apply qwen2-1.5b full width, {anchors['e']['layers']} blocks over "
+          f"{PIPE_STAGES} stages "
+          f"({PIPE_MICRO} microbatches of {PIPE_MB} x {TR_S}; {PIPE_STAGES} {TR_LABEL}; {card}): "
+          f"hidden states within {e[0]['err']:.3g} of the single rank's forward; "
+          f"{e[0]['ms'][1]:.1f} ms a call (first {e[0]['ms'][0]:.1f}) vs "
+          f"{anchors['e']['ms']:.1f} ms the single rank's forward; a ring shift "
+          f"{e[0]['ring_ms']:.1f} ms; a stage's blocks {e[0]['stage_bytes'] / 1e9:.2f} GB, peak "
+          f"{e[0]['peak'] / 1e9:.2f} GB", flush=True)
+    # each limit against its largest sound reading and a fault planted in
+    # this run, which must lie beyond it, or the check is blind
+    def rel(got, want):
+        return abs(got / want - 1)
+
+    runs = [(x["logs"][i], x["anchor_logs"][i]) for x in c for i in range(3)]
+    runs.append((d, want))
+    sound = {
+        "loss": max([rel(r[cf0]["loss"], r[cf0]["anchor_loss"]) for r in res]
+                    + [rel(g["loss"], w["loss"]) for g, w in runs]),
+        "grad norm": max([rel(r[cf0]["grad_norm"], r[cf0]["anchor_grad_norm"]) for r in res]
+                         + [rel(g["grad_norm"], w["grad_norm"]) for g, w in runs]),
+        "gradient leaves": max(max(r[cf0]["errs"].values()) for r in res),
+        "updates": max(max(r["errs"].values()) for r in c),
+        "pipeline": max(r["err"] for r in e)}
+    planted = {  # the loss as the shards' own means; the norm over the rank's
+        # own experts; gradients not summed over data; step 3 lost;
+        # microbatches out of order
+        "loss": rel(a0["planted_loss"], a0["anchor_loss"]),
+        "grad norm": max(rel(r[cf0]["planted_grad_norm"], r[cf0]["anchor_grad_norm"])
+                         for r in res),
+        "gradient leaves": min(min(r[cf0]["planted_errs"].values()) for r in res),
+        "updates": min(min(r["planted_errs"].values()) for r in c),
+        "pipeline": min(r["planted"] for r in e)}
+    limits = dict(zip(planted, (TR_LOSS_TOL, TR_NORM_TOL, TR_GRAD_TOL, TR_UPD_TOL, TR_PIPE_TOL)))
+    print("phase 15 limits, [largest sound reading, planted fault's reading, limit]: "
+          + json.dumps({k: [float(f"{sound[k]:.4g}"), float(f"{planted[k]:.4g}"), limits[k]]
+                        for k in limits}), flush=True)
+    blind = [k for k, v in planted.items() if not v > limits[k]]
+    if blind:
+        fail(f"phase 15: planted faults within their limits: {blind}")
+    print(f"phase 15: {json.dumps({k: round(v, 1) for k, v in secs.items()})} s", flush=True)
 
 
 def main() -> None:
@@ -4464,6 +5177,13 @@ def main() -> None:
     t0 = time.perf_counter()
     mr, mr_launches = multirank_phases(gen)
     print(f"phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 15: multi-rank training, ranks sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multirank_train_phases(card)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -1,15 +1,27 @@
-"""Multi-rank serving over ``torch.distributed``: the collectives of
-tensor-parallel decode, expert parallelism and the pipeline ring
-(``collectives``), and the exit-gated pipeline decode window
-(``pipeline``)."""
+"""Multi-rank serving and training over ``torch.distributed``: the
+collectives of tensor-parallel decode, expert parallelism, the pipeline
+ring and the gradient all-reduces (``collectives``), the exit-gated
+pipeline decode window and the GPipe forward (``pipeline``)."""
 from repro_torch.distributed.collectives import (
+    all_gather_ad,
     all_gather_tiled,
+    all_reduce_flat,
+    all_to_all_ad,
     all_to_all_tiled,
+    compressed_psum,
+    count_collectives,
+    dequantize_int8,
+    make_compressed_grad_allreduce,
+    quantize_int8,
     ring_shift,
     sum_over,
+    take_chunk_ad,
     tp_gather,
 )
-from repro_torch.distributed.pipeline import pipeline_check, pipeline_decode_window
+from repro_torch.distributed.pipeline import pipeline_apply, pipeline_check, pipeline_decode_window
 
-__all__ = ["all_gather_tiled", "all_to_all_tiled", "pipeline_check", "pipeline_decode_window",
-           "ring_shift", "sum_over", "tp_gather"]
+__all__ = ["all_gather_ad", "all_gather_tiled", "all_reduce_flat", "all_to_all_ad",
+           "all_to_all_tiled", "compressed_psum", "count_collectives", "dequantize_int8",
+           "make_compressed_grad_allreduce", "pipeline_apply", "pipeline_check",
+           "pipeline_decode_window", "quantize_int8", "ring_shift", "sum_over",
+           "take_chunk_ad", "tp_gather"]

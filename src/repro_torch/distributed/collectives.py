@@ -1,10 +1,24 @@
-"""The collectives of multi-rank serving (the port's counterparts of the
-``jax.lax`` collectives the JAX package's serving paths call inside
-``shard_map``): the tiled all-gather of the tensor-parallel combine
-(``tp_gather``, ``jax.lax.all_gather(tiled=True)``), the tiled all-to-all
-of expert parallelism (``all_to_all_tiled``, ``jax.lax.all_to_all``), a
-sum over a group (``sum_over``, ``jax.lax.psum``) and the pipeline ring
-(``ring_shift``, ``jax.lax.ppermute`` to the next rank).
+"""The collectives of multi-rank serving and training (the port's
+counterparts of the ``jax.lax`` collectives the JAX package calls inside
+``shard_map``, and of its ``distributed/collectives.py``):
+
+* the tiled all-gather of the tensor-parallel combine (``tp_gather``,
+  ``jax.lax.all_gather(tiled=True)``), the tiled all-to-all of expert
+  parallelism (``all_to_all_tiled``, ``jax.lax.all_to_all``), a sum over a
+  group (``sum_over``, ``jax.lax.psum``) and the pipeline ring
+  (``ring_shift``, ``jax.lax.ppermute`` to the next rank);
+* their versions with a gradient, for the expert-parallel loss
+  (``all_to_all_ad``, ``take_chunk_ad``, ``all_gather_ad``: the backward
+  of an all-to-all is the inverse all-to-all, of a rank's chunk of an
+  activation alike on every rank an all-gather of the chunks' gradients,
+  of an all-gather the rank's own slice);
+* the bucketed gradient all-reduce of a data-parallel step
+  (``all_reduce_flat``), and the reference's int8 error-feedback
+  all-reduce (``quantize_int8``, ``dequantize_int8``, ``compressed_psum``,
+  ``make_compressed_grad_allreduce``). As the reference does, the
+  compressed all-reduce sums the int8 payload as int32 (int8 sums
+  overflow at two ranks), so it sends 4 bytes an element, as an f32
+  all-reduce does; its scales add one f32 a block of 256.
 
 Backends: with 'nccl' each collective runs on the card's tensors. With
 'gloo' (ranks that share one card, or ranks on the CPU) a CUDA tensor is
@@ -14,15 +28,59 @@ stages through host memory on purpose, and only under gloo. The copy back
 waits for the collective, so a window that calls these cannot be captured
 as a CUDA graph under gloo.
 
-The gradient collectives of training (int8 compression with its residual)
-are not here.
+``count_collectives`` counts, while it is open, each collective called
+here by kind with its bytes, by the convention of the reference's dry run
+(``COLLECTIVE_W``): the result's bytes, twice for an all-reduce (a ring
+sends each byte twice); a 1-rank group sends nothing and is not counted.
+It also sums the bytes by group (the group's global ranks), so a
+reckoning can price each group at the link its members share.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+KINDS = ("all-gather", "all-to-all", "all-reduce", "collective-permute")
+
+
+class CollectiveCounts(dict):
+    """``{kind: [calls, bytes]}``, and ``by_group``: ``{the group's global
+    ranks: bytes}`` over every kind."""
+
+    def __init__(self):
+        super().__init__({k: [0, 0.0] for k in KINDS})
+        self.by_group: Dict[Tuple[int, ...], float] = {}
+
+
+_COUNTS: Optional[CollectiveCounts] = None
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Yields a ``CollectiveCounts``, filled by every collective of this
+    module called inside the block (module docstring)."""
+    global _COUNTS
+    prev, _COUNTS = _COUNTS, CollectiveCounts()
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = prev
+
+
+def _count(kind: str, nbytes: float, group) -> None:
+    if _COUNTS is not None and dist.get_world_size(group) > 1:
+        c = _COUNTS[kind]
+        c[0] += 1
+        c[1] += float(nbytes)
+        ranks = tuple(dist.get_process_group_ranks(group or dist.group.WORLD))
+        _COUNTS.by_group[ranks] = _COUNTS.by_group.get(ranks, 0.0) + float(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -40,6 +98,7 @@ def all_gather_tiled(y: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     out = torch.cat(parts, dim=dim)
+    _count("all-gather", _nbytes(out), group)
     return out.to(y.device) if staged else out
 
 
@@ -62,16 +121,191 @@ def all_to_all_tiled(x: torch.Tensor, group, split_axis: int, concat_axis: int) 
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
     out = torch.cat(list(recv.unbind(0)), dim=concat_axis)
+    _count("all-to-all", _nbytes(out), group)
     return out.to(x.device) if staged else out
 
 
 def sum_over(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``t`` (``jax.lax.psum``), on ``t``'s device.
     Under gloo a CUDA ``t`` stages through host memory."""
+    return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
+    """``t`` reduced by ``op`` over the group (a new tensor on ``t``'s
+    device; staged through the host under gloo)."""
     staged = _staged(t, group)
     x = (t.cpu() if staged else t).clone()
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(x, op=op, group=group)
+    _count("all-reduce", 2 * _nbytes(x), group)
     return x.to(t.device) if staged else x
+
+
+def all_reduce_flat(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """The sum over the group of each tensor, IN PLACE, bucketed: one flat
+    buffer and one all-reduce per dtype (a data-parallel step's
+    gradients), not one call a tensor. Under gloo CUDA tensors are packed
+    straight into a host buffer, so the card holds no second copy. Returns
+    ``tensors``. Every rank passes tensors of the same shapes and dtypes."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        staged = _staged(ts[0], group)
+        n = sum(t.numel() for t in ts)
+        flat = torch.empty(n, dtype=ts[0].dtype, device="cpu" if staged else ts[0].device)
+        lo = 0
+        for t in ts:
+            flat[lo:lo + t.numel()].copy_(t.reshape(-1))
+            lo += t.numel()
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        _count("all-reduce", 2 * _nbytes(flat), group)
+        lo = 0
+        for t in ts:
+            t.copy_(flat[lo:lo + t.numel()].view(t.shape))
+            lo += t.numel()
+    return list(tensors)
+
+
+# -- collectives with a gradient (the expert-parallel loss) --------------------
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return all_to_all_tiled(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return all_to_all_tiled(g.contiguous(), group, concat_axis, split_axis), None, None, None
+
+
+class _TakeChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        i = dist.get_group_rank(group, dist.get_rank())
+        ctx.args = (group, dim)
+        return x.narrow(dim, i * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return all_gather_tiled(g.contiguous(), group, dim), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group, dim):
+        ctx.args = (group, dim, y.shape[dim])
+        return all_gather_tiled(y, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, n = ctx.args
+        i = dist.get_group_rank(group, dist.get_rank())
+        return g.narrow(dim, i * n, n), None, None
+
+
+def all_to_all_ad(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """``all_to_all_tiled`` with a gradient: the inverse all-to-all (split
+    and concat axes swapped)."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+def take_chunk_ad(x: torch.Tensor, group, dim: int, n: int) -> torch.Tensor:
+    """Rank ``i``'s chunk ``[i*n, (i+1)*n)`` along ``dim`` of an ``x`` that
+    every rank of the group holds alike. Its gradient is the all-gather of
+    every rank's chunk gradient: each rank then holds the whole gradient
+    of ``x``."""
+    return _TakeChunk.apply(x, group, dim, n)
+
+
+def all_gather_ad(y: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``all_gather_tiled`` with a gradient: the rank's own slice of the
+    upstream gradient, which every rank holds whole (the result is alike
+    on every rank, and so is what consumes it)."""
+    return _AllGather.apply(y, group, dim)
+
+
+# -- the int8 error-feedback all-reduce (the reference's) ----------------------
+
+
+def _blocks(flat: torch.Tensor, block: int) -> torch.Tensor:
+    return torch.nn.functional.pad(flat, (0, (-flat.numel()) % block)).reshape(-1, block)
+
+
+def quantize_int8(x: torch.Tensor, block: int = 256):
+    """Per-block symmetric int8 quantization: returns (q (nb, block) int8,
+    scales (nb, 1)), the reference's arithmetic in ``x``'s dtype."""
+    blocks = _blocks(x.reshape(-1), block)
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape, dtype) -> torch.Tensor:
+    flat = (q.float() * scale).reshape(-1)
+    n = 1
+    for d in shape:
+        n *= d
+    return flat[:n].reshape(tuple(shape)).to(dtype)
+
+
+def _compressed_flat(y: torch.Tensor, group, block: int):
+    """The compressed all-reduce of one flat f32 ``y`` whose length is a
+    multiple of ``block``: (the summed value, the new residual)."""
+    blocks = y.reshape(-1, block)
+    amax = torch.amax(torch.abs(blocks), dim=1, keepdim=True)
+    shared = _all_reduce(amax, group, dist.ReduceOp.MAX)  # 1/block of the payload
+    scale = torch.clamp(shared / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    sent = (q.float() * scale).reshape(-1)
+    summed = _all_reduce(q.to(torch.int32), group, dist.ReduceOp.SUM)
+    return (summed.float() * scale).reshape(-1), y - sent
+
+
+def compressed_psum(x: torch.Tensor, group, residual: torch.Tensor, block: int = 256):
+    """The int8 error-feedback all-reduce of ``x`` over ``group`` (the
+    reference's ``compressed_psum``): a shared per-block scale (the MAX
+    all-reduce of each rank's block amax) makes the int8 payloads
+    summable; they are summed as int32; the residual carries this rank's
+    quantization error into the next call. Returns (the summed value in
+    f32, the new residual in f32), both of ``x``'s shape. Under gloo a
+    CUDA ``x`` stages through host memory."""
+    y = (x + residual).float()
+    n = y.numel()
+    out, res = _compressed_flat(_blocks(y.reshape(-1), block).reshape(-1), group, block)
+    return out[:n].reshape(y.shape), res[:n].reshape(y.shape)
+
+
+def make_compressed_grad_allreduce(mesh, axis_name: str = "pod", block: int = 256):
+    """Returns ``f(grads, residuals) -> (summed, new_residuals)``: each leaf
+    of a tree all-reduced over the mesh axis ``axis_name`` with int8 error
+    feedback (``compressed_psum``), as the reference's. The leaves go in
+    one bucket: each leaf padded to whole blocks on its own (no block spans
+    two leaves, so every number is the per-leaf call's), one MAX and one
+    int32 all-reduce a call."""
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    group = mesh.groups[axis_name]
+
+    def run(grads, residuals):
+        ys = [(g + r).float() for g, r in zip(tree_leaves(grads), tree_leaves(residuals))]
+        flat = torch.cat([_blocks(y.reshape(-1), block).reshape(-1) for y in ys])
+        out, res = _compressed_flat(flat, group, block)
+        outs, news, lo = [], [], 0
+        for y in ys:
+            n = y.numel()
+            outs.append(out[lo:lo + n].reshape(y.shape))
+            news.append(res[lo:lo + n].reshape(y.shape))
+            lo += n + (-n) % block
+        it_o, it_r = iter(outs), iter(news)
+        return (tree_map(lambda _: next(it_o), grads), tree_map(lambda _: next(it_r), grads))
+
+    return run
 
 
 def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
@@ -97,6 +331,7 @@ def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     prv = dist.get_global_rank(group, (me - 1) % S)
     reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, buf, nxt, group),
                                    dist.P2POp(dist.irecv, recv, prv, group)])
+    _count("collective-permute", _nbytes(recv), group)
     for r in reqs:
         r.wait()
     recv = recv.to(dev) if staged else recv

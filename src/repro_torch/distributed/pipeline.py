@@ -10,18 +10,50 @@ saved stage work. When every row of a microbatch has exited, its payload
 goes inert and the window can end early. One stage is plain batched
 multi-step decode.
 
-The GPipe forward demonstrator (``pipeline_apply``) belongs to training
-and is not here.
+``pipeline_apply`` is the reference's GPipe forward demonstrator: a stack
+of identical stages, one rank a stage, microbatches streaming through the
+``(S + M - 1)``-tick schedule on the ring.
 """
 from __future__ import annotations
 
 import weakref
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.models.common import tree_map
 from repro_torch.models.transformer import _mask_pad_vocab, _stats
+
+
+def pipeline_apply(mesh, axis: str, stage_fn: Callable, stage_params, x: torch.Tensor):
+    """The reference's ``pipeline_apply``: ``x`` (n_micro, mb, ...) through
+    the ``S`` stages on the mesh axis ``axis``, one rank a stage.
+    ``stage_params`` is this rank's stage's slice of the stacked params
+    (the leading stage axis taken away); ``stage_fn(stage_params, h)``
+    keeps ``h``'s shape. At tick ``t`` stage ``s`` runs microbatch ``t -
+    s``: stage 0 takes it from ``x``, a later stage from the ring
+    (``ring_shift``); the last stage writes its output. A stage skips its
+    bubble ticks (their results are never written) but still takes part
+    in the ring. The outputs live on the last stage; a sum over the stage
+    group, where every other stage holds zeros, gives them to every rank
+    exactly, as the reference's ``psum`` does. Returns (n_micro, mb, ...)
+    on every rank."""
+    from repro_torch.distributed.collectives import ring_shift, sum_over
+
+    S, sid, group = mesh.shape[axis], mesh.coords[axis], mesh.groups[axis]
+    M = x.shape[0]
+    outs = torch.zeros_like(x)
+    buf = torch.zeros_like(x[0])
+    for t in range(M + S - 1):
+        if sid <= t < sid + M:
+            y = stage_fn(stage_params, x[t] if sid == 0 else buf)
+            if sid == S - 1:
+                outs[t - sid] = y
+        else:  # a bubble tick: what it sends is never read
+            y = torch.zeros_like(buf)
+        if S > 1:
+            (buf,) = ring_shift([y.to(buf.dtype)], group)
+    return sum_over(outs, group) if S > 1 else outs
 
 
 def pipeline_check(model, n_stages: int, batch: Optional[int] = None) -> None:

@@ -28,21 +28,38 @@ implements it:
   80 GB.
 
 Eager tracing counts every layer, so no two-depth extrapolation is
-needed. ``--mesh single`` (one H100) is the only mesh: ``multi`` waits for
-the multi-device port (ROADMAP Queue 1 item 5). Each cell's record goes to
-``build/dryrun/<arch>__<shape>__single.json`` at the repo root. The card
-is named from its published peaks; measured card numbers come only from
-``chip_smoke.py``.
+needed. ``--mesh single`` reckons one H100. ``--mesh multi`` traces rank 0
+of the reference's multi-pod layout, ``(pod 2, data 16, model 16)``, 512
+cards: one rank of a job of 512 joined through PyTorch's fake process
+group (no card, no peer; a collective returns its shapes and moves
+nothing) on meta tensors. A train cell runs the mesh step
+(``make_train_step(mesh=)``: rows over ``(pod, data)``, experts over
+``model``, dense leaves whole on every rank); a prefill or decode cell
+runs ``prefill_sharded`` / ``decode_sharded`` at tp 16 over ``model``
+with rows over ``(pod, data)`` where ``tp_check`` allows it, and where it
+refuses, the record's ``status`` is the check's text. A multi record adds
+the rank's collectives by kind as the port's collectives count them
+(``count_collectives``: calls and bytes), their bytes by link
+(``collective_bytes_by_link``: NVLink for a group inside one 8-card host,
+the network for a group across hosts), ``t_collective_s`` (each link's
+bytes over its published rate, ``LINK_BW``, reckoned) and a per-rank
+``resident``/``fits`` for this layout. Records go to
+``build/dryrun/<arch>__<shape>__<single|multi>.json`` at the repo root.
+The card is named from its published peaks; measured card numbers come
+only from ``chip_smoke.py``.
 
 Usage (runs on the CPU, no CUDA):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-moe-30b-a3b --shape train_4k --mesh multi
   PYTHONPATH=src python -m repro_torch.launch.dryrun --table   # the records, as markdown
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import time
 import traceback
@@ -53,14 +70,30 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, SHAPES, all_cells, get_config
-from repro_torch.core.profiles import HBM_BW, PEAK_FLOPS
+from repro_torch.core.profiles import HBM_BW, ICI_BW, PEAK_FLOPS
 from repro_torch.models import build_model
-from repro_torch.models.common import param_bytes, param_count
+from repro_torch.models.common import param_bytes, param_count, tree_leaves, tree_map
 
 ART_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "..", "build",
                        "dryrun")
 CARD = "NVIDIA H100 80GB HBM3, 700 W (published peaks)"
 CARD_BYTES = 80e9  # the H100's HBM
+MULTI_LAYOUT = {"pod": 2, "data": 16, "model": 16}  # make_production_mesh(multi_pod=True)
+# the link a collective's group runs on: NVLink 4 inside one host of 8
+# cards, the network between hosts (rank r on host r // HOST_CARDS); each
+# byte is reckoned at its group's link rate each way a card
+HOST_CARDS = 8  # an 8-card HGX/DGX H100 host (NVIDIA DGX H100 datasheet)
+LINK_BW = {"nvlink": ICI_BW, "network": 400e9 / 8}
+LINK = {"nvlink": "NVLink 4, 450 GB/s each way a card (NVIDIA H100 SXM datasheet, 900 GB/s "
+                  "bidirectional)",
+        "network": "one 400 Gb/s NDR InfiniBand port a card, 50 GB/s each way (ConnectX-7, "
+                   "NVIDIA DGX H100 datasheet)"}
+
+
+def link_of(ranks) -> str:
+    """'nvlink' for a group whose ranks share one host, else 'network'."""
+    return "nvlink" if len({r // HOST_CARDS for r in ranks}) == 1 else "network"
+
 
 _aten = torch.ops.aten
 # ops that move no bytes: results that alias their input without a view
@@ -350,9 +383,10 @@ def run_cell(arch: str, shape, mesh_kind: str = "single", *, tag="", write=True,
     """Trace one cell on meta and write its record. ``shape`` is a
     ``SHAPES`` name or a dict (``build_cell``); a dict cell is named by
     ``tag``."""
+    if mesh_kind == "multi":
+        return run_cell_multi(arch, shape, write=write, overrides=overrides)
     if mesh_kind != "single":
-        raise NotImplementedError(f"--mesh {mesh_kind}: not ported (ROADMAP Queue 1 item 5); "
-                                  "the port's dry run reckons one H100")
+        raise ValueError(f"mesh {mesh_kind!r}: 'single' | 'multi'")
     name = shape if isinstance(shape, str) else (tag or "served")
     rec = {"arch": arch, "shape": name, "mesh": mesh_kind, "chips": 1, "card": CARD,
            "tag": tag, "ok": False}
@@ -382,13 +416,168 @@ def run_cell(arch: str, shape, mesh_kind: str = "single", *, tag="", write=True,
         rec["traceback"] = traceback.format_exc()[-4000:]
     rec["total_s"] = time.perf_counter() - t0
     if write:
-        os.makedirs(ART_DIR, exist_ok=True)
-        path = os.path.join(ART_DIR, f"{arch}__{name}__{mesh_kind}.json")
-        with open(path, "w") as f:
-            json.dump(rec, f, indent=1)
-        status = "OK" if rec["ok"] else f"FAIL ({rec.get('error', '')[:120]})"
-        print(f"[{arch} × {name} × {mesh_kind}] {status}  {rec['total_s']:.1f}s  "
-              f"bottleneck={rec.get('bottleneck', '-')}", flush=True)
+        _write(rec)
+    return rec
+
+
+def _write(rec):
+    os.makedirs(ART_DIR, exist_ok=True)
+    name, mesh_kind = rec["shape"], rec["mesh"]
+    with open(os.path.join(ART_DIR, f"{rec['arch']}__{name}__{mesh_kind}.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    status = "OK" if rec["ok"] else f"FAIL ({rec.get('error', '')[:120]})"
+    if rec.get("refused"):
+        status = f"refused ({rec['status'][:120]})"
+    print(f"[{rec['arch']} × {name} × {mesh_kind}] {status}  {rec['total_s']:.1f}s  "
+          f"bottleneck={rec.get('bottleneck', '-')}", flush=True)
+
+
+# -- the multi-pod layout: rank 0 of 512 ----------------------------------------
+
+
+@contextlib.contextmanager
+def fake_job(world: int):
+    """This process as rank 0 of a ``world``-rank job in PyTorch's fake
+    process group: collectives return their shapes and move nothing."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_job: a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_bytes(schema, specs, m) -> int:
+    """Bytes of the leaves a rank holds: a split leaf's 1/m."""
+    from repro_torch.models.transformer import _map2
+
+    parts = []
+    _map2(lambda info, ax: parts.append(param_bytes(info) // (1 if ax is None else m)),
+          schema, specs)
+    return sum(parts)
+
+
+def build_cell_multi(arch: str, shape, mesh, *, overrides=None):
+    """(model, shape_info, fn, rank's resident bytes by part): ``fn()`` runs
+    this rank's step of the cell on meta tensors, or raises the
+    ``tp_check`` refusal (``NotImplementedError``)."""
+    cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    info = SHAPES[shape] if isinstance(shape, str) else dict(shape)
+    model = build_model(cfg, **({"ssd_impl": "ref"} if cfg.family == "lm" else {}))
+    kind, GB, S = info["kind"], info["global_batch"], info["seq_len"]
+    m, D = mesh.model_size, mesh.data_size
+    act = list(range(_active(model, info)))
+    dt = getattr(torch, cfg.dtype)
+    sch = model.schema()
+    if kind == "train":
+        from repro_torch.training.optim import AdamWConfig, adamw_init
+        from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+        specs = (model.ep_param_specs() if hasattr(model, "ep_param_specs")
+                 else tree_map(lambda _: None, sch))
+        params = _shard_meta(model.abstract(), specs, mesh.model_rank, m)
+        step_fn, opt_cfg = make_train_step(
+            model, TrainConfig(moe_impl="ep", remat=cfg.train_remat), AdamWConfig(), mesh=mesh)
+        n_tok = S if cfg.family != "encdec" else S // 8
+        batch = {"tokens": _meta((GB, n_tok), torch.int32),
+                 "labels": _meta((GB, n_tok), torch.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = _meta((GB, S, cfg.d_frontend), dt)
+        if cfg.cross_attn_every:
+            batch["image_embeds"] = _meta((GB, cfg.n_image_tokens, cfg.d_frontend), dt)
+        state = {"params": params, "opt": adamw_init(params, opt_cfg),
+                 "step": _meta((), torch.int32)}
+        p = _rank_bytes(sch, specs, m)
+        res = {"params": p, "grads": p,
+               "adamw_moments": 8 * sum(x.numel() for x in tree_leaves(params))}
+        return model, info, lambda: step_fn(state, batch), res
+    if not hasattr(model, "tp_check"):
+        raise NotImplementedError(f"{type(model).__name__} has no tensor-parallel path: it "
+                                  "serves on one rank")
+    rows = GB // D
+    model.tp_check(m, dp=D if kind == "decode" else 1, paged=False,
+                   batch=GB if kind == "decode" else None)
+    if kind == "prefill" and GB % D:
+        raise NotImplementedError(f"prefill batch {GB} not divisible by {D} data ranks")
+    specs = model.tp_param_specs(moe_ep=True)
+    params = _shard_meta(model.abstract(), specs, mesh.model_rank, m)
+    serving = mesh.serving()
+    kw = {"moe_impl": "ep"} if cfg.moe else {}
+    res = {"params": _rank_bytes(sch, specs, m)}
+    if kind == "prefill":
+        toks = _meta((rows, S), torch.int32)
+        res["cache"] = cache_bytes(model, rows, S, S) // m
+        return model, info, lambda: model.prefill_sharded(
+            params, toks, mesh=serving, active_sites=act, **kw), res
+    slots, _, memory = decode_geometry(cfg, info)
+    cache = model.tp_shard_cache(model.cache_abstract(GB, slots), mesh.model_rank, m,
+                                 data_rank=serving.data_rank, dp=D)
+    res["cache"] = sum(x.numel() * x.element_size() for x in tree_leaves(cache))
+    toks, pos = _meta((GB, 1), torch.int32), _meta((GB,), torch.int32)
+    return model, info, lambda: model.decode_sharded(
+        params, cache, toks, pos, mesh=serving, active_sites=act, **kw), res
+
+
+def _shard_meta(params, specs, rank, m):
+    from repro_torch.models.transformer import _map2
+
+    return _map2(lambda x, ax: x if ax is None else
+                 x.narrow(ax, rank * (x.shape[ax] // m), x.shape[ax] // m), params, specs)
+
+
+def run_cell_multi(arch: str, shape, *, write=True, overrides=None):
+    """Trace rank 0 of the multi-pod layout (``make_production_mesh``) for
+    one cell on meta (module docstring) and write its record."""
+    from repro_torch.distributed import count_collectives
+    from repro_torch.launch.mesh import make_production_mesh
+
+    world = math.prod(MULTI_LAYOUT.values())
+    name = shape if isinstance(shape, str) else "served"
+    rec = {"arch": arch, "shape": name, "mesh": "multi", "chips": world,
+           "layout": dict(MULTI_LAYOUT), "rank": 0, "card": CARD, "link": LINK, "ok": False}
+    t0 = time.perf_counter()
+    try:
+        with fake_job(world):
+            mesh = make_production_mesh(multi_pod=True, device="meta")
+            try:
+                model, info, fn, res = build_cell_multi(arch, shape, mesh, overrides=overrides)
+            except NotImplementedError as e:  # the layout's check refused the cell
+                rec.update(ok=True, refused=True, status=str(e))
+            else:
+                rec.update({k: info[k] for k in ("kind", "seq_len", "global_batch")})
+                with count_collectives() as cc:
+                    with torch.no_grad() if info["kind"] != "train" else torch.enable_grad():
+                        _, flops, nbytes, ops = count(fn)
+        if not rec.get("refused"):
+            coll = {k: {"calls": c, "bytes": b} for k, (c, b) in cc.items()}
+            cbytes = sum(v["bytes"] for v in coll.values())
+            by_link = dict.fromkeys(LINK_BW, 0.0)
+            for ranks, b in cc.by_group.items():
+                by_link[link_of(ranks)] += b
+            res["total"] = sum(res.values())
+            rec.update({
+                "status": "ok", "flops": float(flops), "bytes": float(nbytes), "aten_ops": ops,
+                "collectives": coll, "collective_bytes": cbytes,
+                "collective_bytes_by_link": by_link,
+                "t_compute_s": flops / PEAK_FLOPS, "t_memory_s": nbytes / HBM_BW,
+                "t_collective_s": sum(b / LINK_BW[k] for k, b in by_link.items()), "resident": res,
+                "fits": res["total"] <= CARD_BYTES, "ok": True,
+            })
+            terms = {"compute": rec["t_compute_s"], "memory": rec["t_memory_s"],
+                     "collective": rec["t_collective_s"]}
+            rec["bottleneck"] = max(terms, key=terms.get)
+    except Exception as e:  # noqa: BLE001 — the record carries the failure
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+    rec["total_s"] = time.perf_counter() - t0
+    if write:
+        _write(rec)
     return rec
 
 
@@ -436,8 +625,7 @@ def main(argv=None):
                     recs.append(json.load(f))
         print(table(recs))
         return 0
-    if args.mesh != "single":
-        ap.error("--mesh multi is not ported (ROADMAP Queue 1 item 5); one H100 is 'single'")
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if args.all:
         todo = cells()
     elif args.arch and args.shape:
@@ -446,15 +634,16 @@ def main(argv=None):
         ap.error("give --arch and --shape, or --all")
     n_ok = 0
     for a, s in todo:
-        path = os.path.join(ART_DIR, f"{a}__{s}__single.json")
-        if args.skip_existing and os.path.exists(path):
-            with open(path) as f:
-                if json.load(f).get("ok"):
-                    n_ok += 1
-                    continue
-        n_ok += bool(run_cell(a, s)["ok"])
-    print(f"dryrun: {n_ok}/{len(todo)} cells OK", flush=True)
-    return 0 if n_ok == len(todo) else 1
+        for mk in meshes:
+            path = os.path.join(ART_DIR, f"{a}__{s}__{mk}.json")
+            if args.skip_existing and os.path.exists(path):
+                with open(path) as f:
+                    if json.load(f).get("ok"):
+                        n_ok += 1
+                        continue
+            n_ok += bool(run_cell(a, s, mk)["ok"])
+    print(f"dryrun: {n_ok}/{len(todo) * len(meshes)} cells OK", flush=True)
+    return 0 if n_ok == len(todo) * len(meshes) else 1
 
 
 if __name__ == "__main__":

@@ -1,16 +1,19 @@
-"""Ranks, process groups and the serving mesh over ``torch.distributed``
-(the port's counterpart of the JAX package's ``launch/mesh.py``).
+"""Ranks, process groups and meshes over ``torch.distributed`` (the port's
+counterpart of the JAX package's ``launch/mesh.py``).
 
 JAX drives every device of a mesh from one process; here every rank is a
 process that runs the same program on its own shard (SPMD). A rank joins
 the job with ``init_dist`` (the backend is always named by the caller:
 'nccl' for one card a rank, 'gloo' for ranks that share a card or run on
-the CPU), then builds its view of the mesh with ``make_serving_mesh``:
-its coordinates on ``("data", "model")`` (tensor-parallel decode) or on
-``("stage",)`` (the exit-gated pipeline window), the process groups of
-each axis, and its device. ``spawn`` starts the ranks of one job as
-processes (the ``spawn`` start method), returns what each rank's function
-returns, and raises when any rank raises or dies.
+the CPU), then builds its view of a mesh: ``make_mesh(shape, axes)`` for
+any row-major mesh over named axes (training: ``("data", "model")`` or
+``("pod", "data", "model")``; ``make_test_mesh``,
+``make_production_mesh``), or ``make_serving_mesh`` for the serving
+layouts, ``("data", "model")`` (tensor-parallel decode) or ``("stage",)``
+(the exit-gated pipeline window). A view holds the rank's coordinates,
+the process group of each axis and its device. ``spawn`` starts the
+ranks of one job as processes (the ``spawn`` start method), returns what
+each rank's function returns, and raises when any rank raises or dies.
 
 Ranks lie on the mesh row-major: rank ``d * tp + m`` holds data row ``d``
 and model column ``m``; its model group is the ``tp`` ranks of its row,
@@ -20,12 +23,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
+import math
 import os
 import pickle
 import queue as _queue
 import tempfile
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -114,6 +119,131 @@ class ServingMesh:
                      self.groups["data"] if self.dp > 1 else None, g, self.model_rank)
 
 
+DATA_AXES = ("pod", "data")  # the axes a batch splits over, in this order
+
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """One rank's view of a row-major mesh over named axes (``make_mesh``).
+    ``shape`` maps each axis to its size, in mesh order; ``coords`` maps it
+    to this rank's index along it; ``groups`` maps it to the process group
+    of the ranks that differ from this one only along it, and ``"batch"``
+    to the group over the combined data axes (``DATA_AXES`` present),
+    whose ranks lie in row-major (pod, data) order."""
+
+    shape: Dict[str, int]
+    rank: int
+    coords: Dict[str, int]
+    groups: Dict[str, Any]
+    device: torch.device
+    backend: str
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
+
+    def size(self, axis: str) -> int:
+        """The axis's size; 1 for an axis the mesh lacks."""
+        return self.shape.get(axis, 1)
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in DATA_AXES if a in self.shape)
+
+    @property
+    def data_size(self) -> int:
+        return math.prod(self.size(a) for a in self.data_axes)
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index over the combined data axes, row-major."""
+        r = 0
+        for a in self.data_axes:
+            r = r * self.shape[a] + self.coords[a]
+        return r
+
+    @property
+    def data_group(self):
+        return self.groups["batch"]
+
+    @property
+    def model_size(self) -> int:
+        return self.size("model")
+
+    @property
+    def model_rank(self) -> int:
+        return self.coords.get("model", 0)
+
+    @property
+    def model_group(self):
+        return self.groups.get("model")
+
+    def serving(self) -> "ServingMesh":
+        """The ``ServingMesh`` of this layout for ``prefill_sharded`` and
+        ``decode_sharded``: tensor-parallel over ``model``, rows over the
+        combined data axes."""
+        if "model" not in self.shape or set(self.shape) - set(DATA_AXES) - {"model"}:
+            raise ValueError(f"mesh axes {self.axis_names}: a serving view needs 'model' "
+                             f"and data axes {DATA_AXES} only")
+        return ServingMesh(self.model_size, self.data_size, 1, self.rank,
+                           {"data": self.data_rank, "model": self.model_rank},
+                           {"model": self.groups["model"], "data": self.groups["batch"]},
+                           self.device, self.backend)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda") -> RankMesh:
+    """This rank's view of a row-major mesh of ``shape`` over named
+    ``axes`` (the reference's ``make_mesh``): its coordinates, one process
+    group per axis, and one over the combined data axes (``"batch"``).
+    Every rank of the job calls it with the same arguments
+    (``dist.new_group`` is collective); the job must have exactly
+    ``prod(shape)`` ranks. The rank's device is ``rank_device(rank,
+    device)``."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: call init_dist in every rank first")
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"make_mesh: shape {shape} and axes {axes} must pair one to one")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the job has {world}")
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    coords = {a: (rank // st) % n for a, n, st in zip(axes, shape, strides)}
+
+    def groups_along(dims):
+        """Every rank creates every group in one order; returns this rank's."""
+        others = [i for i in range(len(axes)) if i not in dims]
+        mine = None
+        for fixed in itertools.product(*(range(shape[i]) for i in others)):
+            base = sum(c * strides[i] for c, i in zip(fixed, others))
+            members = [base + sum(c * strides[i] for c, i in zip(cs, dims))
+                       for cs in itertools.product(*(range(shape[i]) for i in dims))]
+            g = dist.new_group(members)
+            if rank in members:
+                mine = g
+        return mine
+
+    groups = {a: groups_along([i]) for i, a in enumerate(axes)}
+    data_dims = [axes.index(a) for a in DATA_AXES if a in axes]
+    groups["batch"] = groups_along(data_dims) if len(data_dims) > 1 else (
+        groups[axes[data_dims[0]]] if data_dims else None)
+    return RankMesh(dict(zip(axes, shape)), rank, coords, groups, rank_device(rank, device),
+                    dist.get_backend())
+
+
+def make_test_mesh(data: int = 1, model: int = 1, *, device="cuda") -> RankMesh:
+    """The reference's test mesh: ``(data, model)``."""
+    return make_mesh((data, model), ("data", "model"), device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> RankMesh:
+    """The reference's production layouts, for the dry run: ``(data 16,
+    model 16)``, or with ``multi_pod`` ``(pod 2, data 16, model 16)``."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device=device)
+    return make_mesh((16, 16), ("data", "model"), device=device)
+
+
 def make_serving_mesh(tp: int = 1, dp: int = 1, pp: int = 1, *, device="cuda") -> ServingMesh:
     """This rank's view of a ``(data, model)`` mesh of ``dp x tp`` ranks
     (``ShardedDecodeRunner``, ``decode_sharded``) or of a ``(stage,)`` mesh
@@ -121,32 +251,18 @@ def make_serving_mesh(tp: int = 1, dp: int = 1, pp: int = 1, *, device="cuda") -
     layouts, not one mesh. Every rank of the job calls it with the same
     shape (``dist.new_group`` is collective). The rank's device is
     ``rank_device(rank, device)``."""
+    if pp == 1:
+        return make_mesh((dp, tp), ("data", "model"), device=device).serving()
+    if tp > 1 or dp > 1:
+        raise ValueError("pp is a (stage,) mesh; combine with tp/dp by nesting runners, "
+                         "not one mesh")
     if not dist.is_initialized():
         raise RuntimeError("make_serving_mesh: call init_dist in every rank first")
     rank, world = dist.get_rank(), dist.get_world_size()
-    backend = dist.get_backend()
-    device = rank_device(rank, device)
-    if pp > 1:
-        if tp > 1 or dp > 1:
-            raise ValueError("pp is a (stage,) mesh; combine with tp/dp by nesting runners, "
-                             "not one mesh")
-        if world != pp:
-            raise ValueError(f"mesh ({pp},) needs {pp} ranks, the job has {world}")
-        return ServingMesh(1, 1, pp, rank, {"stage": rank}, {"stage": dist.group.WORLD},
-                           device, backend)
-    if world != dp * tp:
-        raise ValueError(f"mesh ({dp}, {tp}) needs {dp * tp} ranks, the job has {world}")
-    groups = {}
-    for d in range(dp):  # every rank creates every group, in one order
-        g = dist.new_group([d * tp + m for m in range(tp)])
-        if rank // tp == d:
-            groups["model"] = g
-    for m in range(tp):
-        g = dist.new_group([d * tp + m for d in range(dp)])
-        if rank % tp == m:
-            groups["data"] = g
-    return ServingMesh(tp, dp, 1, rank, {"data": rank // tp, "model": rank % tp}, groups,
-                       device, backend)
+    if world != pp:
+        raise ValueError(f"mesh ({pp},) needs {pp} ranks, the job has {world}")
+    return ServingMesh(1, 1, pp, rank, {"stage": rank}, {"stage": dist.group.WORLD},
+                       rank_device(rank, device), dist.get_backend())
 
 
 def _rank_main(fn, rank, world, backend, init_method, device, args_path, results):

@@ -205,10 +205,12 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
                      kv_block_size=0, kv_blocks=None, prefix_cache=False, preempt="none",
                      prefill_chunk=0, prompts=None, params=None, graphs=None,
                      admission=False, admission_slack=1.0, train=False, budget=BUDGET,
-                     acc=ACC, load=LOAD, tp=1, dp=1, pp=1, dist_backend=None, mesh=None):
+                     acc=ACC, load=LOAD, tp=1, dp=1, pp=1, dist_backend=None, mesh=None,
+                     n_layers=None):
     """Vanilla (no-EE, simulated only) vs Apparate per-token exits served on
     the real model at the same accuracy constraint. ``tiny`` serves the
-    config's TINY variant (CPU tests). Returns (summary, responses).
+    config's TINY variant (CPU tests); ``n_layers`` cuts the config to that
+    depth at its full width. Returns (summary, responses).
 
     ``kv_block_size > 0`` pages the decode KV cache into a block pool
     (``decode_attn='paged-kernel'``): KV memory scales with live tokens;
@@ -252,7 +254,8 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
                   verbose=False, kv_block_size=kv_block_size, kv_blocks=kv_blocks,
                   prefix_cache=prefix_cache, preempt=preempt, prefill_chunk=prefill_chunk,
                   prompts=prompts, graphs=graphs, admission=admission,
-                  admission_slack=admission_slack, budget=budget, acc=acc, load=load)
+                  admission_slack=admission_slack, budget=budget, acc=acc, load=load,
+                  n_layers=n_layers)
         from repro_torch.launch.mesh import spawn
 
         out, resp = spawn(_serve_rank, tp * dp, dist_backend, args=(tp, dp, kw),
@@ -271,6 +274,8 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
     device = _cuda_or_cpu(device, "serve_generative")
     cfg = (get_tiny if tiny else get_config)(config).replace(
         decode_attn="paged-kernel" if kv_block_size else "kernel", pallas_head="kernel")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     if cfg.mla:
         # the paged MLA kernel takes the absorbed (latent-space) decode; both
         # layouts run it, so they compute the same math

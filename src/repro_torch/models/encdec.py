@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import layers as LY
 from repro_torch.models.common import (
@@ -50,6 +51,7 @@ from repro_torch.models.common import (
     torch_dtype,
     zeros_from_schema,
 )
+from repro_torch.models.moe import global_value
 from repro_torch.models.transformer import (
     LM,
     MultiStepDecodeMixin,
@@ -308,13 +310,16 @@ class EncDecLM(MultiStepDecodeMixin):
                                 exit_thresholds=exit_thresholds)
         return cache, outs
 
-    def loss(self, params, batch, **kw):
+    def loss(self, params, batch, *, mesh=None, **kw):
         """batch: {'frames': (B, M, d_frontend), 'tokens': (B, S) int,
         'labels': (B, S) int (-1 = pad)}. Returns (lm + ramp loss, metrics):
         the reference's objective, the ramp CE over every site at the
         reference's 16 positions (``ramp_positions``) with the gradient
         stopped at the pooled hidden. Reaches no kernel: attention through
-        ``sdpa``, the ramps through the dense ``ramp_outputs``."""
+        ``sdpa``, the ramps through the dense ``ramp_outputs``. With
+        ``mesh`` the batch is this rank's data shard and the means are the
+        global batch's (``LM.loss``)."""
+        group = _data_group(mesh)
         cfg = self.cfg
         frames, tokens, labels = batch["frames"], batch["tokens"], batch["labels"]
         B, S = tokens.shape
@@ -329,10 +334,11 @@ class EncDecLM(MultiStepDecodeMixin):
                                     caches=None, cache_index=None, pool_idx=pool_idx,
                                     plain=True)
         h = LY.apply_norm(cfg, params["final_norm"], h)
-        lm = _masked_ce(cfg, LY.unembed(cfg, params["tok"], h), labels)
+        lm = _masked_ce(cfg, LY.unembed(cfg, params["tok"], h), labels, group)
         rl = self.ramp_outputs(params, pooled)
         R = rl.shape[0]
-        rloss = _masked_ce(cfg, rl.reshape(R * B, npos, -1), labels[:, pool_idx].repeat(R, 1))
+        rloss = _masked_ce(cfg, rl.reshape(R * B, npos, -1), labels[:, pool_idx].repeat(R, 1),
+                           group)
         return lm + rloss, {"lm_loss": lm, "ramp_loss": rloss}
 
 
@@ -405,24 +411,39 @@ class EncoderClassifier:
             outs["ramp_logits"] = rl
         return outs
 
-    def loss(self, params, batch, **kw):
+    def loss(self, params, batch, *, mesh=None, **kw):
         """Classification CE + per-ramp CE over every site, through ``sdpa``
         (the kernel has no backward). The reference's
         ``stop_gradient(0.0) + ramp_logits`` stops nothing, so in 'full'
         training the ramp loss reaches the encoder; the port computes the
-        same gradients (ROADMAP.md, Queue 3)."""
+        same gradients (ROADMAP.md, Queue 3). With ``mesh`` the batch is
+        this rank's data shard (``_cls_losses``)."""
         tokens, labels = batch["tokens"], batch["labels"].long()
         outs = self.forward(params, tokens, active_sites=list(range(len(self.sites))),
                             prefill_attn="sdpa")
-        return _cls_losses(outs, labels)
+        return _cls_losses(outs, labels, _data_group(mesh))
 
 
-def _cls_losses(outs, labels):
+def _data_group(mesh):
+    """The data group of a mesh whose ranks hold shards of the rows, or None."""
+    return mesh.data_group if mesh is not None and mesh.data_size > 1 else None
+
+
+def _cls_losses(outs, labels, group=None):
     """(CE of the final logits + mean CE of every ramp's, metrics): the
-    reference's classifier losses, labels (B,) int64."""
+    reference's classifier losses, labels (B,) int64. With ``group`` (a
+    data group whose ranks hold equal shards of the rows) the means are
+    over every shard's rows: values global, gradients this shard's share
+    (``global_value``)."""
     lf = outs["final_logits"]
-    ce = -torch.mean(torch.gather(torch.log_softmax(lf, -1), 1, labels[:, None]))
     rl = outs["ramp_logits"]
     idx = labels[None, :, None].expand(rl.shape[0], -1, 1)
-    rce = -torch.mean(torch.gather(torch.log_softmax(rl, -1), 2, idx))
+    ll = torch.gather(torch.log_softmax(lf, -1), 1, labels[:, None])
+    rll = torch.gather(torch.log_softmax(rl, -1), 2, idx)
+    if group is None:
+        ce, rce = -torch.mean(ll), -torch.mean(rll)
+    else:
+        D = dist.get_world_size(group)
+        ce = global_value(-torch.sum(ll) / (ll.numel() * D), group)
+        rce = global_value(-torch.sum(rll) / (rll.numel() * D), group)
     return ce + rce, {"cls_loss": ce, "ramp_loss": rce}

@@ -149,11 +149,12 @@ class ResNet:
             outs["ramp_logits"] = rl
         return outs
 
-    def loss(self, params, batch, **kw):
+    def loss(self, params, batch, *, mesh=None, **kw):
         """Classification CE + per-ramp CE over every site. No stop-grad: the
         ramps read pooled features that also carry backbone gradients; ramp
-        training freezes the backbone through the optimizer mask."""
-        from repro_torch.models.encdec import _cls_losses
+        training freezes the backbone through the optimizer mask. With
+        ``mesh`` the batch is this rank's data shard (``_cls_losses``)."""
+        from repro_torch.models.encdec import _cls_losses, _data_group
 
         outs = self.forward(params, batch["images"], active_sites=list(self.sites))
-        return _cls_losses(outs, batch["labels"].long())
+        return _cls_losses(outs, batch["labels"].long(), _data_group(mesh))

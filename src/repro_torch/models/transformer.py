@@ -516,7 +516,8 @@ class LM(MultiStepDecodeMixin):
 
     def _block(self, slot: SlotSpec, p, h, *, positions, mask, mask_local, cache,
                cache_index, write_gate=None, block_tables=None, xkv_tables=None,
-               memory=None, moe_impl="dense", plain=False, tp=None):
+               memory=None, moe_impl="dense", plain=False, tp=None, mesh=None,
+               rows_sharded=True):
         """One layer. ``plain`` (the loss) runs attention through ``sdpa``
         and the mamba scan through ``ssd_ref``. A local slot reads
         ``mask_local`` and RoPE base ``ROPE_THETA_LOCAL``, and runs as a ring
@@ -526,8 +527,11 @@ class LM(MultiStepDecodeMixin):
         (``_cross``). With ``tp`` (a ``TpCtx``) ``p`` and ``cache`` are the
         rank's shards: attention runs the rank's heads (``_tp_cfg``), then
         ``wo`` on the gathered heads; the FFN is ``ffn_apply_tp``; a MoE slot
-        with ``moe_impl='ep'`` is ``moe_apply_ep_device``. Returns (h, the
-        MoE aux loss or None)."""
+        with ``moe_impl='ep'`` is ``moe_apply_ep_device``. With ``mesh`` (a
+        ``make_mesh`` view; ``loss``/``prefill``) a MoE slot runs the
+        mesh-level ``moe_apply_ep`` on the rank's expert slice, the tokens
+        the rank's data shard when ``rows_sharded``. Returns (h, the MoE aux
+        loss or None)."""
         cfg = self.cfg
         x = LY.apply_norm(cfg, p["ln1"], h)
         kw = dict(positions=positions, mask=mask, cache=cache, cache_index=cache_index,
@@ -567,7 +571,8 @@ class LM(MultiStepDecodeMixin):
             if tp is not None and moe_impl == "ep":
                 out, aux = MOE.moe_apply_ep_device(cfg, p["ffn"], x, tp.m, tp.index, tp.group)
             else:
-                out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl)
+                out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl, mesh=mesh,
+                                         data_sharded=rows_sharded)
             return h + out, aux
         if tp is not None:
             return h + LY.ffn_apply_tp(cfg, p["ffn"], x, tp.gather), None
@@ -622,7 +627,8 @@ class LM(MultiStepDecodeMixin):
 
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
                mask_local=None, write_gate=None, block_tables=None, xkv_tables=None,
-               memory=None, moe_impl="dense", plain=False, remat=False, tp=None):
+               memory=None, moe_impl="dense", plain=False, remat=False, tp=None, mesh=None,
+               rows_sharded=True):
         """Run the prefix slots, the periods layer by layer, then the suffix
         slots; caches are updated in place. ``pool_idx`` is a slice of positions (serving: a
         view, so no index tensor crosses to the device) or an index tensor
@@ -634,7 +640,8 @@ class LM(MultiStepDecodeMixin):
         plan = self.plan
         kw = dict(positions=positions, mask=mask, mask_local=mask_local,
                   cache_index=cache_index, write_gate=write_gate, block_tables=block_tables,
-                  xkv_tables=xkv_tables, memory=memory, moe_impl=moe_impl, plain=plain, tp=tp)
+                  xkv_tables=xkv_tables, memory=memory, moe_impl=moe_impl, plain=plain, tp=tp,
+                  mesh=mesh, rows_sharded=rows_sharded)
         pooled, aux = [], None
 
         def run(slot, p, hh, c):
@@ -714,7 +721,7 @@ class LM(MultiStepDecodeMixin):
     # -- public entry points --------------------------------------------------
 
     def loss(self, params, batch, *, moe_impl="ep", remat=False, ramp_positions=16,
-             train_mode="full"):
+             train_mode="full", mesh=None):
         """batch: {'tokens': (B,S) int, 'labels': (B,S) int (-1 = pad)}; a
         cross plan also reads 'image_embeds' (B, M, d_frontend).
         Returns (loss, metrics). Ramp losses use stop-grad features at
@@ -722,7 +729,17 @@ class LM(MultiStepDecodeMixin):
         backbone frozen w.r.t. ramps; ramps trained on every input).
         ``train_mode`` 'full' is ``lm + ramp + 0.01 * moe aux``,
         'ramps_only' is ``ramp + 0.0 * lm``. Runs without a cache, so it
-        writes none, and reaches no kernel (module docstring)."""
+        writes none, and reaches no kernel (module docstring).
+
+        With ``mesh`` (a ``launch.mesh.make_mesh`` view) the batch is this
+        rank's data shard of the rows, alike on every rank of its model
+        group, and ``params`` hold the rank's slice of the experts
+        (``ep_param_specs``); MoE slots run expert-parallel
+        (``moe_apply_ep``). Every term is then the global batch's: the CE
+        means divide the shards' summed losses by the mesh's count of valid
+        labels, the aux loss takes its router means over every shard. Each
+        value is the global one and each gradient this rank's share, so the
+        data group's summed gradients are the global loss's."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
@@ -740,17 +757,18 @@ class LM(MultiStepDecodeMixin):
         h, pooled, aux = self._stack(
             params, h, positions=positions, mask=mask, mask_local=mask_local, caches=None,
             cache_index=None, pool_idx=pool_idx, memory=memory, moe_impl=moe_impl,
-            plain=True, remat=remat)
+            plain=True, remat=remat, mesh=mesh)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=dev)
+        group = mesh.data_group if mesh is not None and mesh.data_size > 1 else None
         h = LY.apply_norm(cfg, params["final_norm"], h)
-        lm = _masked_ce(cfg, LY.unembed(cfg, params["tok"], h), labels)
+        lm = _masked_ce(cfg, LY.unembed(cfg, params["tok"], h), labels, group)
         if len(self.sites):
             ramp_logits = self.ramp_outputs(params, pooled)
             R = ramp_logits.shape[0]
             ramp_labels = labels[:, pool_idx]  # (B,npos)
             rloss = _masked_ce(cfg, ramp_logits.reshape(R * B, npos, -1),
-                               ramp_labels.repeat(R, 1))
+                               ramp_labels.repeat(R, 1), group)
         else:  # reduced-depth configs can have zero ramp sites
             rloss = torch.zeros((), dtype=torch.float32, device=dev)
         if train_mode == "ramps_only":
@@ -766,7 +784,7 @@ class LM(MultiStepDecodeMixin):
         return image_embeds.to(proj.dtype) @ proj
 
     def prefill(self, params, tokens, *, cache_len=None, active_sites=None,
-                with_cache=True, image_embeds=None, tp=None, moe_impl="dense"):
+                with_cache=True, image_embeds=None, tp=None, moe_impl="dense", mesh=None):
         """tokens: (B,S). Returns (cache|None, outs) where outs carries final
         + per-active-ramp stats for the LAST position (the generated token).
         Attention attends the S prompt queries to the ``cache_len`` keys
@@ -777,7 +795,11 @@ class LM(MultiStepDecodeMixin):
         ``image_embeds`` (B, M, d_frontend) give the cross layers their
         memory, whose k/v the cache keeps (module docstring). ``tp`` (a
         ``TpCtx``; ``prefill_sharded``) runs the rank's shard and returns
-        the rank's cache shard."""
+        the rank's cache shard. With ``mesh`` (a ``make_mesh`` view) and
+        ``moe_impl='ep'`` the tokens are the whole batch alike on every
+        rank and MoE slots run expert-parallel on the rank's expert slice
+        (``moe_apply_ep`` with ``data_sharded=False``: the reference's
+        prefill on a mesh); the rest runs whole on every rank."""
         cfg = self.cfg
         B, S = tokens.shape
         dev = tokens.device
@@ -793,7 +815,7 @@ class LM(MultiStepDecodeMixin):
         h, pooled, _ = self._stack(params, h, positions=positions, mask=mask,
                                    mask_local=mask_local, caches=caches, cache_index=0,
                                    pool_idx=slice(S - 1, S), memory=memory, tp=tp,
-                                   moe_impl=moe_impl)
+                                   moe_impl=moe_impl, mesh=mesh, rows_sharded=False)
         outs = self._head_stats(params, h[:, -1:], pooled, active_sites)
         return caches, outs
 
@@ -959,24 +981,35 @@ class LM(MultiStepDecodeMixin):
                 fix_slot(slot, specs[part][i])
         return specs
 
-    def tp_shard_params(self, params, rank: int, m: int, *, moe_ep: bool = False) -> dict:
-        """Rank ``rank``'s shard of a whole param tree (views: no copy)."""
+    def tp_shard_params(self, params, rank: int, m: int, *, moe_ep: bool = False,
+                        specs=None) -> dict:
+        """Rank ``rank``'s shard of a whole param tree (views: no copy), split
+        by ``specs`` (default ``tp_param_specs(moe_ep=)``)."""
+        if specs is None:
+            specs = self.tp_param_specs(moe_ep=moe_ep)
         return _map2(lambda x, ax: x if ax is None else
-                     x.narrow(ax, rank * (x.shape[ax] // m), x.shape[ax] // m),
-                     params, self.tp_param_specs(moe_ep=moe_ep))
+                     x.narrow(ax, rank * (x.shape[ax] // m), x.shape[ax] // m), params, specs)
+
+    def ep_param_specs(self) -> dict:
+        """The split of the mesh-level loss (``loss(mesh=)``): the experts'
+        w_gate/w_up/w_down on the expert axis over ``model``, every other
+        leaf whole on every rank. Pass it as ``specs`` to
+        ``tp_shard_params`` or ``init_sharded``."""
+        return tree_map(lambda ax: ax if ax == -3 else None, self.tp_param_specs(moe_ep=True))
 
     def init_sharded(self, seed: int, rank: int, m: int, device="cuda", *,
-                     moe_ep: bool = False) -> dict:
+                     moe_ep: bool = False, specs=None) -> dict:
         """Rank ``rank``'s shard of ``init(seed)`` without the whole tree:
         leaf by leaf from one generator in ``init``'s order, each split leaf
         drawn as the whole leaf is drawn and only the rank's part kept
         (``ParamInfo.initialize``), so the result equals
-        ``tp_shard_params(init(seed), rank, m)``."""
+        ``tp_shard_params(init(seed), rank, m, moe_ep=, specs=)``."""
+        if specs is None:
+            specs = self.tp_param_specs(moe_ep=moe_ep)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return _map2(lambda info, ax: info.initialize(
-            gen, device, None if ax is None else (ax, rank, m)),
-            self.schema(), self.tp_param_specs(moe_ep=moe_ep))
+            gen, device, None if ax is None else (ax, rank, m)), self.schema(), specs)
 
     @staticmethod
     def tp_cache_specs(cache, *, data_shard: bool = False):
@@ -1184,9 +1217,12 @@ def _mask_pad_vocab(cfg, logits):
     return torch.where(col < V, logits, -1e30)
 
 
-def _masked_ce(cfg, logits, labels):
+def _masked_ce(cfg, logits, labels, group=None):
     """Cross-entropy with -1 padding labels and padded-vocab masking (the
-    reference's formula: max-shifted log-sum-exp, mean over valid labels)."""
+    reference's formula: max-shifted log-sum-exp, mean over valid labels).
+    With ``group`` (a data group whose ranks each hold a shard of the
+    rows) the mean is over every shard's valid labels: its value the
+    global mean, its gradient this shard's share (``global_value``)."""
     logits = logits.float()
     if logits.shape[-1] > cfg.vocab_size:
         logits = _mask_pad_vocab(cfg, logits)
@@ -1196,4 +1232,9 @@ def _masked_ce(cfg, logits, labels):
     lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
     ll = torch.gather(logits, -1, lab[..., None])[..., 0]
     nll = (lse - ll) * valid
-    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+    if group is None:
+        return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+    from repro_torch.distributed import sum_over
+
+    n = sum_over(torch.sum(valid).float(), group)
+    return MOE.global_value(torch.sum(nll) / torch.clamp(n, min=1), group)

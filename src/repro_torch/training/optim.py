@@ -82,13 +82,17 @@ def _f32(x, device):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, mask=None):
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, mask=None,
+                 grad_norm=None):
     """mask: tree of bools or bool tensors (True = trainable); frozen params
-    keep their value and their ``mu``/``nu``. Returns (params, state, grad
-    norm); params and moments are updated in place."""
+    keep their value and their ``mu``/``nu``. ``grad_norm``: the global norm
+    the clipping reads, where the caller reckons it (a mesh step, whose
+    expert leaves lie on several ranks); ``global_norm(grads)`` otherwise.
+    Returns (params, state, grad norm); params and moments are updated in
+    place."""
     step = state["step"] + 1
     dev = step.device
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     one = _f32(1.0, dev)
     scale = torch.minimum(one, cfg.clip_norm / (gn + 1e-9)) if cfg.clip_norm else one
     sf = step.float()

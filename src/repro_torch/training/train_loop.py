@@ -6,6 +6,18 @@ The train state is a plain tree, ``{"params", "opt": {"step", "mu", "nu"},
 eager forward and backward through the model's ``loss`` (which reaches no
 kernel) and one AdamW update, in place.
 
+Given a mesh (``launch.mesh.make_mesh``) the step is data-parallel over
+the combined data axes ``("pod", "data")`` and expert-parallel over
+``model``, as the reference's step on a mesh computes it: every rank
+takes the global batch and keeps its rows of each microbatch, the loss
+(``loss(mesh=)``) is the global batch's, the gradients are summed over
+the data group in one bucketed all-reduce (``all_reduce_flat``), the
+clipping norm counts the replicated leaves once and sums the expert
+leaves' squares over the model group, and AdamW updates each rank's own
+leaves in place. A rank holds the dense leaves whole and its slice of the
+experts (``ep_param_specs``); sharding the dense leaves (the reference's
+FSDP and head splits, an XLA layout that changes no number) is not ported.
+
 In ``ramps_only`` mode the step differentiates only the leaves whose
 gradient the LM loss can make non-zero: the ramps, and with 'tied' ramps
 the final head. Every other leaf's gradient in the reference is exactly
@@ -24,7 +36,13 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
-from repro_torch.training.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+from repro_torch.training.optim import (
+    AdamWConfig,
+    _sq_sum,
+    adamw_init,
+    adamw_update,
+    cosine_schedule,
+)
 
 
 @dataclasses.dataclass
@@ -76,18 +94,57 @@ def _to_device(batch, device):
             for k, v in batch.items()}
 
 
-def make_train_step(model, tcfg: TrainConfig, opt_cfg: Optional[AdamWConfig] = None):
+def expert_leaves(model, params) -> list:
+    """One bool a leaf of ``params`` (``tree_leaves`` order): True where a
+    mesh's model axis splits the leaf (``ep_param_specs``)."""
+    if not hasattr(model, "ep_param_specs"):
+        return [False] * len(tree_leaves(params))
+    return [ax is not None for ax in tree_leaves(model.ep_param_specs())]
+
+
+def state_sharding(model, mesh):
+    """The ``CheckpointManager`` sharding tree of a mesh step's state: each
+    expert leaf of the params and of AdamW's moments as ``Shard(axis,
+    model rank, model size)``, every other leaf None (whole)."""
+    from repro_torch.checkpoint.manager import Shard
+
+    m, mi = mesh.model_size, mesh.model_rank
+    specs = tree_map(lambda ax: None if ax is None or m == 1 else Shard(ax, mi, m),
+                     model.ep_param_specs() if hasattr(model, "ep_param_specs")
+                     else model.schema())
+    return {"params": specs, "opt": {"step": None, "mu": specs, "nu": specs}, "step": None}
+
+
+def _rows(batch, i: int, n: int, mesh):
+    """Microbatch ``i`` of ``n`` of the global batch, and on a mesh this data
+    rank's contiguous share of it."""
+    rows = next(iter(batch.values())).shape[0] // n
+    lo = i * rows
+    if mesh is not None:
+        D = mesh.data_size
+        if rows % D:
+            raise ValueError(f"a microbatch of {rows} rows does not split over {D} data ranks")
+        rows //= D
+        lo += mesh.data_rank * rows
+    return {k: v[lo:lo + rows] for k, v in batch.items()}
+
+
+def make_train_step(model, tcfg: TrainConfig, opt_cfg: Optional[AdamWConfig] = None, *,
+                    mesh=None):
     """Returns (step_fn(state, batch) -> (state, metrics), opt_cfg). The
     batch's arrays may be numpy or tensors; they go to the params' device.
-    The state is updated in place."""
+    The state is updated in place. With ``mesh`` (module docstring) the
+    batch is the global one on every rank and the state is the rank's:
+    its params hold the rank's slice of the experts."""
     opt_cfg = opt_cfg or AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay)
     sched = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps)
+    mkw = {} if mesh is None else {"mesh": mesh}
 
     def loss_fn(params, batch):
         if model.cfg.family == "lm":
             return model.loss(params, batch, moe_impl=tcfg.moe_impl, remat=tcfg.remat,
-                              train_mode=tcfg.train_mode)
-        return model.loss(params, batch)
+                              train_mode=tcfg.train_mode, **mkw)
+        return model.loss(params, batch, **mkw)
 
     def grads_of(params, leaves, batch):
         for p in leaves:
@@ -112,9 +169,7 @@ def make_train_step(model, tcfg: TrainConfig, opt_cfg: Optional[AdamWConfig] = N
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(n):
-                mb = {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
-                      for k, v in batch.items()}
-                l, _, gs = grads_of(params, leaves, mb)
+                l, _, gs = grads_of(params, leaves, _rows(batch, i, n, mesh))
                 for a, g in zip(acc, gs):
                     if g is not None:
                         a += g
@@ -123,17 +178,40 @@ def make_train_step(model, tcfg: TrainConfig, opt_cfg: Optional[AdamWConfig] = N
             loss = loss / n
             metrics = {}
         else:
-            loss, metrics, gs = grads_of(params, leaves, batch)
+            loss, metrics, gs = grads_of(params, leaves, _rows(batch, 0, 1, mesh))
+        gn = None
+        if mesh is not None:
+            gs, gn = _reduce_over_mesh(model, mesh, params, wrt, leaves, gs)
         it = iter(gs)
         grads = [next(it) if w else None for w in wrt]
         grads = _unflatten_like(params, grads)
         mask = ramp_mask(params) if tcfg.train_mode == "ramps_only" else None
         newp, newopt, gn = adamw_update(params, grads, opt, opt_cfg, lr_scale=sched(step),
-                                        mask=mask)
+                                        mask=mask, grad_norm=gn)
         out = {"loss": loss, "grad_norm": gn, **metrics}
         return {"params": newp, "opt": newopt, "step": step + 1}, out
 
     return step_fn, opt_cfg
+
+
+def _reduce_over_mesh(model, mesh, params, wrt, leaves, gs):
+    """A mesh step's gradients summed over the data group (one bucketed
+    all-reduce; a leaf never reached counts as zeros), and the global norm:
+    the replicated leaves' squares once, the expert leaves' summed over the
+    model group. Returns (gradients, norm)."""
+    from repro_torch.distributed import all_reduce_flat, sum_over
+
+    gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
+    if mesh.data_size > 1:
+        gs = all_reduce_flat(gs, mesh.data_group)
+    split = [e for e, w in zip(expert_leaves(model, params), wrt) if w]
+    dev = gs[0].device
+    sq = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(2)]
+    for g, e in zip(gs, split):
+        sq[e] = sq[e] + _sq_sum(g)
+    if mesh.model_size > 1:
+        sq[1] = sum_over(sq[1], mesh.model_group)
+    return gs, torch.sqrt(sq[0] + sq[1])
 
 
 def _unflatten_like(tree, leaves):

@@ -158,7 +158,8 @@ def test_fits_agrees_with_full_width_bytes(arch, L, n_sites, gb):
 
 def test_cells_and_records(tmp_path, monkeypatch):
     """The grid has the reference's 33 runnable cells; a cell's record
-    carries the roofline terms; ``multi`` is refused; a train cell counts
+    carries the roofline terms; ``multi`` records tp_check's refusal of
+    qwen2's 12 heads over tp 16; a train cell counts
     the loss, its backward and AdamW at full width."""
     assert len(DR.cells()) == 33
     monkeypatch.setattr(DR, "ART_DIR", str(tmp_path))
@@ -176,6 +177,6 @@ def test_cells_and_records(tmp_path, monkeypatch):
                      tag="t", write=False)
     assert tr["ok"] and tr["resident"]["adamw_moments"] == 8 * tr["params_total"]
     assert tr["flops"] > 3 * 2 * tr["params_active"] * 128
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        DR.run_cell("qwen2-1.5b", "decode_32k", "multi")
+    multi = DR.run_cell("qwen2-1.5b", "decode_32k", "multi")  # tp_check refuses tp 16
+    assert multi["ok"] and multi["refused"] and "not divisible by tp=16" in multi["status"]
     assert DR.main(["--arch", "gemma3-4b", "--shape", "long_500k"]) == 0

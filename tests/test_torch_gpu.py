@@ -1484,3 +1484,29 @@ def test_nccl_refuses_two_ranks_on_one_card(built):
 
     with pytest.raises(ValueError, match="NCCL refuses two ranks on one device"):
         spawn(R.job_raise, torch.cuda.device_count() + 1, "nccl", device="cuda")
+
+
+def test_training_collectives_two_gloo_ranks_share_one_card(built):
+    """Two gloo ranks on cuda:0: the autograd all-to-all, chunk and
+    all-gather (forward and backward) and one int8 error-feedback
+    all-reduce on CUDA tensors equal the same calls on the CPU bit for bit
+    (data movement, and the same IEEE arithmetic)."""
+    import torch_train_dist_ranks as T  # repro: allow[tier1-deps] — the rank bodies beside this file (torch + the port)
+
+    from repro_torch.launch.mesh import spawn  # repro: allow[tier1-deps] — the port under test
+
+    for r in spawn(T.job_card_collectives, 2, "gloo", device="cuda"):
+        for k, v in r["cpu"].items():
+            np.testing.assert_array_equal(r["cuda"][k], v, err_msg=k)
+
+
+def test_a_failing_rank_fails_the_job(built):
+    """A rank that raises fails ``spawn`` with its traceback; nothing is
+    swallowed."""
+    import torch_train_dist_ranks as T  # repro: allow[tier1-deps] — the rank bodies beside this file (torch + the port)
+
+    from repro_torch.launch.mesh import spawn  # repro: allow[tier1-deps] — the port under test
+
+    with pytest.raises(RuntimeError) as err:
+        spawn(T.job_card_raise, 2, "gloo", device="cuda")
+    assert "rank 1 raised" in str(err.value) and "planted failure" in str(err.value)

@@ -332,6 +332,28 @@ def test_serve_generative_admission_on_cpu_tiny():
     assert set(out["admission"]) == {"vanilla", "apparate"}
 
 
+def test_serve_generative_at_a_cut_depth_on_cpu_tiny():
+    """``n_layers`` serves the config at that depth: views of a deeper
+    model's first layers serve every request, with the tokens of the same
+    weights copied out."""
+    from repro_torch.configs import get_tiny  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.launch.serve import serve_generative  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models import build_model  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.common import tree_map  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.transformer import _map2  # repro: allow[tier1-deps] — the port under test
+
+    cfg = get_tiny("gpt2-medium")
+    whole = build_model(cfg).init(0, device="cpu")
+    part = _map2(lambda x, a: x[:a.shape[0]], whole,
+                 build_model(cfg.replace(n_layers=2)).abstract())
+    kw = dict(decode_tokens=5, prompt_len=8, steps_per_sync=3, tiny=True, device="cpu",
+              verbose=False, n_layers=2)
+    _, resp = serve_generative("gpt2-medium", 4, params=part, **kw)
+    _, ref = serve_generative("gpt2-medium", 4, params=tree_map(torch.clone, part), **kw)
+    assert len(resp) == 4 and all(len(r.tokens) == 5 and not r.dropped for r in resp)
+    assert [r.tokens for r in resp] == [r.tokens for r in ref]
+
+
 # -- the copied numpy modules ------------------------------------------------
 
 COPIES = ["core/exits.py", "core/threshold_tuning.py", "core/ramp_adjust.py",
