@@ -93,7 +93,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      local decode window's plain gather timed; the step's byte floor;
      9b. the prefill through sdpa vs the flash kernel, then 40 decode
      steps with the kernels off vs on (labels equal except near-ties), one
-     eager step profiled; 9c. 8 requests x 38 tokens on the full cache, on
+     eager step profiled; 9c-9d on its first 13 of 34 layers
+     (``SERVE_DEPTH``): 9c. 8 requests x 38 tokens on the full cache, on
      windowed_cache rings and on the paged pool (ring pages), then one on
      the pool with a 1060-token first chunk and 40 resumed tokens: greedy
      tokens equal except from a near-tie; a prefix cache refused; 9d. as
@@ -183,6 +184,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
      blocks over 2 stages, 4 microbatches of 2 x 128, against the single
      rank's forward. Times and bytes are labelled as ranks sharing one
      card. The loss reaches no kernel.
+  16. the reference's FSDP train state on one card, once phase 15 is done:
+     qwen2-1.5b whole (28 layers, 12 ramp heads, full width, bf16), 2 AdamW
+     steps (phase 15's lr and clip, 'full' mode, remat) on 8 x 128
+     TokenPipeline tokens with -1 labels planted unevenly. 16a: one rank
+     takes them on the whole model (52.5 GB of state) in this process and
+     keeps four sampled leaves, then again on each batch's rows reversed
+     (the comparison's floor in bf16), then as the split control: each
+     half of the rows' gradient under the whole batch's label counts,
+     rounded to bf16 and the two summed in bf16, as the data split rounds
+     them; 16b: four gloo ranks of (data 2, model 2) on cuda:0, each
+     drawing and holding only its part of every leaf of the params,
+     gradients and AdamW moments (split by the leaf's spec sanitized on
+     the mesh), gathered where used and reduce-scattered back: losses and
+     grad norms against 16a's, the sampled leaves (gathered from the
+     parts) against the split control's and 16a's; each rank's peak
+     against its reckoned state; step 2 again with two faults planted,
+     the backward's sum over data left out (read by the leaves) and each
+     layer's forward gather held to the step's end (read by the peak),
+     each of which must read beyond its limit; the collectives' bytes
+     against those reckoned from the specs, the parts of a step's time.
+     The loss reaches no kernel. ``python3 chip_smoke.py --phase 16
+     [--seed N]`` runs this phase alone.
 Every serving phase serves its sync windows as CUDA graph replays (the
 runner's default on a card; a key's first window runs eager, its second
 is captured), except runs that carry Python hooks, which run eager
@@ -228,6 +251,15 @@ SEED = 0
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def tick(name, t0):
+    """Print a sub-phase's seconds since ``t0``, the card drained; returns
+    the time now (the next sub-phase's start)."""
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    print(f"{name} took {now - t0:.1f} s", flush=True)
+    return now
 
 
 def card_line() -> str:
@@ -1406,7 +1438,7 @@ def _moe_divergences(phase, runs, hidden):
 
 
 def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kernel,
-                              prefill_kernel, quick=False):
+                              prefill_kernel, rounds=2, ops=True):
     """Phases 4b, 5b, 6b, 10c and 11c: 8 requests, prompt 120, 38 tokens, windows of
     4, served on the contiguous runner and on the paged pool (bs 16,
     paged-kernel) on one schedule. Greedy tokens equal, except a difference
@@ -1420,11 +1452,11 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
     carries Python hooks, which a replay would skip. For the MoE model the
     compared runs carry hooks (the paged run replays the contiguous run's
     routing, both record their final-head inputs) and run eager, so the
-    times come from four more runs of each layout without any hook, in the
-    order contiguous, paged, paged, contiguous, twice, and one more eager
-    run of each counts the aten ops of a window (``window_ops``); ``quick``
-    (Qwen3-MoE, whose eager windows take ~0.7 s) runs that order once and
-    counts no ops. Returns the compared contiguous and paged runs' launch
+    times come from runs of each layout without any hook, in the order
+    contiguous, paged, paged, contiguous, ``rounds`` times, and with
+    ``ops`` one more eager run of each counts the aten ops of a window
+    (``window_ops``; Qwen3-MoE, whose eager windows take ~0.7 s, counts
+    none). Returns the compared contiguous and paged runs' launch
     counts."""
     import numpy as np
 
@@ -1459,7 +1491,7 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
                 lambda: routes(m, call)), graphs=False)
         ties = _moe_divergences(phase, runs, hidden)
         timed = []
-        order = (layouts + layouts[::-1]) * (1 if quick else 2)
+        order = (layouts + layouts[::-1]) * rounds
         for name, bs in order:
             gc.collect()  # earlier runs' engine objects sit in reference cycles
             timed.append((name, serve_once(name, bs)))
@@ -1468,13 +1500,13 @@ def serve_paged_vs_contiguous(params, cfg, serve, phase, cont_kernel, paged_kern
         extra = (f"MoE routing replayed from the contiguous run: {routes.flip_count()} of "
                  f"{routes.routes} token routes of the paged run would have taken other "
                  f"experts; eager ms per window with the hooks {hooked}; ")
-        if not quick:
-            ops = [window_ops(lambda: serve_once(name, bs, graphs=False))[1]
-                   for name, bs in layouts]
-            extra += (f"eager aten ops per window {ops[0]['ops_per_window']['eager']:.1f} vs "
-                      f"{ops[1]['ops_per_window']['eager']:.1f}, in LM.decode per step "
-                      f"{ops[0]['decode_ops_per_step']:.1f} vs "
-                      f"{ops[1]['decode_ops_per_step']:.1f}; ")
+        if ops:
+            n = [window_ops(lambda: serve_once(name, bs, graphs=False))[1]
+                 for name, bs in layouts]
+            extra += (f"eager aten ops per window {n[0]['ops_per_window']['eager']:.1f} vs "
+                      f"{n[1]['ops_per_window']['eager']:.1f}, in LM.decode per step "
+                      f"{n[0]['decode_ops_per_step']:.1f} vs "
+                      f"{n[1]['decode_ops_per_step']:.1f}; ")
         extra += ("times below from graphed runs without hooks in the order "
                   + ", ".join(name[0] for name, _ in order) + " (median last); ")
     else:
@@ -1638,7 +1670,7 @@ def _cut_depth(params, cfg, serve):
     import functools
 
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import _map2
+    from repro_torch.models.common import tree_map2
 
     def first(x, want):
         y = x[:want.shape[0]]
@@ -1647,7 +1679,7 @@ def _cut_depth(params, cfg, serve):
         return y
 
     cut = cfg.replace(n_layers=SERVE_DEPTH)
-    part = _map2(first, params, build_model(cut).abstract())
+    part = tree_map2(first, params, build_model(cut).abstract())
     return part, cut, functools.partial(serve, n_layers=SERVE_DEPTH)
 
 
@@ -1669,17 +1701,23 @@ def deepseek_phases(gen, serve):
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rh = check_ramp_head(params, cfg, gen)
+    t = tick("5 draw and ramp heads", t0)
     # 5a: prefill + 8 decode steps on the paged pool, kernels off vs on
     compare_paths(params, cfg, cfg.replace(decode_attn="paged", pallas_head="off"),
                   cfg.replace(decode_attn="paged-kernel", pallas_head="kernel"), gen,
                   paged_bs=16)
+    t = tick("5a", t)
     # 5b: contiguous rows (absorbed plain math, no attention kernel) vs the
     # pool (the paged MLA kernel in every layer), at SERVE_DEPTH
     params, cfg, serve = _cut_depth(params, cfg, serve)
     _, launches = serve_paged_vs_contiguous(params, cfg, serve, "5b", None,
-                                         "paged_mla_decode_attention", None)
+                                         "paged_mla_decode_attention", None, rounds=1)
+    t = tick("5b", t)
     serve_swap(params, cfg, serve, "5c", SEED + 5, "paged_mla_decode_attention", None)
-    return launches, rh, graph_vs_eager(params, cfg, serve, "5d", SEED + 8)
+    t = tick("5c", t)
+    graphs = graph_vs_eager(params, cfg, serve, "5d", SEED + 8)
+    tick("5d", t)
+    return launches, rh, graphs
 
 
 # ---------------------------------------------------------------------------
@@ -1733,19 +1771,25 @@ def mamba_phases(gen, serve):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rh = check_ramp_head(params, cfg, gen)
     time_state_update(cfg, gen)
+    t = tick("6 draw, ramp heads and state update", t0)
     # 6a: prefill (the SSD kernel vs the plain scan) + 8 decode steps, kernels
     # off vs on, on contiguous state rows
     compare_paths(params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
                   cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
                   off_kw={"ssd_impl": "ref"}, on_kw={"ssd_impl": "kernel"},
                   prefill_kernel="ssd_chunked")
+    t = tick("6a", t)
     # 6b: contiguous state rows vs state pages (no decode attention kernel),
     # at SERVE_DEPTH
     params, cfg, serve = _cut_depth(params, cfg, serve)
     _, launches = serve_paged_vs_contiguous(params, cfg, serve, "6b", None, None,
                                             "ssd_chunked")
+    t = tick("6b", t)
     serve_swap(params, cfg, serve, "6c", SEED + 6, None, "ssd_chunked")
-    return launches, rh, graph_vs_eager(params, cfg, serve, "6d", SEED + 9)
+    t = tick("6c", t)
+    graphs = graph_vs_eager(params, cfg, serve, "6d", SEED + 9)
+    tick("6d", t)
+    return launches, rh, graphs
 
 
 # ---------------------------------------------------------------------------
@@ -2108,8 +2152,10 @@ def gemma_phases(gen, serve):
     bf16 weights. 9a: the kernels alone at its shapes and the local decode
     window's plain gather; 9b: an 1100-token prefill through sdpa vs the
     flash kernel, then 40 decode steps with the kernels off vs on, one
-    eager step profiled; 9c: three layouts; 9d: window graphs. Returns the
-    kernel rows and the runs' launches."""
+    eager step profiled; on its first ``SERVE_DEPTH`` layers, 9c: three
+    layouts; 9d: window graphs. Returns the kernel rows (with the cut
+    model's local and all layers, ``prefill_layers``) and the runs'
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
@@ -2139,6 +2185,7 @@ def gemma_phases(gen, serve):
         gen)
     rows["ramp"] = check_ramp_head(params, cfg, gen)
     rows["gather"] = gather_probe(gen)
+    t = tick("9 draw and 9a kernels", t0)
     floor = step_bytes(params, cfg, model, 8, 4, GM_PROMPT + 20)
     floor["ms"] = 1e3 * floor["total"] / HBM_BW
     rows["floor"] = floor
@@ -2152,9 +2199,15 @@ def gemma_phases(gen, serve):
         params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
         cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen, toks=toks, T=40,
         on_kw={"prefill_attn": "kernel"}, prefill_kernel="flash_attention")
-    # -- 9c: three layouts; 9d: window graphs
+    t = tick("9a floor and 9b", t)
+    # -- 9c: three layouts; 9d: window graphs, at SERVE_DEPTH
+    params, cfg, serve = _cut_depth(params, cfg, serve)
+    local = [sl.is_local for sl in build_model(cfg).plan.layer_specs()]
+    rows["prefill_layers"] = (sum(local), len(local))
     full_l, paged_l = serve_gemma_layouts(params, cfg, serve)
+    t = tick("9c", t)
     rows["graphs"] = graph_vs_eager(params, cfg, serve, "9d", SEED + 11, prompt_len=GM_PROMPT)
+    tick("9d", t)
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2905,7 +2958,7 @@ def qwen3_phases(gen, serve):
     params, cfg, serve = _cut_depth(params, cfg, serve)
     cont, paged = serve_paged_vs_contiguous(params, cfg, serve, "10c", "decode_attention",
                                             "paged_decode_attention", "flash_attention",
-                                            quick=True)
+                                            rounds=1, ops=False)
     serve_prefix_swap(params, cfg, serve, "10c")
     t = _lap("10c", t)
     # -- 10d: window graphs
@@ -4694,7 +4747,7 @@ def train_rank_c(rank, world, tmp):
     after step 2 saved from both ranks in the reference's format; step 3's
     result and a sample of updated leaves held against the single rank's."""
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import make_test_mesh, mesh_axes
     from repro_torch.models import build_model
     from repro_torch.training import TrainConfig, make_train_step
     from repro_torch.training.optim import AdamWConfig, adamw_init
@@ -4708,7 +4761,7 @@ def train_rank_c(rank, world, tmp):
     params = model.init_sharded(SEED, mesh.model_rank, 2, "cuda", specs=model.ep_param_specs())
     opt_cfg = AdamWConfig(lr=TR_LR, clip_norm=TR_CLIP)
     step_fn, _ = make_train_step(model, TrainConfig(steps=3, lr=TR_LR, warmup=1, moe_impl="ep"),
-                                 opt_cfg, mesh=mesh)
+                                 opt_cfg, mesh=mesh, axes=mesh_axes(mesh, fsdp=False))
     state = {"params": params, "opt": adamw_init(params, opt_cfg),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     pb = _nbytes(params)
@@ -4717,7 +4770,8 @@ def train_rank_c(rank, world, tmp):
         if s == 2:
             mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
             _, out["save_ms"] = _sync_ms(lambda: mgr.save(
-                state, 2, mesh=mesh, sharding_tree=state_sharding(model, mesh)))
+                state, 2, mesh=mesh,
+                sharding_tree=state_sharding(model, mesh, mesh_axes(mesh, fsdp=False))))
             # a planted fault: the leaves with step 3's update lost
             lost = {k: _get(state["params"], path).clone() for k, path in TR_LEAVES.items()}
         (state, o), ms = _sync_ms(lambda: step_fn(state, _tr_batch(s)))
@@ -4779,11 +4833,11 @@ def _tr_restore(tmp):
     whole onto one rank, whose step 3 is held against 15c's step 3; then
     restored as rank 1 of a (data 1, model 4) layout, which reads a
     quarter of each expert leaf."""
-    import types
-
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models.layers import MeshAxes
     from repro_torch.training import TrainConfig, make_train_step
     from repro_torch.training.optim import AdamWConfig
     from repro_torch.training.train_loop import expert_leaves, state_sharding
@@ -4801,7 +4855,10 @@ def _tr_restore(tmp):
     del state, o
     gc.collect()
     torch.cuda.empty_cache()
-    specs = state_sharding(model, types.SimpleNamespace(model_size=4, model_rank=1))
+    # rank 1 of (data 1, model 4): its coordinates, no groups
+    specs = state_sharding(model, RankMesh({"data": 1, "model": 4}, 1, {"data": 0, "model": 1},
+                                           {}, torch.device("cuda"), "gloo"),
+                           MeshAxes(fsdp=False))
     part, pms = _sync_ms(lambda: mgr.restore(2, "cuda", sharding_tree=specs))
     exp = [x for x, e in zip(tree_leaves(model.abstract()),
                              expert_leaves(model, model.abstract())) if e]
@@ -4983,7 +5040,499 @@ def _tr_report(card, anchors, res, c, d, e, secs):
     print(f"phase 15: {json.dumps({k: round(v, 1) for k, v in secs.items()})} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the FSDP train state, qwen2-1.5b whole on four ranks sharing one card
+
+FS_LAYOUT = {"data": 2, "model": 2}  # the reference's test mesh
+FS_STEPS = 2
+# 16b's limits on a sampled leaf's difference, over 16a's update. Phase 15's
+# TR_UPD_TOL (5e-2) was set on a layout with one data rank; here each data
+# rank's gradient comes from its own rows (GEMMs of 512 rows, not 1024), is
+# rounded to bf16, and the halves are summed in bf16, and the first step's
+# learning rate is 0, so the leaves carry one update. The split control
+# (16a's rank rounding each half of the rows as the data split does) reads
+# that rounding: against 16a up to 0.076 (the embedding; layer 0's wq 0.052)
+# on an H100, as 16b does; 16b against the split control reads 0.003 or
+# less. So 16b is held to the split control within TR_UPD_TOL and to 16a
+# within twice the control's largest reading; the planted missing data sum
+# must read beyond both.
+FS_UPD_TOL = 0.15
+# what a rank may hold at its peak above its reckoned state: between the
+# sound reading (0.93 GB on an H100) and the planted fault's (each layer's
+# forward gather held: 3.55 GB), which must read beyond
+FS_PEAK_ROOM = 1.75e9
+# the leaves 16b holds against the single rank: (path, the layer or site
+# taken, None for an unstacked leaf)
+FS_LEAVES = {"wq": (("blocks", 0, "mixer", "wq"), 0),
+             "w_down": (("blocks", 0, "ffn", "w_down"), 27),
+             "ramp_head": (("ramps", "head"), 11), "embed": (("tok", "embed"), None)}
+
+
+def _fs_cfgs():
+    """Phase 15's AdamW (``TR_LR``, ``TR_CLIP``), 'full' mode, remat on."""
+    from repro_torch.training import TrainConfig
+    from repro_torch.training.optim import AdamWConfig
+
+    return (TrainConfig(steps=FS_STEPS, lr=TR_LR, warmup=1, train_mode="full", remat=True),
+            AdamWConfig(lr=TR_LR, clip_norm=TR_CLIP))
+
+
+def _fs_batch(step, seed):
+    """Step ``step``'s global batch: 8 x 128 TokenPipeline tokens over
+    qwen2's vocabulary (``seed``), -1 labels planted as ``_tr_batch`` plants
+    them (data rank 0's rows keep 288 of 512 labels, data rank 1's 448)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+
+    b = TokenPipeline(get_config(CONFIG).vocab_size, TR_S, TR_B, seed=seed).batch_at(step)
+    lab = b["labels"]
+    lab[0, 10:], lab[2, :100], lab[5, 64:] = -1, -1, -1
+    return b
+
+
+def _fs_sample(tree, k):
+    """Leaf ``k`` of FS_LEAVES out of a tree of params (or of specs: a
+    stacked leaf's spec loses its layer entry)."""
+    path, i = FS_LEAVES[k]
+    x = _get(tree, path)
+    if i is None:
+        return x
+    return tuple(x[1:]) if isinstance(x, tuple) else x[i]
+
+
+def _fs_marks():
+    """A ``make_train_step(mark=)`` timer: (the hook, its list of (name,
+    seconds)); each mark waits for the card."""
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    return mark, marks
+
+
+def _fs_parts(marks, t0) -> dict:
+    """ms of each part of a step from its marks: forward, backward, the
+    gradient reduction and norm, the AdamW update."""
+    out, last = {}, t0
+    for name, t in marks:
+        out[name] = out.get(name, 0.0) + 1e3 * (t - last)
+        last = t
+    return out
+
+
+def _fs_split_step(model, state, batch, tcfg, opt_cfg):
+    """One step of 16a's split control, one rank on the whole model: each
+    data rank's rows of 16b (rows 0-3, then 4-7) give their gradient under
+    the whole batch's label counts (the LM and ramp terms scaled by the
+    rows' share of the valid labels, as ``loss(mesh=)`` divides by the
+    global count), each rounded to bf16 as autograd leaves it, the two
+    summed in bf16 in rank order; then the norm and AdamW. This is the
+    rounding of 16b's data split without its ranks."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.optim import adamw_update, cosine_schedule
+
+    params, opt, step = state["params"], state["opt"], state["step"]
+    leaves = tree_leaves(params)
+    lab = torch.as_tensor(batch["labels"])
+    S = lab.shape[1]
+    npos = min(16, S)  # the loss's ramp positions (LM.loss)
+    pool = torch.linspace(S // npos - 1, S - 1, npos, dtype=torch.float32).to(torch.int64)
+    D = FS_LAYOUT["data"]
+    rows = lab.shape[0] // D
+    total = None
+    for r in range(D):
+        half = {k: torch.as_tensor(v[r * rows:(r + 1) * rows]).cuda() for k, v in batch.items()}
+        hl = lab[r * rows:(r + 1) * rows]
+        a_lm = float((hl >= 0).sum()) / float((lab >= 0).sum())
+        a_r = float((hl[:, pool] >= 0).sum()) / float((lab[:, pool] >= 0).sum())
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            _, m = model.loss(params, half, moe_impl=tcfg.moe_impl, remat=tcfg.remat,
+                              train_mode=tcfg.train_mode)
+            obj = m["lm_loss"] * a_lm + m["ramp_loss"] * a_r + 0.01 * m["moe_aux"]
+            gs = torch.autograd.grad(obj, leaves, allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
+        if total is None:
+            total = gs
+        else:
+            for t, g in zip(total, gs):
+                t.add_(g)  # in the leaf's dtype, as the reduce-scatter sums
+        del gs, m, obj
+    sched = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps)
+    newp, newopt, gn = adamw_update(params, _tree_like(params, total), opt, opt_cfg,
+                                    lr_scale=sched(step))
+    return {"params": newp, "opt": newopt, "step": step + 1}, float(gn)
+
+
+def _fs_anchor(tmp, seed):
+    """16a in this process, before any rank starts: the whole model's two
+    AdamW steps on one rank, the sampled leaves written to ``tmp`` at the
+    start and after each step. Then, each from a fresh draw, the same steps
+    on each batch's rows reversed (the same math summed in another order:
+    the comparison's floor in bf16) and as the split control
+    (``_fs_split_step``, whose sampled leaves are written too); each
+    control's sampled leaves against the first run's. Frees every tensor.
+    Returns losses, grad norms, times, the peak above the start and the
+    controls' readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import init_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(get_config(CONFIG))
+    tcfg, opt_cfg = _fs_cfgs()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_state(model, seed, opt_cfg, device="cuda")
+    pb = _nbytes(state["params"])
+    out = {"reckoned": 2 * pb + _nbytes(state["opt"]), "logs": [], "ms": [], "parts": []}
+
+    def save(name):
+        torch.save({k: _fs_sample(state["params"], k).to("cpu", copy=True) for k in FS_LEAVES},
+                   os.path.join(tmp, f"{name}.pt"))
+
+    save("fs_sample_0")
+    mark, marks = _fs_marks()
+    step_fn, _ = make_train_step(model, tcfg, opt_cfg, mark=mark)
+    for s in range(FS_STEPS):
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, o), ms = _sync_ms(lambda: step_fn(state, _fs_batch(s, seed)))
+        out["logs"].append({k: float(v) for k, v in o.items()})
+        out["ms"].append(ms)
+        out["parts"].append(_fs_parts(marks, t0))
+        save(f"fs_sample_{s + 1}")
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    want = torch.load(os.path.join(tmp, f"fs_sample_{FS_STEPS}.pt"))
+    start = torch.load(os.path.join(tmp, "fs_sample_0.pt"))
+    for name in ("reversed", "split"):
+        del state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_state(model, seed, opt_cfg, device="cuda")
+        step_fn, _ = make_train_step(model, tcfg, opt_cfg)
+        norms = []
+        for s in range(FS_STEPS):
+            b = _fs_batch(s, seed)
+            if name == "reversed":
+                state, o = step_fn(state, {k: v[::-1].copy() for k, v in b.items()})
+                norms.append(float(o["grad_norm"]))
+            else:
+                state, gn = _fs_split_step(model, state, b, tcfg, opt_cfg)
+                norms.append(gn)
+        if name == "split":
+            save(f"fs_split_{FS_STEPS}")
+        out[name] = {k: _upd_rel(_fs_sample(state["params"], k), want[k].cuda(),
+                                 start[k].cuda()) for k in FS_LEAVES}
+        out[f"{name}_norms"] = norms
+    del state, step_fn, want, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _own_chunk(x, group, dim=0):
+    """16b's planted fault: ``reduce_scatter_tiled`` without the sum, the
+    rank's own chunk of its own gradient."""
+    import torch.distributed as dist
+
+    m = dist.get_world_size(group)
+    i = dist.get_group_rank(group, dist.get_rank())
+    k = x.shape[dim % x.dim()] // m
+    return x.narrow(dim, i * k, k).contiguous()
+
+
+def _held_gathers(n_layers, held):
+    """16b's planted memory fault: ``transformer._gathered`` that keeps each
+    layer's forward gather (the first ``n_layers`` gathered layers of a
+    step) in ``held`` to the step's end, as autograd would keep them were
+    the gathers outside the layers' remat regions."""
+    from repro_torch.models import transformer as T
+
+    sound = T._gathered
+
+    def gathered(p, specs, mesh, keys=None):
+        out = sound(p, specs, mesh, keys)
+        if keys is None and isinstance(p, dict) and "mixer" in p and len(held) < n_layers:
+            held.append(out)
+        return out
+
+    return gathered
+
+
+def _fs_errs(params, specs, mesh, tmp, anchors):
+    """Each sampled leaf gathered from the ranks' parts; on rank 0 its
+    difference from each anchor's (a file of ``tmp``: 16a's or the split
+    control's sampled leaves after FS_STEPS steps) over 16a's update from
+    the start (``_upd_rel``). Every rank takes part in the gathers."""
+    from repro_torch.distributed import fsdp_gather_ad
+
+    want = start = None
+    if mesh.rank == 0:
+        want = {a: torch.load(os.path.join(tmp, f"{a}.pt")) for a in anchors}
+        start = torch.load(os.path.join(tmp, "fs_sample_0.pt"))
+        upd = torch.load(os.path.join(tmp, f"fs_sample_{FS_STEPS}.pt"))
+    errs = {a: {} for a in anchors}
+    with torch.no_grad():
+        for k in FS_LEAVES:
+            whole = fsdp_gather_ad(_fs_sample(params, k), _fs_sample(specs, k), mesh)
+            if want is not None:
+                norm = (upd[k].float() - start[k].float()).norm().clamp(min=1e-30).cuda()
+                for a in anchors:
+                    errs[a][k] = float((whole.float() - want[a][k].cuda().float()).norm() / norm)
+            del whole
+    return errs
+
+
+def _fs_reckon(model, specs, mesh):
+    """(all-gather bytes, reduce-scatter bytes) of one step, by hand from
+    the sanitized specs: each use of a leaf gathers its part over data (the
+    result twice the part), then over model (the whole leaf), and
+    reduce-scatters its gradient over data once (the result the part). With
+    remat a layer's leaves and the ramp heads are gathered twice (forward,
+    and again in the backward), the tied embedding three times (the lookup,
+    then the LM head forward and again) and used twice. Also the bytes of
+    the leaves left whole (the f32 norms) and of one gathered layer."""
+    from repro_torch.models.common import entry_axes, part_shape, spec_parts, tree_leaves
+
+    ag = rs = whole = 0
+
+    def walk(info, sp, path):
+        nonlocal ag, rs, whole
+        cuts = spec_parts(sp, mesh)
+        part = math.prod(part_shape(info.shape, sp, mesh)) * info.dtype.itemsize
+        if not cuts:
+            whole += part
+            return
+        one, g = 0, part
+        for d, _, n in sorted(cuts, key=lambda c: entry_axes(sp[c[0]]) == ("model",)):
+            g *= n
+            one += g
+        tied = path == ("tok", "embed") and model.cfg.tie_embeddings
+        gathers, uses = (3, 2) if tied else (2, 1)
+        ag += gathers * one
+        if any(entry_axes(sp[d]) != ("model",) for d, _, _ in cuts):
+            rs += uses * part
+
+    def visit(sch, sp, path=()):
+        if isinstance(sch, dict):
+            for k in sorted(sch):
+                visit(sch[k], sp[k], path + (k,))
+        elif isinstance(sch, list):
+            for i, (a, b) in enumerate(zip(sch, sp)):
+                visit(a, b, path + (i,))
+        else:
+            walk(sch, sp, path)
+
+    visit(model.schema(), specs)
+    layer = sum(math.prod(i.shape[1:]) * i.dtype.itemsize
+                for i in tree_leaves(model.schema()["blocks"]))
+    return ag, rs, whole, layer
+
+
+def fsdp_rank(rank, world, tmp, seed):
+    """16b in one rank of (data 2, model 2): its part of every leaf drawn
+    (``init_state(mesh=)``), two FSDP steps held against 16a and the split
+    control, then step 2 again with the two planted faults (the missing
+    data sum and the held layer gathers), from the state after step 1 (kept
+    on the host: the warmup gives step 1 a learning rate of 0, so step 2 is
+    the first to move a leaf)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import count_collectives
+    from repro_torch.launch.mesh import make_mesh, mesh_axes
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import init_state, layout_specs, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(tuple(FS_LAYOUT.values()), tuple(FS_LAYOUT), device="cuda")
+    axes = mesh_axes(mesh, fsdp=True)
+    model = build_model(get_config(CONFIG))
+    specs = layout_specs(model, mesh, axes)
+    tcfg, opt_cfg = _fs_cfgs()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, init_ms = _sync_ms(lambda: init_state(model, seed, opt_cfg, "cuda", mesh=mesh,
+                                                 axes=axes))
+    pb = _nbytes(state["params"])
+    ag, rs, whole, layer = _fs_reckon(model, specs, mesh)
+    out = {"coords": (mesh.data_rank, mesh.model_rank), "param_bytes": pb,
+           "reckoned": 2 * pb + _nbytes(state["opt"]), "whole_param_bytes": whole,
+           "layer_bytes": layer, "reckoned_ag": ag, "reckoned_rs": rs, "init_ms": init_ms,
+           "logs": [], "ms": [], "parts": [], "counts": []}
+    mark, marks = _fs_marks()
+    step_fn, _ = make_train_step(model, tcfg, opt_cfg, mesh=mesh, axes=axes, mark=mark)
+    for s in range(FS_STEPS):
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_collectives() as cc:
+            (state, o), ms = _sync_ms(lambda: step_fn(state, _fs_batch(s, seed)))
+        out["logs"].append({k: float(v) for k, v in o.items()})
+        out["ms"].append(ms)
+        out["parts"].append(_fs_parts(marks, t0))
+        out["counts"].append({k: list(v) for k, v in cc.items()})
+        if s == FS_STEPS - 2:
+            snap = tree_map(lambda t: t.to("cpu", copy=True), state)
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    anchors = (f"fs_sample_{FS_STEPS}", f"fs_split_{FS_STEPS}")
+    out["errs"] = _fs_errs(state["params"], specs, mesh, tmp, anchors)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the planted faults: the backward's reduce-scatter over data without the
+    # sum (each data rank's part of its own rows' gradient only), and each
+    # layer's forward gather held to the step's end
+    state = tree_map(lambda t: t.to("cuda"), snap)
+    del snap
+    step_fn, _ = make_train_step(model, tcfg, opt_cfg, mesh=mesh, axes=axes)
+    held = []
+    torch.cuda.reset_peak_memory_stats()
+    sound = C.reduce_scatter_tiled, T._gathered
+    C.reduce_scatter_tiled, T._gathered = _own_chunk, _held_gathers(model.cfg.n_layers, held)
+    try:
+        state, o = step_fn(state, _fs_batch(FS_STEPS - 1, seed))
+        out["planted_peak"] = torch.cuda.max_memory_allocated() - base
+        out["held_bytes"] = sum(_nbytes(t) for t in held)
+    finally:
+        C.reduce_scatter_tiled, T._gathered = sound
+        held.clear()
+    out["planted_errs"] = _fs_errs(state["params"], specs, mesh, tmp, anchors)
+    out["planted_loss"] = float(o["loss"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fmt(d) -> str:
+    return json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+
+
+def fsdp_phase(card, seed=SEED):
+    """Phase 16: 16a's single rank and its controls here, then 16b's four
+    gloo ranks on cuda:0 (a rank's failure fails the phase). Prints the
+    checks, each rank's peak against its reckoned state, the collectives'
+    bytes against the reckoning, and the parts of a step's time."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import build_model
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as tmp:
+        t0 = time.perf_counter()
+        a = _fs_anchor(tmp, seed)
+        secs = {"16a": time.perf_counter() - t0}
+        res = spawn(fsdp_rank, math.prod(FS_LAYOUT.values()), "gloo", args=(tmp, seed),
+                    device="cuda")
+        secs["16b"] = time.perf_counter() - t0 - secs["16a"]
+    model = build_model(get_config(CONFIG))
+    r0 = res[0]
+    peaks = [r["peak"] for r in res]
+    planted_peaks = [r["planted_peak"] for r in res]
+    mean = statistics.mean
+    n = len(res)
+    vs_a, vs_split = (f"fs_sample_{FS_STEPS}", f"fs_split_{FS_STEPS}")
+    print(f"16a qwen2-1.5b whole, full width and depth ({model.cfg.n_layers} layers, "
+          f"{len(model.sites)} ramp heads), one rank ({card}), seed {seed}: {FS_STEPS} AdamW "
+          f"steps, clip {TR_CLIP}, B {TR_B} x S {TR_S}, remat: losses "
+          f"{[round(x['loss'], 6) for x in a['logs']]}, grad norms "
+          f"{[round(x['grad_norm'], 5) for x in a['logs']]} (reversed rows "
+          f"{[round(x, 5) for x in a['reversed_norms']]}, split control "
+          f"{[round(x, 5) for x in a['split_norms']]}); "
+          f"{[round(t, 1) for t in a['ms']]} ms a step "
+          f"({json.dumps({k: round(v, 1) for k, v in a['parts'][-1].items()})} ms); state "
+          f"reckoned {a['reckoned'] / 1e9:.2f} GB, peak {a['peak'] / 1e9:.2f} GB; sampled "
+          f"leaves over 16a's update: reversed rows {_fmt(a['reversed'])}, split control "
+          f"{_fmt(a['split'])}", flush=True)
+    print(f"16b FSDP (data 2, model 2), {n} {TR_LABEL} ({card}): losses "
+          f"{[round(x['loss'], 6) for x in r0['logs']]}, grad norms "
+          f"{[round(x['grad_norm'], 5) for x in r0['logs']]} on every rank (limits "
+          f"{TR_LOSS_TOL}, {TR_NORM_TOL}); sampled leaves after {FS_STEPS} steps over 16a's "
+          f"update: from the split control {_fmt(r0['errs'][vs_split])} (limit {TR_UPD_TOL}), "
+          f"from 16a {_fmt(r0['errs'][vs_a])} (limit {FS_UPD_TOL}); step {FS_STEPS} with the "
+          f"planted missing data sum: {_fmt(r0['planted_errs'][vs_split])} and "
+          f"{_fmt(r0['planted_errs'][vs_a])}", flush=True)
+    print(f"16b bytes a rank ({TR_LABEL}): params {r0['param_bytes'] / 1e9:.3f} GB (whole "
+          f"leaves, the f32 norms: {r0['whole_param_bytes']} B), state reckoned "
+          f"{r0['reckoned'] / 1e9:.3f} GB, peak measured "
+          f"{[round(p / 1e9, 3) for p in peaks]} GB (max_memory_allocated above the rank's "
+          f"start; limit the state + {FS_PEAK_ROOM / 1e9:.2f} GB, which holds a gathered layer "
+          f"and its gradient, {2 * r0['layer_bytes'] / 1e9:.3f} GB, a gathered ramp head and "
+          f"its gradient, {4 * model.cfg.d_model * model.cfg.padded_vocab / 1e9:.3f} GB, and "
+          f"the activations); with each layer's forward gather held (planted, "
+          f"{r0['held_bytes'] / 1e9:.3f} GB held) {[round(p / 1e9, 3) for p in planted_peaks]}"
+          f" GB; the {n} ranks' sum {sum(peaks) / 1e9:.2f} GB of 80; the fsdp=False layout "
+          f"would hold {n} x {a['reckoned'] / 1e9:.1f} = {n * a['reckoned'] / 1e9:.1f} GB of "
+          f"state", flush=True)
+    c = r0["counts"][-1]
+    print(f"16b collectives a step, rank 0: all-gather {c['all-gather'][0]} calls "
+          f"{c['all-gather'][1] / 1e9:.3f} GB (reckoned {r0['reckoned_ag'] / 1e9:.3f}), "
+          f"reduce-scatter {c['reduce-scatter'][0]} calls {c['reduce-scatter'][1] / 1e9:.3f} GB "
+          f"(reckoned {r0['reckoned_rs'] / 1e9:.3f}), all-reduce {c['all-reduce'][0]} calls "
+          f"{c['all-reduce'][1]:.0f} B; a step "
+          f"{[round(mean(r['ms'][s] for r in res), 1) for s in range(FS_STEPS)]} ms, the "
+          f"last by part (mean of the ranks) "
+          f"{json.dumps({k: round(mean(r['parts'][-1][k] for r in res), 1) for k in r0['parts'][-1]})}"
+          f" ms; drawing a rank's parts {mean(r['init_ms'] for r in res):.0f} ms", flush=True)
+    for r in res:
+        for s, (got, want) in enumerate(zip(r["logs"], a["logs"])):
+            for k, tol in (("loss", TR_LOSS_TOL), ("grad_norm", TR_NORM_TOL)):
+                if _off(got[k], want[k], tol):
+                    fail(f"16b: rank {r['coords']} step {s} {k} {got[k]} vs the single "
+                         f"rank's {want[k]}")
+            if not want["grad_norm"] > TR_CLIP:
+                fail(f"16a: grad norm {want['grad_norm']} does not clip at {TR_CLIP}")
+        for s, c in enumerate(r["counts"]):
+            if (c["all-gather"][1], c["reduce-scatter"][1]) != (r["reckoned_ag"],
+                                                                r["reckoned_rs"]):
+                fail(f"16b: rank {r['coords']} step {s} moved {c['all-gather'][1]:.0f} B "
+                     f"all-gathered and {c['reduce-scatter'][1]:.0f} B reduce-scattered; "
+                     f"reckoned {r['reckoned_ag']} and {r['reckoned_rs']}")
+        if r["peak"] > r["reckoned"] + FS_PEAK_ROOM:
+            fail(f"16b: rank {r['coords']} peak {r['peak']} B over its state "
+                 f"{r['reckoned']} B + {FS_PEAK_ROOM:.0f} B")
+        if not r["planted_peak"] > r["reckoned"] + FS_PEAK_ROOM:
+            fail(f"16b: rank {r['coords']} with its layer gathers held peaks at "
+                 f"{r['planted_peak']} B, within its state + {FS_PEAK_ROOM:.0f} B: the check "
+                 "is blind")
+    for anchor, tol in ((vs_split, TR_UPD_TOL), (vs_a, FS_UPD_TOL)):
+        bad = {k: v for k, v in r0["errs"][anchor].items() if not v <= tol}
+        if bad:
+            fail(f"16b: sampled leaves beyond {tol} of 16a's update from {anchor}: {bad}")
+        planted = min(r0["planted_errs"][anchor].values())
+        if not planted > tol:
+            fail(f"16b: the planted missing data sum reads {r0['planted_errs'][anchor]} from "
+                 f"{anchor}, within {tol}: the check is blind")
+    if sum(peaks) > 80e9:
+        fail(f"16b: the four ranks' peaks sum to {sum(peaks) / 1e9:.2f} GB, over 80 GB")
+    print(f"phase 16: {json.dumps({k: round(v, 1) for k, v in secs.items()})} s", flush=True)
+
+
+def _result_line() -> str:
+    return json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU")
+    ap.add_argument("--phase", type=int, choices=(16,),
+                    help="run this phase alone (it reaches no kernel, so nothing is built)")
+    ap.add_argument("--seed", type=int, default=SEED, help="phase 16's seed, with --phase 16")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
     card = card_line()
@@ -4997,6 +5546,12 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the repository root")
     t_all = time.perf_counter()
+    if args.phase == 16:
+        fsdp_phase(card, args.seed)
+        print(f"phase 16 took {time.perf_counter() - t_all:.1f} s", flush=True)
+        print(card, flush=True)
+        print(_result_line(), flush=True)
+        return
 
     # -- phase 2: build
     t0 = time.perf_counter()
@@ -5054,6 +5609,7 @@ def main() -> None:
                                     "B=8 H=KH=12 hd=64 Sq=Sk=32 no mask bf16", gen, causal=False)
     check_flash_attention(1, 12, 12, 512, 512, 64, "B=1 H=KH=12 hd=64 Sq=Sk=512 no mask bf16",
                           gen, causal=False)
+    t = tick("2-3f build and kernels", t_all)
     cfg = get_config(CONFIG)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -5069,6 +5625,7 @@ def main() -> None:
     compare_paths(params, cfg, cfg.replace(decode_attn="dense", pallas_head="off"),
                   cfg.replace(decode_attn="kernel", pallas_head="kernel"), gen,
                   on_kw={"prefill_attn": "kernel"}, prefill_kernel="flash_attention")
+    t = tick("qwen2-1.5b draw, ramp heads, ramp styles and 4 paths", t)
     del model
     torch.cuda.empty_cache()
     (out, resp), launches = counted(lambda: serve_generative(
@@ -5086,14 +5643,20 @@ def main() -> None:
           f"{json.dumps(launches)}", flush=True)
     print("engine summary (SIMULATED from the analytic H100 profile, not timed): "
           + json.dumps(out["simulated"]["apparate"], default=float), flush=True)
+    t = tick("4a", t)
     _, paged_launches = serve_paged_vs_contiguous(params, cfg, serve_generative, "4b",
                                                "decode_attention", "paged_decode_attention",
                                                "flash_attention")
+    t = tick("4b", t)
     serve_prefix_swap(params, cfg, serve_generative)
     serve_chunked(params, cfg, serve_generative)
+    t = tick("4c-4d", t)
     graphs = {CONFIG: graph_vs_eager(params, cfg, serve_generative, "4e", SEED + 7)}
+    t = tick("4e", t)
     lm_launches = lm_token_phase(params, cfg, gen, serve)
+    t = tick("4f", t)
     loop_runner_phase(params, cfg)
+    tick("4g", t)
     print(f"qwen2-1.5b phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # -- phase 5: DeepSeek-V2-Lite, once qwen2-1.5b's weights are freed (the
@@ -5113,19 +5676,25 @@ def main() -> None:
     # -- phase 7: the classifiers, once Mamba2-2.7B's weights are freed
     gc.collect()
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     resnet_phase(gen, serve)
+    t = tick("7a", t)
     gc.collect()
     torch.cuda.empty_cache()
     bert_launches, bert_out = bert_phase(gen, serve)
+    tick("7b", t)
     print(f"classifier phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # -- phase 8: training, once the classifiers' weights are freed
     gc.collect()
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     qt_launches, _ = train_qwen_phase(gen)
+    t = tick("8a", t)
     gc.collect()
     torch.cuda.empty_cache()
     bt_launches, _ = bert_train_phase(serve, bert_out)
+    tick("8b", t)
     print(f"training phases done at {time.perf_counter() - t_all:.1f} s", flush=True)
 
     # -- phase 9: Gemma3-4B, once the trained models are freed
@@ -5184,6 +5753,14 @@ def main() -> None:
     t0 = time.perf_counter()
     multirank_train_phases(card)
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 16: the FSDP train state, qwen2-1.5b whole on four ranks
+    # sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fsdp_phase(card)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     src = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -5204,6 +5781,7 @@ def main() -> None:
     # (kernel, its phase-3 row, the counted run its launches come from); the
     # ramp heads have a row for each model's path, at that model's shapes
     ds_path = f"{DS_CONFIG} 5b paged"
+    n_local, n_gm = gm["prefill_layers"]
     mb_path = f"{MB_CONFIG} 6b paged"
     entries = [("decode_attention", da_main, launches, f"{CONFIG} 4a"),
                ("paged_decode_attention", pda_main, paged_launches, f"{CONFIG} 4b paged"),
@@ -5226,9 +5804,9 @@ def main() -> None:
                ("decode_attention", gm["decode"], gm_full, f"{GM_CONFIG} 9c full"),
                ("paged_decode_attention", gm["paged"], gm_paged, f"{GM_CONFIG} 9c paged"),
                ("flash_attention", gm["flash_window"], gm_full,
-                f"{GM_CONFIG} 9c full (29 of a prefill's 34 launches windowed)"),
+                f"{GM_CONFIG} 9c full ({n_local} of a prefill's {n_gm} launches windowed)"),
                ("flash_attention", gm["flash_causal"], gm_full,
-                f"{GM_CONFIG} 9c full (5 of a prefill's 34 launches causal)"),
+                f"{GM_CONFIG} 9c full ({n_gm - n_local} of a prefill's {n_gm} launches causal)"),
                ("ramp_head_stats", gm["ramp"]["ramp_head_stats"], gm_full,
                 f"{GM_CONFIG} 9c full"),
                ("ramp_head_exit", gm["ramp"]["ramp_head_exit"], gm_full, f"{GM_CONFIG} 9c full")]
@@ -5298,9 +5876,7 @@ def main() -> None:
                 "served": v["serve"]} for name, v in graphs.items()}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    print(_result_line(), flush=True)
 
 
 if __name__ == "__main__":

@@ -17,13 +17,14 @@ such a leaf as ``V2``). On restore a ``V2`` leaf is read back as
 Meshes (the reference's checkpoints are mesh-agnostic: whole leaves as
 host numpy). ``save(state, step, mesh=, sharding_tree=)`` writes from the
 ranks of a mesh step, where a leaf marked ``Shard(axis, index, n)`` holds
-only part ``index`` of ``n`` along ``axis`` on this rank: rank 0 writes
-each split leaf's header, sized for the whole leaf; then each part is
-written in place into that file (``np.memmap``) by the ranks of data rank
-0, and the whole leaves (alike on every rank) are spread over the ranks,
-leaf ``i`` on rank ``i mod world``; rank 0 renames the directory after a
-barrier. The files are the ones the whole tree would give, byte for
-byte.
+only part ``index`` of ``n`` along ``axis`` on this rank (or, with tuples,
+the part each of several axes cuts: an FSDP leaf split over data and
+model): rank 0 writes each split leaf's header, sized for the whole leaf;
+then each part is written in place into that file (``np.memmap``) by one
+of the ranks that hold it (``replica`` 0), and the whole leaves (alike on
+every rank) are spread over the ranks, leaf ``i`` on rank ``i mod
+world``; rank 0 renames the directory after a barrier. The files are the
+ones the whole tree would give, byte for byte.
 ``restore(step, device, sharding_tree=)`` reads only the rank's part of
 each split leaf (``np.load(mmap_mode="r")``), so no rank holds a whole
 split leaf; ``bytes_read`` counts what the last restore read.
@@ -119,22 +120,37 @@ def _save_leaf(path, a):
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """A leaf a rank holds in part: part ``index`` of ``n`` equal parts
-    along ``axis`` (the expert axis of a mesh step's expert leaves)."""
+    along ``axis`` (the expert axis of a mesh step's expert leaves), or,
+    with tuples of axes, indices and counts, the part that each of those
+    axes cuts (an FSDP leaf split over data and model). ``replica`` is
+    this rank's place among the ranks that hold the same part; replica 0
+    writes it."""
 
-    axis: int
-    index: int
-    n: int
+    axis: Any
+    index: Any
+    n: Any
+    replica: int = 0
+
+    def cuts(self) -> list:
+        """``[(axis, index, n)]``, one an axis the part is cut along."""
+        if isinstance(self.axis, (tuple, list)):
+            return list(zip(self.axis, self.index, self.n))
+        return [(self.axis, self.index, self.n)]
 
     def whole_shape(self, part_shape) -> tuple:
         shape = list(part_shape)
-        shape[self.axis] *= self.n
+        for ax, _, n in self.cuts():
+            shape[ax] *= n
         return tuple(shape)
 
     def index_of(self, whole_shape) -> tuple:
         """The numpy index of this part in the whole leaf."""
-        ax = self.axis % len(whole_shape)
-        k = whole_shape[ax] // self.n
-        return (slice(None),) * ax + (slice(self.index * k, (self.index + 1) * k),)
+        idx = [slice(None)] * len(whole_shape)
+        for ax, i, n in self.cuts():
+            ax %= len(whole_shape)
+            k = whole_shape[ax] // n
+            idx[ax] = slice(i * k, (i + 1) * k)
+        return tuple(idx)
 
 
 def _alloc_leaf(path, shape, dtype):
@@ -199,7 +215,7 @@ class CheckpointManager:
             if sh is None:
                 if i % world == mesh.rank:
                     _save_leaf(path, _host(a))
-            elif mesh.data_rank == 0:  # one writer a part: the model group of data rank 0
+            elif sh.replica == 0:  # one writer a part
                 whole = sh.whole_shape(a.shape)
                 a = _host(a)
                 mm = np.memmap(path, dtype=a.dtype, mode="r+", offset=_data_offset(path),

@@ -1,7 +1,8 @@
 """Multi-rank serving and training over ``torch.distributed``: the
-collectives of tensor-parallel decode, expert parallelism, the pipeline
-ring and the gradient all-reduces (``collectives``), the exit-gated
-pipeline decode window and the GPipe forward (``pipeline``)."""
+collectives of tensor-parallel decode, expert parallelism, the FSDP
+gather and reduce-scatter, the pipeline ring and the gradient all-reduces
+(``collectives``), the exit-gated pipeline decode window and the GPipe
+forward (``pipeline``)."""
 from repro_torch.distributed.collectives import (
     all_gather_ad,
     all_gather_tiled,
@@ -11,8 +12,11 @@ from repro_torch.distributed.collectives import (
     compressed_psum,
     count_collectives,
     dequantize_int8,
+    fsdp_gather_ad,
+    fsdp_gather_tree,
     make_compressed_grad_allreduce,
     quantize_int8,
+    reduce_scatter_tiled,
     ring_shift,
     sum_over,
     take_chunk_ad,
@@ -22,6 +26,6 @@ from repro_torch.distributed.pipeline import pipeline_apply, pipeline_check, pip
 
 __all__ = ["all_gather_ad", "all_gather_tiled", "all_reduce_flat", "all_to_all_ad",
            "all_to_all_tiled", "compressed_psum", "count_collectives", "dequantize_int8",
-           "make_compressed_grad_allreduce", "pipeline_apply", "pipeline_check",
-           "pipeline_decode_window", "quantize_int8", "ring_shift", "sum_over",
-           "take_chunk_ad", "tp_gather"]
+           "fsdp_gather_ad", "fsdp_gather_tree", "make_compressed_grad_allreduce",
+           "pipeline_apply", "pipeline_check", "pipeline_decode_window", "quantize_int8",
+           "reduce_scatter_tiled", "ring_shift", "sum_over", "take_chunk_ad", "tp_gather"]

@@ -12,6 +12,13 @@ counterparts of the ``jax.lax`` collectives the JAX package calls inside
   of an all-to-all is the inverse all-to-all, of a rank's chunk of an
   activation alike on every rank an all-gather of the chunks' gradients,
   of an all-gather the rank's own slice);
+* the FSDP gather of a param leaf where it is used (``fsdp_gather_ad``,
+  ``fsdp_gather_tree``: the rank's part all-gathered over the axes its
+  sanitized spec names; the backward reduce-scatters over ``data``, whose
+  ranks see different rows, and takes the rank's own slice over
+  ``model``, whose ranks compute alike) and its reduce-scatter
+  (``reduce_scatter_tiled``), the layout the reference's GSPMD gives a
+  train step's params, gradients and AdamW moments;
 * the bucketed gradient all-reduce of a data-parallel step
   (``all_reduce_flat``), and the reference's int8 error-feedback
   all-reduce (``quantize_int8``, ``dequantize_int8``, ``compressed_psum``,
@@ -31,7 +38,8 @@ as a CUDA graph under gloo.
 ``count_collectives`` counts, while it is open, each collective called
 here by kind with its bytes, by the convention of the reference's dry run
 (``COLLECTIVE_W``): the result's bytes, twice for an all-reduce (a ring
-sends each byte twice); a 1-rank group sends nothing and is not counted.
+sends each byte twice), once for a reduce-scatter (its result is the
+rank's chunk); a 1-rank group sends nothing and is not counted.
 It also sums the bytes by group (the group's global ranks), so a
 reckoning can price each group at the link its members share.
 """
@@ -43,7 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-KINDS = ("all-gather", "all-to-all", "all-reduce", "collective-permute")
+KINDS = ("all-gather", "reduce-scatter", "all-to-all", "all-reduce", "collective-permute")
 
 
 class CollectiveCounts(dict):
@@ -100,6 +108,38 @@ def all_gather_tiled(y: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     out = torch.cat(parts, dim=dim)
     _count("all-gather", _nbytes(out), group)
     return out.to(y.device) if staged else out
+
+
+def reduce_scatter_tiled(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum over the group of every rank's ``x``, cut into ``m`` equal
+    chunks along ``dim``; this rank gets the chunk at its group index.
+    Under NCCL it is ``reduce_scatter_tensor``. Gloo has no reduce-scatter,
+    so there each rank sends chunk ``j`` to rank ``j``
+    (``all_to_all_single``) and sums the chunks it receives in rank order:
+    the bytes of a reduce-scatter, where an all-reduce would move twice as
+    many. Under gloo a CUDA ``x`` stages through host memory."""
+    m = dist.get_world_size(group)
+    if m == 1:
+        return x
+    dim %= x.dim()
+    staged = _staged(x, group)
+    src = x.cpu() if staged else x
+    if dist.get_backend(group) == "gloo":
+        send = torch.stack(torch.chunk(src, m, dim=dim)).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        out = recv[0]
+        for j in range(1, m):
+            out = out + recv[j]
+    else:
+        whole = src.movedim(dim, 0).contiguous()
+        out = torch.empty((whole.shape[0] // m,) + tuple(whole.shape[1:]), dtype=whole.dtype,
+                          device=whole.device)
+        dist.reduce_scatter_tensor(out, whole, op=dist.ReduceOp.SUM, group=group)
+        out = out.movedim(0, dim)
+    out = out.contiguous()
+    _count("reduce-scatter", _nbytes(out), group)
+    return out.to(x.device) if staged else out
 
 
 def tp_gather(y: torch.Tensor, group) -> torch.Tensor:
@@ -206,6 +246,81 @@ class _AllGather(torch.autograd.Function):
         group, dim, n = ctx.args
         i = dist.get_group_rank(group, dist.get_rank())
         return g.narrow(dim, i * n, n), None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """Under gloo a CUDA leaf crosses to the host once a call, whatever the
+    number of cuts: its part before the gathers, the whole after them; in
+    the backward the gradient's own model slice, then its reduced part."""
+
+    @staticmethod
+    def forward(ctx, x, cuts):
+        ctx.cuts = cuts
+        staged = any(_staged(x, c[1]) for c in cuts)
+        h = x.cpu() if staged else x
+        for dim, group, _, _, _ in cuts:
+            h = all_gather_tiled(h, group, dim)
+        return h.to(x.device) if staged else h
+
+    @staticmethod
+    def backward(ctx, g):
+        dev = g.device
+        staged = any(_staged(g, c[1]) for c in ctx.cuts)
+        for dim, group, n, i, sums in reversed(ctx.cuts):
+            if sums:
+                if staged and g.is_cuda:
+                    g = g.contiguous().cpu()
+                g = reduce_scatter_tiled(g.contiguous(), group, dim)
+            else:
+                k = g.shape[dim] // n
+                g = g.narrow(dim, i * k, k)
+        return g.to(dev).contiguous(), None
+
+
+def _fsdp_cuts(spec, mesh) -> list:
+    """``(dim, group, parts, this rank's part, sums)`` for each dim a
+    sanitized spec splits on ``mesh`` (a ``launch.mesh.RankMesh``), the
+    data cuts first: a data entry names every data axis of the mesh, in
+    order (its group is the mesh's ``"batch"`` group) and sums in the
+    backward; the ``model`` entry takes the rank's own slice."""
+    from repro_torch.launch.mesh import DATA_AXES
+    from repro_torch.models.common import entry_axes, spec_parts
+
+    out = []
+    for dim, i, n in spec_parts(spec, mesh):
+        axes = entry_axes(spec[dim])
+        if set(axes) <= set(DATA_AXES):
+            if axes != mesh.data_axes:
+                raise ValueError(f"spec entry {spec[dim]!r}: a data entry names the mesh's data "
+                                 f"axes {mesh.data_axes}")
+            out.insert(sum(c[4] for c in out), (dim, mesh.data_group, n, i, True))
+        elif axes == ("model",):
+            out.append((dim, mesh.model_group, n, i, False))
+        else:
+            raise ValueError(f"spec entry {spec[dim]!r}: FSDP splits over data axes or 'model'")
+    return out
+
+
+def fsdp_gather_ad(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf of this rank's part ``shard`` of a param split by the
+    sanitized ``spec`` over ``mesh``: all-gathered over the data group, then
+    over the model group, along the dims the spec names. The backward takes
+    the rank's own slice over ``model`` (the model group computes alike, so
+    each rank's gradient of the whole leaf is the same), then
+    reduce-scatters over the data group (each data rank's rows give a
+    different gradient, and the loss is the global batch's, so they sum):
+    the gradient of the rank's part. ``all_gather_ad``, which takes the own
+    slice on every axis, would drop the other data ranks' gradients."""
+    cuts = _fsdp_cuts(spec, mesh)
+    return _FsdpGather.apply(shard, cuts) if cuts else shard
+
+
+def fsdp_gather_tree(parts, specs, mesh):
+    """``fsdp_gather_ad`` on every leaf of a tree of parts, ``specs`` the
+    sanitized spec of each leaf."""
+    from repro_torch.models.common import tree_map2
+
+    return tree_map2(lambda x, sp: fsdp_gather_ad(x, sp, mesh), parts, specs)
 
 
 def all_to_all_ad(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:

@@ -34,7 +34,10 @@ cards: one rank of a job of 512 joined through PyTorch's fake process
 group (no card, no peer; a collective returns its shapes and moves
 nothing) on meta tensors. A train cell runs the mesh step
 (``make_train_step(mesh=)``: rows over ``(pod, data)``, experts over
-``model``, dense leaves whole on every rank); a prefill or decode cell
+``model``) in the reference's FSDP layout, ``mesh_axes(mesh, fsdp=True)``:
+the rank holds its part of every leaf of the params, gradients and AdamW
+moments, split by the leaf's spec sanitized on the mesh, and the record
+adds ``rank_state_bytes`` against ``whole_state_bytes``; a prefill or decode cell
 runs ``prefill_sharded`` / ``decode_sharded`` at tp 16 over ``model``
 with rows over ``(pod, data)`` where ``tp_check`` allows it, and where it
 refuses, the record's ``status`` is the check's text. A multi record adds
@@ -72,7 +75,13 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import ARCH_IDS, SHAPES, all_cells, get_config
 from repro_torch.core.profiles import HBM_BW, ICI_BW, PEAK_FLOPS
 from repro_torch.models import build_model
-from repro_torch.models.common import param_bytes, param_count, tree_leaves, tree_map
+from repro_torch.models.common import (
+    axis_specs,
+    param_bytes,
+    param_count,
+    tree_leaves,
+    tree_map2,
+)
 
 ART_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "..", "build",
                        "dryrun")
@@ -451,13 +460,14 @@ def fake_job(world: int):
         dist.destroy_process_group()
 
 
-def _rank_bytes(schema, specs, m) -> int:
-    """Bytes of the leaves a rank holds: a split leaf's 1/m."""
-    from repro_torch.models.transformer import _map2
+def _rank_bytes(schema, specs, mesh) -> int:
+    """Bytes of the leaves a rank holds: each leaf's part by its partition
+    spec on ``mesh`` (a ``RankMesh`` or a dict of axis sizes)."""
+    from repro_torch.models.common import part_shape
 
     parts = []
-    _map2(lambda info, ax: parts.append(param_bytes(info) // (1 if ax is None else m)),
-          schema, specs)
+    tree_map2(lambda info, sp: parts.append(
+        math.prod(part_shape(info.shape, sp, mesh)) * info.dtype.itemsize), schema, specs)
     return sum(parts)
 
 
@@ -476,14 +486,16 @@ def build_cell_multi(arch: str, shape, mesh, *, overrides=None):
     dt = getattr(torch, cfg.dtype)
     sch = model.schema()
     if kind == "train":
+        from repro_torch.launch.mesh import mesh_axes
         from repro_torch.training.optim import AdamWConfig, adamw_init
-        from repro_torch.training.train_loop import TrainConfig, make_train_step
+        from repro_torch.training.train_loop import TrainConfig, layout_specs, make_train_step
 
-        specs = (model.ep_param_specs() if hasattr(model, "ep_param_specs")
-                 else tree_map(lambda _: None, sch))
-        params = _shard_meta(model.abstract(), specs, mesh.model_rank, m)
+        axes = mesh_axes(mesh, fsdp=True)
+        specs = layout_specs(model, mesh, axes)
+        params = _shard_meta(model.abstract(), specs, mesh)
         step_fn, opt_cfg = make_train_step(
-            model, TrainConfig(moe_impl="ep", remat=cfg.train_remat), AdamWConfig(), mesh=mesh)
+            model, TrainConfig(moe_impl="ep", remat=cfg.train_remat), AdamWConfig(), mesh=mesh,
+            axes=axes)
         n_tok = S if cfg.family != "encdec" else S // 8
         batch = {"tokens": _meta((GB, n_tok), torch.int32),
                  "labels": _meta((GB, n_tok), torch.int32)}
@@ -493,7 +505,7 @@ def build_cell_multi(arch: str, shape, mesh, *, overrides=None):
             batch["image_embeds"] = _meta((GB, cfg.n_image_tokens, cfg.d_frontend), dt)
         state = {"params": params, "opt": adamw_init(params, opt_cfg),
                  "step": _meta((), torch.int32)}
-        p = _rank_bytes(sch, specs, m)
+        p = _rank_bytes(sch, specs, mesh)
         res = {"params": p, "grads": p,
                "adamw_moments": 8 * sum(x.numel() for x in tree_leaves(params))}
         return model, info, lambda: step_fn(state, batch), res
@@ -505,11 +517,11 @@ def build_cell_multi(arch: str, shape, mesh, *, overrides=None):
                    batch=GB if kind == "decode" else None)
     if kind == "prefill" and GB % D:
         raise NotImplementedError(f"prefill batch {GB} not divisible by {D} data ranks")
-    specs = model.tp_param_specs(moe_ep=True)
-    params = _shard_meta(model.abstract(), specs, mesh.model_rank, m)
+    specs = axis_specs(sch, model.tp_param_specs(moe_ep=True))
+    params = _shard_meta(model.abstract(), specs, mesh)
     serving = mesh.serving()
     kw = {"moe_impl": "ep"} if cfg.moe else {}
-    res = {"params": _rank_bytes(sch, specs, m)}
+    res = {"params": _rank_bytes(sch, specs, mesh)}
     if kind == "prefill":
         toks = _meta((rows, S), torch.int32)
         res["cache"] = cache_bytes(model, rows, S, S) // m
@@ -524,11 +536,12 @@ def build_cell_multi(arch: str, shape, mesh, *, overrides=None):
         params, cache, toks, pos, mesh=serving, active_sites=act, **kw), res
 
 
-def _shard_meta(params, specs, rank, m):
-    from repro_torch.models.transformer import _map2
+def _shard_meta(params, specs, mesh):
+    """The rank's part of each meta leaf by its partition spec
+    (``take_part``)."""
+    from repro_torch.models.common import take_part
 
-    return _map2(lambda x, ax: x if ax is None else
-                 x.narrow(ax, rank * (x.shape[ax] // m), x.shape[ax] // m), params, specs)
+    return tree_map2(lambda x, sp: take_part(x, sp, mesh), params, specs)
 
 
 def run_cell_multi(arch: str, shape, *, write=True, overrides=None):
@@ -561,6 +574,10 @@ def run_cell_multi(arch: str, shape, *, write=True, overrides=None):
             for ranks, b in cc.by_group.items():
                 by_link[link_of(ranks)] += b
             res["total"] = sum(res.values())
+            if info["kind"] == "train":
+                rec["rank_state_bytes"] = res["params"] + res["grads"] + res["adamw_moments"]
+                rec["whole_state_bytes"] = sum(
+                    x.numel() * (2 * x.element_size() + 8) for x in tree_leaves(model.abstract()))
             rec.update({
                 "status": "ok", "flops": float(flops), "bytes": float(nbytes), "aten_ops": ops,
                 "collectives": coll, "collective_bytes": cbytes,

@@ -231,6 +231,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda") -> Ra
                     dist.get_backend())
 
 
+def mesh_axes(mesh, *, fsdp: bool = True):
+    """The ``MeshAxes`` of a mesh (a ``RankMesh``, or a dict of axis sizes):
+    data over ``("pod", "data")`` when it has a ``pod`` axis, ``model`` or
+    None without one; ``fsdp`` shards params over data too (training)."""
+    from repro_torch.models.layers import MeshAxes
+
+    names = tuple(mesh) if isinstance(mesh, dict) else mesh.axis_names
+    data = ("pod", "data") if "pod" in names else ("data",)
+    return MeshAxes(data=data, model="model" if "model" in names else None, fsdp=fsdp)
+
+
 def make_test_mesh(data: int = 1, model: int = 1, *, device="cuda") -> RankMesh:
     """The reference's test mesh: ``(data, model)``."""
     return make_mesh((data, model), ("data", "model"), device=device)

@@ -48,6 +48,7 @@ from repro_torch.models.common import (
     ParamInfo,
     init_from_schema,
     meta_from_schema,
+    specs_from_schema,
     torch_dtype,
     zeros_from_schema,
 )
@@ -55,7 +56,9 @@ from repro_torch.models.moe import global_value
 from repro_torch.models.transformer import (
     LM,
     MultiStepDecodeMixin,
+    _gathered,
     _layer,
+    _layer_specs,
     _masked_ce,
     _stats,
     paged_leaf_kinds,
@@ -109,6 +112,7 @@ class EncDecLM(MultiStepDecodeMixin):
     _head_stats = LM._head_stats
     _head_stats_kernel = LM._head_stats_kernel
     _cross = LM._cross
+    _ramp_loss = LM._ramp_loss
     abstract = LM.abstract
 
     def __init__(self, cfg, *, prefill_attn: str = "sdpa"):
@@ -130,17 +134,23 @@ class EncDecLM(MultiStepDecodeMixin):
         dt = torch_dtype(cfg.dtype)
         S = len(self.sites)
         return {
-            "frontend_proj": ParamInfo((cfg.d_frontend, cfg.d_model), dt, "normal:0.02"),
+            "frontend_proj": ParamInfo((cfg.d_frontend, cfg.d_model), dt, "normal:0.02",
+                                       (None, "model")),
             "tok": LY.embed_schema(cfg),
             "enc": _enc_layer_schema(cfg, cfg.n_enc_layers),
             "enc_norm": LY.norm_schema(cfg),
             "dec": _dec_layer_schema(cfg, cfg.n_dec_layers),
             "final_norm": LY.norm_schema(cfg),
             "ramps": {
-                "norm_w": ParamInfo((S, cfg.d_model), torch.float32, "zeros"),
-                "head": ParamInfo((S, cfg.d_model, cfg.padded_vocab), dt, "normal:0.02"),
+                "norm_w": ParamInfo((S, cfg.d_model), torch.float32, "zeros", ()),
+                "head": ParamInfo((S, cfg.d_model, cfg.padded_vocab), dt, "normal:0.02",
+                                  (None, "data", "model")),
             },
         }
+
+    def pspecs(self, axes: LY.MeshAxes) -> dict:
+        """Every param leaf's partition spec on ``axes`` (the reference's)."""
+        return specs_from_schema(LY.resolve_schema(self.schema(), axes))
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         gen = torch.Generator(device=device)
@@ -178,9 +188,10 @@ class EncDecLM(MultiStepDecodeMixin):
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         shp = (cfg.n_dec_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+        hspec = "model" if cfg.hd % 16 == 0 else None
 
         def info():
-            return ParamInfo(shp, dt, "zeros")
+            return ParamInfo(shp, dt, "zeros", (None, None, None, None, hspec))
 
         return {"k": info(), "v": info(), "xkv": {"k": info(), "v": info()}}
 
@@ -203,39 +214,45 @@ class EncDecLM(MultiStepDecodeMixin):
 
     # -- encoder --------------------------------------------------------------
 
-    def encode(self, params, frames, *, plain=False):
+    def encode(self, params, frames, *, plain=False, fsdp=None, mesh=None):
         """frames: (B, M, d_frontend) -> memory (B, M, d). ``plain`` (the
-        loss) runs attention through ``sdpa``."""
+        loss) runs attention through ``sdpa``. With ``fsdp`` (each leaf's
+        sanitized spec) ``params`` are the rank's parts, each gathered where
+        it is used (``LM.loss``)."""
         cfg = self.cfg
-        proj = params["frontend_proj"]
+        sp = _Specs(fsdp)
+        proj = _gathered(params["frontend_proj"], sp["frontend_proj"], mesh)
         h = frames.to(proj.dtype) @ proj
         M = h.shape[1]
         positions = torch.arange(M, device=h.device)[None, :]
         attn = "sdpa" if plain else self.prefill_attn
+        enc_sp = sp.layer(params["enc"], "enc")
         for l in range(cfg.n_enc_layers):
-            p = _layer(params["enc"], l)
+            p = _gathered(_layer(params["enc"], l), enc_sp, mesh)
             x = LY.apply_norm(cfg, p["ln1"], h)
             out, _ = LY.attn_apply(cfg, p["attn"], x, positions=positions, mask=None,
                                    prefill_attn=attn, causal=False)
             h = h + out
             x = LY.apply_norm(cfg, p["ln2"], h)
             h = h + LY.ffn_apply(cfg, p["ffn"], x)
-        return LY.apply_norm(cfg, params["enc_norm"], h)
+        return LY.apply_norm(cfg, _gathered(params["enc_norm"], sp["enc_norm"], mesh), h)
 
     # -- decoder --------------------------------------------------------------
 
     def _dec_stack(self, params, h, *, positions, mask, memory, caches, cache_index,
                    pool_idx, write_gate=None, block_tables=None, xkv_tables=None,
-                   plain=False):
+                   plain=False, fsdp=None, mesh=None):
         """Every decoder layer: self-attention, the gated cross-attention
         (``_cross``: over ``memory``, writing its k/v into the ``xkv`` rows
         when there is a cache, else over the ``xkv`` rows or the pinned
         pages at ``xkv_tables``), the FFN. Caches are updated in place.
-        Returns (h, pooled (L, B, npos, d)), pooled after every layer."""
+        With ``fsdp`` each layer gathers its parts (``encode``). Returns (h,
+        pooled (L, B, npos, d)), pooled after every layer."""
         cfg = self.cfg
         pooled = []
+        dec_sp = _Specs(fsdp).layer(params["dec"], "dec")
         for l in range(cfg.n_dec_layers):
-            p = _layer(params["dec"], l)
+            p = _gathered(_layer(params["dec"], l), dec_sp, mesh)
             c = _layer(caches, l) if caches is not None else None
             x = LY.apply_norm(cfg, p["ln1"], h)
             sub = {k: c[k] for k in ("k", "v")} if c is not None else None
@@ -310,35 +327,39 @@ class EncDecLM(MultiStepDecodeMixin):
                                 exit_thresholds=exit_thresholds)
         return cache, outs
 
-    def loss(self, params, batch, *, mesh=None, **kw):
+    def loss(self, params, batch, *, mesh=None, fsdp=None, **kw):
         """batch: {'frames': (B, M, d_frontend), 'tokens': (B, S) int,
         'labels': (B, S) int (-1 = pad)}. Returns (lm + ramp loss, metrics):
         the reference's objective, the ramp CE over every site at the
         reference's 16 positions (``ramp_positions``) with the gradient
         stopped at the pooled hidden. Reaches no kernel: attention through
-        ``sdpa``, the ramps through the dense ``ramp_outputs``. With
+        ``sdpa``, the ramps a site at a time (``LM._ramp_loss``). With
         ``mesh`` the batch is this rank's data shard and the means are the
-        global batch's (``LM.loss``)."""
+        global batch's, and with ``fsdp`` (each leaf's sanitized spec) the
+        params are the rank's parts, each gathered where it is used
+        (``LM.loss``)."""
         group = _data_group(mesh)
         cfg = self.cfg
         frames, tokens, labels = batch["frames"], batch["tokens"], batch["labels"]
         B, S = tokens.shape
         dev = tokens.device
-        memory = self.encode(params, frames, plain=True)
+        sp = _Specs(fsdp)
+        memory = self.encode(params, frames, plain=True, fsdp=fsdp, mesh=mesh)
         positions = torch.arange(S, device=dev)[None, :]
-        h = LY.embed_apply(cfg, params["tok"], tokens, positions)
+        h = LY.embed_apply(cfg, _gathered(params["tok"], sp["tok"], mesh, ("embed", "pos_embed")),
+                           tokens, positions)
         mask = LY.causal_mask(S, S, 0, device=dev)
         npos = min(16, S)
         pool_idx = torch.from_numpy(ramp_positions(S, npos).astype(np.int64)).to(dev)
         h, pooled = self._dec_stack(params, h, positions=positions, mask=mask, memory=memory,
                                     caches=None, cache_index=None, pool_idx=pool_idx,
-                                    plain=True)
-        h = LY.apply_norm(cfg, params["final_norm"], h)
-        lm = _masked_ce(cfg, LY.unembed(cfg, params["tok"], h), labels, group)
-        rl = self.ramp_outputs(params, pooled)
-        R = rl.shape[0]
-        rloss = _masked_ce(cfg, rl.reshape(R * B, npos, -1), labels[:, pool_idx].repeat(R, 1),
-                           group)
+                                    plain=True, fsdp=fsdp, mesh=mesh)
+        h = LY.apply_norm(cfg, _gathered(params["final_norm"], sp["final_norm"], mesh), h)
+        head = ("embed",) if cfg.tie_embeddings else ("lm_head",)
+        lm = _masked_ce(cfg, LY.unembed(cfg, _gathered(params["tok"], sp["tok"], mesh, head), h),
+                        labels, group)
+        rloss = self._ramp_loss(params, pooled, labels[:, pool_idx], group=group, mesh=mesh,
+                                specs=fsdp)
         return lm + rloss, {"lm_loss": lm, "ramp_loss": rloss}
 
 
@@ -359,13 +380,15 @@ class EncoderClassifier:
             "tok": LY.embed_schema(cfg),
             "enc": _enc_layer_schema(cfg, cfg.n_layers),
             "final_norm": LY.norm_schema(cfg),
-            "cls": ParamInfo((cfg.d_model, cfg.n_classes), torch.float32, "normal:0.02"),
+            "cls": ParamInfo((cfg.d_model, cfg.n_classes), torch.float32, "normal:0.02", ()),
             "ramps": {
-                "norm_w": ParamInfo((S, cfg.d_model), torch.float32, "zeros"),
+                "norm_w": ParamInfo((S, cfg.d_model), torch.float32, "zeros", ()),
                 "head": ParamInfo((S, cfg.d_model, cfg.n_classes), torch.float32,
-                                  "normal:0.02"),
+                                  "normal:0.02", ()),
             },
         }
+
+    pspecs = EncDecLM.pspecs
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         gen = torch.Generator(device=device)
@@ -374,19 +397,25 @@ class EncoderClassifier:
 
     abstract = LM.abstract
 
-    def forward(self, params, tokens, *, active_sites=None, prefill_attn=None):
+    def forward(self, params, tokens, *, active_sites=None, prefill_attn=None, fsdp=None,
+                mesh=None):
         """tokens: (B, S). Returns {'final': stats, 'final_logits'} over
         n_classes logits (CLS position pooling, the paper's BERT recipe) and,
         with ``active_sites`` (host site indices), 'ramps' stats and
         'ramp_logits' (K, B, n_classes). ``prefill_attn`` overrides the
-        model's choice for this call ('sdpa' for the loss)."""
+        model's choice for this call ('sdpa' for the loss). With ``fsdp``
+        (each leaf's sanitized spec) ``params`` are the rank's parts, each
+        gathered where it is used (the classifier and ramp heads are whole
+        in the reference's specs)."""
         cfg = self.cfg
         B, S = tokens.shape
+        sp = _Specs(fsdp)
         positions = torch.arange(S, device=tokens.device)[None, :]
-        h = LY.embed_apply(cfg, params["tok"], tokens, positions)
+        h = LY.embed_apply(cfg, _gathered(params["tok"], sp["tok"], mesh), tokens, positions)
         cls = []
+        enc_sp = sp.layer(params["enc"], "enc")
         for l in range(cfg.n_layers):
-            p = _layer(params["enc"], l)
+            p = _gathered(_layer(params["enc"], l), enc_sp, mesh)
             x = LY.apply_norm(cfg, p["ln1"], h)
             out, _ = LY.attn_apply(cfg, p["attn"], x, positions=positions, mask=None,
                                    prefill_attn=prefill_attn or self.prefill_attn,
@@ -420,8 +449,22 @@ class EncoderClassifier:
         this rank's data shard (``_cls_losses``)."""
         tokens, labels = batch["tokens"], batch["labels"].long()
         outs = self.forward(params, tokens, active_sites=list(range(len(self.sites))),
-                            prefill_attn="sdpa")
+                            prefill_attn="sdpa", fsdp=kw.get("fsdp"), mesh=mesh)
         return _cls_losses(outs, labels, _data_group(mesh))
+
+
+class _Specs:
+    """The FSDP specs of a tree of parts, or nothing (every leaf whole)."""
+
+    def __init__(self, specs):
+        self.specs = specs
+
+    def __getitem__(self, key):
+        return None if self.specs is None else self.specs[key]
+
+    def layer(self, stack, key):
+        """One layer's specs of the stacked subtree ``key``."""
+        return None if self.specs is None else _layer_specs(stack, self.specs[key])
 
 
 def _data_group(mesh):

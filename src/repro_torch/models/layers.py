@@ -11,15 +11,84 @@ softmax and norms. Local sliding-window layers (Gemma3) run on a full
 cache, on a W-row ring cache or as ring pages on the pool. The gated
 cross-attention of Llama-3.2-Vision attends image memory, or its k/v as
 a cache holds them. Tensor-parallel branches are not ported.
+
+Every schema leaf carries the reference's partition spec (a plain tuple,
+``models/common.py``) with the placeholders ``"data"`` and ``"model"``;
+``MeshAxes`` and ``resolve_schema`` map them onto a mesh's axes, as the
+reference's do.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamInfo, torch_dtype
+from repro_torch.models.common import ParamInfo, torch_dtype, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """Mesh axis naming + sharding policy (the reference's).
+
+    data: axis (or tuple of axes) for batch / FSDP sharding.
+    model: axis for tensor/expert parallelism.
+    fsdp: if True, parameters are additionally sharded over `data`
+          (training); if False they are sharded over `model` only (serving).
+    """
+
+    data: Tuple[str, ...] = ("data",)
+    model: Optional[str] = "model"
+    fsdp: bool = True
+
+    @property
+    def d(self):  # data spec entry
+        return self.data if len(self.data) > 1 else self.data[0]
+
+    def wspec(self, *entries) -> tuple:
+        """Weight spec: replace 'data' by the data axes iff fsdp, 'model' by
+        the model axis (or None when the mesh has no model axis)."""
+        out = []
+        for e in entries:
+            if e == "data":
+                out.append(self.d if self.fsdp else None)
+            elif e == "model":
+                out.append(self.model)
+            else:
+                out.append(e)
+        return tuple(out)
+
+    def aspec(self, *entries) -> tuple:
+        """Activation spec: 'data' always maps to the data axes."""
+        out = []
+        for e in entries:
+            if e == "data":
+                out.append(self.d)
+            elif e == "model":
+                out.append(self.model)
+            else:
+                out.append(e)
+        return tuple(out)
+
+
+TEST_AXES = MeshAxes(data=("data",), model="model", fsdp=False)
+
+# The reference's ``constrain`` (``with_sharding_constraint`` on an
+# activation) has no counterpart: it only tells XLA's partitioner where an
+# activation should live. Here each rank holds its activations as its code
+# computes them, and a param is gathered where it is used
+# (``distributed.fsdp_gather_ad``).
+
+
+def _resolve_spec(info: ParamInfo, axes: MeshAxes) -> ParamInfo:
+    """Rewrite placeholder axis names 'data'/'model' in a spec via axes."""
+    return dataclasses.replace(info, spec=axes.wspec(*info.spec))
+
+
+def resolve_schema(schema, axes: MeshAxes):
+    return tree_map(lambda i: _resolve_spec(i, axes), schema)
 
 # ---------------------------------------------------------------------------
 # norms / activations
@@ -46,10 +115,10 @@ def norm_schema(cfg, L=None) -> dict:
     shp = (d,) if L is None else (L, d)
     if cfg.norm_type == "ln":
         return {
-            "w": ParamInfo(shp, torch.float32, "ones"),
-            "b": ParamInfo(shp, torch.float32, "zeros"),
+            "w": ParamInfo(shp, torch.float32, "ones", ()),
+            "b": ParamInfo(shp, torch.float32, "zeros", ()),
         }
-    return {"w": ParamInfo(shp, torch.float32, "zeros")}
+    return {"w": ParamInfo(shp, torch.float32, "zeros", ())}
 
 
 def apply_norm(cfg, p, x):
@@ -94,11 +163,12 @@ def ffn_schema(cfg, d_ff: int, L=None) -> dict:
     d = cfg.d_model
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
+    pfx = (None,) * len(pre)
     sc = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
     return {
-        "w_gate": ParamInfo(pre + (d, d_ff), dt, "normal:0.02"),
-        "w_up": ParamInfo(pre + (d, d_ff), dt, "normal:0.02"),
-        "w_down": ParamInfo(pre + (d_ff, d), dt, f"normal:{sc}"),
+        "w_gate": ParamInfo(pre + (d, d_ff), dt, "normal:0.02", (*pfx, "data", "model")),
+        "w_up": ParamInfo(pre + (d, d_ff), dt, "normal:0.02", (*pfx, "data", "model")),
+        "w_down": ParamInfo(pre + (d_ff, d), dt, f"normal:{sc}", (*pfx, "model", "data")),
     }
 
 
@@ -131,20 +201,21 @@ def gqa_schema(cfg, L=None) -> dict:
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
+    pfx = (None,) * len(pre)
     sc = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
     sch = {
-        "wq": ParamInfo(pre + (d, H * hd), dt, "normal:0.02"),
-        "wk": ParamInfo(pre + (d, K * hd), dt, "normal:0.02"),
-        "wv": ParamInfo(pre + (d, K * hd), dt, "normal:0.02"),
-        "wo": ParamInfo(pre + (H * hd, d), dt, f"normal:{sc}"),
+        "wq": ParamInfo(pre + (d, H * hd), dt, "normal:0.02", (*pfx, "data", "model")),
+        "wk": ParamInfo(pre + (d, K * hd), dt, "normal:0.02", (*pfx, "data", "model")),
+        "wv": ParamInfo(pre + (d, K * hd), dt, "normal:0.02", (*pfx, "data", "model")),
+        "wo": ParamInfo(pre + (H * hd, d), dt, f"normal:{sc}", (*pfx, "model", "data")),
     }
     if cfg.qkv_bias:
-        sch["bq"] = ParamInfo(pre + (H * hd,), dt, "zeros")
-        sch["bk"] = ParamInfo(pre + (K * hd,), dt, "zeros")
-        sch["bv"] = ParamInfo(pre + (K * hd,), dt, "zeros")
+        sch["bq"] = ParamInfo(pre + (H * hd,), dt, "zeros", (*pfx, "model"))
+        sch["bk"] = ParamInfo(pre + (K * hd,), dt, "zeros", (*pfx, "model"))
+        sch["bv"] = ParamInfo(pre + (K * hd,), dt, "zeros", (*pfx, "model"))
     if cfg.qk_norm:
-        sch["qnorm"] = ParamInfo(pre + (hd,), torch.float32, "zeros")
-        sch["knorm"] = ParamInfo(pre + (hd,), torch.float32, "zeros")
+        sch["qnorm"] = ParamInfo(pre + (hd,), torch.float32, "zeros", ())
+        sch["knorm"] = ParamInfo(pre + (hd,), torch.float32, "zeros", ())
     return sch
 
 
@@ -388,14 +459,15 @@ def mla_schema(cfg, L=None) -> dict:
     r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
+    pfx = (None,) * len(pre)
     sc = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
     return {
-        "wq": ParamInfo(pre + (d, H * (dn + dr)), dt, "normal:0.02"),
-        "w_dkv": ParamInfo(pre + (d, r + dr), dt, "normal:0.02"),
-        "kv_norm": ParamInfo(pre + (r,), torch.float32, "zeros"),
-        "w_uk": ParamInfo(pre + (r, H * dn), dt, "normal:0.02"),
-        "w_uv": ParamInfo(pre + (r, H * dv), dt, "normal:0.02"),
-        "wo": ParamInfo(pre + (H * dv, d), dt, f"normal:{sc}"),
+        "wq": ParamInfo(pre + (d, H * (dn + dr)), dt, "normal:0.02", (*pfx, "data", "model")),
+        "w_dkv": ParamInfo(pre + (d, r + dr), dt, "normal:0.02", (*pfx, "data", None)),
+        "kv_norm": ParamInfo(pre + (r,), torch.float32, "zeros", ()),
+        "w_uk": ParamInfo(pre + (r, H * dn), dt, "normal:0.02", (*pfx, "data", "model")),
+        "w_uv": ParamInfo(pre + (r, H * dv), dt, "normal:0.02", (*pfx, "data", "model")),
+        "wo": ParamInfo(pre + (H * dv, d), dt, f"normal:{sc}", (*pfx, "model", "data")),
     }
 
 
@@ -495,13 +567,14 @@ def cross_attn_schema(cfg, L=None) -> dict:
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
+    pfx = (None,) * len(pre)
     sc = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
     return {
-        "wq": ParamInfo(pre + (d, H * hd), dt, "normal:0.02"),
-        "wk": ParamInfo(pre + (d, K * hd), dt, "normal:0.02"),
-        "wv": ParamInfo(pre + (d, K * hd), dt, "normal:0.02"),
-        "wo": ParamInfo(pre + (H * hd, d), dt, f"normal:{sc}"),
-        "gate": ParamInfo(pre, torch.float32, "zeros"),
+        "wq": ParamInfo(pre + (d, H * hd), dt, "normal:0.02", (*pfx, "data", "model")),
+        "wk": ParamInfo(pre + (d, K * hd), dt, "normal:0.02", (*pfx, "data", "model")),
+        "wv": ParamInfo(pre + (d, K * hd), dt, "normal:0.02", (*pfx, "data", "model")),
+        "wo": ParamInfo(pre + (H * hd, d), dt, f"normal:{sc}", (*pfx, "model", "data")),
+        "gate": ParamInfo(pre, torch.float32, "zeros", pfx),
     }
 
 
@@ -531,13 +604,14 @@ def cross_attn_apply(cfg, p, x, memory=None, kv_cache=None):
 
 
 def embed_schema(cfg) -> dict:
+    # vocab-parallel (Megatron): vocab over `model`, `data` FSDP on the d dim
     Vp, d = cfg.padded_vocab, cfg.d_model
     dt = torch_dtype(cfg.dtype)
-    sch = {"embed": ParamInfo((Vp, d), dt, "embed:0.02")}
+    sch = {"embed": ParamInfo((Vp, d), dt, "embed:0.02", ("model", "data"))}
     if cfg.pos_type == "learned":
-        sch["pos_embed"] = ParamInfo((cfg.max_position, d), dt, "embed:0.02")
+        sch["pos_embed"] = ParamInfo((cfg.max_position, d), dt, "embed:0.02", (None, "model"))
     if not cfg.tie_embeddings:
-        sch["lm_head"] = ParamInfo((d, Vp), dt, "normal:0.02")
+        sch["lm_head"] = ParamInfo((d, Vp), dt, "normal:0.02", ("data", "model"))
     return sch
 
 

@@ -34,17 +34,18 @@ def mamba_schema(cfg, L=None) -> dict:
     di, N, hp, H, G, conv_dim = _dims(cfg)
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
+    pfx = (None,) * len(pre)
     d_in_proj = 2 * di + 2 * G * N + H
     sc = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
     return {
-        "in_proj": ParamInfo(pre + (d, d_in_proj), dt, "normal:0.02"),
-        "conv_w": ParamInfo(pre + (cfg.d_conv, conv_dim), dt, "normal:0.2"),
-        "conv_b": ParamInfo(pre + (conv_dim,), dt, "zeros"),
-        "A_log": ParamInfo(pre + (H,), torch.float32, "ssm_a"),
-        "D": ParamInfo(pre + (H,), torch.float32, "ones"),
-        "dt_bias": ParamInfo(pre + (H,), torch.float32, "dt_bias"),
-        "norm_w": ParamInfo(pre + (di,), torch.float32, "zeros"),
-        "out_proj": ParamInfo(pre + (di, d), dt, f"normal:{sc}"),
+        "in_proj": ParamInfo(pre + (d, d_in_proj), dt, "normal:0.02", (*pfx, "data", "model")),
+        "conv_w": ParamInfo(pre + (cfg.d_conv, conv_dim), dt, "normal:0.2", (*pfx, None, "model")),
+        "conv_b": ParamInfo(pre + (conv_dim,), dt, "zeros", (*pfx, "model")),
+        "A_log": ParamInfo(pre + (H,), torch.float32, "ssm_a", pfx),
+        "D": ParamInfo(pre + (H,), torch.float32, "ones", pfx),
+        "dt_bias": ParamInfo(pre + (H,), torch.float32, "dt_bias", pfx),
+        "norm_w": ParamInfo(pre + (di,), torch.float32, "zeros", pfx),
+        "out_proj": ParamInfo(pre + (di, d), dt, f"normal:{sc}", (*pfx, "model", "data")),
     }
 
 
@@ -192,7 +193,7 @@ def mamba_apply(cfg, p, x, *, cache: Optional[dict] = None, chunk: int = 64,
     return y @ p["out_proj"], new_cache
 
 
-def mamba_cache_schema(cfg, batch: int, L=None) -> dict:
+def mamba_cache_schema(cfg, batch: int, L=None, bspec="data") -> dict:
     """One recurrent state ``{conv, ssm}`` per row of ``batch``: the
     contiguous cache's rows, or, with ``batch = n_blocks``, the paged pool's
     STATE PAGES. A slot's whole state lives in the page at its FIRST
@@ -200,11 +201,14 @@ def mamba_cache_schema(cfg, batch: int, L=None) -> dict:
     State is per slot (not per token), so prefix sharing and CoW degenerate
     to private allocation (the runner refuses sharing for mamba plans). The
     reference's ``mamba_paged_cache_schema`` differs from its contiguous one
-    in sharding specs only, which the port has none of."""
+    in sharding specs only: the rows over ``bspec`` (``"data"``; None for
+    the pool's pages)."""
     _, N, hp, H, _, conv_dim = _dims(cfg)
     pre = () if L is None else (L,)
+    pfx = (None,) * len(pre)
     return {
         "conv": ParamInfo(pre + (batch, cfg.d_conv - 1, conv_dim), torch_dtype(cfg.dtype),
-                          "zeros"),
-        "ssm": ParamInfo(pre + (batch, H, hp, N), torch.float32, "zeros"),
+                          "zeros", (*pfx, bspec, None, "model")),
+        "ssm": ParamInfo(pre + (batch, H, hp, N), torch.float32, "zeros",
+                         (*pfx, bspec, "model", None, None)),
     }

@@ -36,19 +36,21 @@ def moe_schema(cfg, L=None) -> dict:
     d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
+    pfx = (None,) * len(pre)
     sc = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    # the router is f32 and replicated; experts over `model`, FSDP on d
     sch = {
-        "router": ParamInfo(pre + (d, E), torch.float32, "normal:0.006"),
-        "w_gate": ParamInfo(pre + (E, d, ff), dt, "normal:0.02"),
-        "w_up": ParamInfo(pre + (E, d, ff), dt, "normal:0.02"),
-        "w_down": ParamInfo(pre + (E, ff, d), dt, f"normal:{sc}"),
+        "router": ParamInfo(pre + (d, E), torch.float32, "normal:0.006", (*pfx, None, None)),
+        "w_gate": ParamInfo(pre + (E, d, ff), dt, "normal:0.02", (*pfx, "model", "data", None)),
+        "w_up": ParamInfo(pre + (E, d, ff), dt, "normal:0.02", (*pfx, "model", "data", None)),
+        "w_down": ParamInfo(pre + (E, ff, d), dt, f"normal:{sc}", (*pfx, "model", None, "data")),
     }
     if cfg.n_shared_experts:
         sff = cfg.n_shared_experts * cfg.moe_d_ff
         sch["shared"] = {
-            "w_gate": ParamInfo(pre + (d, sff), dt, "normal:0.02"),
-            "w_up": ParamInfo(pre + (d, sff), dt, "normal:0.02"),
-            "w_down": ParamInfo(pre + (sff, d), dt, f"normal:{sc}"),
+            "w_gate": ParamInfo(pre + (d, sff), dt, "normal:0.02", (*pfx, "data", "model")),
+            "w_up": ParamInfo(pre + (d, sff), dt, "normal:0.02", (*pfx, "data", "model")),
+            "w_down": ParamInfo(pre + (sff, d), dt, f"normal:{sc}", (*pfx, "model", "data")),
         }
     return sch
 

@@ -17,7 +17,12 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamInfo, init_from_schema, meta_from_schema
+from repro_torch.models.common import (
+    ParamInfo,
+    init_from_schema,
+    meta_from_schema,
+    specs_from_schema,
+)
 
 
 def _conv_info(cin, cout, k):
@@ -112,6 +117,10 @@ class ResNet:
     def abstract(self) -> dict:
         """The params as meta tensors (``meta_from_schema``)."""
         return meta_from_schema(self.schema())
+
+    def pspecs(self, axes=None):
+        """Every leaf whole (the reference's: its schema's specs, unresolved)."""
+        return specs_from_schema(self.schema())
 
     def forward(self, params, images, *, active_sites=None):
         """images: (B, H, W, 3) f32. Returns {'final': stats, 'final_logits'}

@@ -47,11 +47,11 @@ attend the zeros.
 
 ``loss`` is the training objective. Like the reference's, it reaches no
 kernel: attention through ``sdpa``, the mamba scan through ``ssd_ref``,
-the ramps through the dense ``ramp_outputs`` (the kernel dispatchers have
-no backward and raise under autograd). An 'mlp' ramp is served as it is
-trained: the kernel head path applies its residual before the head, as
-the reference's dense path does (the reference's Pallas head path skips
-it; ROADMAP.md, Queue 3).
+the ramps a site at a time through plain products (``_ramp_loss``; the
+kernel dispatchers have no backward and raise under autograd). An 'mlp'
+ramp is served as it is trained: the kernel head path applies its
+residual before the head, as the reference's dense path does (the
+reference's Pallas head path skips it; ROADMAP.md, Queue 3).
 
 Tensor-parallel decode (``decode_sharded``, ``decode_sharded_multi``,
 ``prefill_sharded``) runs one rank's shard inside a ``torch.distributed``
@@ -81,9 +81,11 @@ from repro_torch.models.common import (
     ParamInfo,
     init_from_schema,
     meta_from_schema,
+    specs_from_schema,
     torch_dtype,
     tree_leaves,
     tree_map,
+    tree_map2,
     zeros_from_schema,
 )
 
@@ -197,28 +199,41 @@ def _slot_schema(cfg, slot: SlotSpec, L=None) -> dict:
     return sch
 
 
-def _slot_cache_schema(cfg, slot: SlotSpec, rows: tuple, xrows: tuple, L=None) -> dict:
+def _slot_cache_schema(cfg, slot: SlotSpec, rows: tuple, xrows: tuple, L=None, *,
+                       paged=False, shard_batch=True) -> dict:
     """One slot's cache leaves over ``rows``: (B, S) for the contiguous
-    cache, (P, bs) for the paged pool. Attention keeps per-head k/v
-    ``rows + (KH, hd)``; MLA one shared latent stream ``c`` ``rows + (r,)``
-    and rope key ``k_pe`` ``rows + (dr,)``; mamba one recurrent state per
-    row (contiguous) or per pool block (paged: a slot's state page is its
-    first table entry), ``conv`` and ``ssm``, whatever the tokens. A cross
-    slot adds the image memory's k/v, ``xkv`` over ``xrows``: (B, M)
-    contiguous, (P, bs) pinned pages on the pool."""
+    cache, (P, bs) for the paged pool (``paged``). Attention keeps per-head
+    k/v ``rows + (KH, hd)``; MLA one shared latent stream ``c`` ``rows +
+    (r,)`` and rope key ``k_pe`` ``rows + (dr,)``; mamba one recurrent state
+    per row (contiguous) or per pool block (paged: a slot's state page is
+    its first table entry), ``conv`` and ``ssm``, whatever the tokens. A
+    cross slot adds the image memory's k/v, ``xkv`` over ``xrows``: (B, M)
+    contiguous, (P, bs) pinned pages on the pool. The specs are the
+    reference's: contiguous rows over ``data`` (``shard_batch``; else the
+    sequence over ``data``), kv heads over ``model``; pool pages whole."""
     dt = torch_dtype(cfg.dtype)
     pre = () if L is None else (L,)
+    pfx = (None,) * len(pre)
+    bspec, sspec = ("data", None) if shard_batch else (None, "data")
+    if cfg.kv_seq_shard:
+        # flash-decode layout: seq sharded over `model`
+        sspec = ("data", "model") if not shard_batch else "model"
+    if paged:
+        bspec = sspec = None
     if slot.mixer == "mamba":
-        sch = MB.mamba_cache_schema(cfg, rows[0], L)
+        sch = MB.mamba_cache_schema(cfg, rows[0], L, bspec=None if paged else "data")
     elif slot.mixer == "mla":
-        sch = {"c": ParamInfo(pre + rows + (cfg.kv_lora_rank,), dt, "zeros"),
-               "k_pe": ParamInfo(pre + rows + (cfg.qk_rope_dim,), dt, "zeros")}
+        sp = (*pfx, bspec, sspec, None)
+        sch = {"c": ParamInfo(pre + rows + (cfg.kv_lora_rank,), dt, "zeros", sp),
+               "k_pe": ParamInfo(pre + rows + (cfg.qk_rope_dim,), dt, "zeros", sp)}
     else:
-        shp = pre + rows + (cfg.n_kv_heads, cfg.hd)
-        sch = {"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
+        hspec = "model" if cfg.hd % 16 == 0 and (paged or not cfg.kv_seq_shard) else None
+        shp, sp = pre + rows + (cfg.n_kv_heads, cfg.hd), (*pfx, bspec, sspec, None, hspec)
+        sch = {"k": ParamInfo(shp, dt, "zeros", sp), "v": ParamInfo(shp, dt, "zeros", sp)}
     if slot.cross:
-        shp = pre + xrows + (cfg.n_kv_heads, cfg.hd)
-        sch["xkv"] = {"k": ParamInfo(shp, dt, "zeros"), "v": ParamInfo(shp, dt, "zeros")}
+        hspec = "model" if cfg.hd % 16 == 0 else None
+        shp, sp = pre + xrows + (cfg.n_kv_heads, cfg.hd), (*pfx, bspec, None, None, hspec)
+        sch["xkv"] = {"k": ParamInfo(shp, dt, "zeros", sp), "v": ParamInfo(shp, dt, "zeros", sp)}
     return sch
 
 
@@ -241,12 +256,12 @@ def ramp_schema(cfg) -> dict:
     S = len(ramp_sites(cfg))
     d, Vp = cfg.d_model, cfg.padded_vocab
     dt = torch_dtype(cfg.dtype)
-    sch = {"norm_w": ParamInfo((S, d), torch.float32, "zeros")}
+    sch = {"norm_w": ParamInfo((S, d), torch.float32, "zeros", ())}
     if cfg.ramp_style != "tied":  # 'tied' shares the model's own LM head
-        sch["head"] = ParamInfo((S, d, Vp), dt, "normal:0.02")
+        sch["head"] = ParamInfo((S, d, Vp), dt, "normal:0.02", (None, "data", "model"))
     if cfg.ramp_style == "mlp":  # heavier ramps (paper Fig 9 comparison)
-        sch["w1"] = ParamInfo((S, d, cfg.ramp_hidden), dt, "normal:0.02")
-        sch["w2"] = ParamInfo((S, cfg.ramp_hidden, d), dt, "normal:0.02")
+        sch["w1"] = ParamInfo((S, d, cfg.ramp_hidden), dt, "normal:0.02", (None, "data", None))
+        sch["w2"] = ParamInfo((S, cfg.ramp_hidden, d), dt, "normal:0.02", (None, None, "data"))
     return sch
 
 
@@ -277,6 +292,33 @@ def paged_leaf_kinds(schema) -> List[str]:
 def _layer(tree, l: int):
     """Views of one layer's params or cache out of the stacked tree."""
     return tree_map(lambda t: t[l], tree)
+
+
+def _layer_specs(stack, specs):
+    """The specs of one layer of a stacked tree: each leaf's without its
+    first (layer) entry, which is whole."""
+    return tree_map2(lambda _, sp: tuple(sp[1:]), stack, specs)
+
+
+def _gathered(p, specs, mesh, keys=None):
+    """The whole leaves of the rank's parts ``p`` (``fsdp_gather_tree``;
+    only the entries ``keys`` of a dict, where given), or ``p`` itself
+    when ``specs`` is None (the leaves are whole already)."""
+    if keys is not None:
+        p = {k: p[k] for k in keys if k in p}
+    if specs is None:
+        return p
+    from repro_torch.distributed import fsdp_gather_tree
+
+    return fsdp_gather_tree(p, specs, mesh)
+
+
+def _remat(fn, x, remat: bool):
+    """``fn(x)``, recomputed in the backward with ``remat``
+    (``torch.utils.checkpoint``)."""
+    if not remat:
+        return fn(x)
+    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
 
 
 class MultiStepDecodeMixin:
@@ -411,8 +453,13 @@ class LM(MultiStepDecodeMixin):
         sch["ramps"] = ramp_schema(cfg)
         if cfg.cross_attn_every:
             sch["frontend"] = {"proj": ParamInfo((cfg.d_frontend, cfg.d_model),
-                                                 torch_dtype(cfg.dtype), "normal:0.02")}
+                                                 torch_dtype(cfg.dtype), "normal:0.02",
+                                                 (None, "model"))}
         return sch
+
+    def pspecs(self, axes: LY.MeshAxes) -> dict:
+        """Every param leaf's partition spec on ``axes`` (the reference's)."""
+        return specs_from_schema(LY.resolve_schema(self.schema(), axes))
 
     def init(self, seed: int = 0, device="cuda") -> dict:
         gen = torch.Generator(device=device)
@@ -439,13 +486,19 @@ class LM(MultiStepDecodeMixin):
             sch["suffix"] = [fn(s, None) for s in plan.suffix]
         return sch
 
-    def cache_schema(self, B: int, S: int) -> dict:
+    def cache_schema(self, B: int, S: int, shard_batch: bool = True) -> dict:
         """Contiguous rows (B, S); with ``windowed_cache`` a local slot keeps
-        a ring of ``min(W, S)`` rows (slot ``pos % W``)."""
+        a ring of ``min(W, S)`` rows (slot ``pos % W``). ``shard_batch``
+        chooses the specs only (``_slot_cache_schema``)."""
         cfg = self.cfg
         ring = min(cfg.window, S) if cfg.windowed_cache and cfg.window else S
         return self._slot_tree(lambda s, L: _slot_cache_schema(
-            cfg, s, (B, ring if s.is_local else S), (B, cfg.n_image_tokens), L))
+            cfg, s, (B, ring if s.is_local else S), (B, cfg.n_image_tokens), L,
+            shard_batch=shard_batch))
+
+    def cache_pspecs(self, B, S, axes: LY.MeshAxes, shard_batch=True) -> dict:
+        """Every contiguous cache leaf's partition spec on ``axes``."""
+        return specs_from_schema(LY.resolve_schema(self.cache_schema(B, S, shard_batch), axes))
 
     def init_cache(self, B: int, S: int, device="cuda") -> dict:
         return zeros_from_schema(self.cache_schema(B, S), device)
@@ -466,7 +519,8 @@ class LM(MultiStepDecodeMixin):
         pages ``(L, P, bs, KH, hd)`` hold its M image rows in the pinned
         blocks of the trailing ``paged_xkv_blocks`` table columns."""
         rows = (n_blocks, block_size)
-        return self._slot_tree(lambda s, L: _slot_cache_schema(self.cfg, s, rows, rows, L))
+        return self._slot_tree(lambda s, L: _slot_cache_schema(self.cfg, s, rows, rows, L,
+                                                               paged=True))
 
     def init_paged_cache(self, n_blocks: int, block_size: int, device="cuda") -> dict:
         return zeros_from_schema(self.paged_cache_schema(n_blocks, block_size), device)
@@ -478,7 +532,7 @@ class LM(MultiStepDecodeMixin):
         reads them."""
         def slot_kinds(s, L):
             rows = (n_blocks, block_size)
-            sub = _slot_cache_schema(self.cfg, s, rows, rows, L)
+            sub = _slot_cache_schema(self.cfg, s, rows, rows, L, paged=True)
             ring = s.is_local and self.cfg.window
             kinds = iter(["ring" if ring and k == "tokens" else k
                           for k in paged_leaf_kinds(sub)])
@@ -628,15 +682,19 @@ class LM(MultiStepDecodeMixin):
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
                mask_local=None, write_gate=None, block_tables=None, xkv_tables=None,
                memory=None, moe_impl="dense", plain=False, remat=False, tp=None, mesh=None,
-               rows_sharded=True):
+               rows_sharded=True, fsdp=None):
         """Run the prefix slots, the periods layer by layer, then the suffix
         slots; caches are updated in place. ``pool_idx`` is a slice of positions (serving: a
         view, so no index tensor crosses to the device) or an index tensor
         (the loss's ``ramp_positions``). ``remat`` recomputes each layer in
         the backward (``torch.utils.checkpoint``): memory only, the same
-        numbers. Returns (h, pooled (L, B, npos, d), the summed MoE aux
-        loss or None), prefix layers first and suffix layers last, as the
-        reference assembles them, so ramp sites keep their layer numbers."""
+        numbers. With ``fsdp`` (the gather specs of ``_fsdp_use``) ``params``
+        hold the rank's parts, and each layer gathers its own params where
+        it runs, inside its remat region, so the backward gathers them again
+        and no gathered layer outlives its use. Returns (h, pooled (L, B,
+        npos, d), the summed MoE aux loss or None), prefix layers first and
+        suffix layers last, as the reference assembles them, so ramp sites
+        keep their layer numbers."""
         plan = self.plan
         kw = dict(positions=positions, mask=mask, mask_local=mask_local,
                   cache_index=cache_index, write_gate=write_gate, block_tables=block_tables,
@@ -644,31 +702,60 @@ class LM(MultiStepDecodeMixin):
                   mesh=mesh, rows_sharded=rows_sharded)
         pooled, aux = [], None
 
-        def run(slot, p, hh, c):
-            if not remat:
-                return self._block(slot, p, hh, cache=c, **kw)
-            return torch.utils.checkpoint.checkpoint(
-                lambda x: self._block(slot, p, x, cache=c, **kw), hh, use_reentrant=False)
+        def run(slot, p, sp, hh, c):
+            def body(x):
+                return self._block(slot, _gathered(p, sp, mesh), x, cache=c, **kw)
 
-        def layer(slot, p, hh, c):
+            return _remat(body, hh, remat)
+
+        def layer(slot, p, sp, hh, c):
             nonlocal aux
-            hh, a = run(slot, p, hh, c)
+            hh, a = run(slot, p, sp, hh, c)
             if a is not None:
                 aux = a if aux is None else aux + a
             pooled.append(hh[:, pool_idx])
             return hh
 
+        def specs(part, i):
+            return None if fsdp is None else fsdp[part][i]
+
         for i, slot in enumerate(plan.prefix):
             c = caches["prefix"][i] if caches else None
-            h = layer(slot, params["prefix"][i], h, c)
+            h = layer(slot, params["prefix"][i], specs("prefix", i), h, c)
+        # a stacked leaf's layer axis is whole: layer l's part is part[l]
+        period_sp = [None if fsdp is None else _layer_specs(params["blocks"][s], fsdp["blocks"][s])
+                     for s in range(len(plan.period))]
         for l in range(plan.n_periods):
             for s, slot in enumerate(plan.period):
                 c = _layer(caches["blocks"][s], l) if caches else None
-                h = layer(slot, _layer(params["blocks"][s], l), h, c)
+                h = layer(slot, _layer(params["blocks"][s], l), period_sp[s], h, c)
         for i, slot in enumerate(plan.suffix):
             c = caches["suffix"][i] if caches else None
-            h = layer(slot, params["suffix"][i], h, c)
+            h = layer(slot, params["suffix"][i], specs("suffix", i), h, c)
         return h, torch.stack(pooled), aux
+
+    def _fsdp_use(self, specs, mesh):
+        """The gather specs of a loss over the rank's parts (``specs``: each
+        leaf's sanitized storage spec): every leaf gathered whole where it
+        is used, except the experts of a MoE slot, which stay split over
+        ``model`` as the expert-parallel dispatch takes them (the
+        reference's ``P(model, None, None)``) and are gathered over data
+        only."""
+        use = tree_map2(lambda _, sp: sp, self.schema(), specs)  # a copy of the tree
+        for part, slots in (("prefix", self.plan.prefix), ("blocks", self.plan.period),
+                            ("suffix", self.plan.suffix)):
+            for i, slot in enumerate(slots):
+                if slot.ffn != "moe":
+                    continue
+                for k in ("w_gate", "w_up", "w_down"):
+                    sp = list(specs[part][i]["ffn"][k])
+                    ax = len(sp) - 3  # the expert axis
+                    if mesh.model_size > 1 and sp[ax] != "model":
+                        raise ValueError(f"{part}/{i}/ffn/{k}: {self.cfg.n_experts} experts do "
+                                         f"not split over {mesh.model_size} model ranks")
+                    sp[ax] = None
+                    use[part][i]["ffn"][k] = tuple(sp)
+        return use
 
     # -- ramp heads ----------------------------------------------------------
 
@@ -709,9 +796,7 @@ class LM(MultiStepDecodeMixin):
         site_idx = list(site_idx)
         hs = self._ramp_hidden(params, pooled, site_idx, stop_grad=stop_grad)
         if site_idx == list(range(len(self.sites))) and self.cfg.ramp_style != "tied":
-            # every site (the loss): one batched product with the whole head
-            # stack, whose gradient is then one (S, d, Vp) tensor, not the
-            # sum of S full-size select gradients
+            # every site: one batched product with the whole head stack
             K, B, n, d = hs.shape
             out = torch.matmul(hs.reshape(K, B * n, d), params["ramps"]["head"])
             return out.reshape(K, B, n, -1).float()
@@ -721,7 +806,7 @@ class LM(MultiStepDecodeMixin):
     # -- public entry points --------------------------------------------------
 
     def loss(self, params, batch, *, moe_impl="ep", remat=False, ramp_positions=16,
-             train_mode="full", mesh=None):
+             train_mode="full", mesh=None, fsdp=None):
         """batch: {'tokens': (B,S) int, 'labels': (B,S) int (-1 = pad)}; a
         cross plan also reads 'image_embeds' (B, M, d_frontend).
         Returns (loss, metrics). Ramp losses use stop-grad features at
@@ -739,43 +824,93 @@ class LM(MultiStepDecodeMixin):
         means divide the shards' summed losses by the mesh's count of valid
         labels, the aux loss takes its router means over every shard. Each
         value is the global one and each gradient this rank's share, so the
-        data group's summed gradients are the global loss's."""
+        data group's summed gradients are the global loss's.
+
+        With ``fsdp`` as well (each leaf's sanitized spec:
+        ``training.train_loop.layout_specs``) ``params`` hold the rank's part
+        of every leaf, the reference's FSDP layout, and each is gathered
+        where it is used (``fsdp_gather_ad``): a layer's params in its remat
+        region, the embedding at the lookup, the head at the LM loss and
+        each ramp head at its site, one site at a time. Each gradient is
+        then the rank's part of the data group's sum."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
         dev = tokens.device
         positions = torch.arange(S, device=dev)[None, :]
-        h = LY.embed_apply(cfg, params["tok"], tokens, positions)
+        use = None if fsdp is None else self._fsdp_use(fsdp, mesh)
+        tok, tok_sp = params["tok"], None if use is None else use["tok"]
+        h = LY.embed_apply(cfg, _gathered(tok, tok_sp, mesh, ("embed", "pos_embed")), tokens,
+                           positions)
         mask = LY.causal_mask(S, S, 0, device=dev)
         mask_local = LY.window_mask(S, S, 0, cfg.window, device=dev) if cfg.window else mask
         npos = min(ramp_positions, S)
         # the reference's f32 linspace truncated to int, formed on the host
         pool_idx = torch.linspace(S // npos - 1, S - 1, npos,
                                   dtype=torch.float32).to(torch.int64).to(dev)
-        memory = (self._memory(params, batch["image_embeds"]) if cfg.cross_attn_every
-                  else None)
+        memory = None
+        if cfg.cross_attn_every:
+            fe = _gathered(params["frontend"], None if use is None else use["frontend"], mesh)
+            memory = self._memory({"frontend": fe}, batch["image_embeds"])
         h, pooled, aux = self._stack(
             params, h, positions=positions, mask=mask, mask_local=mask_local, caches=None,
             cache_index=None, pool_idx=pool_idx, memory=memory, moe_impl=moe_impl,
-            plain=True, remat=remat, mesh=mesh)
+            plain=True, remat=remat, mesh=mesh, fsdp=use)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=dev)
         group = mesh.data_group if mesh is not None and mesh.data_size > 1 else None
         h = LY.apply_norm(cfg, params["final_norm"], h)
-        lm = _masked_ce(cfg, LY.unembed(cfg, params["tok"], h), labels, group)
-        if len(self.sites):
-            ramp_logits = self.ramp_outputs(params, pooled)
-            R = ramp_logits.shape[0]
-            ramp_labels = labels[:, pool_idx]  # (B,npos)
-            rloss = _masked_ce(cfg, ramp_logits.reshape(R * B, npos, -1),
-                               ramp_labels.repeat(R, 1), group)
-        else:  # reduced-depth configs can have zero ramp sites
-            rloss = torch.zeros((), dtype=torch.float32, device=dev)
+        head = ("embed",) if cfg.tie_embeddings else ("lm_head",)
+        # with remat the head's product (and its gather) is done again in the backward
+        lm = _remat(lambda x: _masked_ce(cfg, LY.unembed(cfg, _gathered(tok, tok_sp, mesh, head),
+                                                         x), labels, group), h, remat)
+        rloss = self._ramp_loss(params, pooled, labels[:, pool_idx], group=group, mesh=mesh,
+                                specs=use, remat=remat)
         if train_mode == "ramps_only":
             loss = rloss + 0.0 * lm
         else:
             loss = lm + rloss + 0.01 * aux
         return loss, {"lm_loss": lm, "ramp_loss": rloss, "moe_aux": aux}
+
+    def _ramp_loss(self, params, pooled, labels, *, group=None, mesh=None, specs=None,
+                   remat=False):
+        """The ramp loss of ``loss``: at each site the stop-grad pooled
+        features through the site's norm (and 'mlp' residual) and head,
+        reduced there to the summed NLL of the valid ``labels``; the sum
+        over the sites over their count of valid labels (``_masked_ce`` over
+        the sites' stacked logits, summed in another order; with ``group``
+        the global count and mean). With ``specs`` (the gather specs of
+        ``loss(fsdp=)``) each site gathers its own head (and 'mlp' weights)
+        where it runs; with ``remat`` each site is a remat region, so
+        neither its gathered head nor its logits outlive it. The stacked
+        leaves are unbound once, so each one's gradient is stacked once, not
+        summed from a full-size select gradient a site."""
+        cfg = self.cfg
+        if not len(self.sites):  # reduced-depth configs can have zero ramp sites
+            return torch.zeros((), dtype=torch.float32, device=pooled.device)
+        one = {k: None if specs is None else tuple(v[1:])  # a site's slice of a stacked leaf
+               for k, v in (specs or params)["ramps"].items()}
+        rp = {k: torch.unbind(v) for k, v in params["ramps"].items()}
+        head = ("embed",) if cfg.tie_embeddings else ("lm_head",)
+        hs = pooled.detach()  # stop-grad ramp features
+        total = None
+        for i, s in enumerate(self.sites):
+            def site(x, i=i):
+                x = LY.rms_norm(x, rp["norm_w"][i])
+                if cfg.ramp_style == "mlp":
+                    w1, w2 = (_gathered(rp[k][i], one[k], mesh) for k in ("w1", "w2"))
+                    x = x + LY.act_fn("gelu")(x @ w1) @ w2
+                if cfg.ramp_style == "tied":
+                    tok = _gathered(params["tok"], None if specs is None else specs["tok"], mesh,
+                                    head)
+                    logits = LY.unembed(cfg, tok, x)
+                else:
+                    logits = x @ _gathered(rp["head"][i], one["head"], mesh)
+                return _nll_sum(cfg, logits, labels)[0]
+
+            part = _remat(site, hs[s], remat)
+            total = part if total is None else total + part
+        return _mean_over(total, torch.sum(labels >= 0) * len(self.sites), group)
 
     def _memory(self, params, image_embeds):
         """A cross plan's image memory: ``image_embeds @ frontend.proj`` in
@@ -987,7 +1122,7 @@ class LM(MultiStepDecodeMixin):
         by ``specs`` (default ``tp_param_specs(moe_ep=)``)."""
         if specs is None:
             specs = self.tp_param_specs(moe_ep=moe_ep)
-        return _map2(lambda x, ax: x if ax is None else
+        return tree_map2(lambda x, ax: x if ax is None else
                      x.narrow(ax, rank * (x.shape[ax] // m), x.shape[ax] // m), params, specs)
 
     def ep_param_specs(self) -> dict:
@@ -1008,7 +1143,7 @@ class LM(MultiStepDecodeMixin):
             specs = self.tp_param_specs(moe_ep=moe_ep)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return _map2(lambda info, ax: info.initialize(
+        return tree_map2(lambda info, ax: info.initialize(
             gen, device, None if ax is None else (ax, rank, m)), self.schema(), specs)
 
     @staticmethod
@@ -1032,7 +1167,7 @@ class LM(MultiStepDecodeMixin):
                 x = x.narrow(ax, i * (x.shape[ax] // n), x.shape[ax] // n)
             return x.contiguous()
 
-        return _map2(leaf, cache, self.tp_cache_specs(cache, data_shard=dp > 1))
+        return tree_map2(leaf, cache, self.tp_cache_specs(cache, data_shard=dp > 1))
 
     def _rank_rows(self, B: int, mesh):
         """The rows of a B-row batch this rank decodes: all of them, or its
@@ -1168,16 +1303,6 @@ class LM(MultiStepDecodeMixin):
         return outs
 
 
-def _map2(fn, a, b):
-    """``fn(x, y)`` over the leaves of two trees of one structure, in
-    ``tree_map``'s order (sorted dict keys)."""
-    if isinstance(a, dict):
-        return {k: _map2(fn, a[k], b[k]) for k in sorted(a)}
-    if isinstance(a, (list, tuple)):
-        return [_map2(fn, x, y) for x, y in zip(a, b)]
-    return fn(a, b)
-
-
 def _cache_len(cache) -> Optional[int]:
     """Sequence length of a contiguous cache: the LONGEST attention leaf, k
     ``(.., B, S, KH, hd)`` or MLA's c ``(.., B, S, r)``, stacked, prefix or
@@ -1217,12 +1342,10 @@ def _mask_pad_vocab(cfg, logits):
     return torch.where(col < V, logits, -1e30)
 
 
-def _masked_ce(cfg, logits, labels, group=None):
-    """Cross-entropy with -1 padding labels and padded-vocab masking (the
-    reference's formula: max-shifted log-sum-exp, mean over valid labels).
-    With ``group`` (a data group whose ranks each hold a shard of the
-    rows) the mean is over every shard's valid labels: its value the
-    global mean, its gradient this shard's share (``global_value``)."""
+def _nll_sum(cfg, logits, labels):
+    """(the summed NLL over the valid labels, their count): the reference's
+    formula, max-shifted log-sum-exp with -1 padding labels and the padded
+    vocabulary masked."""
     logits = logits.float()
     if logits.shape[-1] > cfg.vocab_size:
         logits = _mask_pad_vocab(cfg, logits)
@@ -1231,10 +1354,24 @@ def _masked_ce(cfg, logits, labels, group=None):
     m = torch.max(logits, dim=-1).values
     lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
     ll = torch.gather(logits, -1, lab[..., None])[..., 0]
-    nll = (lse - ll) * valid
+    return torch.sum((lse - ll) * valid), torch.sum(valid)
+
+
+def _mean_over(total, count, group=None):
+    """``total / count`` (at least 1). With ``group`` (a data group whose
+    ranks each hold a shard of the rows) the count is every shard's: the
+    value the global mean, the gradient this shard's share
+    (``global_value``)."""
     if group is None:
-        return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+        return total / torch.clamp(count, min=1)
     from repro_torch.distributed import sum_over
 
-    n = sum_over(torch.sum(valid).float(), group)
-    return MOE.global_value(torch.sum(nll) / torch.clamp(n, min=1), group)
+    n = sum_over(count.float(), group)
+    return MOE.global_value(total / torch.clamp(n, min=1), group)
+
+
+def _masked_ce(cfg, logits, labels, group=None):
+    """Cross-entropy with -1 padding labels and padded-vocab masking (the
+    reference's formula: max-shifted log-sum-exp, mean over valid labels;
+    with ``group`` over every shard's valid labels, ``_mean_over``)."""
+    return _mean_over(*_nll_sum(cfg, logits, labels), group)

@@ -15,6 +15,11 @@ reference. Two choices of the port, neither of which changes a number:
   well as a bool tensor, and a gradient leaf may be None (the step never
   differentiated it: a zero gradient). A frozen leaf is not touched at
   all, which is what the reference's ``where(m, new, old)`` leaves.
+
+AdamW is elementwise but for the clipping norm, so a mesh step's rank
+updates only its parts of the leaves (the FSDP layout, or its slice of the
+experts) with the same math, given the global norm the step reckons over
+the ranks (``adamw_update(grad_norm=)``).
 """
 from __future__ import annotations
 

@@ -10,13 +10,22 @@ Given a mesh (``launch.mesh.make_mesh``) the step is data-parallel over
 the combined data axes ``("pod", "data")`` and expert-parallel over
 ``model``, as the reference's step on a mesh computes it: every rank
 takes the global batch and keeps its rows of each microbatch, the loss
-(``loss(mesh=)``) is the global batch's, the gradients are summed over
-the data group in one bucketed all-reduce (``all_reduce_flat``), the
-clipping norm counts the replicated leaves once and sums the expert
-leaves' squares over the model group, and AdamW updates each rank's own
-leaves in place. A rank holds the dense leaves whole and its slice of the
-experts (``ep_param_specs``); sharding the dense leaves (the reference's
-FSDP and head splits, an XLA layout that changes no number) is not ported.
+(``loss(mesh=)``) is the global batch's, and AdamW updates each rank's own
+leaves in place. Its layout is a partition spec a leaf of the params,
+the gradients and AdamW's moments, sanitized on the mesh
+(``layout_specs``), by the axes (``MeshAxes``; by default
+``mesh_axes(mesh, fsdp=True)``, as the reference's train cells take it):
+with ``fsdp=True`` the reference's FSDP specs, each leaf split over
+``data`` and ``model``; with ``fsdp=False`` the experts split over
+``model`` (``ep_param_specs``) and every other leaf whole. Either way the
+loss gathers each split leaf where it uses it (``loss(fsdp=)``), whose
+backward reduce-scatters its gradient over the data group, so only the
+leaves unsplit over data are all-reduced (one bucketed
+``all_reduce_flat``); the clipping norm sums each part's squares over the
+ranks that hold different parts and counts a whole leaf once
+(``_reduce_over_mesh``). The ``model`` axis splits storage only: a model
+group computes alike, each rank gathering the whole leaf, except the
+experts, which the expert-parallel dispatch takes split over ``model``.
 
 In ``ramps_only`` mode the step differentiates only the leaves whose
 gradient the LM loss can make non-zero: the ramps, and with 'tied' ramps
@@ -35,7 +44,16 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import (
+    axis_specs,
+    entry_axes,
+    init_parts,
+    sanitize_specs,
+    spec_parts,
+    tree_leaves,
+    tree_map,
+    tree_map2,
+)
 from repro_torch.training.optim import (
     AdamWConfig,
     _sq_sum,
@@ -102,17 +120,73 @@ def expert_leaves(model, params) -> list:
     return [ax is not None for ax in tree_leaves(model.ep_param_specs())]
 
 
-def state_sharding(model, mesh):
-    """The ``CheckpointManager`` sharding tree of a mesh step's state: each
-    expert leaf of the params and of AdamW's moments as ``Shard(axis,
-    model rank, model size)``, every other leaf None (whole)."""
+def layout_specs(model, mesh, axes):
+    """Each param leaf's spec in a mesh step's layout for ``axes``,
+    sanitized on ``mesh``: with ``axes.fsdp`` the reference's FSDP specs
+    (``model.pspecs``), else the experts split over ``model``
+    (``ep_param_specs``) and every other leaf whole."""
+    sch = model.schema()
+    if axes.fsdp:
+        specs = model.pspecs(axes)
+    elif hasattr(model, "ep_param_specs"):
+        specs = axis_specs(sch, model.ep_param_specs())
+    else:
+        specs = tree_map(lambda _: (), sch)
+    return sanitize_specs(specs, sch, mesh)
+
+
+def _spec_list(model, specs) -> list:
+    """``specs`` as a list in ``tree_leaves`` order of the params."""
+    out: list = []
+    tree_map2(lambda _, sp: out.append(sp), model.schema(), specs)
+    return out
+
+
+def _split_over(spec, mesh):
+    """(split over the data axes, split over ``model``) of a sanitized spec
+    on ``mesh``."""
+    axes = [a for d, _, _ in spec_parts(spec, mesh) for a in entry_axes(spec[d])]
+    return any(a != "model" for a in axes), "model" in axes
+
+
+def _axes_of(mesh, axes):
+    """``axes``, or a mesh step's default: ``mesh_axes(mesh, fsdp=True)``."""
+    if axes is not None:
+        return axes
+    from repro_torch.launch.mesh import mesh_axes
+
+    return mesh_axes(mesh, fsdp=True)
+
+
+def state_sharding(model, mesh, axes=None):
+    """The ``CheckpointManager`` sharding tree of a mesh step's state, in
+    ``make_train_step``'s layout for ``axes`` (the same default): each leaf
+    of the params and of AdamW's moments that its spec splits is a
+    ``Shard`` over each dim it splits (the rank's part; ``replica`` its
+    place among the ranks that hold the same part), every other leaf None
+    (whole)."""
     from repro_torch.checkpoint.manager import Shard
 
-    m, mi = mesh.model_size, mesh.model_rank
-    specs = tree_map(lambda ax: None if ax is None or m == 1 else Shard(ax, mi, m),
-                     model.ep_param_specs() if hasattr(model, "ep_param_specs")
-                     else model.schema())
+    def shard(_, sp):
+        cuts = spec_parts(sp, mesh)
+        if not cuts:
+            return None
+        named = {a for d, _, _ in cuts for a in entry_axes(sp[d])}
+        rep = 0
+        for a in mesh.axis_names:
+            if a not in named:
+                rep = rep * mesh.shape[a] + mesh.coords[a]
+        return Shard(*(tuple(c[k] for c in cuts) for k in range(3)), replica=rep)
+
+    specs = tree_map2(shard, model.schema(), layout_specs(model, mesh, _axes_of(mesh, axes)))
     return {"params": specs, "opt": {"step": None, "mu": specs, "nu": specs}, "step": None}
+
+
+def shard_state(state, model, mesh, axes=None):
+    """The rank's parts of a whole state (``state_sharding``): copies, so
+    the whole state can be freed."""
+    return tree_map2(lambda x, sh: x if sh is None else x[sh.index_of(x.shape)].clone(),
+                     state, state_sharding(model, mesh, axes))
 
 
 def _rows(batch, i: int, n: int, mesh):
@@ -130,15 +204,23 @@ def _rows(batch, i: int, n: int, mesh):
 
 
 def make_train_step(model, tcfg: TrainConfig, opt_cfg: Optional[AdamWConfig] = None, *,
-                    mesh=None):
+                    mesh=None, axes=None, mark: Optional[Callable[[str], None]] = None):
     """Returns (step_fn(state, batch) -> (state, metrics), opt_cfg). The
     batch's arrays may be numpy or tensors; they go to the params' device.
     The state is updated in place. With ``mesh`` (module docstring) the
-    batch is the global one on every rank and the state is the rank's:
-    its params hold the rank's slice of the experts."""
+    batch is the global one on every rank and the state is the rank's
+    (``init_state(mesh=)``, ``shard_state``): its part of every leaf by
+    ``layout_specs``. ``mark``, where given, is called with
+    ``"forward"``, ``"backward"``, ``"reduce"`` and ``"update"`` as each
+    part of a step ends (a timer's hook)."""
     opt_cfg = opt_cfg or AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay)
     sched = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps)
     mkw = {} if mesh is None else {"mesh": mesh}
+    if mesh is not None:
+        specs = layout_specs(model, mesh, _axes_of(mesh, axes))
+        spec_list = _spec_list(model, specs)
+        if any(spec_parts(sp, mesh) for sp in spec_list):
+            mkw["fsdp"] = specs
 
     def loss_fn(params, batch):
         if model.cfg.family == "lm":
@@ -146,12 +228,18 @@ def make_train_step(model, tcfg: TrainConfig, opt_cfg: Optional[AdamWConfig] = N
                               train_mode=tcfg.train_mode, **mkw)
         return model.loss(params, batch, **mkw)
 
+    def tick(name):
+        if mark is not None:
+            mark(name)
+
     def grads_of(params, leaves, batch):
         for p in leaves:
             p.requires_grad_(True)
         try:
             loss, metrics = loss_fn(params, batch)
+            tick("forward")
             gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            tick("backward")
         finally:
             for p in leaves:
                 p.requires_grad_(False)
@@ -181,37 +269,49 @@ def make_train_step(model, tcfg: TrainConfig, opt_cfg: Optional[AdamWConfig] = N
             loss, metrics, gs = grads_of(params, leaves, _rows(batch, 0, 1, mesh))
         gn = None
         if mesh is not None:
-            gs, gn = _reduce_over_mesh(model, mesh, params, wrt, leaves, gs)
+            split = [_split_over(sp, mesh) for sp, w in zip(spec_list, wrt) if w]
+            gs, gn = _reduce_over_mesh(mesh, leaves, gs, split)
+            tick("reduce")
         it = iter(gs)
         grads = [next(it) if w else None for w in wrt]
         grads = _unflatten_like(params, grads)
         mask = ramp_mask(params) if tcfg.train_mode == "ramps_only" else None
         newp, newopt, gn = adamw_update(params, grads, opt, opt_cfg, lr_scale=sched(step),
                                         mask=mask, grad_norm=gn)
+        tick("update")
         out = {"loss": loss, "grad_norm": gn, **metrics}
         return {"params": newp, "opt": newopt, "step": step + 1}, out
 
     return step_fn, opt_cfg
 
 
-def _reduce_over_mesh(model, mesh, params, wrt, leaves, gs):
-    """A mesh step's gradients summed over the data group (one bucketed
-    all-reduce; a leaf never reached counts as zeros), and the global norm:
-    the replicated leaves' squares once, the expert leaves' summed over the
-    model group. Returns (gradients, norm)."""
+def _reduce_over_mesh(mesh, leaves, gs, split):
+    """A mesh step's gradients summed over the data group, and the global
+    norm, each element counted once. ``split`` is each differentiated
+    leaf's (split over data, split over model): a leaf split over data has
+    its sum already (its gather's reduce-scatter) and the others are
+    summed in place in one bucketed all-reduce (a leaf never reached
+    counts as zeros); a part's squares are summed over the ranks that hold
+    other parts of its leaf (the whole mesh, the data group or the model
+    group) and a whole leaf's counted once. Returns (gradients, norm)."""
     from repro_torch.distributed import all_reduce_flat, sum_over
 
     gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
     if mesh.data_size > 1:
-        gs = all_reduce_flat(gs, mesh.data_group)
-    split = [e for e, w in zip(expert_leaves(model, params), wrt) if w]
+        all_reduce_flat([g for g, (d, _) in zip(gs, split) if not d], mesh.data_group)
     dev = gs[0].device
-    sq = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(2)]
-    for g, e in zip(gs, split):
-        sq[e] = sq[e] + _sq_sum(g)
-    if mesh.model_size > 1:
-        sq[1] = sum_over(sq[1], mesh.model_group)
-    return gs, torch.sqrt(sq[0] + sq[1])
+    sq = {k: torch.zeros((), dtype=torch.float32, device=dev)
+          for k in ((False, False), (True, False), (False, True), (True, True))}
+    for g, k in zip(gs, split):
+        sq[k] = sq[k] + _sq_sum(g)
+    model = mesh.model_group if mesh.model_size > 1 else None
+    data = mesh.data_group if mesh.data_size > 1 else None
+
+    def over(x, group):
+        return x if group is None else sum_over(x, group)
+
+    both = over(sq[True, False] + over(sq[True, True], model), data)
+    return gs, torch.sqrt(sq[False, False] + both + over(sq[False, True], model))
 
 
 def _unflatten_like(tree, leaves):
@@ -219,9 +319,19 @@ def _unflatten_like(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def init_state(model, seed, opt_cfg: AdamWConfig, device="cuda"):
-    """Params drawn from ``seed`` (``model.init``), zero moments, step 0."""
-    params = model.init(seed, device=device)
+def init_state(model, seed, opt_cfg: AdamWConfig, device="cuda", *, mesh=None, axes=None):
+    """Params drawn from ``seed`` (``model.init``), zero moments, step 0.
+    With ``mesh`` the rank's state of ``make_train_step(mesh=, axes=)``,
+    drawn without the whole tree: its part of every leaf by
+    ``layout_specs`` (``init_parts``), each part the same slice of
+    ``model.init(seed)``."""
+    if mesh is None:
+        params = model.init(seed, device=device)
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = init_parts(model.schema(), layout_specs(model, mesh, _axes_of(mesh, axes)), gen,
+                            device, mesh)
     return {"params": params, "opt": adamw_init(params, opt_cfg),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 

@@ -180,3 +180,62 @@ def test_cells_and_records(tmp_path, monkeypatch):
     multi = DR.run_cell("qwen2-1.5b", "decode_32k", "multi")  # tp_check refuses tp 16
     assert multi["ok"] and multi["refused"] and "not divisible by tp=16" in multi["status"]
     assert DR.main(["--arch", "gemma3-4b", "--shape", "long_500k"]) == 0
+
+
+@pytest.mark.parametrize("arch,layout,more", [("qwen2-1.5b", {"data": 2, "model": 2}, {}),
+                                              ("qwen3-moe-30b-a3b", None, {"n_experts": 16})])
+def test_multi_train_cell_holds_the_fsdp_state(arch, layout, more):
+    """A ``--mesh multi`` train cell's rank holds the FSDP state: its
+    params, gradients and f32 moments are the bytes reckoned from each
+    leaf's spec sanitized on the layout (tiny width): at (data 2, model 2)
+    (rank 0 of a 4-rank fake job, ``build_cell_multi``) a quarter of the
+    whole state apart from the f32 norms (and qwen2's biases, split over
+    ``model`` alone); on the multi-pod layout (pod 2, data 16, model 16;
+    ``run_cell_multi``'s record) each leaf over as many ranks as its dims
+    allow. The step gathers and reduce-scatters its leaves, and
+    all-reduces only the leaves left unsplit over data."""
+    from repro_torch.distributed import count_collectives  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.launch.mesh import make_mesh, mesh_axes  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.common import part_shape, tree_map2  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.training.train_loop import layout_specs  # repro: allow[tier1-deps] — the port under test
+
+    tiny = get_tiny(arch)
+    over = {k: getattr(tiny, k) for k in ("n_layers", "d_model", "n_heads", "n_kv_heads",
+                                          "head_dim", "d_ff", "vocab_size", "dtype",
+                                          "n_experts", "moe_d_ff")}
+    over.update(more)  # the experts split over the 16 model ranks
+    shape = dict(kind="train", seq_len=64, global_batch=64)
+    if layout is None:
+        lay = DR.MULTI_LAYOUT
+        rec = DR.run_cell_multi(arch, shape, write=False, overrides=over)
+        assert rec["ok"] and rec["status"] == "ok", rec.get("traceback")
+        assert rec["chips"] == math.prod(lay.values())
+        res, c = rec["resident"], rec["collectives"]
+    else:
+        lay = layout
+        with DR.fake_job(math.prod(lay.values())):
+            mesh = make_mesh(tuple(lay.values()), tuple(lay), device="meta")
+            _, _, fn, res = DR.build_cell_multi(arch, shape, mesh, overrides=over)
+            with count_collectives() as cc, torch.enable_grad():
+                fn()
+        c = {k: {"calls": n, "bytes": b} for k, (n, b) in cc.items()}
+    model = build_model(get_config(arch).replace(**over))
+    parts, whole, norms = [], [], []
+
+    def leaf(info, sp):
+        n = math.prod(info.shape)
+        m = math.prod(part_shape(info.shape, sp, lay))
+        parts.append(m * (2 * info.dtype.itemsize + 8))
+        whole.append(n * (2 * info.dtype.itemsize + 8))
+        if m == n:
+            norms.append(n * (2 * info.dtype.itemsize + 8))
+            assert info.dtype == torch.float32
+    tree_map2(leaf, model.schema(), layout_specs(model, lay, mesh_axes(lay)))
+    assert res["params"] + res["grads"] + res["adamw_moments"] == sum(parts)
+    if layout is None:
+        assert rec["rank_state_bytes"] == sum(parts)
+        assert rec["whole_state_bytes"] == sum(whole)
+    else:
+        quarter = sum(norms) + (sum(whole) - sum(norms)) / 4
+        assert abs(sum(parts) - quarter) < 0.005 * sum(whole)
+    assert c["all-gather"]["calls"] > 0 and c["reduce-scatter"]["calls"] > 0

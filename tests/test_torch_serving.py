@@ -339,13 +339,12 @@ def test_serve_generative_at_a_cut_depth_on_cpu_tiny():
     from repro_torch.configs import get_tiny  # repro: allow[tier1-deps] — the port under test
     from repro_torch.launch.serve import serve_generative  # repro: allow[tier1-deps] — the port under test
     from repro_torch.models import build_model  # repro: allow[tier1-deps] — the port under test
-    from repro_torch.models.common import tree_map  # repro: allow[tier1-deps] — the port under test
-    from repro_torch.models.transformer import _map2  # repro: allow[tier1-deps] — the port under test
+    from repro_torch.models.common import tree_map, tree_map2  # repro: allow[tier1-deps] — the port under test
 
     cfg = get_tiny("gpt2-medium")
     whole = build_model(cfg).init(0, device="cpu")
-    part = _map2(lambda x, a: x[:a.shape[0]], whole,
-                 build_model(cfg.replace(n_layers=2)).abstract())
+    part = tree_map2(lambda x, a: x[:a.shape[0]], whole,
+                     build_model(cfg.replace(n_layers=2)).abstract())
     kw = dict(decode_tokens=5, prompt_len=8, steps_per_sync=3, tiny=True, device="cpu",
               verbose=False, n_layers=2)
     _, resp = serve_generative("gpt2-medium", 4, params=part, **kw)

@@ -26,7 +26,6 @@ import subprocess
 import sys
 import tempfile
 import textwrap
-import types
 
 import jax
 import jax.numpy as jnp
@@ -50,12 +49,20 @@ import torch_train_dist_ranks as R  # noqa: E402  # repro: allow[tier1-deps] —
 from repro_torch.checkpoint.manager import CheckpointManager, Shard  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.distributed import dequantize_int8, quantize_int8  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.launch import dryrun as DR  # noqa: E402  # repro: allow[tier1-deps] — the port under test
-from repro_torch.launch.mesh import spawn  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+from repro_torch.launch.mesh import RankMesh, mesh_axes, spawn  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.models import build_model  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.models.bridge import to_numpy  # noqa: E402  # repro: allow[tier1-deps] — the port under test
-from repro_torch.training.train_loop import state_sharding  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+from repro_torch.models.layers import MeshAxes  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+from repro_torch.training.train_loop import layout_specs, state_sharding  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+EP_AXES = MeshAxes(fsdp=False)  # dense leaves whole, experts over model
+
+
+def _ranks(model: int, rank: int):
+    """Rank ``rank``'s coordinates on (data 1, model ``model``), no groups."""
+    return RankMesh({"data": 1, "model": model}, rank, {"data": 0, "model": rank}, {},
+                    torch.device("cpu"), "gloo")
 CFS = (8.0, 1.25)  # capacity factors of the EP-loss cases: nothing drops; the config's own
 
 REF_CODE = """
@@ -434,13 +441,16 @@ def test_mesh_train_step_matches_single_device_reference(name):
 
 def _stitch(two):
     """The whole state from the two (data 1, model 2) ranks' saved states."""
-    specs = state_sharding(R.moe_model(8.0), types.SimpleNamespace(model_size=2, model_rank=0))
+    specs = state_sharding(R.moe_model(8.0), _ranks(2, 0), EP_AXES)
     sl = jax.tree.leaves(specs, is_leaf=lambda x: x is None or isinstance(x, Shard))
     parts = [jax.tree.leaves(r["saved"]) for r in two]
     out = []
     for i, sh in enumerate(sl):
-        out.append(parts[0][i] if sh is None else
-                   np.concatenate([p[i] for p in parts], axis=parts[0][i].ndim + sh.axis))
+        if sh is None:
+            out.append(parts[0][i])
+            continue
+        (axis, _, _), = sh.cuts()  # an expert leaf: one cut, over model
+        out.append(np.concatenate([p[i] for p in parts], axis=axis))
     return out, sl
 
 
@@ -476,7 +486,7 @@ def test_reference_checkpoint_restores_onto_rank_slices(tmp_path):
     mgr = CheckpointManager(str(tmp_path))
     total = sum(x.nbytes for x in whole)
     for mi in range(4):
-        specs = state_sharding(port, types.SimpleNamespace(model_size=4, model_rank=mi))
+        specs = state_sharding(port, _ranks(4, mi), EP_AXES)
         got = jax.tree.leaves(to_numpy(mgr.restore(4, "cpu", sharding_tree=specs)))
         sl = jax.tree.leaves(specs, is_leaf=lambda x: x is None or isinstance(x, Shard))
         expect = 0
@@ -518,6 +528,7 @@ def test_dryrun_multi_counts_collectives():
     assert rec["t_collective_s"] == pytest.approx(rec["collective_bytes"]
                                                   / DR.LINK_BW["network"])
     assert DR.link_of(range(8, 16)) == "nvlink" and DR.link_of((7, 8)) == "network"
+    # the train cell's FSDP layout: every leaf split by its sanitized spec
     model = build_model(cfg)
-    assert rec["resident"]["params"] == DR._rank_bytes(model.schema(), model.ep_param_specs(),
-                                                       16)
+    specs = layout_specs(model, DR.MULTI_LAYOUT, mesh_axes(DR.MULTI_LAYOUT))
+    assert rec["resident"]["params"] == DR._rank_bytes(model.schema(), specs, DR.MULTI_LAYOUT)

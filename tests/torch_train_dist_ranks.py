@@ -15,7 +15,7 @@ from repro_torch.distributed import (  # noqa: E402  # repro: allow[tier1-deps] 
     make_compressed_grad_allreduce,
     pipeline_apply,
 )
-from repro_torch.launch.mesh import make_mesh, make_test_mesh  # noqa: E402  # repro: allow[tier1-deps] — the port under test
+from repro_torch.launch.mesh import make_mesh, make_test_mesh, mesh_axes  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.models import build_model  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.models.bridge import from_numpy_params, to_numpy  # noqa: E402  # repro: allow[tier1-deps] — the port under test
 from repro_torch.models.moe import count_drops  # noqa: E402  # repro: allow[tier1-deps] — the port under test
@@ -75,7 +75,8 @@ def _loss_grads(mesh, case, cf):
 
 
 def _train(mesh, name, case, n_steps):
-    """``make_train_step(mesh=)`` over the case's global batches: per-step
+    """``make_train_step(mesh=)`` in the ``fsdp=False`` layout (dense leaves
+    whole, experts over ``model``) over the case's global batches: per-step
     loss and grad norm, and the rank's params after the last step."""
     cfg = get_tiny(case["arch"]).replace(**case.get("over", {}))
     model = build_model(cfg)
@@ -85,7 +86,8 @@ def _train(mesh, name, case, n_steps):
     params = tree_map(lambda x: x.clone(), params)
     tcfg = TrainConfig(**case["tcfg"])
     opt_cfg = AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay, clip_norm=case["clip"])
-    step_fn, _ = make_train_step(model, tcfg, opt_cfg, mesh=mesh)
+    step_fn, _ = make_train_step(model, tcfg, opt_cfg, mesh=mesh,
+                                 axes=mesh_axes(mesh, fsdp=False))
     state = {"params": params, "opt": adamw_init(params, opt_cfg),
              "step": torch.zeros((), dtype=torch.int32)}
     logs = []
@@ -151,11 +153,12 @@ def job_ckpt(rank, world, case):
     mesh = make_test_mesh(1, 2, device="cpu")
     out = _train_state(mesh, case)
     mgr = CheckpointManager(case["dir"])
-    mgr.save(out.pop("state"), 1, mesh=mesh, sharding_tree=state_sharding(out.pop("model"),
-                                                                         mesh))
+    mgr.save(out.pop("state"), 1, mesh=mesh, sharding_tree=state_sharding(
+        out.pop("model"), mesh, mesh_axes(mesh, fsdp=False)))
     mesh21 = make_test_mesh(2, 1, device="cpu")
     model = moe_model(8.0)
-    back = mgr.restore(1, "cpu", sharding_tree=state_sharding(model, mesh21))
+    back = mgr.restore(1, "cpu", sharding_tree=state_sharding(model, mesh21,
+                                                              mesh_axes(mesh21, fsdp=False)))
     out.update(restored=to_numpy(back), bytes_read=mgr.bytes_read)
     return out
 
@@ -166,7 +169,7 @@ def _train_state(mesh, case):
                       ep_shard(model, from_numpy_params(case["params"], "cpu"), mesh))
     opt_cfg = AdamWConfig(lr=1e-2)
     step_fn, _ = make_train_step(model, TrainConfig(lr=1e-2, warmup=0, moe_impl="ep"), opt_cfg,
-                                 mesh=mesh)
+                                 mesh=mesh, axes=mesh_axes(mesh, fsdp=False))
     state = {"params": params, "opt": adamw_init(params, opt_cfg),
              "step": torch.zeros((), dtype=torch.int32)}
     state, _ = step_fn(state, case["batch"])
