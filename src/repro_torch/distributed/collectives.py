@@ -18,7 +18,17 @@ counterparts of the ``jax.lax`` collectives the JAX package calls inside
   ranks see different rows, and takes the rank's own slice over
   ``model``, whose ranks compute alike) and its reduce-scatter
   (``reduce_scatter_tiled``), the layout the reference's GSPMD gives a
-  train step's params, gradients and AdamW moments;
+  train step's params, gradients and AdamW moments. A use spec
+  (``KeepModel``) leaves a leaf's ``model`` part the rank's own, gathered
+  over the data axes only, where the loss computes the rank's slice; a
+  ``SumModel`` spec gathers a leaf whole and sums its gradient over
+  ``model``, where a whole leaf acts on the rank's slice;
+* the model region of a loss that splits its compute over ``model``
+  (Megatron's conjugate pair): ``to_model_region``, identity forward and
+  a sum over the model group backward, before the column-parallel
+  products; ``from_model_region``, a sum forward and identity backward,
+  after the row-parallel ones; ``max_over``, a forward-only max (the
+  vocabulary-parallel log-sum-exp's shift). Their sums run in f32;
 * the bucketed gradient all-reduce of a data-parallel step
   (``all_reduce_flat``), and the reference's int8 error-feedback
   all-reduce (``quantize_int8``, ``dequantize_int8``, ``compressed_psum``,
@@ -41,7 +51,8 @@ here by kind with its bytes, by the convention of the reference's dry run
 sends each byte twice), once for a reduce-scatter (its result is the
 rank's chunk); a 1-rank group sends nothing and is not counted.
 It also sums the bytes by group (the group's global ranks), so a
-reckoning can price each group at the link its members share.
+reckoning can price each group at the link its members share, and the
+calls and bytes by kind and group (``by_kind_group``).
 """
 from __future__ import annotations
 
@@ -55,12 +66,14 @@ KINDS = ("all-gather", "reduce-scatter", "all-to-all", "all-reduce", "collective
 
 
 class CollectiveCounts(dict):
-    """``{kind: [calls, bytes]}``, and ``by_group``: ``{the group's global
-    ranks: bytes}`` over every kind."""
+    """``{kind: [calls, bytes]}``; ``by_group``: ``{the group's global
+    ranks: bytes}`` over every kind; ``by_kind_group``: ``{(kind, the
+    group's global ranks): [calls, bytes]}``."""
 
     def __init__(self):
         super().__init__({k: [0, 0.0] for k in KINDS})
         self.by_group: Dict[Tuple[int, ...], float] = {}
+        self.by_kind_group: Dict[Tuple[str, Tuple[int, ...]], list] = {}
 
 
 _COUNTS: Optional[CollectiveCounts] = None
@@ -85,6 +98,9 @@ def _count(kind: str, nbytes: float, group) -> None:
         c[1] += float(nbytes)
         ranks = tuple(dist.get_process_group_ranks(group or dist.group.WORLD))
         _COUNTS.by_group[ranks] = _COUNTS.by_group.get(ranks, 0.0) + float(nbytes)
+        kg = _COUNTS.by_kind_group.setdefault((kind, ranks), [0, 0.0])
+        kg[0] += 1
+        kg[1] += float(nbytes)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -169,6 +185,19 @@ def sum_over(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``t`` (``jax.lax.psum``), on ``t``'s device.
     Under gloo a CUDA ``t`` stages through host memory."""
     return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+def max_over(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of every rank's ``t`` over the group, forward
+    only (``t`` is detached): the shift of a vocabulary-parallel
+    log-sum-exp, whose value the shift does not change."""
+    return _all_reduce(t.detach(), group, dist.ReduceOp.MAX)
+
+
+def _sum_f32(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over the group, taken in f32 and
+    returned in ``t``'s dtype (one rounding)."""
+    return _all_reduce(t.float(), group, dist.ReduceOp.SUM).to(t.dtype)
 
 
 def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
@@ -277,12 +306,30 @@ class _FsdpGather(torch.autograd.Function):
         return g.to(dev).contiguous(), None
 
 
+class KeepModel(tuple):
+    """A use spec (``fsdp_gather_ad``): the sanitized spec of a leaf whose
+    ``model`` part stays the rank's own where it is used, so it is
+    gathered over the data axes only. The loss's column-, row- and
+    vocabulary-parallel products take such a slice, as the expert-parallel
+    dispatch takes the rank's experts."""
+
+
+class SumModel(tuple):
+    """A use spec (``fsdp_gather_ad``): the sanitized spec of a leaf that is
+    used whole on the rank's model slice (qk-norm's weight on the rank's
+    heads, a kv projection whose heads do not split over ``model``). It is
+    gathered whole, and since each rank's gradient of it is partial, the
+    gradient is summed over the model group."""
+
+
 def _fsdp_cuts(spec, mesh) -> list:
     """``(dim, group, parts, this rank's part, sums)`` for each dim a
     sanitized spec splits on ``mesh`` (a ``launch.mesh.RankMesh``), the
     data cuts first: a data entry names every data axis of the mesh, in
     order (its group is the mesh's ``"batch"`` group) and sums in the
-    backward; the ``model`` entry takes the rank's own slice."""
+    backward; the ``model`` entry takes the rank's own slice, sums over the
+    model group under a ``SumModel`` spec, and is no cut under a
+    ``KeepModel`` spec."""
     from repro_torch.launch.mesh import DATA_AXES
     from repro_torch.models.common import entry_axes, spec_parts
 
@@ -295,7 +342,8 @@ def _fsdp_cuts(spec, mesh) -> list:
                                  f"axes {mesh.data_axes}")
             out.insert(sum(c[4] for c in out), (dim, mesh.data_group, n, i, True))
         elif axes == ("model",):
-            out.append((dim, mesh.model_group, n, i, False))
+            if not isinstance(spec, KeepModel):
+                out.append((dim, mesh.model_group, n, i, isinstance(spec, SumModel)))
         else:
             raise ValueError(f"spec entry {spec[dim]!r}: FSDP splits over data axes or 'model'")
     return out
@@ -310,8 +358,17 @@ def fsdp_gather_ad(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
     reduce-scatters over the data group (each data rank's rows give a
     different gradient, and the loss is the global batch's, so they sum):
     the gradient of the rank's part. ``all_gather_ad``, which takes the own
-    slice on every axis, would drop the other data ranks' gradients."""
+    slice on every axis, would drop the other data ranks' gradients.
+
+    A ``KeepModel`` spec gathers over the data group only: the result is
+    the rank's model slice of the leaf. A ``SumModel`` spec gathers the
+    whole leaf and sums its gradient over the model group: a reduce-scatter
+    over ``model`` where the leaf is split there, else (after the data
+    reduce-scatter) a sum of the part's gradient (``to_model_region``)."""
     cuts = _fsdp_cuts(spec, mesh)
+    if (isinstance(spec, SumModel) and mesh.model_size > 1
+            and not any(c[1] is mesh.model_group for c in cuts)):
+        shard = to_model_region(shard, mesh.model_group)
     return _FsdpGather.apply(shard, cuts) if cuts else shard
 
 
@@ -321,6 +378,44 @@ def fsdp_gather_tree(parts, specs, mesh):
     from repro_torch.models.common import tree_map2
 
     return tree_map2(lambda x, sp: fsdp_gather_ad(x, sp, mesh), parts, specs)
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g.contiguous(), ctx.group), None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        return _sum_f32(y.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def to_model_region(x: torch.Tensor, group) -> torch.Tensor:
+    """Into the model region: ``x`` as it is (alike on every rank of the
+    model group), its gradient summed over the group in f32. It goes
+    before every column-parallel product, whose rank's gradient of ``x`` is
+    partial, so what lies upstream (the residual stream, the norms) gets
+    the whole gradient on every rank."""
+    return _ToModel.apply(x, group)
+
+
+def from_model_region(y: torch.Tensor, group) -> torch.Tensor:
+    """Out of the model region: the sum over the model group of every
+    rank's partial ``y`` (a row-parallel product, a vocabulary-parallel
+    term), taken in f32 and returned in ``y``'s dtype; its gradient passes
+    as it is to every rank's partial."""
+    return _FromModel.apply(y, group)
 
 
 def all_to_all_ad(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:

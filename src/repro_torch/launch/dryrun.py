@@ -37,10 +37,14 @@ nothing) on meta tensors. A train cell runs the mesh step
 ``model``) in the reference's FSDP layout, ``mesh_axes(mesh, fsdp=True)``:
 the rank holds its part of every leaf of the params, gradients and AdamW
 moments, split by the leaf's spec sanitized on the mesh, and the record
-adds ``rank_state_bytes`` against ``whole_state_bytes``; a prefill or decode cell
-runs ``prefill_sharded`` / ``decode_sharded`` at tp 16 over ``model``
-with rows over ``(pod, data)`` where ``tp_check`` allows it, and where it
-refuses, the record's ``status`` is the check's text. A multi record adds
+adds ``rank_state_bytes`` against ``whole_state_bytes``. Its loss splits
+the compute over ``model`` as the reference's does (``fsdp_use``): a leaf
+split over ``model`` is gathered over the data axes only, and the model
+group sums its activations (``collectives_by_group``: each kind's calls
+and bytes over the ``model`` group, the data group and any other). A
+prefill or decode cell runs ``prefill_sharded`` / ``decode_sharded`` at tp
+16 over ``model`` with rows over ``(pod, data)`` where ``tp_check`` allows
+it, and where it refuses, the record's ``status`` is the check's text. A multi record adds
 the rank's collectives by kind as the port's collectives count them
 (``count_collectives``: calls and bytes), their bytes by link
 (``collective_bytes_by_link``: NVLink for a group inside one 8-card host,
@@ -567,6 +571,7 @@ def run_cell_multi(arch: str, shape, *, write=True, overrides=None):
                 with count_collectives() as cc:
                     with torch.no_grad() if info["kind"] != "train" else torch.enable_grad():
                         _, flops, nbytes, ops = count(fn)
+                rec["collectives_by_group"] = _by_group(cc, mesh)
         if not rec.get("refused"):
             coll = {k: {"calls": c, "bytes": b} for k, (c, b) in cc.items()}
             cbytes = sum(v["bytes"] for v in coll.values())
@@ -596,6 +601,18 @@ def run_cell_multi(arch: str, shape, *, write=True, overrides=None):
     if write:
         _write(rec)
     return rec
+
+
+def _by_group(cc, mesh):
+    """``{"<kind> over <group>": {"calls", "bytes"}}`` of a
+    ``count_collectives`` result: the group named ``model`` or ``data``
+    where it is the mesh's, else by its ranks."""
+    import torch.distributed as dist
+
+    names = {tuple(dist.get_process_group_ranks(mesh.model_group)): "model",
+             tuple(dist.get_process_group_ranks(mesh.data_group)): "data"}
+    return {f"{kind} over {names.get(ranks, ranks)}": {"calls": c, "bytes": b}
+            for (kind, ranks), (c, b) in sorted(cc.by_kind_group.items())}
 
 
 def cells():

@@ -57,10 +57,14 @@ from repro_torch.models.transformer import (
     LM,
     MultiStepDecodeMixin,
     _gathered,
+    _kept,
     _layer,
     _layer_specs,
     _masked_ce,
+    _split_of,
     _stats,
+    fsdp_use,
+    model_split,
     paged_leaf_kinds,
 )
 
@@ -214,11 +218,12 @@ class EncDecLM(MultiStepDecodeMixin):
 
     # -- encoder --------------------------------------------------------------
 
-    def encode(self, params, frames, *, plain=False, fsdp=None, mesh=None):
+    def encode(self, params, frames, *, plain=False, fsdp=None, mesh=None, ms=None):
         """frames: (B, M, d_frontend) -> memory (B, M, d). ``plain`` (the
         loss) runs attention through ``sdpa``. With ``fsdp`` (each leaf's
-        sanitized spec) ``params`` are the rank's parts, each gathered where
-        it is used (``LM.loss``)."""
+        use spec, ``fsdp_use``) ``params`` are the rank's parts, each
+        gathered where it is used, and with ``ms`` the layers the specs
+        split run on the rank's model slice (``LM.loss``)."""
         cfg = self.cfg
         sp = _Specs(fsdp)
         proj = _gathered(params["frontend_proj"], sp["frontend_proj"], mesh)
@@ -227,44 +232,47 @@ class EncDecLM(MultiStepDecodeMixin):
         positions = torch.arange(M, device=h.device)[None, :]
         attn = "sdpa" if plain else self.prefill_attn
         enc_sp = sp.layer(params["enc"], "enc")
+        split = _split_of(enc_sp, ms)
         for l in range(cfg.n_enc_layers):
             p = _gathered(_layer(params["enc"], l), enc_sp, mesh)
             x = LY.apply_norm(cfg, p["ln1"], h)
             out, _ = LY.attn_apply(cfg, p["attn"], x, positions=positions, mask=None,
-                                   prefill_attn=attn, causal=False)
+                                   prefill_attn=attn, causal=False, ms=split.get("attn"))
             h = h + out
             x = LY.apply_norm(cfg, p["ln2"], h)
-            h = h + LY.ffn_apply(cfg, p["ffn"], x)
+            h = h + LY.ffn_apply(cfg, p["ffn"], x, split.get("ffn"))
         return LY.apply_norm(cfg, _gathered(params["enc_norm"], sp["enc_norm"], mesh), h)
 
     # -- decoder --------------------------------------------------------------
 
     def _dec_stack(self, params, h, *, positions, mask, memory, caches, cache_index,
                    pool_idx, write_gate=None, block_tables=None, xkv_tables=None,
-                   plain=False, fsdp=None, mesh=None):
+                   plain=False, fsdp=None, mesh=None, ms=None):
         """Every decoder layer: self-attention, the gated cross-attention
         (``_cross``: over ``memory``, writing its k/v into the ``xkv`` rows
         when there is a cache, else over the ``xkv`` rows or the pinned
         pages at ``xkv_tables``), the FFN. Caches are updated in place.
-        With ``fsdp`` each layer gathers its parts (``encode``). Returns (h,
-        pooled (L, B, npos, d)), pooled after every layer."""
+        With ``fsdp`` each layer gathers its parts and with ``ms`` runs the
+        sublayers they split on the rank's model slice (``encode``). Returns
+        (h, pooled (L, B, npos, d)), pooled after every layer."""
         cfg = self.cfg
         pooled = []
         dec_sp = _Specs(fsdp).layer(params["dec"], "dec")
+        split = _split_of(dec_sp, ms)
         for l in range(cfg.n_dec_layers):
             p = _gathered(_layer(params["dec"], l), dec_sp, mesh)
             c = _layer(caches, l) if caches is not None else None
             x = LY.apply_norm(cfg, p["ln1"], h)
             sub = {k: c[k] for k in ("k", "v")} if c is not None else None
-            out, _ = LY.attn_apply(cfg, p["attn"], x, positions=positions, mask=mask,
-                                   cache=sub, cache_index=cache_index,
-                                   decode_impl=cfg.decode_attn, write_gate=write_gate,
-                                   block_table=block_tables,
-                                   prefill_attn="sdpa" if plain else self.prefill_attn)
+            out, _ = LY.attn_apply(cfg, p["attn"], x, positions=positions, mask=mask, cache=sub,
+                                   cache_index=cache_index, decode_impl=cfg.decode_attn,
+                                   write_gate=write_gate, block_table=block_tables,
+                                   prefill_attn="sdpa" if plain else self.prefill_attn,
+                                   ms=split.get("attn"))
             h = h + out
-            h = h + self._cross(p, h, c, memory, xkv_tables)
+            h = h + self._cross(p, h, c, memory, xkv_tables, ms=split.get("xattn"))
             x = LY.apply_norm(cfg, p["ln2"], h)
-            h = h + LY.ffn_apply(cfg, p["ffn"], x)
+            h = h + LY.ffn_apply(cfg, p["ffn"], x, split.get("ffn"))
             pooled.append(h[:, pool_idx])
         return h, torch.stack(pooled)
 
@@ -336,30 +344,33 @@ class EncDecLM(MultiStepDecodeMixin):
         ``sdpa``, the ramps a site at a time (``LM._ramp_loss``). With
         ``mesh`` the batch is this rank's data shard and the means are the
         global batch's, and with ``fsdp`` (each leaf's sanitized spec) the
-        params are the rank's parts, each gathered where it is used
-        (``LM.loss``)."""
+        params are the rank's parts, each gathered where it is used, and the
+        compute splits over ``model`` (``LM.loss``)."""
         group = _data_group(mesh)
         cfg = self.cfg
         frames, tokens, labels = batch["frames"], batch["tokens"], batch["labels"]
         B, S = tokens.shape
         dev = tokens.device
-        sp = _Specs(fsdp)
-        memory = self.encode(params, frames, plain=True, fsdp=fsdp, mesh=mesh)
+        use = None if fsdp is None else fsdp_use(cfg, fsdp, mesh)
+        ms = None if use is None else model_split(mesh)
+        sp = _Specs(use)
+        memory = self.encode(params, frames, plain=True, fsdp=use, mesh=mesh, ms=ms)
         positions = torch.arange(S, device=dev)[None, :]
         h = LY.embed_apply(cfg, _gathered(params["tok"], sp["tok"], mesh, ("embed", "pos_embed")),
-                           tokens, positions)
+                           tokens, positions, ms=_kept(sp["tok"], "embed", ms))
         mask = LY.causal_mask(S, S, 0, device=dev)
         npos = min(16, S)
         pool_idx = torch.from_numpy(ramp_positions(S, npos).astype(np.int64)).to(dev)
         h, pooled = self._dec_stack(params, h, positions=positions, mask=mask, memory=memory,
                                     caches=None, cache_index=None, pool_idx=pool_idx,
-                                    plain=True, fsdp=fsdp, mesh=mesh)
+                                    plain=True, fsdp=use, mesh=mesh, ms=ms)
         h = LY.apply_norm(cfg, _gathered(params["final_norm"], sp["final_norm"], mesh), h)
         head = ("embed",) if cfg.tie_embeddings else ("lm_head",)
-        lm = _masked_ce(cfg, LY.unembed(cfg, _gathered(params["tok"], sp["tok"], mesh, head), h),
-                        labels, group)
+        vms = _kept(sp["tok"], head[0], ms)
+        lm = _masked_ce(cfg, LY.unembed(cfg, _gathered(params["tok"], sp["tok"], mesh, head), h,
+                                        vms), labels, group, vms)
         rloss = self._ramp_loss(params, pooled, labels[:, pool_idx], group=group, mesh=mesh,
-                                specs=fsdp)
+                                specs=use, ms=ms)
         return lm + rloss, {"lm_loss": lm, "ramp_loss": rloss}
 
 

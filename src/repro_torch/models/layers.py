@@ -10,7 +10,9 @@ the reference's leaf paths; compute happens in the config's dtype with f32
 softmax and norms. Local sliding-window layers (Gemma3) run on a full
 cache, on a W-row ring cache or as ring pages on the pool. The gated
 cross-attention of Llama-3.2-Vision attends image memory, or its k/v as
-a cache holds them. Tensor-parallel branches are not ported.
+a cache holds them. Tensor-parallel decode runs a rank's heads and
+hidden units on column slices (``ffn_apply_tp``, ``out_proj=False``); the
+loss runs them on Megatron's column and row slices (``ModelSplit``).
 
 Every schema leaf carries the reference's partition spec (a plain tuple,
 ``models/common.py``) with the placeholders ``"data"`` and ``"model"``;
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,6 +82,63 @@ TEST_AXES = MeshAxes(data=("data",), model="model", fsdp=False)
 # activation should live. Here each rank holds its activations as its code
 # computes them, and a param is gathered where it is used
 # (``distributed.fsdp_gather_ad``).
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """A rank's place in its model group when the loss computes the rank's
+    slice of a sublayer, where the reference's GSPMD splits it over
+    ``model`` (Megatron's design, which the storage specs give): the
+    products into the sublayer take column slices (``wq``/``wk``/``wv``,
+    ``w_gate``/``w_up``: the rank's heads or hidden units), the product out
+    of it a row slice (``wo``/``w_down``), and the heads the vocabulary's
+    columns. ``enter`` goes before the column products (identity; the
+    gradient summed over the group), ``row`` is the row product, its
+    partials summed over the group in f32 and rounded once (gradient
+    identity); ``sum`` and ``max`` reduce a vocabulary-parallel term.
+
+    m: ranks of the model group; index: this rank's place in it; group:
+    the model group (``torch.distributed``)."""
+
+    m: int
+    index: int
+    group: Any
+
+    def enter(self, x):
+        from repro_torch.distributed import to_model_region
+
+        return to_model_region(x, self.group)
+
+    def sum(self, y):
+        from repro_torch.distributed import from_model_region
+
+        return from_model_region(y, self.group)
+
+    def max(self, t):
+        from repro_torch.distributed import max_over
+
+        return max_over(t, self.group)
+
+    def row(self, h, w):
+        """``h @ w`` over the rank's rows of ``w``, summed over the group:
+        each rank's partial a GEMM in the dtype (accumulated in f32), the
+        partials summed in f32 and rounded once to the dtype."""
+        return self.sum(h @ w)
+
+    def heads(self, cfg, p):
+        """The rank's attention: the config of its ``H / m`` query heads on
+        the kv heads they read (``head_dim`` pinned, as ``LM._tp_cfg`` pins
+        it), and ``p`` with ``wk``/``wv`` (``bk``/``bv``) cut to that kv
+        head where they are whole: ``m`` is then a multiple of KH
+        (``fsdp_use``), so a rank's heads read one kv head."""
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        Kl = p["wk"].shape[-1] // hd
+        if Kl == K:
+            j = self.index * K // self.m
+            cols = slice(j * hd, (j + 1) * hd)
+            p = {k: v[..., cols] if k in ("wk", "wv", "bk", "bv") else v for k, v in p.items()}
+            Kl = 1
+        return cfg.replace(n_heads=H // self.m, n_kv_heads=Kl, head_dim=hd), p
 
 
 def _resolve_spec(info: ParamInfo, axes: MeshAxes) -> ParamInfo:
@@ -172,10 +231,14 @@ def ffn_schema(cfg, d_ff: int, L=None) -> dict:
     }
 
 
-def ffn_apply(cfg, p, x):
+def ffn_apply(cfg, p, x, ms: Optional[ModelSplit] = None):
+    """The gated FFN. With ``ms`` ``p`` holds the rank's hidden units:
+    column slices of ``w_gate``/``w_up`` and a row slice of ``w_down``."""
     a = act_fn(cfg.act)
+    if ms is not None:
+        x = ms.enter(x)
     h = a(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    return h @ p["w_down"] if ms is None else ms.row(h, p["w_down"])
 
 
 def ffn_apply_tp(cfg, p, x, gather):
@@ -230,7 +293,7 @@ def sdpa(q, k, v, mask, scale=None):
     logits = torch.einsum("bqkgd,bskd->bkgqs", qh, k).float() * scale
     if mask is not None:
         m = mask if mask.dim() == 4 else mask[:, None]
-        m = m.reshape(B, K, G, Sq, -1) if m.shape[1] == H else m[:, :, None]
+        m = m.reshape(B, K, G, Sq, -1) if m.shape[1] == H > 1 else m[:, :, None]
         logits = torch.where(m, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
@@ -305,7 +368,8 @@ def _update_pool(pool, new, blk, off, gate=None):
 def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
                rope_theta=None, ring_window=None, local_window=None,
                decode_impl: str = "dense", write_gate=None, block_table=None,
-               prefill_attn: str = "sdpa", causal: bool = True, out_proj: bool = True):
+               prefill_attn: str = "sdpa", causal: bool = True, out_proj: bool = True,
+               ms: Optional[ModelSplit] = None):
     """GQA attention. If `cache` (dict k,v: (B, S, K, hd)) is given, the new
     k/v are written into it in place at `cache_index` (an int, or a per-row
     int tensor (B,)) and attention runs against the cache. `decode_impl`
@@ -343,13 +407,26 @@ def attn_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
     ``LM.prefill`` builds; False, no mask, the encoder's (its `mask` is
     None); a local layer adds its window. `out_proj=False` returns the
     concatenated head outputs (B, S, H*hd) without ``wo``: tensor-parallel
-    decode applies ``wo`` after gathering the heads. Returns (out, cache)."""
+    decode applies ``wo`` after gathering the heads.
+
+    With ``ms`` (the loss: no cache) ``p`` holds the rank's ``H / m`` query
+    heads, column slices of ``wq`` (``bq``) and a row slice of ``wo``, and
+    the rank's column slices of ``wk``/``wv`` or, where they are whole, the
+    leaves whole (``ModelSplit.heads``); ``x`` enters the model region and
+    ``wo``'s partials are summed over it. Returns (out, cache)."""
+    if ms is not None:
+        if cache is not None:
+            raise ValueError("a model-split attention is the loss's: no cache")
+        cfg, p = ms.heads(cfg, p)
+        x = ms.enter(x)
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def proj(o):
         o = o.reshape(B, S, H * hd)
-        return o @ p["wo"] if out_proj else o
+        if not out_proj:
+            return o
+        return o @ p["wo"] if ms is None else ms.row(o, p["wo"])
 
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -473,7 +550,7 @@ def mla_schema(cfg, L=None) -> dict:
 
 def mla_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
               absorbed: bool = False, decode_impl: str = "dense", write_gate=None,
-              block_table=None):
+              block_table=None, ms: Optional[ModelSplit] = None):
     """MLA attention. The cache holds the compressed kv latent ``c`` (B, S, r)
     and the shared rope key ``k_pe`` (B, S, dr), written IN PLACE at
     `cache_index` (gated by `write_gate`, see ``_update_cache_rows``).
@@ -488,12 +565,21 @@ def mla_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
     `decode_impl='paged-kernel'` the walk runs in
     ``attend_decode_paged_mla`` (the CUDA kernel on CUDA tensors, its plain
     version on CPU tensors); otherwise the table is gathered back into a
-    contiguous stream and the contiguous math below runs on it. Returns
-    (out, cache)."""
+    contiguous stream and the contiguous math below runs on it.
+
+    With ``ms`` (the loss: no cache) ``p`` holds the rank's ``H / m`` heads:
+    head-major column slices of ``wq``, ``w_uk`` and ``w_uv`` and a row
+    slice of ``wo``; ``w_dkv`` and ``kv_norm`` are whole, so the latent
+    ``c`` and the rope key are computed whole and then enter the model
+    region. Returns (out, cache)."""
     B, S, d = x.shape
     H = cfg.n_heads
     r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
+    if ms is not None:
+        if cache is not None:
+            raise ValueError("a model-split MLA is the loss's: no cache")
+        H = p["wq"].shape[-1] // (dn + dr)
+    q = ((x if ms is None else ms.enter(x)) @ p["wq"]).reshape(B, S, H, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     ckv = x @ p["w_dkv"]  # (B,S,r+dr)
     c, k_pe = ckv[..., :r], ckv[..., r:]
@@ -501,6 +587,8 @@ def mla_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
     sin, cos = rope_sincos(positions, dr, cfg.rope_theta)
     q_pe = apply_rope(q_pe, sin, cos)
     k_pe = apply_rope(k_pe[:, :, None, :], sin, cos)[:, :, 0]  # single shared head
+    if ms is not None:
+        c, k_pe = ms.enter(c), ms.enter(k_pe)
     scale = 1.0 / math.sqrt(dn + dr)
     if block_table is not None:
         if cache is None or S != 1:
@@ -556,7 +644,7 @@ def mla_apply(cfg, p, x, *, positions, mask, cache=None, cache_index=None,
         qq = torch.cat([q_nope, q_pe], dim=-1)
         out = sdpa(qq, k, v, mask, scale=scale)
     out = out.reshape(B, S, H * dv)
-    return out @ p["wo"], cache
+    return (out @ p["wo"] if ms is None else ms.row(out, p["wo"])), cache
 
 
 # ---------------------------------------------------------------------------
@@ -578,12 +666,17 @@ def cross_attn_schema(cfg, L=None) -> dict:
     }
 
 
-def cross_attn_apply(cfg, p, x, memory=None, kv_cache=None):
+def cross_attn_apply(cfg, p, x, memory=None, kv_cache=None, ms: Optional[ModelSplit] = None):
     """x: (B, S, d); memory (B, M, d), whose k/v are projected here, or
     k/v (B, M, KH, hd) taken as they are from ``kv_cache``. Unmasked
     ``sdpa`` over the M memory tokens (the reference calls its plain sdpa
     here, no kernel), then the tanh-gated residual branch of Llama-vision
-    (an f32 gate, zero at init). Returns (out, {"k", "v"})."""
+    (an f32 gate, zero at init). Returns (out, {"k", "v"}); with ``ms``
+    (the loss, over ``memory``) the rank's heads, as ``attn_apply`` runs
+    them."""
+    if ms is not None:
+        cfg, p = ms.heads(cfg, p)
+        x, memory = ms.enter(x), ms.enter(memory)
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, H, hd)
@@ -595,7 +688,8 @@ def cross_attn_apply(cfg, p, x, memory=None, kv_cache=None):
         k, v = kv_cache["k"], kv_cache["v"]
     else:
         raise ValueError("cross-attention needs image memory or a cache holding its k/v")
-    out = sdpa(q, k, v, None).reshape(B, S, H * hd) @ p["wo"]
+    out = sdpa(q, k, v, None).reshape(B, S, H * hd)
+    out = out @ p["wo"] if ms is None else ms.row(out, p["wo"])
     return torch.tanh(p["gate"].float()).to(out.dtype) * out, {"k": k, "v": v}
 
 
@@ -615,13 +709,29 @@ def embed_schema(cfg) -> dict:
     return sch
 
 
-def embed_apply(cfg, p, tokens, positions=None):
-    h = p["embed"][tokens]
+def embed_apply(cfg, p, tokens, positions=None, ms: Optional[ModelSplit] = None):
+    """The token (and learned position) embedding. With ``ms`` ``embed``
+    holds the rank's rows of the vocabulary: a token outside them reads
+    zeros, and the sum over the model group is exact (one term nonzero)."""
+    if ms is None:
+        h = p["embed"][tokens]
+    else:
+        n = p["embed"].shape[0]
+        loc = tokens - ms.index * n
+        mine = (loc >= 0) & (loc < n)
+        h = ms.sum(p["embed"][torch.where(mine, loc, 0)] * mine[..., None].to(p["embed"].dtype))
     if cfg.pos_type == "learned":
         h = h + p["pos_embed"][positions]
     return h
 
 
-def unembed(cfg, p, h):
-    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return h @ w
+def head_logits(h, w, ms: Optional[ModelSplit] = None):
+    """A head's logits ``h @ w``; with ``ms`` ``w`` holds the rank's
+    vocabulary columns, and ``h`` enters the model region."""
+    return (h if ms is None else ms.enter(h)) @ w
+
+
+def unembed(cfg, p, h, ms: Optional[ModelSplit] = None):
+    """The LM head's logits; with ``ms`` the rank's vocabulary columns (the
+    rank's rows of ``embed``, or its columns of ``lm_head``)."""
+    return head_logits(h, p["embed"].T if cfg.tie_embeddings else p["lm_head"], ms)

@@ -29,7 +29,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParamInfo, torch_dtype
-from repro_torch.models.layers import act_fn
+from repro_torch.models.layers import act_fn, ffn_apply
 
 
 def moe_schema(cfg, L=None) -> dict:
@@ -108,10 +108,10 @@ def _expert_ffn(cfg, p, xs):
     return torch.bmm(h, p["w_down"])
 
 
-def _shared_ffn(cfg, p, x):
-    a = act_fn(cfg.act)
-    h = a(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+def _shared_ffn(cfg, p, x, ms=None):
+    """The shared experts: a gated FFN, on the rank's hidden units with
+    ``ms`` (``layers.ffn_apply``)."""
+    return ffn_apply(cfg, p, x, ms)
 
 
 def moe_apply_dense(cfg, p, x):
@@ -179,7 +179,7 @@ def _dispatch_local(cfg, x2, gates, idx, capacity):
     return buf[:E * C].reshape(E, C, d), slot, keep, st, sg
 
 
-def moe_apply_ep(cfg, p, x, mesh=None, *, data_sharded: bool = True):
+def moe_apply_ep(cfg, p, x, mesh=None, *, data_sharded: bool = True, ms=None):
     """Capacity-dropping dispatch (the reference's ``moe_apply_ep``).
     x: (B,S,d). Returns (y, aux).
 
@@ -197,9 +197,11 @@ def moe_apply_ep(cfg, p, x, mesh=None, *, data_sharded: bool = True):
     count divides by their size and otherwise stays whole on every data
     rank. The tokens then run ``_ep_device_body`` in the model group (each
     rank a chunk of ``ceil(T / m)``, capacity ``cf * chunk * k / E``), so
-    every number, drops included, is the reference's mesh dispatch's."""
+    every number, drops included, is the reference's mesh dispatch's.
+    ``ms`` (a ``layers.ModelSplit``; the loss over FSDP parts) runs the
+    shared experts on the rank's hidden units, as the dense FFN."""
     if mesh is not None:
-        return _moe_apply_ep_mesh(cfg, p, x, mesh, data_sharded)
+        return _moe_apply_ep_mesh(cfg, p, x, mesh, data_sharded, ms)
     B, S, d = x.shape
     x2 = x.reshape(-1, d)
     gates, idx, probs = _router(cfg, p, x2)
@@ -210,7 +212,7 @@ def moe_apply_ep(cfg, p, x, mesh=None, *, data_sharded: bool = True):
     return y.reshape(B, S, d), aux
 
 
-def _moe_apply_ep_mesh(cfg, p, x, mesh, data_sharded):
+def _moe_apply_ep_mesh(cfg, p, x, mesh, data_sharded, ms=None):
     from repro_torch.distributed import all_gather_ad, take_chunk_ad
 
     B, S, d = x.shape
@@ -237,7 +239,7 @@ def _moe_apply_ep_mesh(cfg, p, x, mesh, data_sharded):
     if split:
         y = all_gather_ad(y, mesh.data_group, 0)
     if cfg.n_shared_experts:
-        y = y + _shared_ffn(cfg, p["shared"], x2)
+        y = y + _shared_ffn(cfg, p["shared"], x2, ms)
     return y.reshape(B, S, d), aux
 
 
@@ -315,15 +317,16 @@ def moe_apply_ep_device(cfg, p_local, x, m: int, mi: int, group):
     return y.reshape(B, S, d), aux
 
 
-def moe_apply(cfg, p, x, impl: str = "ep", mesh=None, *, data_sharded: bool = True):
+def moe_apply(cfg, p, x, impl: str = "ep", mesh=None, *, data_sharded: bool = True, ms=None):
     """``impl``: 'dense' (every expert on every token) | 'ep' (the
     capacity-dropping dispatch; with a mesh, expert-parallel over its
-    ``model`` axis: ``moe_apply_ep``). Returns (y, aux)."""
+    ``model`` axis: ``moe_apply_ep``, whose shared experts take ``ms``).
+    Returns (y, aux)."""
     if impl == "dense":
         if mesh is not None:
             raise ValueError("moe_impl='dense' on a mesh: the mesh's ranks hold a slice of the "
                              "experts; the mesh path is 'ep'")
         return moe_apply_dense(cfg, p, x)
     if impl == "ep":
-        return moe_apply_ep(cfg, p, x, mesh, data_sharded=data_sharded)
+        return moe_apply_ep(cfg, p, x, mesh, data_sharded=data_sharded, ms=ms)
     raise ValueError(f"moe_impl={impl!r}: the port takes 'dense' | 'ep'")

@@ -58,7 +58,12 @@ Tensor-parallel decode (``decode_sharded``, ``decode_sharded_multi``,
 job: each rank is a process (the reference's one ``shard_map`` body),
 ``TpCtx`` carries its model group's tiled all-gather, and ``_block`` runs
 the rank's heads and hidden units on column slices of the weights
-(``tp_param_specs``) with its kv-head block of the cache.
+(``tp_param_specs``) with its kv-head block of the cache. The loss over a
+rank's FSDP parts (``loss(mesh=, fsdp=)``) splits its compute over
+``model`` as the reference's GSPMD does, by Megatron's column- then
+row-parallel products instead (``fsdp_use``, ``layers.ModelSplit``): a
+gather of ``wo`` whole over ``model``, which decode's output-column design
+needs, is the gather that split removes.
 
 Two choices of the port that the configs do not carry (so that they stay
 field-for-field the reference's): ``prefill_attn`` ('sdpa' | 'kernel')
@@ -296,8 +301,113 @@ def _layer(tree, l: int):
 
 def _layer_specs(stack, specs):
     """The specs of one layer of a stacked tree: each leaf's without its
-    first (layer) entry, which is whole."""
-    return tree_map2(lambda _, sp: tuple(sp[1:]), stack, specs)
+    first (layer) entry, which is whole (a use spec keeps its kind)."""
+    return tree_map2(lambda _, sp: type(sp)(sp[1:]), stack, specs)
+
+
+def fsdp_use(cfg, specs, mesh):
+    """The use specs of a loss over the rank's parts (``specs``: each leaf's
+    sanitized storage spec; ``LM.loss(fsdp=)``, ``EncDecLM.loss``): how
+    ``_gathered`` gathers each leaf where it is used. On a mesh whose
+    ``model`` axis has m > 1 ranks a sublayer that the reference's specs
+    split over ``model`` runs on the rank's slice (``layers.ModelSplit``),
+    and its model-split leaves are ``KeepModel``: gathered over the data
+    axes only. Those sublayers are attention and cross-attention (``wq``'s
+    columns, by whole heads: ``H % m == 0``; ``wk``/``wv`` kept too where
+    ``KH % m == 0``, else, where ``m % KH == 0`` and so a rank's heads read
+    one kv head, gathered whole as ``SumModel``, as qk-norm's weights are),
+    MLA (``wq``, ``w_uk``, ``w_uv``, ``wo``; ``w_dkv`` and
+    ``kv_norm`` whole), the dense FFN and the shared experts (hidden
+    units), the embedding, the LM head and the ramp heads (vocabulary). A
+    MoE slot's experts are ``KeepModel``, as the expert-parallel dispatch
+    takes them. Every other leaf is gathered whole where it is used, as
+    are the leaves of a sublayer whose heads do not divide over ``model``,
+    and a mamba mixer's: its ``in_proj`` packs ``[z | x B C | dt]`` in its
+    columns, so a contiguous model split cuts ``z``, not heads (ROADMAP.md,
+    Queue 1). With ``fsdp=False`` (``layout_specs``) only the experts
+    carry ``model``, so nothing else splits."""
+    from repro_torch.distributed import KeepModel, SumModel
+    from repro_torch.models.common import entry_axes
+
+    m, H, K = mesh.model_size, cfg.n_heads, cfg.n_kv_heads
+
+    def has(sp):
+        return any("model" in entry_axes(e) for e in sp)
+
+    def wrap(node, kind, names):
+        for k in names:
+            if k in node:
+                node[k] = kind(node[k])
+
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        node = {k: walk(v) for k, v in node.items()}
+        if m == 1:
+            return node
+        if "router" in node:  # a MoE slot: the experts over model
+            for k in ("w_gate", "w_up", "w_down"):
+                if node[k][len(node[k]) - 3] != "model":
+                    raise ValueError(f"ffn/{k}: {cfg.n_experts} experts do not split over "
+                                     f"{m} model ranks")
+            wrap(node, KeepModel, ("w_gate", "w_up", "w_down"))
+        elif "w_dkv" in node:  # MLA
+            if has(node["wq"]) and H % m == 0:
+                wrap(node, KeepModel, ("wq", "w_uk", "w_uv", "wo"))
+        elif "wq" in node:  # attention, cross-attention
+            if has(node["wq"]) and H % m == 0 and (K % m == 0 or m % K == 0):
+                wrap(node, KeepModel, ("wq", "bq", "wo"))
+                kv = KeepModel if has(node["wk"]) and K % m == 0 else SumModel
+                wrap(node, kv, ("wk", "wv", "bk", "bv"))
+                wrap(node, SumModel, ("qnorm", "knorm"))
+        elif "w_gate" in node:  # a dense FFN, the shared experts
+            if has(node["w_gate"]) and has(node["w_down"]):
+                wrap(node, KeepModel, ("w_gate", "w_up", "w_down"))
+        else:  # the vocabulary: the embedding, the LM head, the ramp heads
+            wrap(node, KeepModel, [k for k in ("embed", "lm_head", "head")
+                                   if k in node and has(node[k])])
+        return node
+
+    return walk(specs)
+
+
+def _split_of(sp, ms):
+    """{sublayer: ``ms``} for each sublayer of one layer's use specs
+    (``fsdp_use``) that runs on the rank's model slice: "mixer" (or an
+    enc-dec layer's "attn"), "xattn", "ffn" (a dense FFN) and "shared" (a
+    MoE slot's shared experts). Empty without ``ms``."""
+    from repro_torch.distributed import KeepModel
+
+    if ms is None or sp is None:
+        return {}
+    out = {k: ms for k in ("mixer", "attn", "xattn")
+           if k in sp and isinstance(sp[k].get("wq"), KeepModel)}
+    f = sp.get("ffn")
+    if f is not None:
+        if "router" in f:
+            if "shared" in f and isinstance(f["shared"]["w_gate"], KeepModel):
+                out["shared"] = ms
+        elif isinstance(f["w_gate"], KeepModel):
+            out["ffn"] = ms
+    return out
+
+
+def _kept(sp, key, ms):
+    """``ms`` where the use specs ``sp`` keep leaf ``key`` the rank's model
+    slice (``KeepModel``), else None."""
+    from repro_torch.distributed import KeepModel
+
+    return ms if ms is not None and sp is not None and isinstance(sp[key], KeepModel) else None
+
+
+def model_split(mesh):
+    """The loss's ``layers.ModelSplit`` on ``mesh``, or None when its model
+    axis has one rank."""
+    if mesh is None or mesh.model_size == 1:
+        return None
+    return LY.ModelSplit(mesh.model_size, mesh.model_rank, mesh.model_group)
 
 
 def _gathered(p, specs, mesh, keys=None):
@@ -571,7 +681,7 @@ class LM(MultiStepDecodeMixin):
     def _block(self, slot: SlotSpec, p, h, *, positions, mask, mask_local, cache,
                cache_index, write_gate=None, block_tables=None, xkv_tables=None,
                memory=None, moe_impl="dense", plain=False, tp=None, mesh=None,
-               rows_sharded=True):
+               rows_sharded=True, split=None):
         """One layer. ``plain`` (the loss) runs attention through ``sdpa``
         and the mamba scan through ``ssd_ref``. A local slot reads
         ``mask_local`` and RoPE base ``ROPE_THETA_LOCAL``, and runs as a ring
@@ -584,9 +694,13 @@ class LM(MultiStepDecodeMixin):
         with ``moe_impl='ep'`` is ``moe_apply_ep_device``. With ``mesh`` (a
         ``make_mesh`` view; ``loss``/``prefill``) a MoE slot runs the
         mesh-level ``moe_apply_ep`` on the rank's expert slice, the tokens
-        the rank's data shard when ``rows_sharded``. Returns (h, the MoE aux
-        loss or None)."""
+        the rank's data shard when ``rows_sharded``. ``split`` (the loss over
+        FSDP parts: ``_split_of``) names the sublayers that run on the
+        rank's model slice: attention, MLA, the gated
+        cross-attention, the dense FFN and the shared experts. Returns (h,
+        the MoE aux loss or None)."""
         cfg = self.cfg
+        split = split or {}
         x = LY.apply_norm(cfg, p["ln1"], h)
         kw = dict(positions=positions, mask=mask, cache=cache, cache_index=cache_index,
                   decode_impl=cfg.decode_attn, write_gate=write_gate,
@@ -595,7 +709,8 @@ class LM(MultiStepDecodeMixin):
             out = self._mamba(p["mixer"], x, cache, write_gate, block_tables,
                               ssd_impl="ref" if plain else self.ssd_impl)
         elif slot.mixer == "mla":
-            out, _ = LY.mla_apply(cfg, p["mixer"], x, absorbed=cfg.mla_absorbed, **kw)
+            out, _ = LY.mla_apply(cfg, p["mixer"], x, absorbed=cfg.mla_absorbed,
+                                  ms=split.get("mixer"), **kw)
         else:
             if slot.is_local:
                 kw.update(mask=mask_local, rope_theta=ROPE_THETA_LOCAL)
@@ -614,10 +729,10 @@ class LM(MultiStepDecodeMixin):
                 out, _ = LY.attn_apply(self._tp_cfg(tp.m), p["mixer"], x, out_proj=False, **kw)
                 out = tp.gather(tp.gather(out) @ p["mixer"]["wo"])
             else:
-                out, _ = LY.attn_apply(cfg, p["mixer"], x, **kw)
+                out, _ = LY.attn_apply(cfg, p["mixer"], x, ms=split.get("mixer"), **kw)
         h = h + out
         if slot.cross:
-            h = h + self._cross(p, h, cache, memory, xkv_tables)
+            h = h + self._cross(p, h, cache, memory, xkv_tables, ms=split.get("xattn"))
         if slot.ffn == "none":
             return h, None
         x = LY.apply_norm(cfg, p["ln2"], h)
@@ -626,21 +741,23 @@ class LM(MultiStepDecodeMixin):
                 out, aux = MOE.moe_apply_ep_device(cfg, p["ffn"], x, tp.m, tp.index, tp.group)
             else:
                 out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl, mesh=mesh,
-                                         data_sharded=rows_sharded)
+                                         data_sharded=rows_sharded, ms=split.get("shared"))
             return h + out, aux
         if tp is not None:
             return h + LY.ffn_apply_tp(cfg, p["ffn"], x, tp.gather), None
-        return h + LY.ffn_apply(cfg, p["ffn"], x), None
+        return h + LY.ffn_apply(cfg, p["ffn"], x, split.get("ffn")), None
 
-    def _cross(self, p, h, cache, memory, xkv_tables):
+    def _cross(self, p, h, cache, memory, xkv_tables, ms=None):
         """A cross slot's gated cross-attention: over ``memory`` (its k/v
         projected, and written into the slot's contiguous ``xkv`` rows when
         there is a cache), else over the k/v the cache holds: the ``xkv``
         rows, or on the pool the M rows of the pinned pages at
         ``xkv_tables`` (the table's trailing columns), read and never
-        written."""
+        written. ``ms`` (the loss) runs the rank's heads over ``memory``."""
         cfg = self.cfg
         x = LY.apply_norm(cfg, p["lnx"], h)
+        if ms is not None:
+            return LY.cross_attn_apply(cfg, p["xattn"], x, memory=memory, ms=ms)[0]
         kvc = cache["xkv"] if cache is not None else None
         if memory is None and xkv_tables is not None:
             tab = xkv_tables.long()
@@ -682,17 +799,19 @@ class LM(MultiStepDecodeMixin):
     def _stack(self, params, h, *, positions, mask, caches, cache_index, pool_idx,
                mask_local=None, write_gate=None, block_tables=None, xkv_tables=None,
                memory=None, moe_impl="dense", plain=False, remat=False, tp=None, mesh=None,
-               rows_sharded=True, fsdp=None):
+               rows_sharded=True, fsdp=None, ms=None):
         """Run the prefix slots, the periods layer by layer, then the suffix
         slots; caches are updated in place. ``pool_idx`` is a slice of positions (serving: a
         view, so no index tensor crosses to the device) or an index tensor
         (the loss's ``ramp_positions``). ``remat`` recomputes each layer in
         the backward (``torch.utils.checkpoint``): memory only, the same
-        numbers. With ``fsdp`` (the gather specs of ``_fsdp_use``) ``params``
+        numbers. With ``fsdp`` (the use specs of ``fsdp_use``) ``params``
         hold the rank's parts, and each layer gathers its own params where
         it runs, inside its remat region, so the backward gathers them again
-        and no gathered layer outlives its use. Returns (h, pooled (L, B,
-        npos, d), the summed MoE aux loss or None), prefix layers first and
+        and no gathered layer outlives its use; with ``ms`` (a
+        ``layers.ModelSplit``) the sublayers whose leaves those specs keep
+        split run on the rank's model slice (``_split_of``). Returns (h,
+        pooled (L, B, npos, d), the summed MoE aux loss or None), prefix layers first and
         suffix layers last, as the reference assembles them, so ramp sites
         keep their layer numbers."""
         plan = self.plan
@@ -704,7 +823,8 @@ class LM(MultiStepDecodeMixin):
 
         def run(slot, p, sp, hh, c):
             def body(x):
-                return self._block(slot, _gathered(p, sp, mesh), x, cache=c, **kw)
+                return self._block(slot, _gathered(p, sp, mesh), x, cache=c,
+                                   split=_split_of(sp, ms), **kw)
 
             return _remat(body, hh, remat)
 
@@ -733,29 +853,6 @@ class LM(MultiStepDecodeMixin):
             c = caches["suffix"][i] if caches else None
             h = layer(slot, params["suffix"][i], specs("suffix", i), h, c)
         return h, torch.stack(pooled), aux
-
-    def _fsdp_use(self, specs, mesh):
-        """The gather specs of a loss over the rank's parts (``specs``: each
-        leaf's sanitized storage spec): every leaf gathered whole where it
-        is used, except the experts of a MoE slot, which stay split over
-        ``model`` as the expert-parallel dispatch takes them (the
-        reference's ``P(model, None, None)``) and are gathered over data
-        only."""
-        use = tree_map2(lambda _, sp: sp, self.schema(), specs)  # a copy of the tree
-        for part, slots in (("prefix", self.plan.prefix), ("blocks", self.plan.period),
-                            ("suffix", self.plan.suffix)):
-            for i, slot in enumerate(slots):
-                if slot.ffn != "moe":
-                    continue
-                for k in ("w_gate", "w_up", "w_down"):
-                    sp = list(specs[part][i]["ffn"][k])
-                    ax = len(sp) - 3  # the expert axis
-                    if mesh.model_size > 1 and sp[ax] != "model":
-                        raise ValueError(f"{part}/{i}/ffn/{k}: {self.cfg.n_experts} experts do "
-                                         f"not split over {mesh.model_size} model ranks")
-                    sp[ax] = None
-                    use[part][i]["ffn"][k] = tuple(sp)
-        return use
 
     # -- ramp heads ----------------------------------------------------------
 
@@ -832,16 +929,24 @@ class LM(MultiStepDecodeMixin):
         where it is used (``fsdp_gather_ad``): a layer's params in its remat
         region, the embedding at the lookup, the head at the LM loss and
         each ramp head at its site, one site at a time. Each gradient is
-        then the rank's part of the data group's sum."""
+        then the rank's part of the data group's sum. The compute splits
+        over ``model`` as the reference's GSPMD splits it (``fsdp_use``): a
+        leaf split over ``model`` is gathered over the data axes only, and
+        the rank computes its heads, hidden units and vocabulary columns
+        (``layers.ModelSplit``: column- then row-parallel products, a
+        vocabulary-parallel lookup and cross-entropy, ``_nll_sum``). Values
+        are alike over the model group, and a leaf whole over ``model`` gets
+        the whole gradient on every rank of it."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
         dev = tokens.device
         positions = torch.arange(S, device=dev)[None, :]
-        use = None if fsdp is None else self._fsdp_use(fsdp, mesh)
+        use = None if fsdp is None else fsdp_use(cfg, fsdp, mesh)
+        ms = None if use is None else model_split(mesh)
         tok, tok_sp = params["tok"], None if use is None else use["tok"]
         h = LY.embed_apply(cfg, _gathered(tok, tok_sp, mesh, ("embed", "pos_embed")), tokens,
-                           positions)
+                           positions, ms=_kept(tok_sp, "embed", ms))
         mask = LY.causal_mask(S, S, 0, device=dev)
         mask_local = LY.window_mask(S, S, 0, cfg.window, device=dev) if cfg.window else mask
         npos = min(ramp_positions, S)
@@ -855,17 +960,18 @@ class LM(MultiStepDecodeMixin):
         h, pooled, aux = self._stack(
             params, h, positions=positions, mask=mask, mask_local=mask_local, caches=None,
             cache_index=None, pool_idx=pool_idx, memory=memory, moe_impl=moe_impl,
-            plain=True, remat=remat, mesh=mesh, fsdp=use)
+            plain=True, remat=remat, mesh=mesh, fsdp=use, ms=ms)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=dev)
         group = mesh.data_group if mesh is not None and mesh.data_size > 1 else None
         h = LY.apply_norm(cfg, params["final_norm"], h)
         head = ("embed",) if cfg.tie_embeddings else ("lm_head",)
+        vms = _kept(tok_sp, head[0], ms)
         # with remat the head's product (and its gather) is done again in the backward
         lm = _remat(lambda x: _masked_ce(cfg, LY.unembed(cfg, _gathered(tok, tok_sp, mesh, head),
-                                                         x), labels, group), h, remat)
+                                                         x, vms), labels, group, vms), h, remat)
         rloss = self._ramp_loss(params, pooled, labels[:, pool_idx], group=group, mesh=mesh,
-                                specs=use, remat=remat)
+                                specs=use, remat=remat, ms=ms)
         if train_mode == "ramps_only":
             loss = rloss + 0.0 * lm
         else:
@@ -873,7 +979,7 @@ class LM(MultiStepDecodeMixin):
         return loss, {"lm_loss": lm, "ramp_loss": rloss, "moe_aux": aux}
 
     def _ramp_loss(self, params, pooled, labels, *, group=None, mesh=None, specs=None,
-                   remat=False):
+                   remat=False, ms=None):
         """The ramp loss of ``loss``: at each site the stop-grad pooled
         features through the site's norm (and 'mlp' residual) and head,
         reduced there to the summed NLL of the valid ``labels``; the sum
@@ -884,14 +990,18 @@ class LM(MultiStepDecodeMixin):
         where it runs; with ``remat`` each site is a remat region, so
         neither its gathered head nor its logits outlive it. The stacked
         leaves are unbound once, so each one's gradient is stacked once, not
-        summed from a full-size select gradient a site."""
+        summed from a full-size select gradient a site. With ``ms`` and a
+        head the specs keep split (``KeepModel``) a site computes the rank's
+        vocabulary columns (``_nll_sum``)."""
         cfg = self.cfg
         if not len(self.sites):  # reduced-depth configs can have zero ramp sites
             return torch.zeros((), dtype=torch.float32, device=pooled.device)
-        one = {k: None if specs is None else tuple(v[1:])  # a site's slice of a stacked leaf
+        one = {k: None if specs is None else type(v)(v[1:])  # a site's slice of a stacked leaf
                for k, v in (specs or params)["ramps"].items()}
         rp = {k: torch.unbind(v) for k, v in params["ramps"].items()}
         head = ("embed",) if cfg.tie_embeddings else ("lm_head",)
+        tok_sp = None if specs is None else specs["tok"]
+        vms = _kept(tok_sp, head[0], ms) if cfg.ramp_style == "tied" else _kept(one, "head", ms)
         hs = pooled.detach()  # stop-grad ramp features
         total = None
         for i, s in enumerate(self.sites):
@@ -901,12 +1011,10 @@ class LM(MultiStepDecodeMixin):
                     w1, w2 = (_gathered(rp[k][i], one[k], mesh) for k in ("w1", "w2"))
                     x = x + LY.act_fn("gelu")(x @ w1) @ w2
                 if cfg.ramp_style == "tied":
-                    tok = _gathered(params["tok"], None if specs is None else specs["tok"], mesh,
-                                    head)
-                    logits = LY.unembed(cfg, tok, x)
+                    logits = LY.unembed(cfg, _gathered(params["tok"], tok_sp, mesh, head), x, vms)
                 else:
-                    logits = x @ _gathered(rp["head"][i], one["head"], mesh)
-                return _nll_sum(cfg, logits, labels)[0]
+                    logits = LY.head_logits(x, _gathered(rp["head"][i], one["head"], mesh), vms)
+                return _nll_sum(cfg, logits, labels, vms)[0]
 
             part = _remat(site, hs[s], remat)
             total = part if total is None else total + part
@@ -1342,18 +1450,40 @@ def _mask_pad_vocab(cfg, logits):
     return torch.where(col < V, logits, -1e30)
 
 
-def _nll_sum(cfg, logits, labels):
+def _nll_sum(cfg, logits, labels, ms=None):
     """(the summed NLL over the valid labels, their count): the reference's
     formula, max-shifted log-sum-exp with -1 padding labels and the padded
-    vocabulary masked."""
+    vocabulary masked.
+
+    With ``ms`` (a ``layers.ModelSplit``) ``logits`` are the rank's columns
+    ``[i n, (i + 1) n)`` of the vocabulary, the model group's vocabulary
+    parallel cross-entropy: the shift is the group's max (forward only:
+    the log-sum-exp does not depend on it), the exponentials' sum and the
+    label's logit (nonzero on the one rank that holds it) are summed over
+    the group, and the padded columns are masked on the rank that holds
+    them. The value is alike on every rank, the gradient the rank's
+    columns'."""
     logits = logits.float()
-    if logits.shape[-1] > cfg.vocab_size:
-        logits = _mask_pad_vocab(cfg, logits)
     valid = labels >= 0
     lab = torch.clamp(labels, min=0).long()
-    m = torch.max(logits, dim=-1).values
-    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
-    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    if ms is None:
+        if logits.shape[-1] > cfg.vocab_size:
+            logits = _mask_pad_vocab(cfg, logits)
+        m = torch.max(logits, dim=-1).values
+        lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+        ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+        return torch.sum((lse - ll) * valid), torch.sum(valid)
+    n = logits.shape[-1]
+    lo = ms.index * n
+    if lo + n > cfg.vocab_size:
+        col = lo + torch.arange(n, device=logits.device)
+        logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+    m = ms.max(torch.max(logits, dim=-1).values)
+    lse = m + torch.log(ms.sum(torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+    loc = lab - lo
+    mine = (loc >= 0) & (loc < n)
+    ll = torch.gather(logits, -1, torch.where(mine, loc, 0)[..., None])[..., 0]
+    ll = ms.sum(torch.where(mine, ll, 0.0))
     return torch.sum((lse - ll) * valid), torch.sum(valid)
 
 
@@ -1370,8 +1500,9 @@ def _mean_over(total, count, group=None):
     return MOE.global_value(total / torch.clamp(n, min=1), group)
 
 
-def _masked_ce(cfg, logits, labels, group=None):
+def _masked_ce(cfg, logits, labels, group=None, ms=None):
     """Cross-entropy with -1 padding labels and padded-vocab masking (the
     reference's formula: max-shifted log-sum-exp, mean over valid labels;
-    with ``group`` over every shard's valid labels, ``_mean_over``)."""
-    return _mean_over(*_nll_sum(cfg, logits, labels), group)
+    with ``group`` over every shard's valid labels, ``_mean_over``; with
+    ``ms`` over the rank's vocabulary columns, ``_nll_sum``)."""
+    return _mean_over(*_nll_sum(cfg, logits, labels, ms), group)

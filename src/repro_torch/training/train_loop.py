@@ -23,9 +23,14 @@ backward reduce-scatters its gradient over the data group, so only the
 leaves unsplit over data are all-reduced (one bucketed
 ``all_reduce_flat``); the clipping norm sums each part's squares over the
 ranks that hold different parts and counts a whole leaf once
-(``_reduce_over_mesh``). The ``model`` axis splits storage only: a model
-group computes alike, each rank gathering the whole leaf, except the
-experts, which the expert-parallel dispatch takes split over ``model``.
+(``_reduce_over_mesh``). The ``model`` axis splits the compute as well as
+the storage, as the reference's GSPMD splits it (``transformer.fsdp_use``):
+a leaf split over ``model`` is gathered over the data axes only, and each
+rank of a model group computes its heads, hidden units and vocabulary
+columns (column- then row-parallel products, a vocabulary-parallel
+lookup and cross-entropy); the experts stay expert-parallel. A leaf whole
+over ``model`` (the norms, the router, MLA's ``w_dkv``) gets the whole
+gradient on every rank of the group, summed over it inside the loss.
 
 In ``ramps_only`` mode the step differentiates only the leaves whose
 gradient the LM loss can make non-zero: the ramps, and with 'tied' ramps
@@ -293,7 +298,10 @@ def _reduce_over_mesh(mesh, leaves, gs, split):
     summed in place in one bucketed all-reduce (a leaf never reached
     counts as zeros); a part's squares are summed over the ranks that hold
     other parts of its leaf (the whole mesh, the data group or the model
-    group) and a whole leaf's counted once. Returns (gradients, norm)."""
+    group), each model-split part's once over the model group, and a leaf
+    whole over ``model`` counted once: its gradient is alike over the model
+    group, whose partial gradients the loss has summed (``fsdp_use``).
+    Returns (gradients, norm)."""
     from repro_torch.distributed import all_reduce_flat, sum_over
 
     gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]

@@ -383,20 +383,20 @@ def _paths(schema, specs, path=()):
 def _reckon(model):
     """(all-gather bytes, reduce-scatter bytes) of one FSDP step at (2, 2)
     with remat, by hand from the sanitized specs. Each use of a leaf
-    gathers it over data (the result twice its part), then over model (the
-    whole leaf), and reduce-scatters its gradient over data once (the
-    result its part). A layer's leaves and the ramp heads are gathered
-    twice (forward, and again in the remat backward), the tied embedding
-    three times (the lookup; the head, forward and remat) and used twice.
-    A MoE slot's experts are gathered over data only."""
+    gathers it over data (the result twice its part), and reduce-scatters
+    its gradient over data once (the result its part). A leaf split over
+    model stays the rank's slice there: the step splits its compute over
+    model, and every sublayer of these tiny models splits at (2, 2) (4
+    heads, 2 kv heads, the hidden units, the vocabulary; a MoE slot's
+    experts over model), so no leaf is gathered over model. A layer's
+    leaves and the ramp heads are gathered twice (forward, and again in
+    the remat backward), the tied embedding three times (the lookup; the
+    head, forward and remat) and used twice."""
     mesh = _standin(MESH, {"data": 0, "model": 0})
-    moe = {s for s, slot in enumerate(model.plan.period) if slot.ffn == "moe"}
     ag = rs = 0
     for path, (info, sp) in _paths(model.schema(), layout_specs(model, mesh, mesh_axes(MESH))):
         cuts = [(entry_axes(sp[d]), n) for d, _, n in spec_parts(sp, mesh)]
-        if path[0] == "blocks" and path[1] in moe and path[2:] in (
-                ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")):
-            cuts = [c for c in cuts if c[0] != ("model",)]
+        cuts = [c for c in cuts if c[0] != ("model",)]
         part = math_prod(part_shape(info.shape, sp, mesh)) * info.dtype.itemsize
         one, g = 0, part
         for _, n in sorted(cuts, key=lambda c: c[0] == ("model",)):
