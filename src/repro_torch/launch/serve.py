@@ -49,7 +49,8 @@ The engine's latencies (TTFT, TPT, response latencies, the
 vanilla-vs-Apparate wins) are SIMULATED from the analytic H100 latency
 profile, as in the JAX package; the ``measured`` block holds host wall
 times of the runner's calls on the device, each of which ends in a host
-read of its result. Weights: the config's drawn from ``--seed`` (or a
+read of its result, read from the run's spans (``repro_torch.trace``,
+on for the served run). Weights: the config's drawn from ``--seed`` (or a
 caller's ``params``), which exit little or nothing; or, with ``--train``,
 trained first as the JAX launcher trains its models (classification: the
 whole model on the bootstrap split, the first ``max(n // 10, 256)``
@@ -67,6 +68,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs import get_config, get_tiny
 from repro_torch.launch.tuning import PRESETS, apply_preset
 from repro_torch.core import ApparateController, ControllerConfig, build_profile
@@ -94,83 +96,35 @@ from repro_torch.serving import (
     video_trace,
 )
 from repro_torch.models.common import tree_map
-from repro_torch.serving.runner import _bucket
 
 
-class _Timed:
-    """A decode runner that records the host wall time of each one-shot
-    prefill, each prefill chunk and each sync window, and whether a window
-    captured its CUDA graph, replayed it or ran eager. Each call ends in a
-    host read of a device result (a chunk that only shares cached blocks
-    does no device work), so the time covers the device work."""
+def _runner_times(spans):
+    """The ``measured`` block's runner times from the run's spans
+    (``repro_torch.trace``): each one-shot prefill (``runner/prefill``),
+    each prefill chunk (``runner/chunk``) and each sync window
+    (``runner/window``) with its kind, "capture", "replay" or "eager".
+    Each call ends in a host read of a device result (a chunk that only
+    shares cached blocks does no device work), so its time covers the
+    device work. A call that raised (``PoolExhausted``, retried after a
+    preemption) is not one. Returns (the block's entries, the windows'
+    tokens, the calls' seconds, the windows' seconds)."""
+    spans = [s for s in spans if "raised" not in s.attrs]
 
-    def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
-        self.prefill_s, self.chunk_s, self.window_s, self.window_tokens = [], [], [], 0
-        self.window_kind = []  # "capture" | "replay" | "eager", one a window
+    def secs(name, kind=None):
+        return [1e-9 * (s.t1 - s.t0) for s in spans
+                if s.name == name and kind in (None, s.attrs.get("kind"))]
 
-    def start(self, slot, item):
-        t0 = time.perf_counter()
-        tok = super().start(slot, item)
-        self.prefill_s.append(time.perf_counter() - t0)
-        return tok
+    def ms(t):
+        return 1e3 * float(np.mean(t)) if t else 0.0
 
-    def prefill_begin(self, slot, item, n_tokens):
-        t0 = time.perf_counter()
-        tok = super().prefill_begin(slot, item, n_tokens)
-        self.chunk_s.append(time.perf_counter() - t0)
-        return tok
-
-    def prefill_resume(self, slot, n_tokens):
-        t0 = time.perf_counter()
-        tok = super().prefill_resume(slot, n_tokens)
-        self.chunk_s.append(time.perf_counter() - t0)
-        return tok
-
-    def step_multi(self, slots, active, n_steps, thresholds):
-        t0 = time.perf_counter()
-        out = super().step_multi(slots, active, n_steps, thresholds)
-        self.window_s.append(time.perf_counter() - t0)
-        self.window_tokens += out[2].size
-        self.window_kind.append("eager" if self.graphs is None else self.graphs.last)
-        return out
-
-    def window_ms(self, kind):
-        """Mean host ms of the windows of one kind (0.0 without any)."""
-        ts = [t for t, k in zip(self.window_s, self.window_kind) if k == kind]
-        return 1e3 * float(np.mean(ts)) if ts else 0.0
-
-
-class _TimedRunner(_Timed, DecodeRunner):
-    pass
-
-
-class _TimedShardedRunner(_Timed, ShardedDecodeRunner):
-    pass
-
-
-class _TimedInfer:
-    """A classification runner that records the host wall time of each
-    ``infer`` by bucket. Each call ends in a host read of its records, so
-    the time covers the device work."""
-
-    def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
-        self.infer_s = {}  # bucket -> [seconds]
-
-    def infer(self, items, active):
-        t0 = time.perf_counter()
-        out = super().infer(items, active)
-        self.infer_s.setdefault(_bucket(len(items)), []).append(time.perf_counter() - t0)
-        return out
-
-
-class _TimedClassifier(_TimedInfer, ClassifierRunner):
-    pass
-
-
-class _TimedLMToken(_TimedInfer, LMTokenRunner):
-    pass
+    pf, ch, win = secs("runner/prefill"), secs("runner/chunk"), secs("runner/window")
+    out = {"prefill_ms_mean": ms(pf), "prefill_chunk_calls": len(ch),
+           "prefill_chunk_ms_mean": ms(ch), "window_ms_mean": ms(win), "windows": len(win)}
+    for kind in ("capture", "replay", "eager"):
+        t = secs("runner/window", kind)
+        out[f"{kind}_windows"], out[f"{kind}_window_ms_mean"] = len(t), ms(t)
+    tokens = sum(s.attrs["nd"] * s.attrs["B"] for s in spans if s.name == "runner/window")
+    return out, tokens, sum(pf + ch + win), sum(win)
 
 
 def _cuda_or_cpu(device, what):
@@ -309,21 +263,22 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
         rkw = dict(kv_block_size=kv_block_size, kv_blocks=kv_blocks, prefix_cache=prefix_cache)
     if mesh is not None:
         rkw["mesh"] = mesh
-    runner = (_TimedShardedRunner if mesh is not None else _TimedRunner)(
+    runner = (ShardedDecodeRunner if mesh is not None else DecodeRunner)(
         model, params, prompts, max_new_tokens=decode_tokens + 2, max_slots=SLOTS,
         n_slots=BATCH, graphs=graphs, **rkw)
     eng = GenerativeEngine(prof, gcfg, runner, ctl,
                            admission=_admission(admission, admission_slack))
     t0 = time.perf_counter()
-    resp = eng.run(reqs)
+    with trace.recording() as spans:
+        resp = eng.run(reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall_s = time.perf_counter() - t0
+    timed, window_tokens, runner_s, window_s = _runner_times(spans)
     g = runner.graphs
     graph_stats = ({"eager": g.eagers, "captures": g.captures, "replays": g.replays,
                     "keys": len(g.windows)} if g is not None else None)
     mo = summarize_generative(resp, horizon_ms=eng.makespan_ms)
-    dev_s = sum(runner.prefill_s) + sum(runner.chunk_s) + sum(runner.window_s)
     out = {
         "mode": "generative", "config": cfg.name, "n": n, "decode_tokens": decode_tokens,
         "prompt_len": prompt_len, "steps_per_sync": steps_per_sync,
@@ -341,20 +296,17 @@ def serve_generative(config="qwen2-1.5b", n=8, *, decode_tokens=32, prompt_len=1
         },
         "measured": {
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-            "prefill_ms_mean": 1e3 * float(np.mean(runner.prefill_s)) if runner.prefill_s else 0.0,
-            "prefill_chunk_calls": len(runner.chunk_s),
-            "prefill_chunk_ms_mean": 1e3 * float(np.mean(runner.chunk_s)) if runner.chunk_s else 0.0,
-            "window_ms_mean": 1e3 * float(np.mean(runner.window_s)) if runner.window_s else 0.0,
-            "windows": len(runner.window_s),
+            **{k: timed[k] for k in ("prefill_ms_mean", "prefill_chunk_calls",
+                                     "prefill_chunk_ms_mean", "window_ms_mean", "windows")},
             "graphs": graph_stats,
-            **{f"{kind}_windows": runner.window_kind.count(kind)
+            **{f"{kind}_windows": timed[f"{kind}_windows"]
                for kind in ("capture", "replay", "eager")},
-            **{f"{kind}_window_ms_mean": runner.window_ms(kind)
+            **{f"{kind}_window_ms_mean": timed[f"{kind}_window_ms_mean"]
                for kind in ("capture", "replay", "eager")},
             "decode_steps": runner.decode_steps,
-            "decode_tokens": runner.window_tokens,
-            "decode_tokens_per_s": runner.window_tokens / max(sum(runner.window_s), 1e-12),
-            "runner_s": dev_s,
+            "decode_tokens": window_tokens,
+            "decode_tokens_per_s": window_tokens / max(window_s, 1e-12),
+            "runner_s": runner_s,
             "engine_wall_s": wall_s,
         },
         "controller": dict(ctl.stats),
@@ -539,7 +491,7 @@ def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, 
         model = build_model(cfg)
         stream = make_image_stream(n, img_size=cfg.img_size, n_classes=cfg.n_classes,
                                    mode="cv", seed=seed)
-        runner_cls = _TimedClassifier
+        runner_cls = ClassifierRunner
     elif cfg.family in ("encoder_cls", "lm"):
         if cfg.family == "lm":
             cfg = cfg.replace(pallas_head="kernel")
@@ -547,7 +499,7 @@ def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, 
         seq = NLP_SEQ if cfg.family == "encoder_cls" else LM_CONTEXT
         stream = make_token_stream(n, seq_len=seq, vocab=cfg.vocab_size,
                                    n_classes=max(cfg.n_classes, 2), mode="nlp", seed=seed)
-        runner_cls = _TimedClassifier if cfg.family == "encoder_cls" else _TimedLMToken
+        runner_cls = ClassifierRunner if cfg.family == "encoder_cls" else LMTokenRunner
     else:
         raise ValueError(f"{cfg.name}: classification serving takes a resnet, an "
                          "encoder_cls or an lm config")
@@ -580,9 +532,14 @@ def serve(config="resnet50", n=600, *, policy="tfserve", budget=0.02, acc=0.99, 
     ctls = [ApparateController(len(model.sites), prof, ccfg) for _ in range(workers)]
     sim = ClusterSimulator(prof, cluster(), runner=runner, controllers=ctls)
     t0 = time.perf_counter()
-    resp = sim.run(reqs)
+    with trace.recording() as spans:
+        resp = sim.run(reqs)
     wall_s = time.perf_counter() - t0
-    served = {b: list(ts) for b, ts in sorted(runner.infer_s.items())}
+    served = {}  # bucket -> [seconds] of each ``infer``, which ends in a host read
+    for sp in spans:
+        if sp.name == "runner/infer":
+            served.setdefault(sp.attrs["bucket"], []).append(1e-9 * (sp.t1 - sp.t0))
+    served = dict(sorted(served.items()))
     van = runner.vanilla_labels(n)
     live = [r for r in resp if not r.dropped]
     agree = float(np.mean([r.label == van[boot + r.rid] for r in live])) if live else 0.0

@@ -79,6 +79,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models import layers as LY
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
@@ -681,9 +682,10 @@ class LM(MultiStepDecodeMixin):
     def _block(self, slot: SlotSpec, p, h, *, positions, mask, mask_local, cache,
                cache_index, write_gate=None, block_tables=None, xkv_tables=None,
                memory=None, moe_impl="dense", plain=False, tp=None, mesh=None,
-               rows_sharded=True, split=None):
-        """One layer. ``plain`` (the loss) runs attention through ``sdpa``
-        and the mamba scan through ``ssd_ref``. A local slot reads
+               rows_sharded=True, split=None, layer=None):
+        """One layer (``layer``: its number, for its spans). ``plain`` (the
+        loss) runs attention through ``sdpa`` and the mamba scan through
+        ``ssd_ref``. A local slot reads
         ``mask_local`` and RoPE base ``ROPE_THETA_LOCAL``, and runs as a ring
         (``windowed_cache``, or any paged local layer: the pool always
         ring-pages local windows) or as a window over a full contiguous
@@ -706,11 +708,13 @@ class LM(MultiStepDecodeMixin):
                   decode_impl=cfg.decode_attn, write_gate=write_gate,
                   block_table=block_tables)
         if slot.mixer == "mamba":
-            out = self._mamba(p["mixer"], x, cache, write_gate, block_tables,
-                              ssd_impl="ref" if plain else self.ssd_impl)
+            with trace.span("model/mamba", layer=layer):
+                out = self._mamba(p["mixer"], x, cache, write_gate, block_tables,
+                                  ssd_impl="ref" if plain else self.ssd_impl)
         elif slot.mixer == "mla":
-            out, _ = LY.mla_apply(cfg, p["mixer"], x, absorbed=cfg.mla_absorbed,
-                                  ms=split.get("mixer"), **kw)
+            with trace.span("model/mla", layer=layer):
+                out, _ = LY.mla_apply(cfg, p["mixer"], x, absorbed=cfg.mla_absorbed,
+                                      ms=split.get("mixer"), **kw)
         else:
             if slot.is_local:
                 kw.update(mask=mask_local, rope_theta=ROPE_THETA_LOCAL)
@@ -723,13 +727,15 @@ class LM(MultiStepDecodeMixin):
             # prefill_attn applies to a whole-prompt prefill only (S > 1 at
             # cache index 0); a global decode step keeps decode_impl's path
             kw["prefill_attn"] = "sdpa" if plain else self.prefill_attn
-            if tp is not None:
-                # the rank's contiguous block of heads; wo after the head
-                # gather, as an output-column slice
-                out, _ = LY.attn_apply(self._tp_cfg(tp.m), p["mixer"], x, out_proj=False, **kw)
-                out = tp.gather(tp.gather(out) @ p["mixer"]["wo"])
-            else:
-                out, _ = LY.attn_apply(cfg, p["mixer"], x, ms=split.get("mixer"), **kw)
+            with trace.span("model/attn", layer=layer):
+                if tp is not None:
+                    # the rank's contiguous block of heads; wo after the head
+                    # gather, as an output-column slice
+                    out, _ = LY.attn_apply(self._tp_cfg(tp.m), p["mixer"], x, out_proj=False,
+                                           **kw)
+                    out = tp.gather(tp.gather(out) @ p["mixer"]["wo"])
+                else:
+                    out, _ = LY.attn_apply(cfg, p["mixer"], x, ms=split.get("mixer"), **kw)
         h = h + out
         if slot.cross:
             h = h + self._cross(p, h, cache, memory, xkv_tables, ms=split.get("xattn"))
@@ -737,15 +743,20 @@ class LM(MultiStepDecodeMixin):
             return h, None
         x = LY.apply_norm(cfg, p["ln2"], h)
         if slot.ffn == "moe":
-            if tp is not None and moe_impl == "ep":
-                out, aux = MOE.moe_apply_ep_device(cfg, p["ffn"], x, tp.m, tp.index, tp.group)
-            else:
-                out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl, mesh=mesh,
-                                         data_sharded=rows_sharded, ms=split.get("shared"))
+            with trace.span("model/moe", layer=layer):
+                if tp is not None and moe_impl == "ep":
+                    out, aux = MOE.moe_apply_ep_device(cfg, p["ffn"], x, tp.m, tp.index,
+                                                       tp.group)
+                else:
+                    out, aux = MOE.moe_apply(cfg, p["ffn"], x, impl=moe_impl, mesh=mesh,
+                                             data_sharded=rows_sharded, ms=split.get("shared"))
             return h + out, aux
-        if tp is not None:
-            return h + LY.ffn_apply_tp(cfg, p["ffn"], x, tp.gather), None
-        return h + LY.ffn_apply(cfg, p["ffn"], x, split.get("ffn")), None
+        with trace.span("model/ffn", layer=layer):
+            if tp is not None:
+                out = LY.ffn_apply_tp(cfg, p["ffn"], x, tp.gather)
+            else:
+                out = LY.ffn_apply(cfg, p["ffn"], x, split.get("ffn"))
+        return h + out, None
 
     def _cross(self, p, h, cache, memory, xkv_tables, ms=None):
         """A cross slot's gated cross-attention: over ``memory`` (its k/v
@@ -821,16 +832,16 @@ class LM(MultiStepDecodeMixin):
                   mesh=mesh, rows_sharded=rows_sharded)
         pooled, aux = [], None
 
-        def run(slot, p, sp, hh, c):
+        def run(slot, p, sp, hh, c, l):
             def body(x):
                 return self._block(slot, _gathered(p, sp, mesh), x, cache=c,
-                                   split=_split_of(sp, ms), **kw)
+                                   split=_split_of(sp, ms), layer=l, **kw)
 
             return _remat(body, hh, remat)
 
         def layer(slot, p, sp, hh, c):
             nonlocal aux
-            hh, a = run(slot, p, sp, hh, c)
+            hh, a = run(slot, p, sp, hh, c, len(pooled))
             if a is not None:
                 aux = a if aux is None else aux + a
             pooled.append(hh[:, pool_idx])
@@ -1363,23 +1374,24 @@ class LM(MultiStepDecodeMixin):
         also carries ``exit`` (K,B) int32, the on-device exit decision
         ``(1 - maxprob) < threshold`` (strict); the dense path applies the
         identical f32 formula."""
-        cfg = self.cfg
-        h = LY.apply_norm(cfg, params["final_norm"], h_last)
-        if cfg.pallas_head != "off":
-            return self._head_stats_kernel(params, h, pooled, active_sites,
-                                           exit_thresholds=exit_thresholds)
-        logits = LY.unembed(cfg, params["tok"], h)[:, 0].float()
-        logits = _mask_pad_vocab(cfg, logits)
-        outs = {"final": _stats(logits)}
-        if active_sites is not None:
-            rl = self.ramp_outputs(params, pooled, site_idx=active_sites)
-            rl = _mask_pad_vocab(cfg, rl[:, :, 0])  # (K,B,V)
-            outs["ramps"] = _stats(rl)
-            if exit_thresholds is not None:
-                thr = exit_thresholds.float()
-                unc = 1.0 - outs["ramps"]["maxprob"].float()
-                outs["ramps"]["exit"] = (unc < thr[:, None]).to(torch.int32)
-        return outs
+        with trace.span("model/heads"):
+            cfg = self.cfg
+            h = LY.apply_norm(cfg, params["final_norm"], h_last)
+            if cfg.pallas_head != "off":
+                return self._head_stats_kernel(params, h, pooled, active_sites,
+                                               exit_thresholds=exit_thresholds)
+            logits = LY.unembed(cfg, params["tok"], h)[:, 0].float()
+            logits = _mask_pad_vocab(cfg, logits)
+            outs = {"final": _stats(logits)}
+            if active_sites is not None:
+                rl = self.ramp_outputs(params, pooled, site_idx=active_sites)
+                rl = _mask_pad_vocab(cfg, rl[:, :, 0])  # (K,B,V)
+                outs["ramps"] = _stats(rl)
+                if exit_thresholds is not None:
+                    thr = exit_thresholds.float()
+                    unc = 1.0 - outs["ramps"]["maxprob"].float()
+                    outs["ramps"]["exit"] = (unc < thr[:, None]).to(torch.int32)
+            return outs
 
     def _head_stats_kernel(self, params, h_normed, pooled, active_sites,
                            exit_thresholds=None):

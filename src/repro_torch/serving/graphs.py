@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import counted_wrappers
 
 # the port's kernels by demangled name: each counted wrapper launches its
@@ -149,9 +150,11 @@ class Window:
 
 class WindowGraphs:
     """The window cache of one runner (see the module docstring).
-    ``eagers``/``captures``/``replays``/``runs`` count the windows of each
-    kind and ``last`` names the last one's ("eager", "capture", "replay" or
-    "run")."""
+    ``by_key`` counts the windows by key and kind ("eager", "capture",
+    "replay" or "run"), ``eagers``/``captures``/``replays``/``runs`` total
+    them by kind and ``last`` names the last one's kind; ``pool_bytes`` is
+    what the graphs' private pool has reserved, read after each capture.
+    Each window is the span ``graph/<kind>`` (``repro_torch.trace``)."""
 
     def __init__(self, device, capture: bool):
         self.device = torch.device(device)
@@ -159,8 +162,9 @@ class WindowGraphs:
         if self.capture and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
         self.windows: Dict[tuple, Window] = {}
-        self.eagers = self.captures = self.replays = self.runs = 0
         self.last: Optional[str] = None
+        self.by_key: Dict[tuple, Dict[str, int]] = {}
+        self.pool_bytes = 0
         self._fns = counted_wrappers()
         self._stream = torch.cuda.Stream(self.device) if self.capture else None
         self._pool = torch.cuda.graph_pool_handle() if self.capture else None
@@ -184,21 +188,37 @@ class WindowGraphs:
                 src = src.pin_memory()
             w.inputs[k].copy_(src, non_blocking=self.capture)
         if not self.capture:
-            self.runs, self.last = self.runs + 1, "run"
-            return body(w.inputs)
+            self._count(key, "run")
+            with trace.span("graph/run", key=key):
+                return body(w.inputs)
         if w.graph is not None:
-            self.replays, self.last = self.replays + 1, "replay"
+            self._count(key, "replay")
         elif w.seen:
-            self._capture(w, body)
-            self.captures, self.last = self.captures + 1, "capture"
+            with trace.span("graph/capture", key=key):
+                self._capture(w, body)
+            self._count(key, "capture")
         else:  # first sight: eager on the capture stream, sizing what a capture needs
             w.seen = True
-            self.eagers, self.last = self.eagers + 1, "eager"
-            return self._on_capture_stream(lambda: body(w.inputs))
-        w.graph.replay()
+            self._count(key, "eager")
+            with trace.span("graph/eager", key=key):
+                return self._on_capture_stream(lambda: body(w.inputs))
+        with trace.span("graph/replay", key=key):
+            w.graph.replay()
         for name, f in self._fns.items():
             f.launches += w.deltas[name]
         return w.outputs
+
+    def _count(self, key, kind: str) -> None:
+        kinds = self.by_key.setdefault(key, {})
+        kinds[kind], self.last = kinds.get(kind, 0) + 1, kind
+
+    def _total(self, kind: str) -> int:
+        return sum(kinds.get(kind, 0) for kinds in self.by_key.values())
+
+    eagers = property(lambda self: self._total("eager"))
+    captures = property(lambda self: self._total("capture"))
+    replays = property(lambda self: self._total("replay"))
+    runs = property(lambda self: self._total("run"))
 
     def _on_capture_stream(self, fn):
         cur, s = torch.cuda.current_stream(self.device), self._stream
@@ -231,8 +251,12 @@ class WindowGraphs:
                 for name, f in fns.items():  # a capture executes nothing
                     f.launches = before[name]
 
+        reserved = torch.cuda.memory_reserved(self.device)
         self._on_capture_stream(capture)
         w.nodes = kernel_nodes(g)[0]
         check_nodes(w.nodes, w.deltas)
         g.instantiate()
         w.graph = g
+        # what the capture added to the reserve is the private pool's: nothing
+        # else allocates on this thread while it runs
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved

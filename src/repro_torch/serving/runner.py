@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.serving.graphs import WindowGraphs
 
@@ -436,6 +437,7 @@ class _BatchRunner:
             else:
                 self.compiles += 1
 
+    @trace.spanned("runner/infer", lambda self, items, active: {"bucket": _bucket(len(items))})
     def infer(self, items: np.ndarray, active: Sequence[int]):
         """Records of one batch: (ramp labels (K, n), ramp uncertainties
         1 - maxprob (K, n), final labels (n,)), rows in sorted(active)
@@ -748,12 +750,20 @@ class DecodeRunner:
         here, which a prompt longer than W leaves where its ring decode does
         not read it; the port follows the contiguous ring instead.) Returns
         the prefill's final-label tensor."""
-        cache, outs = self.model.prefill(self.params, toks, cache_len=self._cache_len,
-                                         active_sites=None, with_cache=True)
+        with trace.span("prefill/model"):
+            cache, outs = self.model.prefill(self.params, toks, cache_len=self._cache_len,
+                                             active_sites=None, with_cache=True)
+        with trace.span("prefill/scatter"):
+            self._scatter_prefill(cache, blk_ids, slot, toks.shape[1])
+        return outs["final"]["label"]
+
+    def _scatter_prefill(self, cache, blk_ids: Sequence[int], slot: int, n: int) -> None:
+        """``_prefill_paged``'s scatter of the contiguous prefill ``cache``
+        of ``n`` tokens into the pool."""
         bs = self._bs_blk
         ids = self._to_dev(np.asarray(blk_ids, np.int64))
         xids = self._xkv_ids(slot)
-        n, cfg = toks.shape[1], self.model.cfg
+        cfg = self.model.cfg
         for pool, cont, ax, kind in zip(tree_leaves(self._cache), tree_leaves(cache),
                                         self._pool_axes, self._kinds):
             if kind == "state":
@@ -780,7 +790,6 @@ class DecodeRunner:
             t = t.narrow(ax, 0, need)
             t = t.reshape(t.shape[:ax] + (tgt.shape[0], bs) + t.shape[ax + 1:])
             pool.index_copy_(ax, tgt, t.to(pool.dtype))
-        return outs["final"]["label"]
 
     def _copy_block(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate physical block ``src`` into ``dst``
@@ -954,6 +963,8 @@ class DecodeRunner:
 
     # -- engine interface ----------------------------------------------------
 
+    @trace.spanned("runner/prefill", lambda self, slot, item: {
+        "slot": int(slot), "item": int(item), "S": int(self.prompts.shape[1])})
     def start(self, slot: int, item: int) -> int:
         """Prefill ``item``'s prompt into ``slot``'s cache row (contiguous)
         or its freshly claimed pool blocks (paged); returns the first
@@ -964,14 +975,34 @@ class DecodeRunner:
         token with no device work; a partial hit runs the same one-shot
         prefill but redirects the cached chunks' scatters to the trash
         block, so only the uncached tail blocks are written."""
-        self._check_admission_capacity()
-        self._ensure_rows(slot + 1)
-        toks = self._to_dev(self.prompts[item][None, :].astype(np.int64))
+        with trace.span("prefill/alloc"):
+            self._check_admission_capacity()
+            self._ensure_rows(slot + 1)
+            toks = self._to_dev(self.prompts[item][None, :].astype(np.int64))
         if self.paged:
+            tok = self._start_paged(slot, item, toks)
+        else:
+            with trace.span("prefill/model"):
+                cache, outs = self.model.prefill(self.params, toks, cache_len=self._cache_len,
+                                                 active_sites=None, with_cache=True)
+            with trace.span("prefill/scatter"):
+                self._tree_put(self._cache, cache, torch.full((1,), slot, device=self.device))
+            # the sanctioned first-token read: admission needs the prefill label
+            with trace.span("prefill/read"):
+                tok = int(outs["final"]["label"].reshape(-1)[0])
+        self._live.add(slot)
+        self._pos[slot] = self.prompts.shape[1]
+        self._tok[slot] = tok
+        self._pf_progress.pop(slot, None)  # one-shot start supersedes chunks
+        return tok
+
+    def _start_paged(self, slot: int, item: int, toks: torch.Tensor) -> int:
+        """``start`` on the pool: share the cached prefix, claim the rest,
+        prefill and scatter; returns the first token."""
+        with trace.span("prefill/alloc"):
             if slot in self._live:  # engine frees before reuse; be defensive
                 self._free_slot_blocks(slot)
-            S = self.prompts.shape[1]
-            nb_pf = -(-S // self._bs_blk)
+            nb_pf = -(-self.prompts.shape[1] // self._bs_blk)
             shared, covered, first = ([], 0, None)
             if self._prefix is not None:
                 shared, covered, first = self._prefix.lookup(self.prompts[item])
@@ -983,9 +1014,7 @@ class DecodeRunner:
                 # share BEFORE reserving: the extra reference protects the
                 # cached blocks from the eviction a reserve may trigger
                 self._alloc.share(slot, shared)
-            if first is not None:
-                tok = int(first)  # whole prompt cached: TTFT ~ 0
-            else:
+            if first is None:
                 n_new = nb_pf - len(shared)
                 try:
                     if n_new:
@@ -995,25 +1024,21 @@ class DecodeRunner:
                 except PoolExhausted:
                     self._free_slot_blocks(slot)  # unwind the shares: retry-safe
                     raise
-                lab = self._prefill_paged(toks, [0] * len(shared) + blks, slot)
-                # the sanctioned first-token read: admission needs the label
-                tok = int(lab.reshape(-1)[0])
-            if self._prefix is not None:
-                self._prefix.register(self.prompts[item], self._alloc.owned_ids(slot), tok)
+        if first is not None:
+            tok = int(first)  # whole prompt cached: TTFT ~ 0
         else:
-            cache, outs = self.model.prefill(self.params, toks, cache_len=self._cache_len,
-                                             active_sites=None, with_cache=True)
-            self._tree_put(self._cache, cache, torch.full((1,), slot, device=self.device))
-            # the sanctioned first-token read: admission needs the prefill label
-            tok = int(outs["final"]["label"].reshape(-1)[0])
-        self._live.add(slot)
-        self._pos[slot] = self.prompts.shape[1]
-        self._tok[slot] = tok
-        self._pf_progress.pop(slot, None)  # one-shot start supersedes chunks
+            lab = self._prefill_paged(toks, [0] * len(shared) + blks, slot)
+            # the sanctioned first-token read: admission needs the label
+            with trace.span("prefill/read"):
+                tok = int(lab.reshape(-1)[0])
+        if self._prefix is not None:
+            self._prefix.register(self.prompts[item], self._alloc.owned_ids(slot), tok)
         return tok
 
     # -- chunked prefill (resumable against the same slot cache) ------------
 
+    @trace.spanned("runner/chunk", lambda self, slot, item, n_tokens: {
+        "slot": int(slot), "item": int(item), "n_tokens": int(n_tokens)})
     def prefill_begin(self, slot: int, item: int, n_tokens: int) -> Optional[int]:
         """First chunk of a chunked prefill: prefill the prompt's first
         ``n_tokens`` into the slot row (contiguous) or its freshly claimed
@@ -1068,6 +1093,8 @@ class DecodeRunner:
         self._pf_progress[slot] = item
         return None
 
+    @trace.spanned("runner/chunk", lambda self, slot, n_tokens: {
+        "slot": int(slot), "n_tokens": int(n_tokens)})
     def prefill_resume(self, slot: int, n_tokens: int) -> Optional[int]:
         """Resume a chunked prefill: feed the next ``n_tokens`` prompt
         tokens through the no-ramp decode path, one token per call. Each
@@ -1216,6 +1243,8 @@ class DecodeRunner:
         self._tree_put(cache, sub, inp["rows"])
         return recs
 
+    @trace.spanned("runner/window", lambda self, slots, active, n_steps, thresholds: {
+        "B": len(slots), "n": int(n_steps), "act": tuple(sorted(int(a) for a in active))})
     def step_multi(self, slots: Sequence[int], active: Sequence[int],
                    n_steps: int, thresholds: np.ndarray):
         """A SYNC WINDOW: up to ``n_steps`` decode steps with per-row exit
@@ -1260,33 +1289,37 @@ class DecodeRunner:
             # watermark (CoW copies stay: private, content-identical)
             al = self._alloc
             base_owned = {s: int(al.owned[s]) for s in slots}
-            try:
-                for i in range(n):
-                    self._claim_step_blocks(slots, offset=i)
-            except PoolExhausted:
-                for s in slots:
-                    al.release_tail(s, base_owned[s])
-                raise
+            with trace.span("window/claim"):
+                try:
+                    for i in range(n):
+                        self._claim_step_blocks(slots, offset=i)
+                except PoolExhausted:
+                    for s in slots:
+                        al.release_tail(s, base_owned[s])
+                    raise
         host = {"toks": self._tok[rows].reshape(-1, 1), "pos": self._pos[rows], "valid": valid,
                 "thr": self._thr_pad(thr)}
         host["tables" if self.paged else "rows"] = (
             self._tables(rows, B, B + n_free) if self.paged else rows)
-        if self.graphs is not None:
-            rl, rm, fl, ex, ndv = self.graphs.run(
-                (len(rows), n, tuple(act), self.paged), host,
-                lambda st: self._window(st, n, act, self._cache))
-        else:
-            rl, rm, fl, ex, ndv = self._window(
-                {name: self._to_dev(a) for name, a in host.items()}, n, act, self._cache)
+        with trace.span("window/run"):
+            if self.graphs is not None:
+                rl, rm, fl, ex, ndv = self.graphs.run(
+                    (len(rows), n, tuple(act), self.paged), host,
+                    lambda st: self._window(st, n, act, self._cache))
+            else:
+                rl, rm, fl, ex, ndv = self._window(
+                    {name: self._to_dev(a) for name, a in host.items()}, n, act, self._cache)
         self.dispatches += 1  # ONE call per window, however many steps ran
         self.decode_steps += n
-        # the ONE host sync per window; the record copies below find the
-        # device idle
-        nd = int(ndv)
-        labels = rl[:nd, :k, :B].cpu().numpy().astype(np.int64)
-        unc = (np.float32(1.0) - rm[:nd, :k, :B].cpu().numpy()).astype(np.float32)
-        finals = fl[:nd, :B].cpu().numpy().astype(np.int64)
-        exits = ex[:nd, :B].cpu().numpy().astype(np.int64)
+        with trace.span("window/read"):
+            # the ONE host sync per window; the record copies below find the
+            # device idle
+            nd = int(ndv)
+            labels = rl[:nd, :k, :B].cpu().numpy().astype(np.int64)
+            unc = (np.float32(1.0) - rm[:nd, :k, :B].cpu().numpy()).astype(np.float32)
+            finals = fl[:nd, :B].cpu().numpy().astype(np.int64)
+            exits = ex[:nd, :B].cpu().numpy().astype(np.int64)
+        trace.annotate(nd=nd, kind="eager" if self.graphs is None else self.graphs.last)
         self._pos[rows[:B]] += nd
         self._tok[rows[:B]] = finals[nd - 1]
         if self.paged and nd < n:
@@ -1299,6 +1332,7 @@ class DecodeRunner:
                 self._alloc.release_tail(s, keep)
         return labels, unc, finals, exits
 
+    @trace.spanned("runner/free", lambda self, slot: {"slot": int(slot)})
     def free(self, slot: int) -> None:
         if self.paged and self._alloc is not None and slot in self._live:
             self._free_slot_blocks(slot)
